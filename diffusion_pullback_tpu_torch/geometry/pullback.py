@@ -1,0 +1,103 @@
+"""Pullback-metric SVD: top-k singular triplets of a network Jacobian.
+
+Counterpart of diffusion_pullback_tpu/geometry/pullback.py. Each iteration
+of the subspace power iteration is
+
+    u_i = vmap(jvp)(v_i)          # r tangent passes, batched over probes
+    ṽ_i = vmap(vjp_fn)(u_i)       # r cotangent passes through ONE vjp
+    s, v ← short-fat SVD of ṽ     # QR of ṽᵀ, then the SVD of the r×r R
+    v    ← sign-aligned to the previous iterate
+
+torch has no `linear_transpose`, so the cotangent half always takes the
+shape of the JAX package's ``fn_vjp`` branch: one `torch.func.vjp` of the
+map, whose function is vmapped over the probes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Optional
+
+import torch
+from torch.func import jvp, vjp, vmap
+
+
+class PullbackResult(NamedTuple):
+    """Top-k singular triplets of J = ∂f/∂x at the evaluation point: ``u``
+    (dim_h, k) with column norms ≈ σ_k, ``s`` (k,) ≈ σ_k, ``vT`` (k, dim_x)
+    with unit rows — the JAX package's field set."""
+
+    u: torch.Tensor
+    s: torch.Tensor
+    vT: torch.Tensor
+    iterations: int
+    final_delta: float
+
+
+def _orthonormal_probes(generator: torch.Generator, dim: int, rank: int
+                        ) -> torch.Tensor:
+    """(rank, dim) matrix with orthonormal rows (QR of a Gaussian block)."""
+    g = torch.randn(dim, rank, generator=generator, dtype=torch.float32)
+    q, _ = torch.linalg.qr(g)
+    return q.T
+
+
+def _short_fat_svd(m: torch.Tensor):
+    """SVD of a short-fat (r, d) matrix through the tall QR of mᵀ and the SVD
+    of the r×r R factor. Returns (s descending, vT with unit rows)."""
+    qtall, rfac = torch.linalg.qr(m.T)      # mᵀ = Q (d×r) · R (r×r)
+    _, s, wT = torch.linalg.svd(rfac.T)     # m = Rᵀ Qᵀ = U S (Wᵀ Qᵀ)
+    return s, wT @ qtall.T
+
+
+def local_pullback(
+    fn: Callable[[torch.Tensor], torch.Tensor],
+    x: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    pca_rank: int = 50,
+    min_iter: int = 10,
+    max_iter: int = 50,
+    atol: float = 1e-3,
+    v_init: Optional[torch.Tensor] = None,
+) -> PullbackResult:
+    """Top-``pca_rank`` singular triplets of ∂fn/∂x at ``x``.
+
+    ``fn`` maps one sample (with its leading batch axis, usually 1) to a
+    feature tensor; torch.func must be able to jvp, vjp and vmap it. The
+    earliest converged exit comes after min_iter + 2 iterations (the
+    reference's 0-based ``i > min_iter`` break), else at ``max_iter``.
+    ``v_init`` (pca_rank, dim_x) replaces the seeded orthonormal probes,
+    so a test can hand both packages the same start.
+    """
+    x = x.to(torch.float32)
+    dim_x = math.prod(x.shape)
+    h, vjp_fn = vjp(fn, x)
+    fwd = vmap(lambda vi: jvp(fn, (x,), (vi.reshape(x.shape),))[1].reshape(-1))
+    bwd = vmap(lambda ui: vjp_fn(ui.reshape(h.shape).to(h.dtype))[0].reshape(-1))
+
+    if v_init is not None:
+        if tuple(v_init.shape) != (pca_rank, dim_x):
+            raise ValueError(
+                f"v_init shape {tuple(v_init.shape)} != ({pca_rank}, {dim_x})")
+        v = torch.as_tensor(v_init, dtype=torch.float32).to(x.device)
+    else:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        v = _orthonormal_probes(generator, dim_x, pca_rank).to(x.device)
+
+    s = torch.zeros(pca_rank, device=x.device)
+    delta, it = math.inf, 0
+    while it < max_iter and (it <= min_iter + 1 or delta > atol):
+        s, v_new = _short_fat_svd(bwd(fwd(v)).float())
+        # sign-align rows to the previous iterate: no ± flapping in the
+        # convergence test or the result
+        signs = torch.sign((v_new * v).sum(dim=1))
+        signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+        v_new = v_new * signs[:, None]
+        delta = (v_new - v).abs().max().item()
+        v, it = v_new, it + 1
+
+    # final tangent pass so u belongs to the converged v
+    u = fwd(v)
+    return PullbackResult(u=u.T, s=torch.sqrt(s), vT=v, iterations=it,
+                          final_delta=delta)

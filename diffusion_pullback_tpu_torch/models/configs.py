@@ -1,0 +1,121 @@
+"""Model architecture configs and presets of the SD 2.1-base path.
+
+The SD 2.1 subset of the dataclasses and fields of
+diffusion_pullback_tpu/models/configs.py, under the same names, so one set of
+kwargs builds both packages. ``dtype`` is the parameter and compute dtype of
+the module ('float32' | 'bfloat16').
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class UNet2DConditionConfig:
+    """Text-conditioned U-Net (Stable Diffusion family).
+
+    ``down_block_types`` entries: 'cross' | 'down'; up: 'cross' | 'up'.
+    ``attention_heads`` is per-block (SD2.1: ch/64 heads of dim 64);
+    ``transformer_depth`` per-block.
+    """
+
+    sample_size: int = 64
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    down_block_types: Tuple[str, ...] = ("cross", "cross", "cross", "down")
+    up_block_types: Tuple[str, ...] = ("up", "cross", "cross", "cross")
+    layers_per_block: int = 2
+    attention_heads: Tuple[int, ...] = (5, 10, 20, 20)
+    # per-block head dim; an int applies to every block
+    attention_head_dim: Any = 64
+    transformer_depth: Tuple[int, ...] = (1, 1, 1, 1)
+    cross_attention_dim: int = 1024
+    use_linear_projection: bool = True
+    norm_num_groups: int = 32
+    norm_eps: float = 1e-5
+    dropout: float = 0.0
+    flip_sin_to_cos: bool = True
+    freq_shift: float = 0.0
+    dtype: str = "float32"
+    attn_impl: str = "xla"
+
+
+def sd21_base_unet(**over) -> UNet2DConditionConfig:
+    """stabilityai/stable-diffusion-2-1-base U-Net."""
+    return UNet2DConditionConfig(**over)
+
+
+def sd_tiny_unet(sample_size: int = 8) -> UNet2DConditionConfig:
+    """Tiny SD-style config for tests."""
+    return UNet2DConditionConfig(
+        sample_size=sample_size,
+        block_out_channels=(8, 16),
+        down_block_types=("cross", "down"),
+        up_block_types=("up", "cross"),
+        layers_per_block=1,
+        attention_heads=(2, 2),
+        attention_head_dim=4,
+        transformer_depth=(1, 1),
+        cross_attention_dim=16,
+        norm_num_groups=4,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    """AutoencoderKL (SD latent VAE)."""
+
+    sample_size: int = 512
+    in_channels: int = 3
+    out_channels: int = 3
+    latent_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.18215
+    attn_impl: str = "xla"  # 'flash' at 512px: the mid attention is 4096 tokens
+    dtype: str = "float32"
+
+
+def sd_vae(**over) -> VAEConfig:
+    return VAEConfig(**over)
+
+
+def vae_tiny(sample_size: int = 32) -> VAEConfig:
+    return VAEConfig(
+        sample_size=sample_size,
+        block_out_channels=(8, 16),
+        layers_per_block=1,
+        norm_num_groups=4,
+        latent_channels=4,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """CLIP/OpenCLIP text encoder (SD prompt embedder)."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_layers: int = 23
+    num_heads: int = 16
+    max_length: int = 77
+    hidden_act: str = "gelu"
+    eos_token_id: int = 49407
+    dtype: str = "float32"
+
+
+def sd21_text_encoder() -> CLIPTextConfig:
+    """OpenCLIP ViT-H/14 text tower as shipped with SD2.1 (23 layers)."""
+    return CLIPTextConfig()
+
+
+def clip_text_tiny() -> CLIPTextConfig:
+    return CLIPTextConfig(
+        vocab_size=128, hidden_size=16, intermediate_size=32,
+        num_layers=2, num_heads=2, max_length=8, eos_token_id=1,
+    )

@@ -1,0 +1,88 @@
+"""Port K1 module (diffusion_pullback_tpu_torch/ops/flash_attention.py) on
+the CPU: the plain version behind attention(impl='flash') against the
+Pallas kernel in interpret mode, and the flash/math dispatch of both
+packages. Inputs are made with numpy from a seed."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import diffusion_pullback_tpu.ops.pallas.flash_attention as jfa
+from diffusion_pullback_tpu.ops.attention import attention as jattention
+from diffusion_pullback_tpu_torch.ops import attention as tattn_mod
+from diffusion_pullback_tpu_torch.ops import flash_attention as tfa
+from diffusion_pullback_tpu_torch.ops.attention import attention, xla_attention
+
+
+def _qkv(b, sq, sk, h, d, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=(b, s, h, d)).astype(dtype)
+                 for s in (sq, sk, sk))
+
+
+@pytest.mark.parametrize("b,s,h,d", [(1, 1024, 2, 16), (1, 1024, 1, 64)])
+def test_flash_plain_matches_pallas_interpret(b, s, h, d):
+    q, k, v = _qkv(b, s, s, h, d)
+    out = attention(*map(torch.from_numpy, (q, k, v)), impl="flash").numpy()
+    ref = np.asarray(jfa.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                         interpret=True))
+    np.testing.assert_allclose(out, ref, atol=1e-5)
+
+    # the kernel-level entry at 128×128 Pallas blocks, on (B·H, S, D)
+    to_bh = lambda x: x.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+    qb, kb, vb = map(to_bh, (q, k, v))
+    ref_bh = np.asarray(jfa._flash_forward(
+        *map(jnp.asarray, (qb, kb, vb)), d ** -0.5, block_q=128, block_k=128,
+        interpret=True))
+    out_bh = tfa.flash_forward(*map(torch.from_numpy, (qb, kb, vb)),
+                               d ** -0.5).numpy()
+    np.testing.assert_allclose(out_bh, ref_bh, atol=1e-5)
+
+
+def test_flash_plain_bf16_matches_pallas_interpret():
+    """bf16 inputs: both round the probabilities to bf16 before P·V and the
+    output to bf16; one bf16 ulp (2⁻⁷ at |x|≈1) is the tolerance."""
+    import ml_dtypes
+
+    q, k, v = _qkv(2, 1024, 1024, 1, 64, seed=3)
+    qb, kb, vb = (x[:, :, 0].astype(ml_dtypes.bfloat16) for x in (q, k, v))
+    ref = np.asarray(jfa._flash_forward(*map(jnp.asarray, (qb, kb, vb)),
+                                        0.125, interpret=True), np.float32)
+    tt = lambda x: torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    out = tfa.flash_forward(tt(qb), tt(kb), tt(vb), 0.125)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=2 ** -7)
+
+
+def test_flash_plain_ragged_blocks_match_math_path():
+    """Sk not a multiple of the 512-key block: the last block is short."""
+    q, k, v = map(torch.from_numpy, _qkv(2, 300, 700, 3, 8, seed=1))
+    to_bh = lambda x: x.transpose(1, 2).reshape(6, x.shape[1], 8)
+    out = tfa.flash_forward(to_bh(q), to_bh(k), to_bh(v), 8 ** -0.5)
+    ref = to_bh(xla_attention(q, k, v))
+    torch.testing.assert_close(out, ref, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("sq,sk,flash", [
+    (1024, 1024, True), (4096, 4096, True), (1536, 1536, True),
+    (2048, 128, True), (1024, 77, False), (512, 512, False),
+    (1280, 1280, False), (2048, 127, False), (4096, 1000, False),
+])
+def test_dispatch_thresholds_match_jax(monkeypatch, sq, sk, flash):
+    """Flash only when sq ≥ 1024, sk ≥ 128 and both divide by min(512, s)
+    (ops/attention.py:96 of the JAX package), in both packages."""
+    took = {}
+
+    def spy(tag):
+        def f(q, k, v, scale=None, interpret=False):
+            took[tag] = True
+            return q
+        return f
+
+    monkeypatch.setattr(jfa, "flash_attention", spy("jax"))
+    monkeypatch.setattr(tattn_mod, "flash_attention", spy("torch"))
+    q, k, v = _qkv(1, sq, sk, 1, 4)
+    jattention(*map(jnp.asarray, (q, k, v)), impl="flash")
+    attention(*map(torch.from_numpy, (q, k, v)), impl="flash")
+    assert took == ({"jax": True, "torch": True} if flash else {})
