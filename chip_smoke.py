@@ -1,22 +1,28 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the last line is printed):
-  1. build   — compile the flash forward kernel (K1) from its CUDA source;
-  2. K1      — the kernel against its plain PyTorch version at every shape
+  1. build   — compile the flash kernels K1–K5 from their CUDA sources
+               (one nvcc per source, in parallel, linked into one library);
+  2. kernels — each kernel against its plain PyTorch version at every shape
                the main path gives it, float32 (TF32 off) and bfloat16, with
-               the kernel's, the plain version's and
-               F.scaled_dot_product_attention's times (the latter a yardstick
-               only; the port never calls it);
-  3. U-Net   — one full-width SD 2.1-base U-Net ε with attn_impl='flash'
-               (the kernel) against attn_impl='xla' (the math path), in
+               the kernel's, the plain version's and a PyTorch yardstick's
+               times (F.scaled_dot_product_attention for K1, the flash SDPA
+               forward / backward ops for K2 and K4+K5; the port never calls
+               them) and the bound; then the fused pair under torch.func
+               (vmap of jvp, vmap of a vjp function) against the math path;
+  3. U-Net   — one full-width SD 2.1-base U-Net: ε with attn_impl='flash'
+               (K1) against attn_impl='xla' (the math path), and the mid-tap
+               encoder pullback with the fused pair against the math path
+               from the same probes and a fixed number of iterations, in
                float32 and in bfloat16;
   4. edit    — the main path at full width through the port's CLI builder:
                SD 2.1-base U-Net, 512 px VAE, 23-layer OpenCLIP-H text tower,
-               seeded random weights, run_edit_local_encoder_pullback_zt with
-               --attn_impl flash --pullback_attn_impl xla and small step
-               counts; K1's launches, by shape, must equal what the path
-               launches, and their summed device time is reported; then the
-               pullback once more, warm.
+               seeded random weights, run_edit_local_encoder_pullback_zt
+               with the CLI's defaults on the card (--attn_impl flash, the
+               fused-pair pullback) and small step counts; each kernel's
+               launches, by shape, must equal what the path launches, and
+               their summed device time is reported; then the pullback
+               again, warm, and the math-path pullback, cold and warm.
 Then a JSON line of the kernels, the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
@@ -47,6 +53,21 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # the encode (1 image) and in each direction's decode (3 frames)
 K1_SHAPES = [(5 * b, 4096, 64) for b in (1, 4, 6)] + [
     (10 * b, 1024, 64) for b in (1, 4, 6)] + [(1, 4096, 512), (3, 4096, 512)]
+# the pullback's encoder (batch 1, mid tap) reaches the pair at these
+# primal (B·H, S, D); K3–K5 see the probes folded into B·H
+PCA_RANK = 2
+PAIR_SHAPES = [(5, 4096, 64), (10, 1024, 64)]
+# C symbol → (label, wrapper, source in ops/csrc, line of the Pallas call
+# it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
+KERNELS = {
+    "flash_fwd": ("K1", "flash_forward", "flash_fwd.cu", 179),
+    "flash_fwd_lse": ("K2", "flash_forward_lse", "flash_fwd.cu", 253),
+    "flash_tangent": ("K3", "flash_tangent", "flash_jvp.cu", 497),
+    "flash_dq": ("K4", "flash_dq", "flash_bwd.cu", 378),
+    "flash_dkv": ("K5", "flash_dkv", "flash_bwd.cu", 396),
+}
+# K2–K5's operations per (B·H)·S²·D, B·H the tangents' or the cotangent's
+PAIR_OPS = {"K2": 4, "K3": 10, "K4": 6, "K5": 8}
 
 
 def log(msg):
@@ -76,15 +97,46 @@ def k1_tol(ref, dtype):
     return 2 * torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top))
 
 
-def k1_bound_ms(shape, dtype):
-    """The least time for softmax(QKᵀ)V at this shape on an H100: each input
-    read once and the output written once at the HBM rate, or the two
-    matmuls' 4·BH·S²·D operations at the dtype's peak, whichever is larger."""
-    bh, s, d = shape
-    nbytes = 4 * bh * s * d * torch.tensor([], dtype=dtype).element_size()
-    ops = 4.0 * bh * s * s * d
+def pair_tol(ref):
+    """K2–K5 against their plain versions: for a float32 output 1e-4 of
+    max(1, max |ref|) (f32 sums in another order; the f32 outputs reach
+    |x| ≈ 10 for L), for a bfloat16 one two ulps of max |ref| (as K1).
+    Dropping one 64-key tile (K5: one 64-query tile) from the plain versions
+    at these shapes moves the outputs by far more than either."""
+    top = ref.float().abs().max().item()
+    if ref.dtype == torch.float32:
+        return 1e-4 * max(1.0, top)
+    return 2 * torch.finfo(ref.dtype).eps * 2.0 ** math.floor(math.log2(top))
+
+
+def bound_ms(nbytes, ops, dtype):
+    """The least time on an H100: the bytes at the HBM rate or the
+    operations at the dtype's peak, whichever is larger."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def k1_bound_ms(shape, dtype):
+    """softmax(QKᵀ)V: each input read once and the output written once, or
+    the two matmuls' 4·BH·S²·D operations."""
+    bh, s, d = shape
+    return bound_ms(4 * bh * s * d * torch.tensor([], dtype=dtype).element_size(),
+                    4.0 * bh * s * s * d, dtype)
+
+
+def pair_bound_ms(label, bhp, r, s, d, dtype):
+    """K2–K5 with the primal at B·H = bhp and r probes: bytes of each input
+    read once and each output written once (primal q, k, v, o in the dtype,
+    L and δ in f32), operations PAIR_OPS·(r·bhp)·S²·D."""
+    e, bh = torch.tensor([], dtype=dtype).element_size(), r * bhp
+    sd = s * d
+    nbytes = {
+        "K2": 4 * bhp * sd * e + 4 * bhp * s,               # q k v → o, L
+        "K3": 4 * bhp * sd * e + 4 * bhp * s + 4 * bh * sd * e,  # + q̇ k̇ v̇ → ȯ
+        "K4": 3 * bhp * sd * e + 4 * bhp * s + 2 * bh * sd * e + 4 * bh * s,
+        "K5": 3 * bhp * sd * e + 4 * bhp * s + 3 * bh * sd * e + 4 * bh * s,
+    }[label]
+    return bound_ms(nbytes, PAIR_OPS[label] * bh * s * s * d, dtype)
 
 
 def phase_k1(fa):
@@ -122,65 +174,214 @@ def phase_k1(fa):
     return rows
 
 
-def phase_unet(fa):
-    from diffusion_pullback_tpu_torch.models import (
-        UNet2DCondition, random_init_, sd21_base_unet)
+def phase_pair(fa):
+    """K2–K5 against their plain versions at the pullback's shapes: K2 at
+    the primal (B·H, S, D), K3–K5 with the tangents / cotangent batched over
+    PCA_RANK probes against one primal, as the main path calls them."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sdpa = torch.ops.aten._scaled_dot_product_flash_attention
+    sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    rows, r = {}, PCA_RANK
+    for bhp, s, d in PAIR_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            rnd = lambda n: torch.randn(n, s, d, device="cuda", generator=gen).to(dtype)
+            q, k, v = rnd(bhp), rnd(bhp), rnd(bhp)
+            dq, dk, dv, do = rnd(r * bhp), rnd(r * bhp), rnd(r * bhp), rnd(r * bhp)
+            scale = d ** -0.5
+            o, lse = fa.flash_forward_lse(q, k, v, scale)
+            delta = (do.float() * o.float().repeat(r, 1, 1)).sum(-1)
+            calls = {
+                "K2": (lambda: fa.flash_forward_lse(q, k, v, scale),
+                       lambda: fa.flash_forward_lse_plain(q, k, v, scale)),
+                "K3": (lambda: fa.flash_tangent(q, k, v, dq, dk, dv, o, lse, scale),
+                       lambda: fa.flash_tangent_plain(q, k, v, dq, dk, dv, o, lse,
+                                                      scale)),
+                "K4": (lambda: fa.flash_dq(q, k, v, do, lse, delta, scale),
+                       lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, scale)),
+                "K5": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, scale),
+                       lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, scale)),
+            }
+            library = {"K2": None, "K3": None, "K4": None, "K5": None}
+            if dtype == torch.bfloat16:  # the flash SDPA ops take bf16 only
+                q4, k4, v4 = (t.repeat(r, 1, 1)[None] for t in (q, k, v))
+                fwd4 = sdpa(q4, k4, v4, 0.0, False, False, scale=scale)
+                bwd_args = (do[None], q4, k4, v4, *fwd4[:6], 0.0, False, *fwd4[6:8])
+                library["K2"] = cuda_ms(lambda: sdpa(
+                    q[None], k[None], v[None], 0.0, False, False, scale=scale), 20)
+                library["K4"] = library["K5"] = cuda_ms(
+                    lambda: sdpa_bwd(*bwd_args, scale=scale), 20)
+            for label, (kernel, plain) in calls.items():
+                outs, refs = kernel(), plain()
+                torch.cuda.synchronize()
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                refs = refs if isinstance(refs, tuple) else (refs,)
+                errs = [((a.float() - b.float()).abs().max().item(), pair_tol(b))
+                        for a, b in zip(outs, refs)]
+                shape = (bhp if label == "K2" else r * bhp, s, d)
+                row = dict(max_abs_err=max(e for e, _ in errs),
+                           ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3),
+                           library_ms=library[label])
+                row["bound_ms"], row["bound_by"] = pair_bound_ms(
+                    label, bhp, 1 if label == "K2" else r, s, d, dtype)
+                rows[(label, shape, dtype)] = row
+                lib = ("—" if row["library_ms"] is None
+                       else f"{row['library_ms']:.4f} ms")
+                log(f"[{label.lower()}] {shape} {str(dtype)[6:]}: max_abs_err "
+                    + ", ".join(f"{e:.3g} (tol {t:.3g})" for e, t in errs)
+                    + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+                    f"ms, library {lib}, bound {row['bound_ms']:.4f} ms "
+                    f"({row['bound_by']})")
+                if not all(e <= t for e, t in errs):
+                    raise AssertionError(f"{label} disagrees with its plain "
+                                         f"version at {shape} {dtype}: {errs}")
+    return rows
+
+
+def phase_compose(fa):
+    """The pair's Functions under torch.func on the card, as the pullback
+    composes them (primal fixed, probes vmapped), against the math path."""
+    from torch.func import jvp, vjp, vmap
+
+    from diffusion_pullback_tpu_torch.ops.attention import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(1, 1024, 10, 64, device="cuda", generator=gen)
+    ts = torch.randn(PCA_RANK, *x.shape, device="cuda", generator=gen)
+    f = lambda impl: (lambda y: attention(y, y * 0.5, torch.tanh(y), impl=impl))
+    n0 = {w: getattr(fa, w).launches for _, w, _, _ in KERNELS.values()}
+    tan = {i: vmap(lambda t: jvp(f(i), (x,), (t,))[1])(ts) for i in ("flash_jvp", "xla")}
+    cot = {i: vmap(vjp(f(i), x)[1])(ts)[0] for i in ("flash", "xla")}
+    torch.cuda.synchronize()
+    launched = {w: getattr(fa, w).launches - n for w, n in n0.items()}
+    for what, a, b in (("vmap(jvp)", tan["flash_jvp"], tan["xla"]),
+                       ("vmap(vjp_fn)", cot["flash"], cot["xla"])):
+        err, tol = (a - b).abs().max().item(), 1e-4 * max(1.0, b.abs().max().item())
+        log(f"[compose] {what} at (1,1024,10,64) f32, pair vs math: max_abs_err "
+            f"{err:.3g} (tol {tol:.3g})")
+        if not err <= tol:
+            raise AssertionError(f"{what} through the pair disagrees with the "
+                                 f"math path: {err} > {tol}")
+    want = {"flash_forward": 0, "flash_forward_lse": 2, "flash_tangent": 1,
+            "flash_dq": 1, "flash_dkv": 1}
+    log(f"[compose] launches {launched} (expected {want})")
+    if launched != want:
+        raise AssertionError("the composed pair did not launch its kernels once each")
+
+
+def phase_unet_eps(fa, unet, dtype, eps_math=None):
     from diffusion_pullback_tpu_torch.models.layers import attn_impl_as
 
-    unet = random_init_(UNet2DCondition(sd21_base_unet(attn_impl="flash")), 0)
-    unet = unet.cuda().eval().requires_grad_(False)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(1, 4, 64, 64, device="cuda", generator=gen)
     ctx = torch.randn(1, 77, 1024, device="cuda", generator=gen)
     with torch.no_grad():
         n0 = fa.flash_forward.launches
-        eps_flash = unet(x, 500.0, ctx)
+        eps_flash = unet(x, 500.0, ctx).float()
         launches = fa.flash_forward.launches - n0
         with attn_impl_as(unet, "xla"):
-            eps_math = unet(x, 500.0, ctx)
-    err = (eps_flash - eps_math).abs().max().item()
-    scale = eps_math.abs().max().item()
-    log(f"[unet] full-width SD 2.1-base eps f32, flash vs math: max_abs_err "
-        f"{err:.3g} (max |eps| {scale:.3g}, tol 1e-4 relative), K1 launches "
-        f"{launches}")
-    if not (torch.isfinite(eps_flash).all() and err <= 1e-4 * scale):
-        raise AssertionError("flash U-Net disagrees with the math path")
-    if launches != 10:
-        raise AssertionError(f"a U-Net call launched K1 {launches} times, not 10")
-
+            eps_this = unet(x, 500.0, ctx).float()
+    if dtype == torch.float32:
+        err = (eps_flash - eps_this).abs().max().item()
+        scale = eps_this.abs().max().item()
+        log(f"[unet] full-width SD 2.1-base eps f32, flash vs math: max_abs_err "
+            f"{err:.3g} (max |eps| {scale:.3g}, tol 1e-4 relative), K1 launches "
+            f"{launches}")
+        if not (torch.isfinite(eps_flash).all() and err <= 1e-4 * scale):
+            raise AssertionError("flash U-Net disagrees with the math path")
+        if launches != 10:
+            raise AssertionError(f"a U-Net call launched K1 {launches} times, not 10")
+        return eps_this
     # bf16, the main path's U-Net dtype: the two paths round differently, so
-    # each is held to the f32 math ε above, and the flash path may stray from
-    # it at most 1.5× as far (relative RMS) as the bf16 math path does
-    unet.to(torch.bfloat16)
-    with torch.no_grad():
-        eps_flash = unet(x, 500.0, ctx).float()
-        with attn_impl_as(unet, "xla"):
-            eps_bf16 = unet(x, 500.0, ctx).float()
+    # each is held to the f32 math ε, and the flash path may stray from it at
+    # most 1.5× as far (relative RMS) as the bf16 math path does
     rel = lambda e: (torch.linalg.norm(e - eps_math) / torch.linalg.norm(eps_math)).item()
-    err_flash, err_math = rel(eps_flash), rel(eps_bf16)
+    err_flash, err_math = rel(eps_flash), rel(eps_this)
     log(f"[unet] full-width SD 2.1-base eps bf16: relative RMS error against "
         f"f32 math, flash {err_flash:.4g}, math {err_math:.4g} (tol 1.5 × math "
         f"= {1.5 * err_math:.4g}); bf16 flash vs bf16 math max_abs_err "
-        f"{(eps_flash - eps_bf16).abs().max().item():.3g}")
+        f"{(eps_flash - eps_this).abs().max().item():.3g}")
     if not (torch.isfinite(eps_flash).all() and err_flash <= 1.5 * err_math):
         raise AssertionError("bf16 flash U-Net strays from f32 further than "
                              "the bf16 math path")
 
 
+def pullback_dist(res, ref):
+    """Relative Frobenius distance between the rank-r pullback metrics
+    Vᵀ diag(σ²) V of two results: blind to signs and to rotations inside a
+    degenerate σ group, so it measures σ and the subspace together."""
+    s2, r2 = res.s.double() ** 2, ref.s.double() ** 2
+    c2 = (res.vT.double() @ ref.vT.double().T) ** 2
+    cross = (s2[:, None] * r2[None, :] * c2).sum()
+    d2 = (s2 ** 2).sum() + (r2 ** 2).sum() - 2 * cross
+    return math.sqrt(max(d2.item(), 0.0) / (r2 ** 2).sum().item())
+
+
+def phase_unet_pullback(unet, dtype, ref=None):
+    """The mid-tap encoder pullback of the full-width U-Net: the fused pair
+    ('flash_jvp' tangents, 'flash' cotangents) and the math path from the
+    same probes, 3 iterations each."""
+    from diffusion_pullback_tpu_torch.geometry import local_pullback
+    from diffusion_pullback_tpu_torch.models import TapPoint
+    from diffusion_pullback_tpu_torch.models.layers import attn_impl_as
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    z = torch.randn(1, 4, 64, 64, device="cuda", generator=gen)
+    ctx = torch.randn(1, 77, 1024, device="cuda", generator=gen)
+    v0 = torch.linalg.qr(torch.randn(z.numel(), PCA_RANK, device="cuda",
+                                     generator=gen))[0].T
+
+    def enc(impl):
+        def f(x):
+            with attn_impl_as(unet, impl):
+                return unet.encode(x, 500.0, ctx, TapPoint("mid"))
+        return f
+
+    kw = dict(pca_rank=PCA_RANK, min_iter=3, max_iter=3, atol=0.0, v_init=v0)
+    out = {}
+    for name, fn, fn_vjp in (("pair", enc("flash_jvp"), enc("flash")),
+                             ("math", enc("xla"), None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = local_pullback(fn, z, fn_vjp=fn_vjp, **kw)
+        torch.cuda.synchronize()
+        log(f"[pullback] {str(dtype)[6:]} {name}: sigma "
+            f"{out[name].s.tolist()}, {time.perf_counter() - t0:.3f} s")
+    pair, math_ = out["pair"], out["math"]
+    if dtype == torch.float32:
+        srel = ((pair.s - math_.s).abs() / math_.s).max().item()
+        cos = (pair.vT * math_.vT).sum(dim=1).abs()
+        log(f"[pullback] f32 pair vs math: sigma max rel err {srel:.3g} (tol "
+            f"1e-3), |cos| per direction {cos.tolist()} (tol ≥ 0.99)")
+        if not (srel <= 1e-3 and cos.min().item() >= 0.99):
+            raise AssertionError("the f32 fused-pair pullback disagrees with "
+                                 "the math path")
+        return math_
+    # bf16: each held to the f32 math result; the pair may stray at most
+    # 1.5× as far as the bf16 math pullback
+    d_pair, d_math = pullback_dist(pair, ref), pullback_dist(math_, ref)
+    log(f"[pullback] bf16 distance of the metric Vᵀσ²V from f32 math: pair "
+        f"{d_pair:.4g}, math {d_math:.4g} (tol 1.5 × math = {1.5 * d_math:.4g})")
+    if not (all(torch.isfinite(r.s).all() for r in out.values())
+            and d_pair <= 1.5 * d_math):
+        raise AssertionError("the bf16 fused-pair pullback strays from f32 "
+                             "further than the bf16 math pullback")
+
+
 @contextlib.contextmanager
 def timed_launches(fa):
-    """CUDA events around every K1 launch of the block, by (shape, dtype).
-    The launch count stays the wrapper's own."""
+    """CUDA events around every kernel launch of the block, by (symbol,
+    shape, dtype); the shape is q's for K1/K2, the tangents' or the
+    cotangent's for K3–K5. The launch counts stay the wrappers' own."""
     events = collections.defaultdict(list)
     launch = fa._launch
 
-    def timed(q, k, v, scale):
+    def timed(name, q, *args):
+        key = args[0] if name in ("flash_fwd", "flash_fwd_lse") else args[3]
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        out = launch(q, k, v, scale)
+        launch(name, q, *args)
         end.record()
-        events[(tuple(q.shape), q.dtype)].append((start, end))
-        return out
+        events[(name, tuple(key.shape), key.dtype)].append((start, end))
 
     fa._launch = timed
     try:
@@ -189,20 +390,36 @@ def timed_launches(fa):
         fa._launch = launch
 
 
+def timed_pullback(edit, zt, impl, what):
+    """One compute_local_basis with ``impl``: seconds and peak memory."""
+    from diffusion_pullback_tpu_torch.models import TapPoint
+
+    edit.cfg.pullback_attn_impl = impl
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = edit.compute_local_basis(zt, edit.fwd_grid.timesteps[edit.edit_t_idx],
+                                   TapPoint("mid", 0), PCA_RANK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[edit] pullback {what}: {seconds:.3f} s, peak memory {peak:.2f} GB, "
+        f"{res.iterations} iterations, sigma {res.s.tolist()}")
+    return seconds, peak
+
+
 def phase_edit(fa):
     import numpy as np
     from PIL import Image
 
     from diffusion_pullback_tpu_torch import main as port_main
     from diffusion_pullback_tpu_torch.experiments import BasisCache
-    from diffusion_pullback_tpu_torch.models import TapPoint
 
     shutil.rmtree(OUT, ignore_errors=True)
     args = port_main.parse_args([
         "--note", "chip_smoke", "--result_folder", OUT,
-        "--attn_impl", "flash", "--pullback_attn_impl", "xla",
         "--for_steps", "10", "--inv_steps", "10", "--edit_t", "0.5",
-        "--pca_rank", "2", "--x_space_guidance_num_step", "2",
+        "--pca_rank", str(PCA_RANK), "--x_space_guidance_num_step", "2",
         "--edit_prompt", "a photo of a smiling face"])
     t0 = time.perf_counter()
     edit = port_main.build_sd(args)
@@ -213,22 +430,34 @@ def phase_edit(fa):
     log(f"[edit] built the SD 2.1-base driver in {time.perf_counter() - t0:.1f} s "
         f"(U-Net {next(edit.unet.parameters()).dtype}, attn "
         f"{edit.unet.config.attn_impl}, pullback attn {cfg.pullback_attn_impl})")
+    if cfg.pullback_attn_impl != "flash":
+        raise AssertionError("the CLI's default pullback on CUDA is not the pair")
 
     vis_num, vis_num_pc = 2, 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_forward.launches = 0
+    for _, wrapper, _, _ in KERNELS.values():
+        getattr(fa, wrapper).launches = 0
     t0 = time.perf_counter()
-    with timed_launches(fa) as k1_events:
+    with timed_launches(fa) as kernel_events:
         names = edit.run_edit_local_encoder_pullback_zt(
-            idx=0, pca_rank=2, vis_num=vis_num, vis_num_pc=vis_num_pc)
+            idx=0, pca_rank=PCA_RANK, vis_num=vis_num, vis_num_pc=vis_num_pc)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = fa.flash_forward.launches
+    launches = {sym: getattr(fa, k[1]).launches for sym, k in KERNELS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # (shape, dtype) → [launches, summed device ms]
-    k1_path = {key: [len(ev), sum(a.elapsed_time(b) for a, b in ev)]
-               for key, ev in k1_events.items()}
+    # (symbol, shape, dtype) → [launches, summed device ms]
+    path = {key: [len(ev), sum(a.elapsed_time(b) for a, b in ev)]
+            for key, ev in kernel_events.items()}
+
+    with open(os.path.join(edit.log.path)) as f:
+        events = [json.loads(line) for line in f]
+    for e in events:
+        if "seconds" in e:
+            extra = {k: v for k, v in e.items() if k not in ("ts", "event", "seconds")}
+            log(f"[edit] stage {e['event']}: {e['seconds']:.3f} s {extra}")
+    pullback = [e for e in events if e["event"] == "sd_local_pullback"][-1]
+    iterations = pullback["iterations"]
 
     n_dir = 2 * vis_num_pc
     stride = max(1, (cfg.x_space_guidance_num_step + 1) // vis_num)
@@ -238,32 +467,42 @@ def phase_edit(fa):
         1: (cfg.inv_steps - 2) + edit.edit_t_idx,
         2 * n_dir: cfg.x_space_guidance_num_step,
         n_dir * frames: cfg.for_steps - 1 - edit.edit_t_idx}
-    expected_by_shape = collections.Counter()
+    expected = collections.Counter()
     for b, calls in unet_calls.items():
-        expected_by_shape[((5 * b, 4096, 64), unet_dtype)] += 5 * calls
-        expected_by_shape[((10 * b, 1024, 64), unet_dtype)] += 5 * calls
+        expected[("flash_fwd", (5 * b, 4096, 64), unet_dtype)] += 5 * calls
+        expected[("flash_fwd", (10 * b, 1024, 64), unet_dtype)] += 5 * calls
     vae_dtype = next(edit.vae.parameters()).dtype
-    expected_by_shape[((1, 4096, 512), vae_dtype)] += 1          # encode
-    expected_by_shape[((frames, 4096, 512), vae_dtype)] += n_dir  # decodes
-    expected = sum(expected_by_shape.values())
-    k1_ms = sum(ms for _, ms in k1_path.values())
-    for (shape, dtype), (n, ms) in sorted(k1_path.items(), key=lambda kv: -kv[1][1]):
-        log(f"[edit] K1 at {shape} {str(dtype)[6:]}: {n} launches (expected "
-            f"{expected_by_shape[(shape, dtype)]}), {ms:.3f} ms on the device")
+    expected[("flash_fwd", (1, 4096, 512), vae_dtype)] += 1          # encode
+    expected[("flash_fwd", (frames, 4096, 512), vae_dtype)] += n_dir  # decodes
+    # the pullback: two self-attentions at each primal shape; one jvp per
+    # tangent pass (each iteration and the final u), each running K2 and K3;
+    # one vjp (K2) whose function runs K4 and K5 once per iteration; K3–K5
+    # with the probes folded into B·H
+    passes = iterations + 1
+    for bhp, s, d in PAIR_SHAPES:
+        expected[("flash_fwd_lse", (bhp, s, d), unet_dtype)] += 2 * (passes + 1)
+        folded = (PCA_RANK * bhp, s, d)
+        expected[("flash_tangent", folded, unet_dtype)] += 2 * passes
+        expected[("flash_dq", folded, unet_dtype)] += 2 * iterations
+        expected[("flash_dkv", folded, unet_dtype)] += 2 * iterations
+    for (sym, shape, dtype), (n, ms) in sorted(path.items(), key=lambda kv: -kv[1][1]):
+        log(f"[edit] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches "
+            f"(expected {expected[(sym, shape, dtype)]}), {ms:.3f} ms on the device")
+    kernel_ms = {sym: sum(ms for (s, _, _), (_, ms) in path.items() if s == sym)
+                 for sym in KERNELS}
+    expected_total = {sym: sum(n for (s, _, _), n in expected.items() if s == sym)
+                      for sym in KERNELS}
 
-    with open(os.path.join(edit.log.path)) as f:
-        events = [json.loads(line) for line in f]
-    for e in events:
-        if "seconds" in e:
-            extra = {k: v for k, v in e.items() if k not in ("ts", "event", "seconds")}
-            log(f"[edit] stage {e['event']}: {e['seconds']:.3f} s {extra}")
     basis_files = os.listdir(cfg.basis_folder)
     with np.load(os.path.join(cfg.basis_folder, basis_files[0])) as z:
         u, s, vT = z["u"], z["s"], z["vT"]
     log(f"[edit] main path {seconds:.2f} s, sigma {s.tolist()}, peak memory "
-        f"{peak_gb:.2f} GB, K1 launches {launches} (expected {expected}), K1 "
-        f"device time {k1_ms:.2f} ms ({100 * k1_ms / 1e3 / seconds:.2f} % of "
-        f"the path)")
+        f"{peak_gb:.2f} GB, pullback {pullback['seconds']:.3f} s (encoder "
+        f"{pullback['encoder']}, {iterations} iterations)")
+    for sym, (label, *_) in KERNELS.items():
+        log(f"[edit] {label}: {launches[sym]} launches (expected "
+            f"{expected_total[sym]}), {kernel_ms[sym]:.2f} ms on the device "
+            f"({100 * kernel_ms[sym] / 1e3 / seconds:.2f} % of the path)")
 
     finite = [e for e in events if e["event"] == "sd_decode_and_save"]
     checks = {
@@ -272,29 +511,29 @@ def phase_edit(fa):
             == (512 * frames, 512) for n in names),
         "edited latents and images finite": bool(finite and finite[-1]["finite"]),
         "basis finite, expected shapes": (
-            u.shape == (8 * 8 * 1280, 2) and vT.shape == (2, 64 * 64 * 4)
+            u.shape == (8 * 8 * 1280, PCA_RANK) and vT.shape == (PCA_RANK, 64 * 64 * 4)
             and all(np.isfinite(a).all() for a in (u, s, vT)) and (s > 0).all()),
-        "K1 launch count": launches == expected and launches > 0,
-        "K1 launches by shape": {k: n for k, (n, _) in k1_path.items()}
-        == dict(expected_by_shape),
+        "pullback through the fused pair": pullback["encoder"] == "flashpair",
+        "launch counts": launches == expected_total and all(launches.values()),
+        "launches by shape": {k: n for k, (n, _) in path.items()} == dict(expected),
     }
     for what, ok in checks.items():
         log(f"[edit] check {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
         raise AssertionError("main path checks failed")
 
-    # the same pullback once more in this process, warm, at a latent of
-    # the same shape (the main path's ran first, with one-time costs)
+    # the pullback again in this process at a latent of the same shape:
+    # the pair warm, then the math path (its first run here) and again warm
     zt = torch.randn(1, 64, 64, 4, device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(3))
-    t0 = time.perf_counter()
-    res = edit.compute_local_basis(zt, edit.fwd_grid.timesteps[edit.edit_t_idx],
-                                   TapPoint("mid", 0), 2)
-    torch.cuda.synchronize()
-    log(f"[edit] pullback again, warm: {time.perf_counter() - t0:.3f} s, "
-        f"{res.iterations} iterations")
-    heaviest = max(k1_path, key=lambda key: k1_path[key][1])
-    return launches, heaviest, k1_ms
+    timed_pullback(edit, zt, "flash", "fused pair, warm")
+    timed_pullback(edit, zt, "xla", "math path, first in this process")
+    timed_pullback(edit, zt, "xla", "math path, warm")
+    heaviest = {}
+    for (sym, shape, dtype), (_, ms) in path.items():
+        if sym not in heaviest or ms > path[heaviest[sym]][1]:
+            heaviest[sym] = (sym, shape, dtype)
+    return launches, heaviest, kernel_ms
 
 
 def main():
@@ -302,6 +541,8 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
         return 1
+    from diffusion_pullback_tpu_torch.models import (
+        UNet2DCondition, random_init_, sd21_base_unet)
     from diffusion_pullback_tpu_torch.ops import flash_attention as fa
     from diffusion_pullback_tpu_torch.utils.device import strict_f32
 
@@ -310,23 +551,38 @@ def main():
     lib, nvcc_out = fa.build()
     log(f"[build] {os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.1f} s")
     for line in nvcc_out.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
-    rows = phase_k1(fa)
-    phase_unet(fa)
-    torch.cuda.empty_cache()
-    launches, (shape, dtype), path_ms = phase_edit(fa)
+    k1_rows = phase_k1(fa)
+    pair_rows = phase_pair(fa)
+    phase_compose(fa)
 
-    # per-launch numbers at the shape that carries most of K1's device time
-    # on the main path; path_ms is K1's summed device time over that run
-    kernels = {"kernels": [dict(
-        name="flash_fwd (K1)", route="cuda",
-        source="diffusion_pullback_tpu_torch/ops/csrc/flash_fwd.cu",
-        replaces="diffusion_pullback_tpu/ops/pallas/flash_attention.py:179",
-        launches=launches, shape=list(shape), dtype=str(dtype)[6:],
-        path_ms=path_ms, **rows[(shape, dtype)])]}
-    log(json.dumps(kernels))
+    unet = random_init_(UNet2DCondition(sd21_base_unet(attn_impl="flash")), 0)
+    unet = unet.cuda().eval().requires_grad_(False)
+    eps_math = phase_unet_eps(fa, unet, torch.float32)
+    ref = phase_unet_pullback(unet, torch.float32)
+    unet.to(torch.bfloat16)
+    phase_unet_eps(fa, unet, torch.bfloat16, eps_math)
+    phase_unet_pullback(unet, torch.bfloat16, ref)
+    del unet
+    torch.cuda.empty_cache()
+
+    launches, heaviest, path_ms = phase_edit(fa)
+
+    # per-launch numbers at the shape that carries most of each kernel's
+    # device time on the main path; path_ms is its summed device time there
+    kernels = []
+    for sym, (label, _, source, line) in KERNELS.items():
+        _, shape, dtype = heaviest[sym]
+        row = k1_rows[(shape, dtype)] if label == "K1" else pair_rows[(label, shape, dtype)]
+        kernels.append(dict(
+            name=f"{sym} ({label})", route="cuda",
+            source=f"diffusion_pullback_tpu_torch/ops/csrc/{source}",
+            replaces=f"diffusion_pullback_tpu/ops/pallas/flash_attention.py:{line}",
+            launches=launches[sym], shape=list(shape),
+            dtype=str(dtype)[6:], path_ms=path_ms[sym], **row))
+    log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

@@ -61,7 +61,8 @@ class SDExperimentConfig:
     pullback_min_iter: int = 10
     pullback_max_iter: int = 50
     pullback_atol: float = 1e-4
-    # attention inside the differentiated encoder ('' = the model's own)
+    # attention inside the differentiated encoder ('' = the model's own;
+    # 'flash' = the fused JVP/VJP kernel pair)
     pullback_attn_impl: str = ""
     result_folder: str = "./runs/sd"
     basis_folder: str = "./inputs/local_encoder_pullback_stable_diffusion"
@@ -174,27 +175,39 @@ class EditStableDiffusion:
         """NHWC latents → NHWC images in [-1, 1] on the host."""
         return to_nhwc(self.vae.decode(to_nchw(z))).float().cpu().numpy()
 
-    def compute_local_basis(self, zt, t, tap: TapPoint, pca_rank: int
-                            ) -> PullbackResult:
-        """Pullback of the edit-prompt encoder z → h at ``tap`` (NHWC on
-        both sides, so u and vT flatten as in the JAX package)."""
+    def _pullback_tap_encoders(self, t, tap: TapPoint):
+        """(encode, encode_vjp or None, impl tag) of the edit-prompt encoder
+        z → h at ``tap`` (NHWC on both sides, so u and vT flatten as in the
+        JAX package).
+
+        'flash' (or '' with a U-Net that runs 'flash') maps to the fused
+        kernel pair: the tangent half runs the forward-mode kernels
+        ('flash_jvp'), the cotangent half the reverse-mode ones ('flash').
+        Both run the same weights; each call sets its own impl, because the
+        vjp's backward runs inside the loop between the tangent passes."""
         impl = self.cfg.pullback_attn_impl or self.unet.config.attn_impl
-        if impl == "flash":
-            raise NotImplementedError(
-                "pullback_attn_impl 'flash' (the fused JVP/VJP kernel pair, "
-                "K2-K5) is ROADMAP slice 2; use pullback_attn_impl='xla'")
         emb = self.edit_prompt_emb
 
-        def enc(z):
-            return to_nhwc(self.unet.encode(to_nchw(z), t, emb, tap))
+        def encoder(attn_impl):
+            def enc(z):
+                with attn_impl_as(self.unet, attn_impl):
+                    return to_nhwc(self.unet.encode(to_nchw(z), t, emb, tap))
+            return enc
 
-        with self._stage("sd_local_pullback", encoder=impl) as log, \
-                attn_impl_as(self.unet, impl):
+        if impl in ("flash", "flash_jvp"):
+            return encoder("flash_jvp"), encoder("flash"), "flashpair"
+        return encoder(impl), None, impl
+
+    def compute_local_basis(self, zt, t, tap: TapPoint, pca_rank: int
+                            ) -> PullbackResult:
+        """Pullback of the edit-prompt encoder z → h at ``tap``."""
+        enc, enc_vjp, tag = self._pullback_tap_encoders(t, tap)
+        with self._stage("sd_local_pullback", encoder=tag) as log:
             res = local_pullback(
                 enc, zt, torch.Generator().manual_seed(self.cfg.seed),
                 pca_rank=pca_rank, min_iter=self.cfg.pullback_min_iter,
                 max_iter=self.cfg.pullback_max_iter,
-                atol=self.cfg.pullback_atol)
+                atol=self.cfg.pullback_atol, fn_vjp=enc_vjp)
             log.update(iterations=res.iterations,
                        top_s=res.s[:3].float().cpu().numpy().round(4))
         return res

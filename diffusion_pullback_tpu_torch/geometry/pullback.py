@@ -10,7 +10,10 @@ of the subspace power iteration is
 
 torch has no `linear_transpose`, so the cotangent half always takes the
 shape of the JAX package's ``fn_vjp`` branch: one `torch.func.vjp` of the
-map, whose function is vmapped over the probes.
+map (of ``fn_vjp`` when given), whose function is vmapped over the probes.
+The tangent half runs `torch.func.jvp` per pass, which evaluates the
+primal again each time (`linearize` traces with make_fx, which cannot trace
+the port's ctypes kernels).
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ def local_pullback(
     max_iter: int = 50,
     atol: float = 1e-3,
     v_init: Optional[torch.Tensor] = None,
+    fn_vjp: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> PullbackResult:
     """Top-``pca_rank`` singular triplets of ∂fn/∂x at ``x``.
 
@@ -68,10 +72,15 @@ def local_pullback(
     reference's 0-based ``i > min_iter`` break), else at ``max_iter``.
     ``v_init`` (pca_rank, dim_x) replaces the seeded orthonormal probes,
     so a test can hand both packages the same start.
+
+    ``fn_vjp``: a second implementation of the same map for the cotangent
+    half, as in the JAX package, for an ``fn`` whose kernels have only a
+    forward-mode rule (attn_impl 'flash_jvp'): the tangent passes run
+    ``fn``, the one vjp runs ``fn_vjp`` ('flash').
     """
     x = x.to(torch.float32)
     dim_x = math.prod(x.shape)
-    h, vjp_fn = vjp(fn, x)
+    h, vjp_fn = vjp(fn if fn_vjp is None else fn_vjp, x)
     fwd = vmap(lambda vi: jvp(fn, (x,), (vi.reshape(x.shape),))[1].reshape(-1))
     bwd = vmap(lambda ui: vjp_fn(ui.reshape(h.shape).to(h.dtype))[0].reshape(-1))
 

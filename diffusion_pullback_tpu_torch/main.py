@@ -2,7 +2,6 @@
 package's main.py (build_sd and the edit dispatch), with the same flag names.
 
     python -m diffusion_pullback_tpu_torch.main --note smoke \\
-        --attn_impl flash --pullback_attn_impl xla \\
         --run_edit_local_encoder_pullback_zt True
 
 Runs on CUDA unless ``--device cpu`` is given. With no checkpoint in the
@@ -59,9 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'auto' = flash on cuda, xla on cpu")
     p.add_argument("--pullback_attn_impl", type=str, default="",
                    choices=["", "xla", "flash"],
-                   help="attention inside the differentiated encoder; '' = "
-                        "xla. 'flash' (the fused JVP/VJP pair) is ROADMAP "
-                        "slice 2 and raises")
+                   help="attention inside the differentiated encoder: "
+                        "'flash' = the fused JVP/VJP kernel pair, 'xla' = "
+                        "the math path; '' = flash on cuda, xla on cpu")
     p.add_argument("--run_edit_local_encoder_pullback_zt", type=str2bool,
                    default=False)
     return p
@@ -89,10 +88,6 @@ def build_sd(args):
     from .utils.device import resolve_device
     from .utils.logging import JSONLLogger
 
-    if args.pullback_attn_impl == "flash":
-        raise NotImplementedError(
-            "--pullback_attn_impl flash (the fused JVP/VJP kernel pair, "
-            "K2-K5) is ROADMAP slice 2; use --pullback_attn_impl xla")
     device = resolve_device(args.device or None)
     on_cuda = device.type == "cuda"
     dtype = args.dtype or ("bf16" if on_cuda else "fp32")
@@ -123,7 +118,10 @@ def build_sd(args):
         x_space_guidance_num_step=args.x_space_guidance_num_step or 16,
         xsg_pair_impl=args.xsg_pair_impl,
         pca_rank=args.pca_rank,
-        pullback_attn_impl=args.pullback_attn_impl or "xla",
+        # the fused pair by default on the card, as the JAX CLI on an
+        # accelerator; --pullback_attn_impl xla opts out
+        pullback_attn_impl=args.pullback_attn_impl or (
+            "flash" if on_cuda else "xla"),
         result_folder=os.path.join(exp_folder, "results"),
         basis_folder=os.path.join(
             "./inputs",

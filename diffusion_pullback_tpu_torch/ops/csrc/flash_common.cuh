@@ -1,0 +1,133 @@
+// Shared pieces of the flash attention kernels (K1-K5) for Hopper: f32/bf16
+// loads and stores, the tile shape and its thread mapping, and the loader of
+// a (rows × D) tile into shared memory.
+//
+// Every kernel keeps its tiles in shared memory in f32 and computes on the
+// CUDA cores with f32 FMAs. A thread block owns one tile of "rows" (query
+// rows for K1-K4, key rows for K5) and loops over tiles of "columns". A
+// group of G consecutive lanes shares TR = 4 rows; each lane holds TC
+// columns of every row for the logits and DC of the D output columns.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace flash {
+
+constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
+
+template <typename T>
+struct Io;
+
+template <>
+struct Io<float> {
+    static __device__ __forceinline__ void load4(const float* p, float* out) {
+        const float4 v = *reinterpret_cast<const float4*>(p);
+        out[0] = v.x;
+        out[1] = v.y;
+        out[2] = v.z;
+        out[3] = v.w;
+    }
+    static __device__ __forceinline__ void store4(float* p, const float* in) {
+        *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+    }
+    static __device__ __forceinline__ float round(float x) { return x; }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+    static __device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                                 float* out) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(p);
+        __nv_bfloat162 a, b;
+        *reinterpret_cast<uint32_t*>(&a) = raw.x;
+        *reinterpret_cast<uint32_t*>(&b) = raw.y;
+        const float2 fa = __bfloat1622float2(a);
+        const float2 fb = __bfloat1622float2(b);
+        out[0] = fa.x;
+        out[1] = fa.y;
+        out[2] = fb.x;
+        out[3] = fb.y;
+    }
+    static __device__ __forceinline__ void store4(__nv_bfloat16* p,
+                                                  const float* in) {
+        const __nv_bfloat162 a = __floats2bfloat162_rn(in[0], in[1]);
+        const __nv_bfloat162 b = __floats2bfloat162_rn(in[2], in[3]);
+        uint2 raw;
+        raw.x = *reinterpret_cast<const uint32_t*>(&a);
+        raw.y = *reinterpret_cast<const uint32_t*>(&b);
+        *reinterpret_cast<uint2*>(p) = raw;
+    }
+    static __device__ __forceinline__ float round(float x) {
+        return __bfloat162float(__float2bfloat16(x));
+    }
+};
+
+// Tile shape. TR rows per thread (4: one float4 of a d-major row tile); G
+// lanes per row group; each thread holds TC = BK/G logits and DC = D/G
+// outputs of each of its rows.
+template <int D_, int BQ_, int BK_, int G_>
+struct Tile {
+    static constexpr int D = D_, BQ = BQ_, BK = BK_, G = G_, TR = 4;
+    static constexpr int NT = (BQ / TR) * G;  // threads per block
+    static constexpr int TC = BK / G;
+    static constexpr int DC = D / G;
+    static constexpr int VW = (TC % 4 == 0) ? 4 : 1;  // S-column vector width
+    static constexpr int QS = BQ + 4;  // row stride (floats) of row-side d-major tiles
+    static constexpr int KS = BK + 4;  // row stride of column-side d-major tiles
+    static_assert(32 % G == 0, "a row group lies inside one warp");
+    static_assert(BK % G == 0 && D % (4 * G) == 0 && BQ % TR == 0, "tiling");
+    static_assert(NT % 32 == 0 && NT <= 1024, "whole warps");
+};
+
+// Column of the S tile held in a thread's slot j (lane c of its group):
+// vector chunks interleaved over the group so that the lanes of a group
+// read consecutive shared-memory words.
+template <class C>
+__device__ __forceinline__ int s_col(int j, int c) {
+    return ((j / C::VW) * C::G + c) * C::VW + (j % C::VW);
+}
+
+// Rows [row0, row0 + R) of a contiguous (n, D) matrix into shared memory as
+// f32: transposed into t_dst[D][ld] (d-major) when t_dst is set, row-major
+// into r_dst[R][D] when r_dst is set. Rows at or past n read as 0.
+template <typename T, int R, int D, int NT>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, int row0,
+                                          int n, float* t_dst, int ld,
+                                          float* r_dst) {
+    constexpr int D4 = D / 4;
+    for (int e = threadIdx.x; e < R * D4; e += NT) {
+        const int row = e / D4, d0 = (e % D4) * 4;
+        float x[4] = {0.f, 0.f, 0.f, 0.f};
+        if (row0 + row < n) Io<T>::load4(src + size_t(row0 + row) * D + d0, x);
+        if (t_dst != nullptr) {
+#pragma unroll
+            for (int t = 0; t < 4; ++t) t_dst[(d0 + t) * ld + row] = x[t];
+        }
+        if (r_dst != nullptr)
+            *reinterpret_cast<float4*>(r_dst + row * D + d0) =
+                make_float4(x[0], x[1], x[2], x[3]);
+    }
+}
+
+// Sum of x over the G lanes of a row group (every lane gets the sum).
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+    return x;
+}
+
+// Opt the kernel into `smem` bytes of dynamic shared memory.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, int smem) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+}  // namespace flash

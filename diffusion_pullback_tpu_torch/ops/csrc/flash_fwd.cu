@@ -1,14 +1,19 @@
-// Flash attention forward (K1) for Hopper: O = softmax(Q Kᵀ · scale) V.
+// Flash attention forward for Hopper: O = softmax(Q Kᵀ · scale) V (K1), and
+// the same with the row logsumexp L = m + log l (K2).
 //
-// Replaces the Pallas TPU kernel `_flash_kernel` / `_flash_forward` in
+// K1 replaces the Pallas TPU kernel `_flash_kernel` / `_flash_forward`, K2
+// `_flash_fwd_lse_kernel` / `_flash_forward_lse`, both in
 // diffusion_pullback_tpu/ops/pallas/flash_attention.py. Same arithmetic:
 // online softmax per query row (running max m, normaliser l, accumulator),
 // logits never written to device memory, f32 accumulation, the
 // probabilities rounded to V's dtype before the P·V product (as the Pallas
-// kernel's `p.astype(v.dtype)`), output cast to the input dtype. No LSE.
+// kernel's `p.astype(v.dtype)`), output cast to the input dtype. K2 also
+// writes L in f32 as (B·H, Sq); Pallas broadcasts it to 128 lanes, a TPU
+// layout choice. One kernel template serves both (LSE = false / true).
 //
-// Layout (B·H, S, D), contiguous; f32 or bf16 inputs. Head dims 64 (the SD
-// U-Net self-attention) and 512 (the single-head VAE mid-block).
+// Layout (B·H, S, D), contiguous; f32 or bf16 inputs. K1 takes head dims 64
+// (the SD U-Net self-attention) and 512 (the single-head VAE mid-block); K2,
+// the forward of the differentiated U-Net encoder, takes 64.
 //
 // Parallelism: the Pallas grid carries the softmax state across a
 // sequential K-block axis. Here one thread block owns a Q tile and loops
@@ -20,7 +25,7 @@
 // group, and the same group splits the D output columns of those rows.
 //
 // What bounds it: the work is 4·BH·Sq·Sk·D operations on
-// 2·(BH·Sq·D + BH·Sk·D) elements, so at the path's shapes it is bound by
+// 2·(BH·Sq·D + BH·Sk·D) elements (K2: plus BH·Sq f32), so at the path's shapes it is bound by
 // operations, not bytes. This kernel computes on the CUDA cores in FP32
 // (67 TFLOP/s peak on an H100 SXM) for both input types; bf16's bound is
 // the tensor-core rate (989 TFLOP/s), which only a wgmma/mma version
@@ -29,101 +34,32 @@
 // loads, so the FMA units rather than shared memory set the pace.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared
-// library with a plain C interface (flash_fwd below), loaded with ctypes.
+// library with a plain C interface (flash_fwd, flash_fwd_lse below), loaded
+// with ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
+using flash::Io;
+using flash::kNegInf;
+using flash::s_col;
+using flash::Tile;
 
-template <typename T>
-struct Io;
-
-template <>
-struct Io<float> {
-    static __device__ __forceinline__ void load4(const float* p, float* out) {
-        const float4 v = *reinterpret_cast<const float4*>(p);
-        out[0] = v.x;
-        out[1] = v.y;
-        out[2] = v.z;
-        out[3] = v.w;
-    }
-    static __device__ __forceinline__ void store4(float* p, const float* in) {
-        *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-    }
-    static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-    static __device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                                 float* out) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(p);
-        __nv_bfloat162 a, b;
-        *reinterpret_cast<uint32_t*>(&a) = raw.x;
-        *reinterpret_cast<uint32_t*>(&b) = raw.y;
-        const float2 fa = __bfloat1622float2(a);
-        const float2 fb = __bfloat1622float2(b);
-        out[0] = fa.x;
-        out[1] = fa.y;
-        out[2] = fb.x;
-        out[3] = fb.y;
-    }
-    static __device__ __forceinline__ void store4(__nv_bfloat16* p,
-                                                  const float* in) {
-        const __nv_bfloat162 a = __floats2bfloat162_rn(in[0], in[1]);
-        const __nv_bfloat162 b = __floats2bfloat162_rn(in[2], in[3]);
-        uint2 raw;
-        raw.x = *reinterpret_cast<const uint32_t*>(&a);
-        raw.y = *reinterpret_cast<const uint32_t*>(&b);
-        *reinterpret_cast<uint2*>(p) = raw;
-    }
-    static __device__ __forceinline__ float round(float x) {
-        return __bfloat162float(__float2bfloat16(x));
-    }
-};
-
-// Tile shape. TR query rows per thread (4: one float4 of Qᵀ/Pᵀ); G lanes
-// per row group; each thread holds TC = BK/G logits and DC = D/G outputs
-// of each of its rows.
-template <int D_, int BQ_, int BK_, int G_>
-struct Tile {
-    static constexpr int D = D_, BQ = BQ_, BK = BK_, G = G_, TR = 4;
-    static constexpr int NT = (BQ / TR) * G;  // threads per block
-    static constexpr int TC = BK / G;
-    static constexpr int DC = D / G;
-    static constexpr int VW = (TC % 4 == 0) ? 4 : 1;  // S-column vector width
-    static constexpr int QS = BQ + 4;  // row stride (floats) of Qᵀ and Pᵀ
-    static constexpr int KS = BK + 4;  // row stride of Kᵀ
-    static constexpr int SMEM_FLOATS = D * QS + D * KS + BK * D + BK * QS;
-    static_assert(32 % G == 0, "a row group lies inside one warp");
-    static_assert(BK % G == 0 && D % (4 * G) == 0 && BQ % TR == 0, "tiling");
-    static_assert(NT % 32 == 0 && NT <= 1024, "whole warps");
-};
+// Qᵀ, Kᵀ, V and Pᵀ tiles in f32
+template <class C>
+constexpr int kSmemFloats = C::D * C::QS + C::D * C::KS + C::BK * C::D + C::BK * C::QS;
 
 // D=64: 64×64 tiles, 128 threads, 68.6 KB shared memory (3 blocks per SM).
 using TileD64 = Tile<64, 64, 64, 8>;
 // D=512: 32×32 tiles, 256 threads, 217.6 KB shared memory (1 block per SM).
 using TileD512 = Tile<512, 32, 32, 32>;
 
-// Column of the S tile held in a thread's slot j (lane c of its group):
-// vector chunks interleaved over the group so that the lanes of a group
-// read consecutive shared-memory words.
-template <class C>
-__device__ __forceinline__ int s_col(int j, int c) {
-    return ((j / C::VW) * C::G + c) * C::VW + (j % C::VW);
-}
-
-template <typename T, class C>
+template <typename T, class C, bool LSE>
 __global__ void __launch_bounds__(C::NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-                 float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int sq, int sk, float scale) {
     constexpr int D = C::D, BQ = C::BQ, BK = C::BK, G = C::G, TR = C::TR;
     constexpr int TC = C::TC, DC = C::DC, QS = C::QS, KS = C::KS;
     constexpr int D4 = D / 4;
@@ -272,21 +208,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int t = 0; t < 4; ++t) out[t] = acc[i][4 * g + t] / l[i];
             Io<T>::store4(orow + (g * G + c) * 4, out);
         }
+        // every lane of the group holds the same m and l after the shuffles
+        if constexpr (LSE) {
+            if (c == 0) lse[bh * sq + row] = m[i] + logf(l[i]);
+        }
     }
 }
 
-template <typename T, class C>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int sk, float scale, cudaStream_t stream) {
-    const int smem = C::SMEM_FLOATS * int(sizeof(float));
-    auto kernel = flash_fwd_kernel<T, C>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <typename T, class C, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int sq, int sk, float scale, cudaStream_t stream) {
+    const int smem = kSmemFloats<C> * int(sizeof(float));
+    auto kernel = flash_fwd_kernel<T, C, LSE>;
+    cudaError_t err = flash::allow_smem(kernel, smem);
     if (err != cudaSuccess) return int(err);
     const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
     kernel<<<grid, C::NT, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), sq, sk, scale);
+        static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, scale);
     return int(cudaGetLastError());
 }
 
@@ -303,12 +242,25 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, int bh,
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (d == 64)
-        return is_bf16 ? launch<__nv_bfloat16, TileD64>(q, k, v, o, bh, sq, sk, scale, s)
-                       : launch<float, TileD64>(q, k, v, o, bh, sq, sk, scale, s);
+        return is_bf16 ? launch<__nv_bfloat16, TileD64, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s)
+                       : launch<float, TileD64, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
     if (d == 512)
-        return is_bf16 ? launch<__nv_bfloat16, TileD512>(q, k, v, o, bh, sq, sk, scale, s)
-                       : launch<float, TileD512>(q, k, v, o, bh, sq, sk, scale, s);
+        return is_bf16 ? launch<__nv_bfloat16, TileD512, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s)
+                       : launch<float, TileD512, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
     return int(cudaErrorInvalidValue);
+}
+
+// K2: as flash_fwd, plus lse (bh, sq) float32, the row logsumexp of the
+// scaled logits. Head dim 64 only.
+int flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                  void* lse, int bh, int sq, int sk, int d, int is_bf16,
+                  float scale, void* stream) {
+    if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || d != 64)
+        return int(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* l = static_cast<float*>(lse);
+    return is_bf16 ? launch<__nv_bfloat16, TileD64, true>(q, k, v, o, l, bh, sq, sk, scale, s)
+                   : launch<float, TileD64, true>(q, k, v, o, l, bh, sq, sk, scale, s);
 }
 
 }  // extern "C"

@@ -1,23 +1,46 @@
-"""Flash attention forward (K1): the CUDA kernel, its plain version, the binding.
+"""Flash attention kernels K1–K5: the CUDA kernels, their plain versions, the
+bindings and the autograd rules that compose with torch.func.
 
-Counterpart of the Pallas `_flash_forward` / `_flash_kernel` in
-diffusion_pullback_tpu/ops/pallas/flash_attention.py. The kernel source is
-csrc/flash_fwd.cu; it is compiled with nvcc for sm_90a at first use into
-``.build/`` next to this module (keyed on the source's hash) and loaded
-with ctypes.
+Counterparts of the Pallas kernels in
+diffusion_pullback_tpu/ops/pallas/flash_attention.py:
 
-``flash_forward`` takes (B·H, S, D) tensors. A CPU tensor goes to
-``flash_forward_plain`` (a blockwise online softmax in torch, the
-counterpart of the kernel's arithmetic); a CUDA tensor launches the kernel
-or raises. The CUDA path is primal-only: asking it for a tangent or a
-gradient raises, as the JAX package never puts its `flash` primal under
-linearize (ops/attention.py there). The fused JVP/VJP kernels are ROADMAP
-slice 2.
+    K1  flash_forward      `_flash_forward`      softmax(QKᵀ·scale)·V
+    K2  flash_forward_lse  `_flash_forward_lse`  the same plus L = m + log l
+    K3  flash_tangent      `_flash_tangent`      the forward-mode tangent Ȯ
+    K4  flash_dq           `_flash_backward`     dQ   (its dq pallas_call)
+    K5  flash_dkv          `_flash_backward`     dK, dV (its dkv pallas_call)
+
+The sources are csrc/*.cu; they are compiled with nvcc for sm_90a at first
+use into one shared library under ``.build/`` next to this package (keyed on
+the sources' hash) and loaded with ctypes. Each wrapper takes (B·H, S, D)
+tensors: a CPU tensor goes to the kernel's plain version (the same
+arithmetic and the same bf16 rounding in torch), a CUDA tensor launches the
+kernel or raises. ``<wrapper>.launches`` counts kernel launches.
+
+Two autograd Functions carry the kernels through torch.func, as the JAX
+package's custom_vjp / custom_jvp pair does:
+
+* ``_Flash`` (custom_vjp ``_flash``): K1 when no gradient is recorded, K2
+  when one is; backward is K4 + K5; jvp raises.
+* ``_FlashFwdMode`` (custom_jvp ``_flash_fwdmode``): K2; jvp is K3;
+  backward raises.
+
+Under ``vmap`` the kernels are reached through Functions with vmap rules
+that fold the vmapped axis into B·H (K3 through ``_Tangent``, K4 and K5
+through ``_FlashBackward``). Over the pullback's probes only the
+tangents (K3) or the cotangent (K4, K5) are batched: the kernels then read
+primal slice ``b % B·H`` for batched slice ``b``, so the probes share one
+copy of Q, K, V, O and L.
+
+torch.func.linearize traces with make_fx, which cannot trace a ctypes
+launch, so the port's tangent passes use ``jvp``: each pass runs the primal
+forward (K2) again, where JAX linearises once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import subprocess
@@ -27,18 +50,15 @@ import threading
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 512)  # head dims the kernel is built for
+HEAD_DIMS = (64, 512)  # head dims K1 is built for
+PAIR_HEAD_DIMS = (64,)  # head dims K2–K5 are built for
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "flash_fwd.cu")
+SOURCES = tuple(sorted(glob.glob(os.path.join(_HERE, "csrc", "*.cu"))))
+HEADERS = tuple(sorted(glob.glob(os.path.join(_HERE, "csrc", "*.cuh"))))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), ".build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_PRIMAL_ONLY = (
-    "the CUDA flash forward kernel (K1) is primal-only; the fused JVP/VJP "
-    "kernels that differentiate it are ROADMAP slice 2 — use attn_impl='xla' "
-    "on a differentiated path")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -49,34 +69,52 @@ def _nvcc() -> str:
 
     nvcc = os.path.join(CUDA_HOME or "", "bin", "nvcc")
     if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the flash kernel builds from source "
+        raise RuntimeError("nvcc not found: the flash kernels build from source "
                            "with the CUDA toolkit (set CUDA_HOME)")
     return nvcc
 
 
 def build() -> tuple[str, str]:
-    """Compile csrc/flash_fwd.cu (if this source hash is not built yet).
-    Returns (path of the shared library, nvcc's output of this build or '')."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"flash_fwd-{digest}.so")
+    """Compile csrc/*.cu into one shared library (if these sources are not
+    built yet): one nvcc per source, all started together, then one link.
+    Returns (path of the library, nvcc's output of this build or '')."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in SOURCES + HEADERS:
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    lib_path = os.path.join(BUILD_DIR, f"flash-{digest.hexdigest()[:16]}.so")
     if os.path.exists(lib_path):
         return lib_path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-            capture_output=True, text=True, timeout=600)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        log = ""
+        try:
+            for proc, src in zip(procs, SOURCES):
+                out, _ = proc.communicate(timeout=600)
+                log += out
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                       f"({proc.returncode}):\n{out}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        so = os.path.join(tmp, "flash.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True, timeout=600)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path, proc.stdout + proc.stderr
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(so, lib_path)
+    return lib_path, log
 
 
 def _load():
@@ -85,19 +123,34 @@ def _load():
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(path)
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.flash_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                      ctypes.c_float, vp]
-            lib.flash_fwd.restype = ci
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            sig = {  # pointers, then ints, then scale and stream
+                "flash_fwd": (4, 5),
+                "flash_fwd_lse": (5, 5),
+                "flash_tangent": (9, 6),
+                "flash_dq": (7, 6),
+                "flash_dkv": (8, 6),
+            }
+            for name, (n_ptr, n_int) in sig.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [vp] * n_ptr + [ci] * n_int + [cf, vp]
+                fn.restype = ci
             _lib = lib
         return _lib
 
 
-def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float, block_k: int = 512) -> torch.Tensor:
-    """The kernel's arithmetic in torch: online softmax over K blocks, f32
-    state, probabilities rounded to V's dtype before P·V, output in q's
-    dtype. q (BH, Sq, D), k/v (BH, Sk, D) → (BH, Sq, D)."""
+# ---- plain versions (the kernels' arithmetic in torch) -----------------------
+
+def _share(r: int, *primals: torch.Tensor):
+    """The primal operands tiled r times along B·H: batched slice b reads
+    primal slice b % B·H, as the kernels index them."""
+    return tuple(t.repeat(r, *(1,) * (t.ndim - 1)) if r > 1 else t
+                 for t in primals)
+
+
+def _online_softmax(q, k, v, scale, block_k):
+    """(acc / l in f32, m, l) by online softmax over K blocks, probabilities
+    rounded to V's dtype before P·V."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     qf = q.float()
@@ -114,85 +167,455 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + torch.bmm(p.to(vb.dtype).float(), vb.float())
         m = m_new
-    return (acc / l).to(q.dtype)
+    return acc / l, m, l
 
 
-def _launch(q, k, v, scale):
+def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float, block_k: int = 512) -> torch.Tensor:
+    """K1's arithmetic in torch: online softmax over K blocks, f32 state,
+    probabilities rounded to V's dtype before P·V, output in q's dtype.
+    q (BH, Sq, D), k/v (BH, Sk, D) → (BH, Sq, D)."""
+    return _online_softmax(q, k, v, scale, block_k)[0].to(q.dtype)
+
+
+def flash_forward_lse_plain(q, k, v, scale: float, block_k: int = 512):
+    """K2's arithmetic: K1's output and the row logsumexp L = m + log l,
+    (BH, Sq) f32."""
+    out, m, l = _online_softmax(q, k, v, scale, block_k)
+    return out.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _key_blocks(q, k, lse, scale, block_k):
+    """(key slice, K block in f32, P = exp(S − L)) per block of keys."""
+    qf = q.float()
+    for start in range(0, k.shape[1], block_k):
+        blk = slice(start, start + block_k)
+        kb = k[:, blk].float()
+        s = torch.bmm(qf, kb.transpose(1, 2)) * scale
+        yield blk, kb, torch.exp(s - lse[..., None])
+
+
+def flash_tangent_plain(q, k, v, dq, dk, dv, o, lse, scale: float,
+                        block_k: int = 512) -> torch.Tensor:
+    """K3's arithmetic: Ṡ = (Q̇Kᵀ + QK̇ᵀ)·scale, P = exp(S − L),
+    Ȯ = Σ(P∘Ṡ)V + P·V̇ − rowsum(P∘Ṡ)∘O, with P∘Ṡ and P rounded to the
+    input dtype before their products and Ȯ in O's dtype. The tangents may
+    have r times the primal's B·H (probes folded in)."""
+    q, k, v, o, lse = _share(dq.shape[0] // q.shape[0], q, k, v, o, lse)
+    dqf = dq.float()
+    acc = torch.zeros(dq.shape, dtype=torch.float32, device=q.device)
+    rsum = torch.zeros((*dq.shape[:2], 1), dtype=torch.float32, device=q.device)
+    for blk, kb, p in _key_blocks(q, k, lse, scale, block_k):
+        ds = (torch.bmm(dqf, kb.transpose(1, 2))
+              + torch.bmm(q.float(), dk[:, blk].float().transpose(1, 2))) * scale
+        pds = p * ds
+        acc = acc + torch.bmm(pds.to(v.dtype).float(), v[:, blk].float()) \
+            + torch.bmm(p.to(dv.dtype).float(), dv[:, blk].float())
+        rsum = rsum + pds.sum(dim=-1, keepdim=True)
+    return (acc - rsum * o.float()).to(o.dtype)
+
+
+def _dscores(p, do, vb, delta):
+    """dS = P ∘ (dO·Vᵀ − δ) in f32."""
+    dp = torch.bmm(do.float(), vb.float().transpose(1, 2))
+    return p * (dp - delta[..., None])
+
+
+def flash_dq_plain(q, k, v, do, lse, delta, scale: float,
+                   block_k: int = 512) -> torch.Tensor:
+    """K4's arithmetic: dQ = scale·Σ_k [P∘(dO·Vᵀ − δ)]·K, dS rounded to K's
+    dtype before the product; dQ in q's dtype. The cotangent (do, delta)
+    may have r times the primal's B·H."""
+    q, k, v, lse = _share(do.shape[0] // q.shape[0], q, k, v, lse)
+    acc = torch.zeros(do.shape, dtype=torch.float32, device=q.device)
+    for blk, kb, p in _key_blocks(q, k, lse, scale, block_k):
+        ds = _dscores(p, do, v[:, blk], delta)
+        acc = acc + torch.bmm(ds.to(k.dtype).float(), kb)
+    return (acc * scale).to(q.dtype)
+
+
+def flash_dkv_plain(q, k, v, do, lse, delta, scale: float, block_k: int = 512):
+    """K5's arithmetic: dV = Σ_q Pᵀ·dO and dK = scale·Σ_q [P∘(dO·Vᵀ − δ)]ᵀ·Q,
+    P rounded to dO's and dS to Q's dtype before the products; dK, dV in
+    k's and v's dtype."""
+    q, k, v, lse = _share(do.shape[0] // q.shape[0], q, k, v, lse)
+    dk = torch.empty(do.shape[0], *k.shape[1:], dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk, dtype=v.dtype)
+    for blk, _, p in _key_blocks(q, k, lse, scale, block_k):
+        ds = _dscores(p, do, v[:, blk], delta)
+        dv[:, blk] = torch.bmm(p.to(do.dtype).float().transpose(1, 2),
+                               do.float()).to(v.dtype)
+        dk[:, blk] = (torch.bmm(ds.to(q.dtype).float().transpose(1, 2),
+                                q.float()) * scale).to(k.dtype)
+    return dk, dv
+
+
+# ---- wrappers: the kernel on CUDA, the plain version on the CPU --------------
+
+def _check(name, t, shape, dtype, device):
+    if torch._C._functorch.is_functorch_wrapped_tensor(t):
+        raise TypeError(f"{name}: a functorch-wrapped tensor reached a flash "
+                        f"kernel; call it through its autograd Function")
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name}: {t.device}/{t.dtype}, expected "
+                         f"{device}/{dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _operands(q, head_dims, /, **named):
+    """Check the operands of one call against their expected shapes and
+    dtypes (``named``: name → (tensor, shape, dtype or None for q's)) and
+    return them contiguous. On CUDA also the kernel's head dims and dtypes;
+    the plain versions take any."""
+    if _device(q):
+        if q.shape[-1] not in head_dims:
+            raise ValueError(f"flash kernel takes head dims {head_dims}, "
+                             f"got {q.shape[-1]}")
+        if q.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"flash kernel takes float32 or bfloat16, got "
+                            f"{q.dtype}")
+    out = []
+    for name, (t, shape, dtype) in named.items():
+        _check(name, t, shape, dtype or q.dtype, q.device)
+        out.append(t.contiguous())
+    return out
+
+
+def _device(q) -> bool:
+    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
+    if q.device.type == "cuda":
+        return True
+    if q.device.type == "cpu":
+        return False
+    raise ValueError(f"the flash kernels run on cuda or cpu, not {q.device}")
+
+
+def _launch(name, q, *args):
+    """Call kernel ``name`` of the library on q's device and current stream;
+    ``args`` are tensors (passed by pointer, 16-byte aligned) and ints/floats
+    in the C function's order. Raises on a launch the runtime refused."""
+    lib = _load()
+    cargs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if a.data_ptr() % 16:
+                raise ValueError(f"{name}: operands must be 16-byte aligned")
+            cargs.append(a.data_ptr())
+        else:
+            cargs.append(a)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, name)(*cargs, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _is_bf16(q) -> int:
+    return int(q.dtype == torch.bfloat16)
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """K1 on (B·H, S, D) tensors → (B·H, Sq, D) in q's dtype."""
     bh, sq, d = q.shape
     sk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head dims {HEAD_DIMS}, got {d}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
-    for name, t, s in (("q", q, sq), ("k", k, sk), ("v", v, sk)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name}: {t.device}/{t.dtype} vs q's "
-                             f"{q.device}/{q.dtype}")
-        if tuple(t.shape) != (bh, s, d) or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous ({bh}, {s}, {d}) "
-                             f"tensor, got {tuple(t.shape)}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    lib = _load()
+    q, k, v = _operands(q, HEAD_DIMS, q=(q, (bh, sq, d), None),
+                        k=(k, (bh, sk, d), None), v=(v, (bh, sk, d), None))
+    if not _device(q):
+        return flash_forward_plain(q, k, v, scale)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), bh, sq, sk, d,
-                            int(q.dtype == torch.bfloat16), float(scale),
-                            stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
+    _launch("flash_fwd", q, q, k, v, out, bh, sq, sk, d, _is_bf16(q),
+            float(scale))
     flash_forward.launches += 1
     return out
 
 
-class _FlashForwardCUDA(torch.autograd.Function):
-    """The kernel as a primal-only autograd node: every derivative raises."""
+def flash_forward_lse(q, k, v, scale: float):
+    """K2 on (B·H, S, D) tensors → (o in q's dtype, L (B·H, Sq) f32)."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    q, k, v = _operands(q, PAIR_HEAD_DIMS, q=(q, (bh, sq, d), None),
+                        k=(k, (bh, sk, d), None), v=(v, (bh, sk, d), None))
+    if not _device(q):
+        return flash_forward_lse_plain(q, k, v, scale)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd_lse", q, q, k, v, out, lse, bh, sq, sk, d, _is_bf16(q),
+            float(scale))
+    flash_forward_lse.launches += 1
+    return out, lse
+
+
+def _batched_bh(t, bh_primal, what):
+    if t.shape[0] % bh_primal:
+        raise ValueError(f"{what} B·H {t.shape[0]} is not a multiple of the "
+                         f"primal's {bh_primal}")
+    return t.shape[0]
+
+
+def flash_tangent(q, k, v, dq, dk, dv, o, lse, scale: float) -> torch.Tensor:
+    """K3: the tangent Ȯ (in o's dtype) of attention at (q, k, v) with
+    output o and logsumexp lse, along (dq, dk, dv). The tangents may carry
+    r·B·H slices against the primal's B·H (probes folded in)."""
+    bhp, sq, d = q.shape
+    sk = k.shape[1]
+    bh = _batched_bh(dq, bhp, "the tangents'")
+    q, k, v, dq, dk, dv, o, lse = _operands(
+        q, PAIR_HEAD_DIMS, q=(q, (bhp, sq, d), None), k=(k, (bhp, sk, d), None),
+        v=(v, (bhp, sk, d), None), dq=(dq, (bh, sq, d), None),
+        dk=(dk, (bh, sk, d), None), dv=(dv, (bh, sk, d), None),
+        o=(o, (bhp, sq, d), None), lse=(lse, (bhp, sq), torch.float32))
+    if not _device(q):
+        return flash_tangent_plain(q, k, v, dq, dk, dv, o, lse, scale)
+    out = torch.empty_like(dq)
+    _launch("flash_tangent", q, q, k, v, dq, dk, dv, o, lse, out, bh, bhp, sq,
+            sk, d, _is_bf16(q), float(scale))
+    flash_tangent.launches += 1
+    return out
+
+
+def _bwd_operands(q, k, v, do, lse, delta):
+    bhp, sq, d = q.shape
+    sk = k.shape[1]
+    bh = _batched_bh(do, bhp, "the cotangent's")
+    ops = _operands(
+        q, PAIR_HEAD_DIMS, q=(q, (bhp, sq, d), None), k=(k, (bhp, sk, d), None),
+        v=(v, (bhp, sk, d), None), do=(do, (bh, sq, d), None),
+        lse=(lse, (bhp, sq), torch.float32),
+        delta=(delta, (bh, sq), torch.float32))
+    return ops, (bh, bhp, sq, sk, d)
+
+
+def flash_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
+    """K4: dQ (in q's dtype) from the cotangent do and δ = rowsum(do∘o); do
+    and delta may carry r·B·H slices against the primal's B·H."""
+    (q, k, v, do, lse, delta), dims = _bwd_operands(q, k, v, do, lse, delta)
+    if not _device(q):
+        return flash_dq_plain(q, k, v, do, lse, delta, scale)
+    dq = torch.empty_like(do)
+    _launch("flash_dq", q, q, k, v, do, lse, delta, dq, *dims, _is_bf16(q),
+            float(scale))
+    flash_dq.launches += 1
+    return dq
+
+
+def flash_dkv(q, k, v, do, lse, delta, scale: float):
+    """K5: (dK, dV) in k's and v's dtype; batching as flash_dq."""
+    (q, k, v, do, lse, delta), dims = _bwd_operands(q, k, v, do, lse, delta)
+    if not _device(q):
+        return flash_dkv_plain(q, k, v, do, lse, delta, scale)
+    bh, _, _, sk, d = dims
+    dk = torch.empty((bh, sk, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    _launch("flash_dkv", q, q, k, v, do, lse, delta, dk, dv, *dims,
+            _is_bf16(q), float(scale))
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+for _fn in (flash_forward, flash_forward_lse, flash_tangent, flash_dq, flash_dkv):
+    _fn.launches = 0
+
+
+# ---- autograd Functions and their vmap rules ---------------------------------
+
+def _fold(t, dim, r, tile=1):
+    """``t`` at one vmap level → (r·tile·B·H, …): the vmapped dim (None:
+    unbatched, expanded) moved to the front, B·H tiled ``tile`` times, and
+    both folded into B·H, vmapped index major."""
+    t = t.expand(r, *t.shape) if dim is None else t.movedim(dim, 0)
+    if tile > 1:
+        t = t.repeat(1, tile, *(1,) * (t.ndim - 2))
+    return t.reshape(-1, *t.shape[2:])
+
+
+def _unfold(t, r):
+    return t.reshape(r, -1, *t.shape[1:])
+
+
+def _fold_shared(info, primals, primal_dims, batched, batched_dims):
+    """Fold one vmap level of a kernel whose ``batched`` operands (tangents
+    or cotangent) may hold more slices than its primals. Unbatched primals
+    stay as they are (the kernel shares them); batched ones are tiled to the
+    batched operands' B·H first, so slice b still pairs with slice b."""
+    r = info.batch_size
+    if all(d is None for d in primal_dims):
+        folded_primals = primals
+    else:
+        per = lambda t, d: t.shape[0] if d is None else t.movedim(d, 0).shape[1]
+        tile = per(batched[0], batched_dims[0]) // per(primals[0], primal_dims[0])
+        folded_primals = tuple(_fold(t, d, r, tile)
+                               for t, d in zip(primals, primal_dims))
+    return folded_primals, tuple(_fold(t, d, r)
+                                 for t, d in zip(batched, batched_dims))
+
+
+class _Tangent(torch.autograd.Function):
+    """K3 as a vmappable node (the tangent rule of _FlashFwdMode calls it
+    with tangents batched over the probes)."""
 
     @staticmethod
-    def forward(q, k, v, scale):
-        return _launch(q, k, v, scale)
+    def forward(q, k, v, dq, dk, dv, o, lse, scale):
+        return flash_tangent(q, k, v, dq, dk, dv, o, lse, scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         pass
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(_PRIMAL_ONLY)
+    def vmap(info, in_dims, q, k, v, dq, dk, dv, o, lse, scale):
+        (q, k, v, o, lse), (dq, dk, dv) = _fold_shared(
+            info, (q, k, v, o, lse), in_dims[:3] + in_dims[6:8], (dq, dk, dv),
+            in_dims[3:6])
+        out = _Tangent.apply(q, k, v, dq, dk, dv, o, lse, scale)
+        return _unfold(out, info.batch_size), 0
+
+
+class _FlashBackward(torch.autograd.Function):
+    """K4 and K5 as one vmappable node (the backward of _Flash calls it with
+    the cotangent batched over the probes). Returns (dq, dk, dv)."""
+
+    @staticmethod
+    def forward(q, k, v, do, lse, delta, scale):
+        return (flash_dq(q, k, v, do, lse, delta, scale),
+                *flash_dkv(q, k, v, do, lse, delta, scale))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, do, lse, delta, scale):
+        (q, k, v, lse), (do, delta) = _fold_shared(
+            info, (q, k, v, lse), in_dims[:3] + in_dims[4:5], (do, delta),
+            (in_dims[3], in_dims[5]))
+        grads = _FlashBackward.apply(q, k, v, do, lse, delta, scale)
+        return tuple(_unfold(g, info.batch_size) for g in grads), (0, 0, 0)
+
+
+def _fold_all(info, in_dims, *ts):
+    return tuple(_fold(t, d, info.batch_size) for t, d in zip(ts, in_dims))
+
+
+class _Flash(torch.autograd.Function):
+    """The custom_vjp ``_flash``: forward K1 (``with_lse`` False: no
+    gradient is recorded) or K2 (saving q, k, v, o, L); backward δ in
+    torch, then K4 and K5; no forward-mode rule. Returns (o, L or None)."""
+
+    @staticmethod
+    def forward(q, k, v, scale, with_lse):
+        if with_lse:
+            return flash_forward_lse(q, k, v, scale)
+        return flash_forward(q, k, v, scale), None
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale, with_lse = inputs
+        o, lse = output
+        ctx.scale = scale
+        if with_lse:
+            ctx.mark_non_differentiable(lse)
+            ctx.save_for_backward(q, k, v, o, lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = (do.float() * o.float()).sum(dim=-1)
+        return (*_FlashBackward.apply(q, k, v, do, lse, delta, ctx.scale),
+                None, None)
 
     @staticmethod
     def jvp(ctx, *tangents):
-        raise NotImplementedError(_PRIMAL_ONLY)
+        raise NotImplementedError(
+            "flash attention 'flash' (the custom_vjp kernel pair K2/K4/K5) has "
+            "no forward-mode rule, as in the JAX package; use 'flash_jvp' "
+            "(flash_attention_jvp) on a path that is jvp'd")
 
     @staticmethod
-    def vmap(info, in_dims, *args):
-        raise NotImplementedError(_PRIMAL_ONLY)
+    def vmap(info, in_dims, q, k, v, scale, with_lse):
+        o, lse = _Flash.apply(*_fold_all(info, in_dims, q, k, v), scale,
+                              with_lse)
+        r = info.batch_size
+        if lse is None:
+            return (_unfold(o, r), None), (0, None)
+        return (_unfold(o, r), _unfold(lse, r)), (0, 0)
 
 
-def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  scale: float) -> torch.Tensor:
-    """K1 on (B·H, S, D) tensors: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. ``flash_forward.launches`` counts kernel
-    launches."""
-    if q.device.type == "cpu":
-        return flash_forward_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_forward runs on cuda or cpu, not {q.device}")
-    return _FlashForwardCUDA.apply(q, k, v, scale)
+class _FlashFwdMode(torch.autograd.Function):
+    """The custom_jvp ``_flash_fwdmode``: forward K2, keeping L for the
+    tangent rule, which runs K3 (a ``None`` tangent counts as zeros, as
+    JAX's SymbolicZero); no reverse-mode rule. Returns (o, L)."""
+
+    @staticmethod
+    def forward(q, k, v, scale):
+        return flash_forward_lse(q, k, v, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale = inputs
+        o, lse = output
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_forward(q, k, v, o, lse)
+
+    @staticmethod
+    def jvp(ctx, dq, dk, dv, _dscale):
+        q, k, v, o, lse = ctx.saved_tensors
+        inst = lambda t, p: torch.zeros_like(p) if t is None else t.to(p.dtype)
+        do = _Tangent.apply(q, k, v, inst(dq, q), inst(dk, k), inst(dv, v), o,
+                            lse, ctx.scale)
+        return do, None
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "flash attention 'flash_jvp' (the custom_jvp kernels K2/K3) is not "
+            "reverse-mode differentiable, as in the JAX package; pair it with "
+            "'flash' through local_pullback's fn_vjp")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, scale):
+        o, lse = _FlashFwdMode.apply(*_fold_all(info, in_dims, q, k, v), scale)
+        r = info.batch_size
+        return (_unfold(o, r), _unfold(lse, r)), (0, 0)
 
 
-flash_forward.launches = 0
+# ---- public entries, layout (B, S, H, D) like ops.attention ------------------
+
+def _check_blocks(name, sq, sk):
+    bq, bk = min(512, sq), min(512, sk)
+    if sq % bq or sk % bk:
+        raise ValueError(
+            f"{name} requires sequence lengths divisible by the block size "
+            f"(sq={sq}, sk={sk}, blocks=({bq},{bk})); use impl='xla' for "
+            f"irregular lengths")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float | None = None) -> torch.Tensor:
-    """Public entry, layout (B, S, H, D) like ops.attention."""
+def _bh_call(fn, q, k, v, scale, *extra):
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    to_bh = lambda x, s: x.transpose(1, 2).reshape(b * h, s, d).contiguous()
-    out = flash_forward(to_bh(q, sq), to_bh(k, sk), to_bh(v, sk), float(scale))
+    to_bh = lambda x, s: x.transpose(1, 2).reshape(b * h, s, d)
+    out, _ = fn(to_bh(q, sq), to_bh(k, sk), to_bh(v, sk), float(scale), *extra)
     return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float | None = None) -> torch.Tensor:
+    """Reverse-mode-differentiable fused attention (the custom_vjp entry):
+    K1 when no gradient is recorded, K2 + K4/K5 when one is."""
+    _check_blocks("flash_attention", q.shape[1], k.shape[1])
+    with_lse = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return _bh_call(_Flash.apply, q, k, v, scale, with_lse)
+
+
+def flash_attention_jvp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float | None = None) -> torch.Tensor:
+    """Forward-mode-differentiable fused attention (the custom_jvp entry):
+    K2, with K3 as its tangent rule. Not reverse-mode differentiable: pair
+    it with ``flash_attention`` through local_pullback's ``fn_vjp``."""
+    _check_blocks("flash_attention_jvp", q.shape[1], k.shape[1])
+    return _bh_call(_FlashFwdMode.apply, q, k, v, scale)

@@ -1,8 +1,11 @@
 """Guards of the port: it imports neither JAX nor the JAX package, its entry
-points refuse to run without CUDA unless given the CPU, the fused-pair
-pullback (ROADMAP slice 2) raises, and chip_smoke.py fails without a card."""
+points refuse to run without CUDA unless given the CPU, the CLI's pullback
+defaults to the fused kernel pair on CUDA and to the math path on the CPU,
+and chip_smoke.py fails without a card."""
 
 import ast
+import dataclasses
+import json
 import os
 import pathlib
 import shutil
@@ -43,22 +46,52 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_pullback_flash_raises_naming_slice_2():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tmain.main(["--note", "x", "--device", "cpu", "--pullback_attn_impl",
-                    "flash", "--run_edit_local_encoder_pullback_zt", "True"])
+@pytest.fixture
+def tiny_models(monkeypatch):
+    """The CLI's SD 2.1-base presets swapped for tiny ones (16 px images,
+    8×8 latents), so the CLI runs on the CPU in seconds."""
+    from diffusion_pullback_tpu_torch import models
+
+    monkeypatch.setattr(models, "sd21_base_unet", lambda **over: dataclasses.replace(
+        models.sd_tiny_unet(2), **over))
+    monkeypatch.setattr(models, "sd_vae", lambda **over: dataclasses.replace(
+        models.vae_tiny(16), **over))
+    monkeypatch.setattr(models, "sd21_text_encoder", models.clip_text_tiny)
 
 
-def test_flash_cuda_path_is_primal_only():
-    """The kernel's autograd node raises on every derivative (checked here
-    through its rules; the launch itself needs the card)."""
-    from diffusion_pullback_tpu_torch.ops.flash_attention import _FlashForwardCUDA
+def test_pullback_flash_raises_naming_slice_2(tmp_path, monkeypatch, tiny_models):
+    """``--pullback_attn_impl flash --device cpu`` runs the edit path with
+    the fused pair as the pullback's encoder (the kernels' plain versions
+    on the CPU)."""
+    monkeypatch.chdir(tmp_path)
+    edit = tmain.main([
+        "--note", "x", "--device", "cpu", "--pullback_attn_impl", "flash",
+        "--result_folder", str(tmp_path / "runs"), "--for_steps", "4",
+        "--inv_steps", "4", "--edit_t", "0.5", "--x_space_guidance_num_step",
+        "2", "--run_edit_local_encoder_pullback_zt", "True"])
+    with open(edit.log.path) as f:
+        events = [json.loads(line) for line in f]
+    assert [e["encoder"] for e in events if e["event"] == "sd_local_pullback"
+            ] == ["flashpair"]
+    assert [e["finite"] for e in events if e["event"] == "sd_decode_and_save"
+            ] == [True]
 
-    for rule in (lambda: _FlashForwardCUDA.backward(None, None),
-                 lambda: _FlashForwardCUDA.jvp(None, None, None, None),
-                 lambda: _FlashForwardCUDA.vmap(None, None)):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            rule()
+
+@pytest.mark.parametrize("device,impl", [("cuda", "flash"), ("cpu", "xla")])
+def test_flash_cuda_path_is_primal_only(monkeypatch, tiny_models, device, impl):
+    """``--pullback_attn_impl ''`` (the default) takes the fused pair on
+    CUDA and the math path on the CPU, as the JAX CLI does on an
+    accelerator and on the CPU (checked up to the experiment's config; the
+    experiment itself needs the card for CUDA)."""
+    from diffusion_pullback_tpu_torch import experiments
+    from diffusion_pullback_tpu_torch.utils import device as device_mod
+
+    monkeypatch.setattr(device_mod, "resolve_device",
+                        lambda d=None: torch.device(d or "cuda"))
+    monkeypatch.setattr(experiments, "EditStableDiffusion",
+                        lambda *a, **kw: a[5])  # the SDExperimentConfig
+    args = ["--note", "x"] + (["--device", "cpu"] if device == "cpu" else [])
+    assert tmain.build_sd(tmain.parse_args(args)).pullback_attn_impl == impl
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script-alone"])
