@@ -5,11 +5,16 @@ Phases (any failure exits non-zero before the last line is printed):
                (one nvcc per source, in parallel, linked into one library);
   2. kernels — each kernel against its plain PyTorch version at every shape
                the main path gives it, float32 (TF32 off) and bfloat16, with
-               the kernel's, the plain version's and a PyTorch yardstick's
-               times (F.scaled_dot_product_attention for K1, the flash SDPA
-               forward / backward ops for K2 and K4+K5; the port never calls
-               them) and the bound; then the fused pair under torch.func
-               (vmap of jvp, vmap of a vjp function) against the math path;
+               the design that served it as the C entries report it
+               ('wgmma': K1/K2 in bf16 at D=64; 'simt': the CUDA-core
+               kernels), the kernel's, the plain version's and a PyTorch
+               yardstick's times (F.scaled_dot_product_attention for K1; for
+               K2 and K4+K5 the flash SDPA forward / backward ops in bf16
+               and the memory-efficient ones in f32; the port never calls
+               them), the host's time per wrapper call, the bound, the
+               achieved TFLOP/s and the bound's share of the kernel's time;
+               then the fused pair under torch.func (vmap of jvp, vmap of a
+               vjp function) against the math path;
   3. U-Net   — one full-width SD 2.1-base U-Net: ε with attn_impl='flash'
                (K1) against attn_impl='xla' (the math path), and the mid-tap
                encoder pullback with the fused pair against the math path
@@ -21,9 +26,12 @@ Phases (any failure exits non-zero before the last line is printed):
                with the CLI's defaults on the card (--attn_impl flash, the
                fused-pair pullback) and small step counts; each kernel's
                launches, by shape, must equal what the path launches, and
-               their summed device time is reported; then the pullback
+               their summed device time is reported, by shape and by design;
+               then the pullback
                again, warm, and the math-path pullback, cold and warm.
-Then a JSON line of the kernels, the card's name and power limit, and
+Then a JSON line of the kernels (one entry per kernel and design on the
+main path, at the shape that carries most of that design's device time
+there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
 
@@ -86,6 +94,19 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters=20):
+    """Host microseconds per call of fn, issued back to back without
+    waiting for the card (20 launches do not fill the launch queue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / iters
+
+
 def k1_tol(ref, dtype):
     """K1 against its plain version: 1e-4 in float32 (the two differ only
     in the order of f32 sums, ~4e-7 measured); in bfloat16 two ulps of
@@ -107,6 +128,21 @@ def pair_tol(ref):
     if ref.dtype == torch.float32:
         return 1e-4 * max(1.0, top)
     return 2 * torch.finfo(ref.dtype).eps * 2.0 ** math.floor(math.log2(top))
+
+
+def design(fa, label, shape, dtype):
+    """The design that serves a kernel call: for K1 and K2 as their C
+    entries report it; K3–K5 have the CUDA-core design only."""
+    return fa.forward_design(shape[-1], dtype) if label in ("K1", "K2") else "simt"
+
+
+def rate(row, ops):
+    """The row's achieved TFLOP/s and its bound's share of its time."""
+    row["tflops"] = ops / row["ms"] / 1e9
+    row["bound_frac"] = row["bound_ms"] / row["ms"]
+    return (f"{row['design']}, {row['tflops']:.1f} TFLOP/s, "
+            f"{100 * row['bound_frac']:.1f} % of the bound, host "
+            f"{row['host_us']:.1f} µs per call")
 
 
 def bound_ms(nbytes, ops, dtype):
@@ -157,17 +193,20 @@ def phase_k1(fa):
             row = dict(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: fa.flash_forward(q, k, v, scale), 20),
+                host_us=host_us(lambda: fa.flash_forward(q, k, v, scale)),
                 plain_ms=cuda_ms(lambda: fa.flash_forward_plain(q, k, v, scale), 5),
                 # 4-D (1, B·H, S, D): SDPA picks its fused kernels only for 4-D
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                     q[None], k[None], v[None], scale=scale), 20),
             )
             row["bound_ms"], row["bound_by"] = k1_bound_ms(shape, dtype)
+            row["design"] = design(fa, "K1", shape, dtype)
             rows[(shape, dtype)] = row
             log(f"[k1] {shape} {str(dtype)[6:]}: max_abs_err {err:.3g} (tol "
                 f"{tol:.3g}) kernel {row['ms']:.4f} ms, plain "
                 f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                + rate(row, 4.0 * shape[0] * shape[1] ** 2 * shape[2]))
             if not err <= tol:
                 raise AssertionError(f"K1 disagrees with its plain version at "
                                      f"{shape} {dtype}: {err} > {tol}")
@@ -181,6 +220,8 @@ def phase_pair(fa):
     gen = torch.Generator(device="cuda").manual_seed(2)
     sdpa = torch.ops.aten._scaled_dot_product_flash_attention
     sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    eff_bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
     rows, r = {}, PCA_RANK
     for bhp, s, d in PAIR_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -202,14 +243,24 @@ def phase_pair(fa):
                        lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, scale)),
             }
             library = {"K2": None, "K3": None, "K4": None, "K5": None}
+            q4, k4, v4 = (t.repeat(r, 1, 1)[None] for t in (q, k, v))
             if dtype == torch.bfloat16:  # the flash SDPA ops take bf16 only
-                q4, k4, v4 = (t.repeat(r, 1, 1)[None] for t in (q, k, v))
                 fwd4 = sdpa(q4, k4, v4, 0.0, False, False, scale=scale)
                 bwd_args = (do[None], q4, k4, v4, *fwd4[:6], 0.0, False, *fwd4[6:8])
                 library["K2"] = cuda_ms(lambda: sdpa(
                     q[None], k[None], v[None], 0.0, False, False, scale=scale), 20)
                 library["K4"] = library["K5"] = cuda_ms(
                     lambda: sdpa_bwd(*bwd_args, scale=scale), 20)
+            else:  # f32: the memory-efficient SDPA ops (output + logsumexp)
+                out4, lse4, seed, offset = eff(q4, k4, v4, None, True, 0.0, False,
+                                               scale=scale)
+                bwd_args = (do[None], q4, k4, v4, None, out4, lse4, seed, offset,
+                            0.0, [True, True, True, False], False)
+                library["K2"] = cuda_ms(lambda: eff(
+                    q[None], k[None], v[None], None, True, 0.0, False,
+                    scale=scale), 20)
+                library["K4"] = library["K5"] = cuda_ms(
+                    lambda: eff_bwd(*bwd_args, scale=scale), 20)
             for label, (kernel, plain) in calls.items():
                 outs, refs = kernel(), plain()
                 torch.cuda.synchronize()
@@ -219,10 +270,12 @@ def phase_pair(fa):
                         for a, b in zip(outs, refs)]
                 shape = (bhp if label == "K2" else r * bhp, s, d)
                 row = dict(max_abs_err=max(e for e, _ in errs),
-                           ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 3),
+                           ms=cuda_ms(kernel, 20), host_us=host_us(kernel),
+                           plain_ms=cuda_ms(plain, 3),
                            library_ms=library[label])
                 row["bound_ms"], row["bound_by"] = pair_bound_ms(
                     label, bhp, 1 if label == "K2" else r, s, d, dtype)
+                row["design"] = design(fa, label, shape, dtype)
                 rows[(label, shape, dtype)] = row
                 lib = ("—" if row["library_ms"] is None
                        else f"{row['library_ms']:.4f} ms")
@@ -230,7 +283,8 @@ def phase_pair(fa):
                     + ", ".join(f"{e:.3g} (tol {t:.3g})" for e, t in errs)
                     + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
                     f"ms, library {lib}, bound {row['bound_ms']:.4f} ms "
-                    f"({row['bound_by']})")
+                    f"({row['bound_by']}); "
+                    + rate(row, PAIR_OPS[label] * shape[0] * s * s * d))
                 if not all(e <= t for e, t in errs):
                     raise AssertionError(f"{label} disagrees with its plain "
                                          f"version at {shape} {dtype}: {errs}")
@@ -490,6 +544,15 @@ def phase_edit(fa):
             f"(expected {expected[(sym, shape, dtype)]}), {ms:.3f} ms on the device")
     kernel_ms = {sym: sum(ms for (s, _, _), (_, ms) in path.items() if s == sym)
                  for sym in KERNELS}
+    # (symbol, design) → [launches, summed device ms], and its heaviest key
+    by_design, heaviest = collections.defaultdict(lambda: [0, 0.0]), {}
+    for key, (n, ms) in path.items():
+        sym, shape, dtype = key
+        kd = (sym, design(fa, KERNELS[sym][0], shape, dtype))
+        by_design[kd][0] += n
+        by_design[kd][1] += ms
+        if kd not in heaviest or ms > path[heaviest[kd]][1]:
+            heaviest[kd] = key
     expected_total = {sym: sum(n for (s, _, _), n in expected.items() if s == sym)
                       for sym in KERNELS}
 
@@ -503,6 +566,9 @@ def phase_edit(fa):
         log(f"[edit] {label}: {launches[sym]} launches (expected "
             f"{expected_total[sym]}), {kernel_ms[sym]:.2f} ms on the device "
             f"({100 * kernel_ms[sym] / 1e3 / seconds:.2f} % of the path)")
+        log(f"[edit] {label} by design: " + ", ".join(
+            f"{dsg} {n} launches, {ms:.2f} ms" for (of, dsg), (n, ms)
+            in sorted(by_design.items()) if of == sym))
 
     finite = [e for e in events if e["event"] == "sd_decode_and_save"]
     checks = {
@@ -529,11 +595,7 @@ def phase_edit(fa):
     timed_pullback(edit, zt, "flash", "fused pair, warm")
     timed_pullback(edit, zt, "xla", "math path, first in this process")
     timed_pullback(edit, zt, "xla", "math path, warm")
-    heaviest = {}
-    for (sym, shape, dtype), (_, ms) in path.items():
-        if sym not in heaviest or ms > path[heaviest[sym]][1]:
-            heaviest[sym] = (sym, shape, dtype)
-    return launches, heaviest, kernel_ms
+    return {kd: (heaviest[kd], n, ms) for kd, (n, ms) in by_design.items()}
 
 
 def main():
@@ -568,20 +630,23 @@ def main():
     del unet
     torch.cuda.empty_cache()
 
-    launches, heaviest, path_ms = phase_edit(fa)
+    on_path = phase_edit(fa)
 
-    # per-launch numbers at the shape that carries most of each kernel's
-    # device time on the main path; path_ms is its summed device time there
+    # one entry per kernel and design on the main path: its launches and
+    # summed device time there (path_ms), and the per-launch numbers of
+    # phase 2 at the shape that carries most of that device time
     kernels = []
-    for sym, (label, _, source, line) in KERNELS.items():
-        _, shape, dtype = heaviest[sym]
+    for (sym, dsg), ((_, shape, dtype), n, ms) in sorted(
+            on_path.items(), key=lambda kv: (list(KERNELS).index(kv[0][0]), kv[0][1])):
+        label, _, source, line = KERNELS[sym]
         row = k1_rows[(shape, dtype)] if label == "K1" else pair_rows[(label, shape, dtype)]
+        if dsg == "wgmma":  # flash_fwd.cu's entries route it there
+            source = "flash_fwd_tc.cu"
         kernels.append(dict(
-            name=f"{sym} ({label})", route="cuda",
+            name=f"{sym} ({label}, {dsg})", route="cuda",
             source=f"diffusion_pullback_tpu_torch/ops/csrc/{source}",
             replaces=f"diffusion_pullback_tpu/ops/pallas/flash_attention.py:{line}",
-            launches=launches[sym], shape=list(shape),
-            dtype=str(dtype)[6:], path_ms=path_ms[sym], **row))
+            launches=n, shape=list(shape), dtype=str(dtype)[6:], path_ms=ms, **row))
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

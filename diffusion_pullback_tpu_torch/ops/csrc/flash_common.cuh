@@ -1,9 +1,10 @@
-// Shared pieces of the flash attention kernels (K1-K5) for Hopper: f32/bf16
-// loads and stores, the tile shape and its thread mapping, and the loader of
-// a (rows × D) tile into shared memory.
+// Shared pieces of the flash attention kernels (K1-K5) for Hopper: NEG_INF,
+// f32/bf16 loads and stores, the tile shape and its thread mapping, and the
+// loader of a (rows × D) tile into shared memory.
 //
-// Every kernel keeps its tiles in shared memory in f32 and computes on the
-// CUDA cores with f32 FMAs. A thread block owns one tile of "rows" (query
+// The CUDA-core kernels ("simt"; all but the wgmma design of
+// flash_fwd_tc.cu) keep their tiles in shared memory in f32 and compute
+// with f32 FMAs. A thread block owns one tile of "rows" (query
 // rows for K1-K4, key rows for K5) and loops over tiles of "columns". A
 // group of G consecutive lanes shares TR = 4 rows; each lane holds TC
 // columns of every row for the logits and DC of the D output columns.
@@ -129,5 +130,9 @@ inline cudaError_t allow_smem(K kernel, int smem) {
     return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
+
+// K1 / K2 on the tensor-core design, bf16 at D = 64 (flash_fwd_tc.cu).
+int fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+              int bh, int sq, int sk, float scale, cudaStream_t stream);
 
 }  // namespace flash

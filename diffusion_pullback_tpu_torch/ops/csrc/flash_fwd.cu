@@ -9,29 +9,35 @@
 // probabilities rounded to V's dtype before the P·V product (as the Pallas
 // kernel's `p.astype(v.dtype)`), output cast to the input dtype. K2 also
 // writes L in f32 as (B·H, Sq); Pallas broadcasts it to 128 lanes, a TPU
-// layout choice. One kernel template serves both (LSE = false / true).
+// layout choice.
 //
 // Layout (B·H, S, D), contiguous; f32 or bf16 inputs. K1 takes head dims 64
 // (the SD U-Net self-attention) and 512 (the single-head VAE mid-block); K2,
 // the forward of the differentiated U-Net encoder, takes 64.
 //
-// Parallelism: the Pallas grid carries the softmax state across a
-// sequential K-block axis. Here one thread block owns a Q tile and loops
-// over all K/V tiles itself; blocks are independent (grid = Q tiles × B·H).
-// Each tile goes through shared memory in f32: Qᵀ and Kᵀ (d-major, so a
-// thread reads its rows/columns of S with vector loads), V row-major, and
-// the probability tile Pᵀ. A group of G consecutive lanes shares TR query
-// rows; the row max and row sum are reduced with warp shuffles inside the
-// group, and the same group splits the D output columns of those rows.
+// Two designs. bf16 at D = 64 goes to the tensor-core design "wgmma"
+// (flash_fwd_tc.cu: TMA loads, wgmma products, bound by the bf16
+// tensor-core rate). Everything else, f32 at D = 64 and 512 and bf16 at
+// D = 512, runs the CUDA-core design "simt" below: wgmma has no f32
+// operand, and TF32 would lose the 1e-4 agreement with the plain version.
+//
+// "simt": the Pallas grid carries the softmax state across a sequential
+// K-block axis. Here one thread block owns a Q tile and loops over all K/V
+// tiles itself; blocks are independent (grid = Q tiles × B·H). Each tile
+// goes through shared memory in f32: Qᵀ and Kᵀ (d-major, so a thread reads
+// its rows/columns of S with vector loads), V row-major, and the
+// probability tile Pᵀ. A group of G consecutive lanes shares TR query rows;
+// the row max and row sum are reduced with warp shuffles inside the group,
+// and the same group splits the D output columns of those rows. One kernel
+// template serves K1 and K2 (LSE = false / true).
 //
 // What bounds it: the work is 4·BH·Sq·Sk·D operations on
-// 2·(BH·Sq·D + BH·Sk·D) elements (K2: plus BH·Sq f32), so at the path's shapes it is bound by
-// operations, not bytes. This kernel computes on the CUDA cores in FP32
-// (67 TFLOP/s peak on an H100 SXM) for both input types; bf16's bound is
-// the tensor-core rate (989 TFLOP/s), which only a wgmma/mma version
-// reaches. The design keeps each S element's D-long dot product and each
-// P·V update in registers fed by broadcast or conflict-free shared-memory
-// loads, so the FMA units rather than shared memory set the pace.
+// 2·(BH·Sq·D + BH·Sk·D) elements (K2: plus BH·Sq f32), so at the path's
+// shapes it is bound by operations, not bytes. "simt" computes on the CUDA
+// cores in FP32 (67 TFLOP/s peak on an H100 SXM). The design keeps each S
+// element's D-long dot product and each P·V update in registers fed by
+// broadcast or conflict-free shared-memory loads, so the FMA units rather
+// than shared memory set the pace.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a into a shared
 // library with a plain C interface (flash_fwd, flash_fwd_lse below), loaded
@@ -233,6 +239,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 extern "C" {
 
+// 1 if flash_fwd and flash_fwd_lse run a call at head dim d (is_bf16 as
+// theirs) on the tensor-core design "wgmma", 0 for the CUDA-core "simt".
+// The entries dispatch on it, and the bindings ask it which design served
+// a launch.
+int flash_fwd_design(int d, int is_bf16) { return d == 64 && is_bf16; }
+
 // q (bh, sq, d), k/v (bh, sk, d), o (bh, sq, d): contiguous device arrays
 // of one dtype (is_bf16 = 0: float32, 1: bfloat16), 16-byte aligned.
 // Returns a cudaError_t code: 0 on a launch that was accepted.
@@ -241,9 +253,9 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, int bh,
     if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0)
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (d == 64)
-        return is_bf16 ? launch<__nv_bfloat16, TileD64, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s)
-                       : launch<float, TileD64, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
+    if (flash_fwd_design(d, is_bf16))
+        return flash::fwd_wgmma(q, k, v, o, nullptr, bh, sq, sk, scale, s);
+    if (d == 64) return launch<float, TileD64, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
     if (d == 512)
         return is_bf16 ? launch<__nv_bfloat16, TileD512, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s)
                        : launch<float, TileD512, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
@@ -259,8 +271,8 @@ int flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* l = static_cast<float*>(lse);
-    return is_bf16 ? launch<__nv_bfloat16, TileD64, true>(q, k, v, o, l, bh, sq, sk, scale, s)
-                   : launch<float, TileD64, true>(q, k, v, o, l, bh, sq, sk, scale, s);
+    if (flash_fwd_design(d, is_bf16)) return flash::fwd_wgmma(q, k, v, o, l, bh, sq, sk, scale, s);
+    return launch<float, TileD64, true>(q, k, v, o, l, bh, sq, sk, scale, s);
 }
 
 }  // extern "C"

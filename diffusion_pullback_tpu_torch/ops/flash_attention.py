@@ -10,6 +10,10 @@ diffusion_pullback_tpu/ops/pallas/flash_attention.py:
     K4  flash_dq           `_flash_backward`     dQ   (its dq pallas_call)
     K5  flash_dkv          `_flash_backward`     dK, dV (its dkv pallas_call)
 
+K1 and K2 in bf16 at head dim 64 (every U-Net self-attention) run the
+tensor-core design, TMA loads and wgmma products (csrc/flash_fwd_tc.cu);
+every other call runs the CUDA-core kernels in f32 (csrc/flash_*.cu).
+
 The sources are csrc/*.cu; they are compiled with nvcc for sm_90a at first
 use into one shared library under ``.build/`` next to this package (keyed on
 the sources' hash) and loaded with ctypes. Each wrapper takes (B·H, S, D)
@@ -135,6 +139,8 @@ def _load():
                 fn = getattr(lib, name)
                 fn.argtypes = [vp] * n_ptr + [ci] * n_int + [cf, vp]
                 fn.restype = ci
+            lib.flash_fwd_design.argtypes = [ci, ci]
+            lib.flash_fwd_design.restype = ci
             _lib = lib
         return _lib
 
@@ -313,6 +319,14 @@ def _launch(name, q, *args):
 
 def _is_bf16(q) -> int:
     return int(q.dtype == torch.bfloat16)
+
+
+def forward_design(d: int, dtype: torch.dtype) -> str:
+    """The design K1 and K2 run on the card at head dim d and dtype, as
+    their C entries dispatch: 'wgmma' (tensor cores) or 'simt' (CUDA
+    cores)."""
+    wgmma = _load().flash_fwd_design(d, int(dtype == torch.bfloat16))
+    return "wgmma" if wgmma else "simt"
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

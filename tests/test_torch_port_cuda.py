@@ -26,17 +26,30 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(3, 1000, 64), (2, 700, 512), (10, 1024, 64)])
+# (B·H, Sq, Sk, D). At D=64 in bf16 the wgmma design serves K1 and K2 with
+# 64-row query tiles and 64-key tiles: Sq and Sk off those multiples (1000,
+# 700, 200, 130), Sq < 64, Sq ≠ Sk both ways, B·H = 1, and B·H > 1 with a
+# ragged last query tile (a 2-D tensor map would read the next head's rows
+# there)
+@pytest.mark.parametrize("shape", [
+    (3, 1000, 1000, 64), (2, 700, 700, 512), (10, 1024, 1024, 64),
+    (3, 1000, 700, 64), (2, 700, 1000, 64), (1, 50, 700, 64),
+    (1, 4096, 4096, 64), (4, 200, 130, 64), (30, 4096, 4096, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
+    """K1 (and K2 at D=64) against their plain versions, one launch each,
+    on the wgmma design in bf16 at D=64 and the CUDA-core one otherwise."""
+    bh, sq, sk, d = shape
+    wgmma = d == 64 and dtype == torch.bfloat16
+    assert fa.forward_design(d, dtype) == ("wgmma" if wgmma else "simt")
     gen = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(shape, device=cuda, generator=gen).to(dtype)
-               for _ in range(3))
+    q, k, v = (torch.randn(n, s, d, device=cuda, generator=gen).to(dtype)
+               for n, s in ((bh, sq), (bh, sk), (bh, sk)))
     n0 = fa.flash_forward.launches
-    out = fa.flash_forward(q, k, v, shape[-1] ** -0.5)
+    out = fa.flash_forward(q, k, v, d ** -0.5)
     torch.cuda.synchronize()
     assert fa.flash_forward.launches == n0 + 1
-    ref = fa.flash_forward_plain(q, k, v, shape[-1] ** -0.5)
+    ref = fa.flash_forward_plain(q, k, v, d ** -0.5)
     assert out.dtype == dtype
     # f32: the two differ only in the order of f32 sums; bf16: both round
     # the same f32 value, so at most an ulp apart — two ulps of max |ref|
@@ -44,6 +57,15 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     tol = 1e-4 if dtype == torch.float32 else (
         2 * torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top)))
     assert (out.float() - ref.float()).abs().max().item() <= tol
+    if d not in fa.PAIR_HEAD_DIMS:
+        return
+    n0 = fa.flash_forward_lse.launches
+    out, lse = fa.flash_forward_lse(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_forward_lse.launches == n0 + 1
+    ref_o, ref_lse = fa.flash_forward_lse_plain(q, k, v, d ** -0.5)
+    assert (out.float() - ref_o.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
 def _tol(ref, dtype):

@@ -40,19 +40,36 @@ def test_flash_plain_matches_pallas_interpret(b, s, h, d):
     np.testing.assert_allclose(out_bh, ref_bh, atol=1e-5)
 
 
-def test_flash_plain_bf16_matches_pallas_interpret():
+# key blocks: the plain version's default (512) and the wgmma kernel's key
+# tile (64; ops/csrc/flash_fwd_tc.cu)
+@pytest.mark.parametrize("block_k", [512, 64])
+def test_flash_plain_bf16_matches_pallas_interpret(block_k):
     """bf16 inputs: both round the probabilities to bf16 before P·V and the
-    output to bf16; one bf16 ulp (2⁻⁷ at |x|≈1) is the tolerance."""
+    output to bf16; one bf16 ulp (2⁻⁷ at |x|≈1) is the tolerance. At each
+    key block, K1 (Pallas at block_q = block_k) against the plain version at
+    that block, and K2 likewise, its L against the Pallas kernel's lane 0 to
+    1e-5."""
     import ml_dtypes
 
     q, k, v = _qkv(2, 1024, 1024, 1, 64, seed=3)
     qb, kb, vb = (x[:, :, 0].astype(ml_dtypes.bfloat16) for x in (q, k, v))
-    ref = np.asarray(jfa._flash_forward(*map(jnp.asarray, (qb, kb, vb)),
-                                        0.125, interpret=True), np.float32)
+    jq, jk, jv = map(jnp.asarray, (qb, kb, vb))
+    blocks = dict(block_q=block_k, block_k=block_k, interpret=True)
+    ref = np.asarray(jfa._flash_forward(jq, jk, jv, 0.125, **blocks), np.float32)
     tt = lambda x: torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
-    out = tfa.flash_forward(tt(qb), tt(kb), tt(vb), 0.125)
+    tq, tk, tv = tt(qb), tt(kb), tt(vb)
+    out = tfa.flash_forward_plain(tq, tk, tv, 0.125, block_k=block_k)
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), ref, atol=2 ** -7)
+    if block_k == 512:  # the wrapper's CPU path is the plain version at 512
+        assert torch.equal(tfa.flash_forward(tq, tk, tv, 0.125), out)
+
+    ref_o, ref_l = jfa._flash_forward_lse(jq, jk, jv, 0.125, **blocks)
+    out_o, out_l = tfa.flash_forward_lse_plain(tq, tk, tv, 0.125, block_k=block_k)
+    np.testing.assert_allclose(out_o.float().numpy(),
+                               np.asarray(ref_o, np.float32), atol=2 ** -7)
+    np.testing.assert_allclose(out_l.numpy(), np.asarray(ref_l)[..., 0],
+                               atol=1e-5, rtol=0)
 
 
 def test_flash_plain_ragged_blocks_match_math_path():
