@@ -5,10 +5,10 @@ Phases (any failure exits non-zero before the last line is printed):
                (one nvcc per source, in parallel, linked into one library);
   2. kernels — each kernel against its plain PyTorch version at every shape
                the main path gives it, float32 (TF32 off) and bfloat16, with
-               the design that served it as the C entries report it
-               ('wgmma': K1/K2 in bf16 at D=64; 'simt': the CUDA-core
-               kernels), the kernel's, the plain version's and a PyTorch
-               yardstick's times (F.scaled_dot_product_attention for K1; for
+               the design that served it as the C library's one rule
+               reports it ('wgmma': K1, K2, K4 and K5 in bf16 at D=64;
+               'simt': the CUDA-core kernels), the kernel's, the plain
+               version's and a PyTorch yardstick's times (F.scaled_dot_product_attention for K1; for
                K2 and K4+K5 the flash SDPA forward / backward ops in bf16
                and the memory-efficient ones in f32; the port never calls
                them), the host's time per wrapper call, the bound, the
@@ -65,14 +65,18 @@ K1_SHAPES = [(5 * b, 4096, 64) for b in (1, 4, 6)] + [
 # primal (B·H, S, D); K3–K5 see the probes folded into B·H
 PCA_RANK = 2
 PAIR_SHAPES = [(5, 4096, 64), (10, 1024, 64)]
-# C symbol → (label, wrapper, source in ops/csrc, line of the Pallas call
-# it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
+# C symbol → (label, wrapper, source in ops/csrc by design, line of the
+# Pallas call it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
 KERNELS = {
-    "flash_fwd": ("K1", "flash_forward", "flash_fwd.cu", 179),
-    "flash_fwd_lse": ("K2", "flash_forward_lse", "flash_fwd.cu", 253),
-    "flash_tangent": ("K3", "flash_tangent", "flash_jvp.cu", 497),
-    "flash_dq": ("K4", "flash_dq", "flash_bwd.cu", 378),
-    "flash_dkv": ("K5", "flash_dkv", "flash_bwd.cu", 396),
+    "flash_fwd": ("K1", "flash_forward",
+                  {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu"}, 179),
+    "flash_fwd_lse": ("K2", "flash_forward_lse",
+                      {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu"}, 253),
+    "flash_tangent": ("K3", "flash_tangent", {"simt": "flash_jvp.cu"}, 497),
+    "flash_dq": ("K4", "flash_dq",
+                 {"simt": "flash_bwd.cu", "wgmma": "flash_bwd_tc.cu"}, 378),
+    "flash_dkv": ("K5", "flash_dkv",
+                  {"simt": "flash_bwd.cu", "wgmma": "flash_bwd_tc.cu"}, 396),
 }
 # K2–K5's operations per (B·H)·S²·D, B·H the tangents' or the cotangent's
 PAIR_OPS = {"K2": 4, "K3": 10, "K4": 6, "K5": 8}
@@ -128,12 +132,6 @@ def pair_tol(ref):
     if ref.dtype == torch.float32:
         return 1e-4 * max(1.0, top)
     return 2 * torch.finfo(ref.dtype).eps * 2.0 ** math.floor(math.log2(top))
-
-
-def design(fa, label, shape, dtype):
-    """The design that serves a kernel call: for K1 and K2 as their C
-    entries report it; K3–K5 have the CUDA-core design only."""
-    return fa.forward_design(shape[-1], dtype) if label in ("K1", "K2") else "simt"
 
 
 def rate(row, ops):
@@ -200,7 +198,7 @@ def phase_k1(fa):
                     q[None], k[None], v[None], scale=scale), 20),
             )
             row["bound_ms"], row["bound_by"] = k1_bound_ms(shape, dtype)
-            row["design"] = design(fa, "K1", shape, dtype)
+            row["design"] = fa.design("K1", shape[-1], dtype)
             rows[(shape, dtype)] = row
             log(f"[k1] {shape} {str(dtype)[6:]}: max_abs_err {err:.3g} (tol "
                 f"{tol:.3g}) kernel {row['ms']:.4f} ms, plain "
@@ -275,7 +273,7 @@ def phase_pair(fa):
                            library_ms=library[label])
                 row["bound_ms"], row["bound_by"] = pair_bound_ms(
                     label, bhp, 1 if label == "K2" else r, s, d, dtype)
-                row["design"] = design(fa, label, shape, dtype)
+                row["design"] = fa.design(label, shape[-1], dtype)
                 rows[(label, shape, dtype)] = row
                 lib = ("—" if row["library_ms"] is None
                        else f"{row['library_ms']:.4f} ms")
@@ -548,7 +546,7 @@ def phase_edit(fa):
     by_design, heaviest = collections.defaultdict(lambda: [0, 0.0]), {}
     for key, (n, ms) in path.items():
         sym, shape, dtype = key
-        kd = (sym, design(fa, KERNELS[sym][0], shape, dtype))
+        kd = (sym, fa.design(KERNELS[sym][0], shape[-1], dtype))
         by_design[kd][0] += n
         by_design[kd][1] += ms
         if kd not in heaviest or ms > path[heaviest[kd]][1]:
@@ -638,13 +636,11 @@ def main():
     kernels = []
     for (sym, dsg), ((_, shape, dtype), n, ms) in sorted(
             on_path.items(), key=lambda kv: (list(KERNELS).index(kv[0][0]), kv[0][1])):
-        label, _, source, line = KERNELS[sym]
+        label, _, sources, line = KERNELS[sym]
         row = k1_rows[(shape, dtype)] if label == "K1" else pair_rows[(label, shape, dtype)]
-        if dsg == "wgmma":  # flash_fwd.cu's entries route it there
-            source = "flash_fwd_tc.cu"
         kernels.append(dict(
             name=f"{sym} ({label}, {dsg})", route="cuda",
-            source=f"diffusion_pullback_tpu_torch/ops/csrc/{source}",
+            source=f"diffusion_pullback_tpu_torch/ops/csrc/{sources[dsg]}",
             replaces=f"diffusion_pullback_tpu/ops/pallas/flash_attention.py:{line}",
             launches=n, shape=list(shape), dtype=str(dtype)[6:], path_ms=ms, **row))
     log(json.dumps({"kernels": kernels}))

@@ -7,11 +7,15 @@
 //
 // Replace the Pallas TPU kernels `_flash_dq_kernel` and `_flash_dkv_kernel`
 // (the two pallas_calls of `_flash_backward`) in
-// diffusion_pullback_tpu/ops/pallas/flash_attention.py. Same rounding: dS is
-// rounded to K's dtype before dS·K (K4), P to dO's and dS to Q's dtype
-// before Pᵀ·dO and dSᵀ·Q (K5); sums in f32; outputs in the input dtype.
+// diffusion_pullback_tpu/ops/pallas/flash_attention.py. Sums in f32; the
+// Pallas kernels' roundings of dS and P to the input dtype are exact in f32.
 //
-// Layout (B·H, S, D), contiguous; f32 or bf16; head dim 64. The cotangent
+// Two designs, chosen by flash_design (flash_common.cuh): bf16 goes to the
+// tensor-core design "wgmma" (flash_bwd_tc.cu); f32 runs the CUDA-core
+// design "simt" below, since wgmma has no f32 operand and TF32 would lose
+// the 1e-4 agreement with the plain versions.
+//
+// Layout (B·H, S, D), contiguous; head dim 64. The cotangent
 // (dO, δ) and the outputs may carry more slices than the primal: a vmap over
 // probes folds the probe axis into their B·H, and cotangent slice b reads
 // primal slice b % bh_primal (Q, K, V, L), so the probes share one copy.
@@ -21,22 +25,20 @@
 // output tile has one owner and no atomics: a K4 block owns a 64-row Q tile
 // and loops over the K tiles; a K5 block owns a 64-row K tile and loops over
 // the Q tiles (Q innermost, as the Pallas dkv grid). The logits S and dO Vᵀ
-// are computed in one pass over d from d-major tiles; the rounded dS (and P)
+// are computed in one pass over d from d-major tiles; dS (and P)
 // go through shared memory for the products that follow. K4: 103 KB of
 // dynamic shared memory, 2 blocks per SM; K5: 138 KB, 1 block per SM; 256
 // threads each.
 //
 // What bounds them: K4 does 6·BH·Sq·Sk·D operations (three products of the
 // tile size), K5 8·BH·Sq·Sk·D (four), against a few B·H·S·D elements, so
-// both are bound by operations. They run on the CUDA cores in f32 (67
-// TFLOP/s peak on an H100 SXM) for both input types; bf16's bound is the
-// tensor-core rate, which only a wgmma/mma version reaches.
+// both are bound by operations: in f32 on the CUDA cores, 67 TFLOP/s peak
+// on an H100 SXM.
 
 #include "flash_common.cuh"
 
 namespace {
 
-using flash::Io;
 using flash::s_col;
 
 // 64 rows × 64 columns, G = 16 lanes per row group: 256 threads, each with
@@ -89,12 +91,12 @@ __device__ __forceinline__ void two_logits(const float* At, const float* A2t,
     }
 }
 
-template <typename T, class C>
+template <class C>
 __global__ void __launch_bounds__(C::NT)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, int bh_primal, int sq, int sk,
+                float* __restrict__ dq, int bh_primal, int sq, int sk,
                 float scale) {
     constexpr int D = C::D, BQ = C::BQ, BK = C::BK, G = C::G, TR = C::TR;
     constexpr int TC = C::TC, DC = C::DC, QS = C::QS, KS = C::KS, NT = C::NT;
@@ -105,7 +107,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* Kt = dOt + D * QS;    // [D][KS]  Kᵀ
     float* Vt = Kt + D * KS;     // [D][KS]  Vᵀ
     float* Ks = Vt + D * KS;     // [BK][D]  K
-    float* DSt = Ks + BK * D;    // [BK][QS] dSᵀ, rounded
+    float* DSt = Ks + BK * D;    // [BK][QS] dSᵀ
 
     const int tid = threadIdx.x;
     const int c = tid % G;
@@ -114,8 +116,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t bt = blockIdx.y;              // cotangent slice
     const size_t bp = blockIdx.y % bh_primal;  // primal slice
 
-    flash::load_tile<T, BQ, D, NT>(q + bp * sq * D, q0, sq, Qt, QS, nullptr);
-    flash::load_tile<T, BQ, D, NT>(dout + bt * sq * D, q0, sq, dOt, QS, nullptr);
+    flash::load_tile<float, BQ, D, NT>(q + bp * sq * D, q0, sq, Qt, QS, nullptr);
+    flash::load_tile<float, BQ, D, NT>(dout + bt * sq * D, q0, sq, dOt, QS, nullptr);
 
     float lrow[TR], drow[TR], acc[TR][DC];
 #pragma unroll
@@ -129,8 +131,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int k0 = 0; k0 < sk; k0 += BK) {
         __syncthreads();
-        flash::load_tile<T, BK, D, NT>(k + bp * sk * D, k0, sk, Kt, KS, Ks);
-        flash::load_tile<T, BK, D, NT>(v + bp * sk * D, k0, sk, Vt, KS, nullptr);
+        flash::load_tile<float, BK, D, NT>(k + bp * sk * D, k0, sk, Kt, KS, Ks);
+        flash::load_tile<float, BK, D, NT>(v + bp * sk * D, k0, sk, Vt, KS, nullptr);
         __syncthreads();
 
         float s[TR][TC], dp[TR][TC];
@@ -142,7 +144,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int col = s_col<C>(j, c);
                 const float p =
                     k0 + col < sk ? expf(s[i][j] * scale - lrow[i]) : 0.f;
-                DSt[col * QS + r0 + i] = Io<T>::round(p * (dp[i][j] - drow[i]));
+                DSt[col * QS + r0 + i] = p * (dp[i][j] - drow[i]);
             }
         __syncthreads();
 
@@ -168,24 +170,24 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < TR; ++i) {
         const int row = q0 + r0 + i;
         if (row >= sq) continue;
-        T* out = dq + (bt * sq + row) * D;
+        float* out = dq + (bt * sq + row) * D;
 #pragma unroll
         for (int g = 0; g < DC / 4; ++g) {
             float x[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e) x[e] = acc[i][4 * g + e] * scale;
-            Io<T>::store4(out + (g * G + c) * 4, x);
+            flash::Io<float>::store4(out + (g * G + c) * 4, x);
         }
     }
 }
 
 // Rows are keys, columns are queries: the block owns keys [k0, k0 + 64).
-template <typename T, class C>
+template <class C>
 __global__ void __launch_bounds__(C::NT)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dk, T* __restrict__ dv, int bh_primal, int sq,
+                 float* __restrict__ dk, float* __restrict__ dv, int bh_primal, int sq,
                  int sk, float scale) {
     constexpr int D = C::D, BR = C::BQ, BC = C::BK, G = C::G, TR = C::TR;
     constexpr int TC = C::TC, DC = C::DC, RS = C::QS, CS = C::KS, NT = C::NT;
@@ -197,8 +199,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* dOt = Qt + D * CS;    // [D][CS]  dOᵀ
     float* Qs = dOt + D * CS;    // [BC][D]  Q
     float* dOs = Qs + BC * D;    // [BC][D]  dO
-    float* Pq = dOs + BC * D;    // [BC][RS] P as [query][key], rounded
-    float* DSq = Pq + BC * RS;   // [BC][RS] dS as [query][key], rounded
+    float* Pq = dOs + BC * D;    // [BC][RS] P as [query][key]
+    float* DSq = Pq + BC * RS;   // [BC][RS] dS as [query][key]
     float* Ls = DSq + BC * RS;   // [BC]     L of the Q tile
     float* Dl = Ls + BC;         // [BC]     δ of the Q tile
 
@@ -209,8 +211,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t bt = blockIdx.y;              // cotangent slice
     const size_t bp = blockIdx.y % bh_primal;  // primal slice
 
-    flash::load_tile<T, BR, D, NT>(k + bp * sk * D, k0, sk, Kt, RS, nullptr);
-    flash::load_tile<T, BR, D, NT>(v + bp * sk * D, k0, sk, Vt, RS, nullptr);
+    flash::load_tile<float, BR, D, NT>(k + bp * sk * D, k0, sk, Kt, RS, nullptr);
+    flash::load_tile<float, BR, D, NT>(v + bp * sk * D, k0, sk, Vt, RS, nullptr);
 
     float acck[TR][DC], accv[TR][DC];
 #pragma unroll
@@ -220,8 +222,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int q0 = 0; q0 < sq; q0 += BC) {
         __syncthreads();
-        flash::load_tile<T, BC, D, NT>(q + bp * sq * D, q0, sq, Qt, CS, Qs);
-        flash::load_tile<T, BC, D, NT>(dout + bt * sq * D, q0, sq, dOt, CS, dOs);
+        flash::load_tile<float, BC, D, NT>(q + bp * sq * D, q0, sq, Qt, CS, Qs);
+        flash::load_tile<float, BC, D, NT>(dout + bt * sq * D, q0, sq, dOt, CS, dOs);
         for (int e = tid; e < BC; e += NT) {
             const bool in = q0 + e < sq;
             Ls[e] = in ? lse[bp * sq + q0 + e] : 0.f;
@@ -239,8 +241,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int col = s_col<C>(j, c);
                 const float p =
                     q0 + col < sq ? expf(s[i][j] * scale - Ls[col]) : 0.f;
-                Pq[col * RS + r0 + i] = Io<T>::round(p);
-                DSq[col * RS + r0 + i] = Io<T>::round(p * (dp[i][j] - Dl[col]));
+                Pq[col * RS + r0 + i] = p;
+                DSq[col * RS + r0 + i] = p * (dp[i][j] - Dl[col]);
             }
         __syncthreads();
 
@@ -274,8 +276,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < TR; ++i) {
         const int row = k0 + r0 + i;
         if (row >= sk) continue;
-        T* krow = dk + (bt * sk + row) * D;
-        T* vrow = dv + (bt * sk + row) * D;
+        float* krow = dk + (bt * sk + row) * D;
+        float* vrow = dv + (bt * sk + row) * D;
 #pragma unroll
         for (int g = 0; g < DC / 4; ++g) {
             float xk[4], xv[4];
@@ -284,44 +286,42 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 xk[e] = acck[i][4 * g + e] * scale;
                 xv[e] = accv[i][4 * g + e];
             }
-            Io<T>::store4(krow + (g * G + c) * 4, xk);
-            Io<T>::store4(vrow + (g * G + c) * 4, xv);
+            flash::Io<float>::store4(krow + (g * G + c) * 4, xk);
+            flash::Io<float>::store4(vrow + (g * G + c) * 4, xv);
         }
     }
 }
 
-template <typename T, class C>
+template <class C>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh,
               int bh_primal, int sq, int sk, float scale, cudaStream_t stream) {
     const int smem = kDqSmemFloats<C> * int(sizeof(float));
-    auto kernel = flash_dq_kernel<T, C>;
+    auto kernel = flash_dq_kernel<C>;
     cudaError_t err = flash::allow_smem(kernel, smem);
     if (err != cudaSuccess) return int(err);
     const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
-    auto in = [](const void* p) { return static_cast<const T*>(p); };
+    auto in = [](const void* p) { return static_cast<const float*>(p); };
     kernel<<<grid, C::NT, smem, stream>>>(
-        in(q), in(k), in(v), in(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dq), bh_primal, sq,
-        sk, scale);
+        in(q), in(k), in(v), in(dout), in(lse), in(delta), static_cast<float*>(dq),
+        bh_primal, sq, sk, scale);
     return int(cudaGetLastError());
 }
 
-template <typename T, class C>
+template <class C>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh,
                int bh_primal, int sq, int sk, float scale,
                cudaStream_t stream) {
     const int smem = kDkvSmemFloats<C> * int(sizeof(float));
-    auto kernel = flash_dkv_kernel<T, C>;
+    auto kernel = flash_dkv_kernel<C>;
     cudaError_t err = flash::allow_smem(kernel, smem);
     if (err != cudaSuccess) return int(err);
     const dim3 grid((sk + C::BQ - 1) / C::BQ, bh);
-    auto in = [](const void* p) { return static_cast<const T*>(p); };
+    auto in = [](const void* p) { return static_cast<const float*>(p); };
     kernel<<<grid, C::NT, smem, stream>>>(
-        in(q), in(k), in(v), in(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dk),
-        static_cast<T*>(dv), bh_primal, sq, sk, scale);
+        in(q), in(k), in(v), in(dout), in(lse), in(delta), static_cast<float*>(dk),
+        static_cast<float*>(dv), bh_primal, sq, sk, scale);
     return int(cudaGetLastError());
 }
 
@@ -347,10 +347,10 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
              void* stream) {
     if (bad_shape(bh, bh_primal, sq, sk, d)) return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? launch_dq<__nv_bfloat16, TileB>(q, k, v, dout, lse, delta, dq, bh,
-                                                     bh_primal, sq, sk, scale, s)
-                   : launch_dq<float, TileB>(q, k, v, dout, lse, delta, dq, bh,
-                                             bh_primal, sq, sk, scale, s);
+    if (flash_design(4, d, is_bf16))
+        return flash::dq_wgmma(q, k, v, dout, lse, delta, dq, bh, bh_primal, sq, sk, scale, s);
+    if (is_bf16) return int(cudaErrorInvalidValue);
+    return launch_dq<TileB>(q, k, v, dout, lse, delta, dq, bh, bh_primal, sq, sk, scale, s);
 }
 
 // K5: dk, dv (bh, sk, d).
@@ -360,10 +360,12 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
               void* stream) {
     if (bad_shape(bh, bh_primal, sq, sk, d)) return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? launch_dkv<__nv_bfloat16, TileB>(q, k, v, dout, lse, delta, dk, dv,
-                                                      bh, bh_primal, sq, sk, scale, s)
-                   : launch_dkv<float, TileB>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                              bh_primal, sq, sk, scale, s);
+    if (flash_design(5, d, is_bf16))
+        return flash::dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, bh, bh_primal, sq, sk,
+                                scale, s);
+    if (is_bf16) return int(cudaErrorInvalidValue);
+    return launch_dkv<TileB>(q, k, v, dout, lse, delta, dk, dv, bh, bh_primal, sq, sk, scale,
+                             s);
 }
 
 }  // extern "C"

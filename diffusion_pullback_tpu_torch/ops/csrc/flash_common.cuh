@@ -2,10 +2,10 @@
 // f32/bf16 loads and stores, the tile shape and its thread mapping, and the
 // loader of a (rows × D) tile into shared memory.
 //
-// The CUDA-core kernels ("simt"; all but the wgmma design of
-// flash_fwd_tc.cu) keep their tiles in shared memory in f32 and compute
-// with f32 FMAs. A thread block owns one tile of "rows" (query
-// rows for K1-K4, key rows for K5) and loops over tiles of "columns". A
+// The CUDA-core kernels ("simt"; all but the wgmma designs of
+// flash_fwd_tc.cu and flash_bwd_tc.cu) keep their tiles in shared memory in
+// f32 and compute with f32 FMAs. A thread block owns one tile of "rows"
+// (query rows for K1-K4, key rows for K5) and loops over tiles of "columns". A
 // group of G consecutive lanes shares TR = 4 rows; each lane holds TC
 // columns of every row for the logits and DC of the D output columns.
 
@@ -131,8 +131,21 @@ inline cudaError_t allow_smem(K kernel, int smem) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// K1 / K2 on the tensor-core design, bf16 at D = 64 (flash_fwd_tc.cu).
+// The tensor-core design, bf16 at D = 64: K1 / K2 (flash_fwd_tc.cu), K4
+// and K5 (flash_bwd_tc.cu).
 int fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
               int bh, int sq, int sk, float scale, cudaStream_t stream);
+int dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dq, int bh, int bh_primal,
+             int sq, int sk, float scale, cudaStream_t stream);
+int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dk, void* dv, int bh,
+              int bh_primal, int sq, int sk, float scale, cudaStream_t stream);
 
 }  // namespace flash
+
+// The design rule (flash_fwd.cu): 1 if kernel K<kernel> (1–5) runs a call
+// at head dim d (is_bf16: 0 float32, 1 bfloat16) on the tensor-core design
+// "wgmma", 0 for the CUDA-core "simt". The C entries dispatch on it, and the
+// bindings ask it which design served a launch.
+extern "C" int flash_design(int kernel, int d, int is_bf16);

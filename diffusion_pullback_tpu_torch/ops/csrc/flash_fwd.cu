@@ -239,11 +239,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 extern "C" {
 
-// 1 if flash_fwd and flash_fwd_lse run a call at head dim d (is_bf16 as
-// theirs) on the tensor-core design "wgmma", 0 for the CUDA-core "simt".
-// The entries dispatch on it, and the bindings ask it which design served
-// a launch.
-int flash_fwd_design(int d, int is_bf16) { return d == 64 && is_bf16; }
+// The one design rule (declared in flash_common.cuh): bf16 at D = 64 runs
+// the tensor-core kernels of K1, K2, K4 and K5; K3 and every other call run
+// on the CUDA cores.
+int flash_design(int kernel, int d, int is_bf16) {
+    return kernel != 3 && d == 64 && is_bf16;
+}
 
 // q (bh, sq, d), k/v (bh, sk, d), o (bh, sq, d): contiguous device arrays
 // of one dtype (is_bf16 = 0: float32, 1: bfloat16), 16-byte aligned.
@@ -253,7 +254,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, int bh,
     if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0)
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (flash_fwd_design(d, is_bf16))
+    if (flash_design(1, d, is_bf16))
         return flash::fwd_wgmma(q, k, v, o, nullptr, bh, sq, sk, scale, s);
     if (d == 64) return launch<float, TileD64, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
     if (d == 512)
@@ -271,7 +272,7 @@ int flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* l = static_cast<float*>(lse);
-    if (flash_fwd_design(d, is_bf16)) return flash::fwd_wgmma(q, k, v, o, l, bh, sq, sk, scale, s);
+    if (flash_design(2, d, is_bf16)) return flash::fwd_wgmma(q, k, v, o, l, bh, sq, sk, scale, s);
     return launch<float, TileD64, true>(q, k, v, o, l, bh, sq, sk, scale, s);
 }
 

@@ -45,144 +45,21 @@
 // every shape of the SD path on an H100.
 //
 // Built with nvcc for sm_90a (wgmma exists only there) into the flash
-// library. cuTensorMapEncodeTiled is reached through the runtime's
-// cudaGetDriverEntryPoint, so the library does not link libcuda.
-
-#include <cuda.h>
+// library; the PTX wrappers and the tensor maps are hopper.cuh's.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using flash::kNegInf;
+using namespace hopper;
 
-constexpr int D = 64;
-constexpr int ROW = D * 2;  // bytes of a bf16 row: one 128-byte swizzle span
-constexpr int BQ = 64, BK = 64, STAGES = 2;
+constexpr int BQ = TILE_ROWS, BK = TILE_ROWS, STAGES = 2;
 constexpr int NT = 128 + 32;  // the consumer warpgroup, the producer warp
-constexpr int Q_BYTES = BQ * ROW;
-constexpr int KV_BYTES = BK * ROW;
 // Q, STAGES × (K, V) and the mbarriers, plus 1024 bytes to align the tiles
 // as the 128-byte swizzle requires
-constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 64 + 1024;
-
-// ---- PTX: shared memory, mbarriers, TMA ------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done;
-    do {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// The box of `map` at (d 0, row, head) into shared memory at dst.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int head) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(head)
-        : "memory");
-}
-
-// ---- PTX: wgmma ---------------------------------------------------------------
-
-// Descriptor of a tile in TMA's 128-byte swizzle: 128-byte rows, 8-row
-// groups 1024 bytes apart (SBO). LBO is not read for these layouts: a
-// K-major k16 step stays inside the 128-byte span, and the MN-major V tile
-// is one 64-element span wide.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-    return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-           (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma (they are its operands from issue to wait).
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64×N, f32) = A·Bᵀ (+ d if acc), A and B K-major from shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (64×64, f32) += A·B, A (64×16 bf16) from registers, B (16×64) from
-// shared memory MN-major (the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-}
+constexpr int SMEM = TILE + 2 * STAGES * TILE + 64 + 1024;
 
 // One key tile of the online softmax, on S in wgmma's accumulator layout
 // (element 4c + 2i + j of this thread is row r + 8i, column 8c + 2q + j),
@@ -241,9 +118,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        int sq, int sk, float scale) {
     extern __shared__ uint8_t smem_raw[];
     const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-    const uint32_t sK = sQ + Q_BYTES;              // stage s: + s·KV_BYTES
-    const uint32_t sV = sK + STAGES * KV_BYTES;
-    const uint32_t bars = sV + STAGES * KV_BYTES;  // full[], empty[], Q
+    const uint32_t sK = sQ + TILE;             // stage s: + s·TILE
+    const uint32_t sV = sK + STAGES * TILE;
+    const uint32_t bars = sV + STAGES * TILE;  // full[], empty[], Q
     const auto full = [bars](int s) { return bars + 8u * s; };
     const auto empty = [bars](int s) { return bars + 8u * (STAGES + s); };
     const uint32_t qbar = bars + 8u * (2 * STAGES);
@@ -259,20 +136,20 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             mbar_init(empty(s), 128);
         }
         mbar_init(qbar, 1);
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        mbar_init_fence();
     }
     __syncthreads();
 
     if (warp == 4) {  // the producer warp
         if (lane == 0) {
-            mbar_expect_tx(qbar, Q_BYTES);
+            mbar_expect_tx(qbar, TILE);
             tma_load(sQ, &tq, qbar, q0, bh);
             for (int j = 0; j < nk; ++j) {
                 const int s = j % STAGES;
                 mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);
-                mbar_expect_tx(full(s), 2 * KV_BYTES);
-                tma_load(sK + s * KV_BYTES, &tk, full(s), j * BK, bh);
-                tma_load(sV + s * KV_BYTES, &tv, full(s), j * BK, bh);
+                mbar_expect_tx(full(s), 2 * TILE);
+                tma_load(sK + s * TILE, &tk, full(s), j * BK, bh);
+                tma_load(sV + s * TILE, &tv, full(s), j * BK, bh);
             }
         }
         return;
@@ -300,7 +177,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(full(st), (j / STAGES) & 1);
 
         // S = Q·Kᵀ: four k16 steps along d, 32 bytes apart in a swizzled row
-        const uint64_t dk = desc_sw128(sK + st * KV_BYTES);
+        const uint64_t dk = desc_sw128(sK + st * TILE);
         reg_fence(s);
         wgmma_fence();
 #pragma unroll
@@ -319,22 +196,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int e = 0; e < D / 2; ++e) acc[e] *= corr[(e / 2) & 1];
 
-        // P in bf16 as A fragments of 16 keys: (r, 2q..), (r + 8, 2q..),
-        // (r, 8 + 2q..), (r + 8, 8 + 2q..), straight from S's chunks 2kk, 2kk + 1
+        // P in bf16 as A fragments of 16 keys
         uint32_t pa[BK / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-            for (int t = 0; t < 4; ++t)
-                pa[kk][t] = pack_bf16(s[8 * kk + 2 * t], s[8 * kk + 2 * t + 1]);
+        acc_to_a(s, pa);
 
         // O += P·V: V's 16-key slices are 16 rows (2048 bytes) apart
-        const uint64_t dv = desc_sw128(sV + st * KV_BYTES);
+        const uint64_t dv = desc_sw128(sV + st * TILE);
         reg_fence(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-            wgmma_rs_n64_tb(acc, pa[kk], dv + kk * (16 * ROW >> 4));
+            wgmma_rs_n64_tb(acc, pa[kk], dv + kk * MN_STEP);
         wgmma_commit();
         wgmma_wait();
         reg_fence(acc);
@@ -356,51 +228,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
 }
 
-// ---- host side ------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-    static const EncodeTiled fn = [] {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                    &found) != cudaSuccess ||
-            found != cudaDriverEntryPointSuccess)
-            return EncodeTiled(nullptr);
-        return reinterpret_cast<EncodeTiled>(p);
-    }();
-    return fn;
-}
-
-// Tensor map of a contiguous (bh, s, 64) bf16 array, innermost dimension
-// first, with boxes of (64, rows, 1) in the 128-byte swizzle; rows past s
-// read as zeros.
-cudaError_t head_map(CUtensorMap* map, const void* ptr, int bh, int s, int rows) {
-    const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return cudaErrorNotSupported;
-    const cuuint64_t dims[3] = {D, cuuint64_t(s), cuuint64_t(bh)};
-    const cuuint64_t strides[2] = {ROW, cuuint64_t(s) * ROW};
-    const cuuint32_t box[3] = {D, cuuint32_t(rows), 1};
-    const cuuint32_t unit[3] = {1, 1, 1};
-    const CUresult res = encode(
-        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <bool LSE>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
            int sq, int sk, float scale, cudaStream_t stream) {
     CUtensorMap tq, tk, tv;
-    cudaError_t err = head_map(&tq, q, bh, sq, BQ);
-    if (err == cudaSuccess) err = head_map(&tk, k, bh, sk, BK);
-    if (err == cudaSuccess) err = head_map(&tv, v, bh, sk, BK);
+    cudaError_t err = head_map(&tq, q, bh, sq);
+    if (err == cudaSuccess) err = head_map(&tk, k, bh, sk);
+    if (err == cudaSuccess) err = head_map(&tv, v, bh, sk);
     if (err != cudaSuccess) return int(err);
     auto kernel = flash_fwd_wgmma_kernel<LSE>;
     err = flash::allow_smem(kernel, SMEM);

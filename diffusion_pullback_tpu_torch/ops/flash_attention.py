@@ -10,9 +10,11 @@ diffusion_pullback_tpu/ops/pallas/flash_attention.py:
     K4  flash_dq           `_flash_backward`     dQ   (its dq pallas_call)
     K5  flash_dkv          `_flash_backward`     dK, dV (its dkv pallas_call)
 
-K1 and K2 in bf16 at head dim 64 (every U-Net self-attention) run the
-tensor-core design, TMA loads and wgmma products (csrc/flash_fwd_tc.cu);
-every other call runs the CUDA-core kernels in f32 (csrc/flash_*.cu).
+K1, K2, K4 and K5 in bf16 at head dim 64 (every U-Net self-attention and
+every pullback call) run the tensor-core design, TMA loads and wgmma
+products (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu); K3 and every other
+call run the CUDA-core kernels in f32 (csrc/flash_*.cu). ``design`` says
+which served a call, by the C library's one rule.
 
 The sources are csrc/*.cu; they are compiled with nvcc for sm_90a at first
 use into one shared library under ``.build/`` next to this package (keyed on
@@ -139,8 +141,8 @@ def _load():
                 fn = getattr(lib, name)
                 fn.argtypes = [vp] * n_ptr + [ci] * n_int + [cf, vp]
                 fn.restype = ci
-            lib.flash_fwd_design.argtypes = [ci, ci]
-            lib.flash_fwd_design.restype = ci
+            lib.flash_design.argtypes = [ci, ci, ci]
+            lib.flash_design.restype = ci
             _lib = lib
         return _lib
 
@@ -321,11 +323,15 @@ def _is_bf16(q) -> int:
     return int(q.dtype == torch.bfloat16)
 
 
-def forward_design(d: int, dtype: torch.dtype) -> str:
-    """The design K1 and K2 run on the card at head dim d and dtype, as
-    their C entries dispatch: 'wgmma' (tensor cores) or 'simt' (CUDA
-    cores)."""
-    wgmma = _load().flash_fwd_design(d, int(dtype == torch.bfloat16))
+KERNELS = ("K1", "K2", "K3", "K4", "K5")
+
+
+def design(kernel: str, d: int, dtype: torch.dtype) -> str:
+    """The design kernel ``kernel`` ('K1'…'K5') runs on the card at head
+    dim d and dtype, as the C entries dispatch: 'wgmma' (tensor cores) or
+    'simt' (CUDA cores)."""
+    wgmma = _load().flash_design(KERNELS.index(kernel) + 1, d,
+                                 int(dtype == torch.bfloat16))
     return "wgmma" if wgmma else "simt"
 
 

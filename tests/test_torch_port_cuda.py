@@ -1,5 +1,7 @@
-"""K1–K5 on the card: each CUDA kernel against its plain version, and the
-fused pair under torch.func against the math path. Marked ``cuda``: these
+"""K1–K5 on the card: each CUDA kernel against its plain version, with the
+design the C library's rule reports ('wgmma' for K1, K2, K4 and K5 in bf16
+at D=64, 'simt' otherwise), and the fused pair under torch.func against the
+math path. Marked ``cuda``: these
 skip without a GPU and run on one with
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -41,7 +43,8 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     on the wgmma design in bf16 at D=64 and the CUDA-core one otherwise."""
     bh, sq, sk, d = shape
     wgmma = d == 64 and dtype == torch.bfloat16
-    assert fa.forward_design(d, dtype) == ("wgmma" if wgmma else "simt")
+    for kernel in ("K1", "K2"):
+        assert fa.design(kernel, d, dtype) == ("wgmma" if wgmma else "simt")
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(n, s, d, device=cuda, generator=gen).to(dtype)
                for n, s in ((bh, sq), (bh, sk), (bh, sk)))
@@ -77,17 +80,27 @@ def _tol(ref, dtype):
     return 2 * torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top))
 
 
+# (B·H, Sq, Sk) at D=64. The bf16 backward (K4, K5) runs the wgmma design
+# with 64-row tiles: ragged Sq and Sk, Sq ≠ Sk both ways, Sq < 64 with
+# B·H = 1, and B·H > 1 with a ragged last tile in each head (a map over the
+# wrong heads would read the next head's rows there)
+@pytest.mark.parametrize("shape", [
+    (3, 1000, 1000), (3, 1000, 700), (3, 700, 1000), (1, 50, 700), (4, 200, 130)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_raises_on_derivatives_and_bad_shapes(cuda, dtype):
-    """K2–K5 against their plain versions, with the tangents and the
-    cotangent batched over two probes against one primal (the pullback's
-    shapes) and a ragged sequence; the pair under torch.func against the
-    math path; the head-dim guard."""
+def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
+    """K2–K5 against their plain versions, one launch each, with the
+    tangents and the cotangent batched over two probes against one primal
+    (the pullback's batching), on the design the rule reports, in the
+    input dtype."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     rnd = lambda *shape: torch.randn(shape, device=cuda, generator=gen).to(dtype)
-    bh, s, d, r, scale = 3, 1000, 64, 2, 0.125
-    q, k, v = rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d)
-    dq, dk, dv, do = (rnd(r * bh, s, d) for _ in range(4))
+    (bh, sq, sk), d, r, scale = shape, 64, 2, 0.125
+    wgmma = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert [fa.design(f"K{i}", d, dtype) for i in range(2, 6)] == [
+        wgmma, "simt", wgmma, wgmma]
+    q, k, v = rnd(bh, sq, d), rnd(bh, sk, d), rnd(bh, sk, d)
+    dq, do = rnd(r * bh, sq, d), rnd(r * bh, sq, d)
+    dk, dv = rnd(r * bh, sk, d), rnd(r * bh, sk, d)
     n0 = {f: getattr(fa, f).launches
           for f in ("flash_forward_lse", "flash_tangent", "flash_dq", "flash_dkv")}
     o, lse = fa.flash_forward_lse(q, k, v, scale)
@@ -106,13 +119,21 @@ def test_kernel_raises_on_derivatives_and_bad_shapes(cuda, dtype):
     for name, out in got.items():
         tol = 1e-4 if name == "lse" else _tol(ref[name], dtype)
         err = (out.cpu().float() - ref[name].float()).abs().max().item()
-        assert out.dtype == ref[name].dtype and err <= tol, (name, err, tol)
+        want = torch.float32 if name == "lse" else dtype
+        assert out.dtype == ref[name].dtype == want and err <= tol, (name, err, tol)
 
-    # the pair under torch.func (probes vmapped) against the math path
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_under_torch_func_matches_math_path(cuda, dtype):
+    """The pair under torch.func (probes vmapped) against the math path; the
+    head-dim guard."""
     from torch.func import jvp, vjp, vmap
 
     from diffusion_pullback_tpu_torch.ops.attention import attention
 
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    rnd = lambda *shape: torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    r = 2
     x = rnd(1, 1024, 4, 64)
     f = lambda impl: (lambda y: attention(y, y * 0.5, torch.tanh(y), impl=impl))
     ts = rnd(r, *x.shape)

@@ -28,9 +28,12 @@ def _t(x):
     return torch.from_numpy(np.array(x, np.float32))
 
 
-def _primal(bh, s, d, seed):
-    """q, k, v and K2's (o, lse) from the Pallas kernel, as numpy."""
-    q, k, v = _arrays(3, (bh, s, d), seed)
+def _primal(bh, s, d, seed, sk=None):
+    """q (bh, s, d), k, v (bh, sk or s, d) and K2's (o, lse) from the
+    Pallas kernel, as numpy."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(bh, n, d)).astype(np.float32)
+               for n in (s, sk or s, sk or s))
     o, lse = jfa._flash_forward_lse(*map(jnp.asarray, (q, k, v)), d ** -0.5,
                                     **BLOCKS)
     return q, k, v, np.asarray(o), np.asarray(lse)[..., 0]
@@ -56,9 +59,15 @@ def test_tangent_plain_matches_pallas(bh, s, d):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 
-@pytest.mark.parametrize("bh,s,d", [(2, 256, 16), (1, 512, 64)])
-def test_backward_plain_matches_pallas(bh, s, d):
-    q, k, v, o, lse = _primal(bh, s, d, seed=3)
+# (B·H, Sq, Sk, D): square, and Sq ≠ Sk both ways (the card tests hold the
+# kernels K4 and K5 to these plain versions at unequal lengths)
+@pytest.mark.parametrize("bh,s,sk,d", [
+    pytest.param(2, 256, 256, 16, id="2-256-16"),
+    pytest.param(1, 512, 512, 64, id="1-512-64"),
+    pytest.param(2, 256, 512, 64, id="2-256x512-64"),
+    pytest.param(2, 512, 256, 64, id="2-512x256-64")])
+def test_backward_plain_matches_pallas(bh, s, sk, d):
+    q, k, v, o, lse = _primal(bh, s, d, seed=3, sk=sk)
     (do,) = _arrays(1, (bh, s, d), seed=4)
     lse128 = jnp.broadcast_to(jnp.asarray(lse)[..., None], (bh, s, 128))
     ref = jfa._flash_backward(*map(jnp.asarray, (q, k, v, o, do)), lse128,
