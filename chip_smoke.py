@@ -6,13 +6,19 @@ Phases (any failure exits non-zero before the last line is printed):
   2. kernels — each kernel against its plain PyTorch version at every shape
                the main path gives it, float32 (TF32 off) and bfloat16, with
                the design that served it as the C library's one rule
-               reports it ('wgmma': K1, K2, K4 and K5 in bf16 at D=64;
-               'simt': the CUDA-core kernels), the kernel's, the plain
-               version's and a PyTorch yardstick's times (F.scaled_dot_product_attention for K1; for
-               K2 and K4+K5 the flash SDPA forward / backward ops in bf16
-               and the memory-efficient ones in f32; the port never calls
-               them), the host's time per wrapper call, the bound, the
-               achieved TFLOP/s and the bound's share of the kernel's time;
+               reports it ('wgmma': K1–K5 in bf16 at D=64; 'tf32x3': K1 in
+               f32 at D=512; 'simt': the CUDA-core kernels), the kernel's,
+               the plain version's and a PyTorch yardstick's times
+               (F.scaled_dot_product_attention for K1; for K2 and K4+K5 the
+               flash SDPA forward / backward ops in bf16 and the
+               memory-efficient ones in f32; for K3 torch.func.jvp of
+               F.scaled_dot_product_attention on its math backend; the port
+               never calls them), with the kernels the profiler saw serve
+               the yardsticks of K1 at D=512 and of K3, the host's time per
+               wrapper call, the bound, the achieved TFLOP/s and the bound's
+               share of the kernel's time; for K1 on 'tf32x3' also the error
+               of one TF32 product per f32 product, which its gate must
+               reject;
                then the fused pair under torch.func (vmap of jvp, vmap of a
                vjp function) against the math path;
   3. U-Net   — one full-width SD 2.1-base U-Net: ε with attn_impl='flash'
@@ -50,10 +56,13 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "runs", "chip_smoke")
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP32 (CUDA cores) and dense
-# BF16 tensor-core peaks
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense tensor-core peaks.
+# An f32-accurate product runs on the tensor cores as three TF32 products
+# (the 'tf32x3' design), so the least time of f32 work is its operations at
+# a third of the dense TF32 rate, 494.7 / 3 ≈ 164.9 TFLOP/s (the CUDA
+# cores' FP32 peak, 67 TFLOP/s, is slower).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_OPS = {torch.float32: 494.7e12 / 3, torch.bfloat16: 989e12}
 # K1's (B·H, S, D) on the main path: the U-Net's 4096- and 1024-token
 # self-attentions (5 and 10 heads of 64) at batch 1 (inversion, forward to
 # the edit t), 4 (walk: 2 directions × the (null, edit) pair) and 6 (finish:
@@ -69,10 +78,12 @@ PAIR_SHAPES = [(5, 4096, 64), (10, 1024, 64)]
 # Pallas call it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
 KERNELS = {
     "flash_fwd": ("K1", "flash_forward",
-                  {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu"}, 179),
+                  {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu",
+                   "tf32x3": "flash_fwd_tf32.cu"}, 179),
     "flash_fwd_lse": ("K2", "flash_forward_lse",
                       {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu"}, 253),
-    "flash_tangent": ("K3", "flash_tangent", {"simt": "flash_jvp.cu"}, 497),
+    "flash_tangent": ("K3", "flash_tangent",
+                      {"simt": "flash_jvp.cu", "wgmma": "flash_jvp_tc.cu"}, 497),
     "flash_dq": ("K4", "flash_dq",
                  {"simt": "flash_bwd.cu", "wgmma": "flash_bwd_tc.cu"}, 378),
     "flash_dkv": ("K5", "flash_dkv",
@@ -80,6 +91,13 @@ KERNELS = {
 }
 # K2–K5's operations per (B·H)·S²·D, B·H the tangents' or the cotangent's
 PAIR_OPS = {"K2": 4, "K3": 10, "K4": 6, "K5": 8}
+# K1 on 'tf32x3' against its plain version (f32, TF32 off). Three TF32
+# products per f32 product read 9.39e-6 at (3,4096,512) and 5.25e-6 at
+# (1,4096,512) on an H100; one TF32 product per f32 product stays under
+# 1e-4 at those shapes, so 1e-4 would pass a kernel that dropped the two
+# small products. Phase 2 measures the one-product error too and fails
+# unless this gate lies below it.
+TF32X3_TOL = 2.5e-5
 
 
 def log(msg):
@@ -111,15 +129,47 @@ def host_us(fn, iters=20):
     return 1e6 * seconds / iters
 
 
-def k1_tol(ref, dtype):
-    """K1 against its plain version: 1e-4 in float32 (the two differ only
-    in the order of f32 sums, ~4e-7 measured); in bfloat16 two ulps of
-    max |ref| (the two round the same f32 value to bf16 and differ by at
-    most one ulp where the sums straddle a rounding boundary)."""
+def served_by(fn, n=2):
+    """The names of the n device kernels with the most device time in one
+    call of fn, as torch.profiler records them ('not traced' if it records
+    no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = lambda e: getattr(e, "self_device_time_total", 0) or getattr(
+        e, "self_cuda_time_total", 0)
+    top = sorted((e for e in prof.key_averages() if dev(e) > 0), key=dev, reverse=True)
+    return "; ".join(e.key[:100] for e in top[:n]) or "not traced"
+
+
+def k1_tol(ref, dtype, design):
+    """K1 against its plain version: in float32 1e-4 on 'simt' (the two
+    differ in the order of f32 sums, ~4e-7 measured) and TF32X3_TOL on
+    'tf32x3'; in bfloat16 two ulps of max |ref| (the two round the same f32
+    value to bf16 and differ by at most one ulp where the sums straddle a
+    rounding boundary)."""
     if dtype == torch.float32:
-        return 1e-4
+        return TF32X3_TOL if design == "tf32x3" else 1e-4
     top = ref.float().abs().max().item()
     return 2 * torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top))
+
+
+def tf32(x):
+    """x (f32) rounded to TF32 as cvt.rna.tf32.f32 rounds: to nearest, ties
+    away from zero, keeping 10 of the 23 mantissa bits."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def one_tf32_forward(q, k, v, scale):
+    """K1 in f32 with one TF32 product per f32 product: the operands of
+    Q·Kᵀ and P·V rounded to TF32, the products (exact in f32) summed in f32.
+    This is 'tf32x3' with its two small products dropped."""
+    p = torch.softmax(tf32(q) @ tf32(k).transpose(-1, -2) * scale, dim=-1)
+    return tf32(p) @ tf32(v)
 
 
 def pair_tol(ref):
@@ -187,7 +237,8 @@ def phase_k1(fa):
             torch.cuda.synchronize()
             ref = fa.flash_forward_plain(q, k, v, scale)
             err = (out.float() - ref.float()).abs().max().item()
-            tol = k1_tol(ref, dtype)
+            design = fa.design("K1", shape[-1], dtype)
+            tol = k1_tol(ref, dtype, design)
             row = dict(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: fa.flash_forward(q, k, v, scale), 20),
@@ -198,8 +249,19 @@ def phase_k1(fa):
                     q[None], k[None], v[None], scale=scale), 20),
             )
             row["bound_ms"], row["bound_by"] = k1_bound_ms(shape, dtype)
-            row["design"] = fa.design("K1", shape[-1], dtype)
+            row["design"] = design
             rows[(shape, dtype)] = row
+            if design == "tf32x3":
+                row["one_tf32_err"] = (one_tf32_forward(q, k, v, scale)
+                                       - ref).abs().max().item()
+                log(f"[k1] {shape} f32: sdpa served by " + served_by(
+                    lambda: F.scaled_dot_product_attention(
+                        q[None], k[None], v[None], scale=scale))
+                    + f"; one TF32 product per f32 product: max_abs_err "
+                    f"{row['one_tf32_err']:.3g} (must exceed the tol {tol:.3g})")
+                if not row["one_tf32_err"] > tol:
+                    raise AssertionError(f"K1's tf32x3 gate {tol} does not part "
+                                         f"three TF32 products from one at {shape}")
             log(f"[k1] {shape} {str(dtype)[6:]}: max_abs_err {err:.3g} (tol "
                 f"{tol:.3g}) kernel {row['ms']:.4f} ms, plain "
                 f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
@@ -215,6 +277,9 @@ def phase_pair(fa):
     """K2–K5 against their plain versions at the pullback's shapes: K2 at
     the primal (B·H, S, D), K3–K5 with the tangents / cotangent batched over
     PCA_RANK probes against one primal, as the main path calls them."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     gen = torch.Generator(device="cuda").manual_seed(2)
     sdpa = torch.ops.aten._scaled_dot_product_flash_attention
     sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
@@ -240,8 +305,25 @@ def phase_pair(fa):
                 "K5": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, scale),
                        lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, scale)),
             }
-            library = {"K2": None, "K3": None, "K4": None, "K5": None}
+            library = {}
             q4, k4, v4 = (t.repeat(r, 1, 1)[None] for t in (q, k, v))
+            # K3's yardstick: the tangent of SDPA along the probes' tangents
+            # at the primal repeated per probe, one torch.func.jvp call. The
+            # fused backends SDPA picks have no forward-mode rule, so it is
+            # timed on the math backend (the one that has it)
+            sdpa_jvp = lambda: torch.func.jvp(
+                lambda a, b, c: F.scaled_dot_product_attention(a, b, c, scale=scale),
+                (q4, k4, v4), (dq[None], dk[None], dv[None]))
+            try:
+                sdpa_jvp()
+                default = "runs"
+            except RuntimeError as e:
+                default = "raises: " + str(e).splitlines()[0]
+            with sdpa_kernel(SDPBackend.MATH):
+                library["K3"] = cuda_ms(sdpa_jvp, 5)
+                log(f"[k3] ({r * bhp}, {s}, {d}) {str(dtype)[6:]}: torch.func.jvp "
+                    f"of SDPA on the math backend served by {served_by(sdpa_jvp)} "
+                    f"(on SDPA's own choice it {default})")
             if dtype == torch.bfloat16:  # the flash SDPA ops take bf16 only
                 fwd4 = sdpa(q4, k4, v4, 0.0, False, False, scale=scale)
                 bwd_args = (do[None], q4, k4, v4, *fwd4[:6], 0.0, False, *fwd4[6:8])
@@ -275,13 +357,11 @@ def phase_pair(fa):
                     label, bhp, 1 if label == "K2" else r, s, d, dtype)
                 row["design"] = fa.design(label, shape[-1], dtype)
                 rows[(label, shape, dtype)] = row
-                lib = ("—" if row["library_ms"] is None
-                       else f"{row['library_ms']:.4f} ms")
                 log(f"[{label.lower()}] {shape} {str(dtype)[6:]}: max_abs_err "
                     + ", ".join(f"{e:.3g} (tol {t:.3g})" for e, t in errs)
                     + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-                    f"ms, library {lib}, bound {row['bound_ms']:.4f} ms "
-                    f"({row['bound_by']}); "
+                    f"ms, library {row['library_ms']:.4f} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
                     + rate(row, PAIR_OPS[label] * shape[0] * s * s * d))
                 if not all(e <= t for e, t in errs):
                     raise AssertionError(f"{label} disagrees with its plain "

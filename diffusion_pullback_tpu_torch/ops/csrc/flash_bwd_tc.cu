@@ -61,11 +61,11 @@
 
 namespace {
 
+using flash::kLog2e;
 using namespace hopper;
 
 constexpr int STAGES = 2;
 constexpr int NT = 128 + 32;  // the consumer warpgroup, the producer warp
-constexpr float kLog2e = 1.4426950408889634f;
 // K5's L (in base 2) and δ of a stage's query tile
 constexpr int COL_BYTES = 2 * TILE_ROWS * 4;
 // the block's two tiles, STAGES × two streamed ones, K5's L and δ, the

@@ -2,9 +2,10 @@
 // f32/bf16 loads and stores, the tile shape and its thread mapping, and the
 // loader of a (rows × D) tile into shared memory.
 //
-// The CUDA-core kernels ("simt"; all but the wgmma designs of
-// flash_fwd_tc.cu and flash_bwd_tc.cu) keep their tiles in shared memory in
-// f32 and compute with f32 FMAs. A thread block owns one tile of "rows"
+// The CUDA-core kernels ("simt"; all but the tensor-core designs of
+// flash_fwd_tc.cu, flash_bwd_tc.cu, flash_jvp_tc.cu and flash_fwd_tf32.cu)
+// keep their tiles in shared memory in f32 and compute with f32 FMAs. A
+// thread block owns one tile of "rows"
 // (query rows for K1-K4, key rows for K5) and loops over tiles of "columns". A
 // group of G consecutive lanes shares TR = 4 rows; each lane holds TC
 // columns of every row for the logits and DC of the D output columns.
@@ -20,6 +21,9 @@
 namespace flash {
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
+// log2(e): the tensor-core kernels take exponentials in base 2, with the
+// softmax scale folded into it
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T>
 struct Io;
@@ -131,8 +135,9 @@ inline cudaError_t allow_smem(K kernel, int smem) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// The tensor-core design, bf16 at D = 64: K1 / K2 (flash_fwd_tc.cu), K4
-// and K5 (flash_bwd_tc.cu).
+// The tensor-core designs. "wgmma", bf16 at D = 64: K1 / K2
+// (flash_fwd_tc.cu), K3 (flash_jvp_tc.cu), K4 and K5 (flash_bwd_tc.cu).
+// "tf32x3", f32 at D = 512: K1 (flash_fwd_tf32.cu).
 int fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
               int bh, int sq, int sk, float scale, cudaStream_t stream);
 int dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
@@ -141,11 +146,21 @@ int dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
 int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dk, void* dv, int bh,
               int bh_primal, int sq, int sk, float scale, cudaStream_t stream);
+int tangent_wgmma(const void* q, const void* k, const void* v, const void* dq,
+                  const void* dk, const void* dv, const void* o, const void* lse,
+                  void* dout, int bh, int bh_primal, int sq, int sk, float scale,
+                  cudaStream_t stream);
+int fwd_tf32x3(const void* q, const void* k, const void* v, void* o, int bh, int sq,
+               int sk, float scale, cudaStream_t stream);
+
+// The designs flash_design returns.
+enum Design { kSimt = 0, kWgmma = 1, kTf32x3 = 2 };
 
 }  // namespace flash
 
-// The design rule (flash_fwd.cu): 1 if kernel K<kernel> (1–5) runs a call
-// at head dim d (is_bf16: 0 float32, 1 bfloat16) on the tensor-core design
-// "wgmma", 0 for the CUDA-core "simt". The C entries dispatch on it, and the
-// bindings ask it which design served a launch.
+// The design rule (flash_fwd.cu): the flash::Design on which kernel
+// K<kernel> (1–5) runs a call at head dim d (is_bf16: 0 float32, 1
+// bfloat16): the tensor-core "wgmma" (1) or "tf32x3" (2), or the CUDA-core
+// "simt" (0). The C entries dispatch on it, and the bindings ask it which
+// design served a launch.
 extern "C" int flash_design(int kernel, int d, int is_bf16);

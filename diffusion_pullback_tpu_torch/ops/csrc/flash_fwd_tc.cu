@@ -6,10 +6,11 @@
 // this replaces the Pallas TPU kernels `_flash_kernel` / `_flash_forward`
 // (K1) and `_flash_fwd_lse_kernel` / `_flash_forward_lse` (K2) in
 // diffusion_pullback_tpu/ops/pallas/flash_attention.py; flash_fwd.cu's
-// entries route those calls here. f32 inputs, and bf16 at D = 512, stay on
-// flash_fwd.cu's CUDA-core design: wgmma has no f32 operand, and TF32 keeps
-// about 10 mantissa bits, too few for the 1e-4 agreement in f32 with the
-// plain version and with the JAX package.
+// entries route those calls here. f32 inputs go to the "tf32x3" design at
+// D = 512 (flash_fwd_tf32.cu) and stay on flash_fwd.cu's CUDA-core design
+// at D = 64, as bf16 at D = 512 does: wgmma has no f32 operand, and one
+// TF32 product keeps about 10 mantissa bits of an f32 product where three
+// keep about 21.
 //
 // What bounds it: 4·BH·Sq·Sk·D operations on 2·(BH·Sq·D + BH·Sk·D) bf16
 // elements, so at the path's shapes it is bound by operations, at the bf16
@@ -52,6 +53,7 @@
 
 namespace {
 
+using flash::kLog2e;
 using flash::kNegInf;
 using namespace hopper;
 
@@ -166,7 +168,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     float s[BK / 2];    // S (64 × BK), then P
     float acc[D / 2];   // O (64 × D)
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // m in base 2
-    const float scale2 = scale * 1.4426950408889634f;      // · log2(e)
+    const float scale2 = scale * kLog2e;
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
 

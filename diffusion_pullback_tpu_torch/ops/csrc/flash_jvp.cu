@@ -27,9 +27,9 @@
 //
 // What bounds it: 10·BH·Sq·Sk·D operations (five products of the tile
 // size) against 8·BH·S·D elements read or written, so it is bound by
-// operations. It runs on the CUDA cores in f32 (67 TFLOP/s peak on an H100
-// SXM) for both input types; bf16's bound is the tensor-core rate, which
-// only a wgmma/mma version reaches.
+// operations. bf16 calls go to the tensor-core design "wgmma"
+// (flash_jvp_tc.cu), by flash_design; f32 calls run the CUDA-core design
+// "simt" below, in f32 FMAs (67 TFLOP/s peak on an H100 SXM).
 
 #include "flash_common.cuh"
 
@@ -213,10 +213,11 @@ int flash_tangent(const void* q, const void* k, const void* v, const void* dq,
         sk <= 0 || d != 64)
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return is_bf16 ? launch<__nv_bfloat16, TileJ>(q, k, v, dq, dk, dv, o, lse, dout, bh,
-                                                  bh_primal, sq, sk, scale, s)
-                   : launch<float, TileJ>(q, k, v, dq, dk, dv, o, lse, dout, bh,
-                                          bh_primal, sq, sk, scale, s);
+    if (flash_design(3, d, is_bf16))
+        return flash::tangent_wgmma(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal, sq,
+                                    sk, scale, s);
+    return launch<float, TileJ>(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal, sq, sk,
+                                scale, s);
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
-// Hopper primitives of the tensor-core kernels (flash_fwd_tc.cu, K1/K2;
-// flash_bwd_tc.cu, K4/K5), bf16 at head dim 64: inline PTX for shared
-// memory addresses, mbarriers, TMA loads and wgmma, and the host's encoding
-// of a TMA tensor map over (B·H, S, 64) bf16.
+// Hopper primitives of the tensor-core kernels: the wgmma kernels
+// (flash_fwd_tc.cu, K1/K2; flash_jvp_tc.cu, K3; flash_bwd_tc.cu, K4/K5),
+// bf16 at head dim 64, and the tf32x3 kernel (flash_fwd_tf32.cu, K1 in f32
+// at head dim 512: mbarriers and bulk copies only). Inline PTX for shared
+// memory addresses, mbarriers, TMA and bulk loads and wgmma, and the host's
+// encoding of a TMA tensor map over (B·H, S, 64) bf16.
 //
 // Layout: a D = 64 bf16 row is 128 bytes, so TMA's 128-byte swizzle is the
 // layout the wgmma descriptors read. A 64-row tile is 8 KB; a K-major
@@ -74,6 +76,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
         "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
         "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(head)
+        : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src into shared memory at dst, a
+// 1-D bulk copy that completes on bar's transaction count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar)
         : "memory");
 }
 

@@ -10,11 +10,16 @@ diffusion_pullback_tpu/ops/pallas/flash_attention.py:
     K4  flash_dq           `_flash_backward`     dQ   (its dq pallas_call)
     K5  flash_dkv          `_flash_backward`     dK, dV (its dkv pallas_call)
 
-K1, K2, K4 and K5 in bf16 at head dim 64 (every U-Net self-attention and
-every pullback call) run the tensor-core design, TMA loads and wgmma
-products (csrc/flash_fwd_tc.cu, csrc/flash_bwd_tc.cu); K3 and every other
-call run the CUDA-core kernels in f32 (csrc/flash_*.cu). ``design`` says
-which served a call, by the C library's one rule.
+Three designs, chosen by the C library's one rule (``design`` says which
+served a call):
+
+* 'wgmma': K1–K5 in bf16 at head dim 64 (every U-Net self-attention and
+  every pullback call), TMA loads and wgmma products on the tensor cores
+  (csrc/flash_fwd_tc.cu, flash_jvp_tc.cu, flash_bwd_tc.cu);
+* 'tf32x3': K1 in f32 at head dim 512 (the VAE's single head), each f32
+  product as three TF32 mma.sync products (csrc/flash_fwd_tf32.cu);
+* 'simt': every other call, CUDA-core kernels in f32 (csrc/flash_fwd.cu,
+  flash_jvp.cu, flash_bwd.cu).
 
 The sources are csrc/*.cu; they are compiled with nvcc for sm_90a at first
 use into one shared library under ``.build/`` next to this package (keyed on
@@ -324,15 +329,15 @@ def _is_bf16(q) -> int:
 
 
 KERNELS = ("K1", "K2", "K3", "K4", "K5")
+DESIGNS = ("simt", "wgmma", "tf32x3")  # by the C rule's number
 
 
 def design(kernel: str, d: int, dtype: torch.dtype) -> str:
     """The design kernel ``kernel`` ('K1'…'K5') runs on the card at head
-    dim d and dtype, as the C entries dispatch: 'wgmma' (tensor cores) or
-    'simt' (CUDA cores)."""
-    wgmma = _load().flash_design(KERNELS.index(kernel) + 1, d,
-                                 int(dtype == torch.bfloat16))
-    return "wgmma" if wgmma else "simt"
+    dim d and dtype, as the C entries dispatch: 'wgmma' or 'tf32x3'
+    (tensor cores) or 'simt' (CUDA cores)."""
+    return DESIGNS[_load().flash_design(KERNELS.index(kernel) + 1, d,
+                                        int(dtype == torch.bfloat16))]
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,7 +1,7 @@
 """K1–K5 on the card: each CUDA kernel against its plain version, with the
-design the C library's rule reports ('wgmma' for K1, K2, K4 and K5 in bf16
-at D=64, 'simt' otherwise), and the fused pair under torch.func against the
-math path. Marked ``cuda``: these
+design the C library's rule reports ('wgmma' for K1–K5 in bf16 at D=64,
+'tf32x3' for K1 in f32 at D=512, 'simt' otherwise), and the fused pair
+under torch.func against the math path. Marked ``cuda``: these
 skip without a GPU and run on one with
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -28,23 +28,45 @@ def cuda():
     return torch.device("cuda")
 
 
+# K1 on 'tf32x3' against its plain version, as chip_smoke.py holds it: three
+# TF32 products per f32 product read ≤ 9.39e-6 at the VAE's shapes on an
+# H100, one TF32 product stays under 1e-4 there
+TF32X3_TOL = 2.5e-5
+
+
+def _one_tf32_forward(q, k, v, scale):
+    """K1 in f32 with one TF32 product per f32 product: operands rounded to
+    TF32 (to nearest, ties away, 10 mantissa bits, as cvt.rna.tf32.f32),
+    the exact products summed in f32."""
+    tf32 = lambda x: ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    p = torch.softmax(tf32(q) @ tf32(k).transpose(-1, -2) * scale, dim=-1)
+    return tf32(p) @ tf32(v)
+
+
 # (B·H, Sq, Sk, D). At D=64 in bf16 the wgmma design serves K1 and K2 with
 # 64-row query tiles and 64-key tiles: Sq and Sk off those multiples (1000,
 # 700, 200, 130), Sq < 64, Sq ≠ Sk both ways, B·H = 1, and B·H > 1 with a
 # ragged last query tile (a 2-D tensor map would read the next head's rows
-# there)
+# there). At D=512 in f32 the tf32x3 design has 32-row query tiles and
+# 32-key tiles: Sq < 32, Sq ≠ Sk both ways, a ragged last query tile with
+# B·H > 1, and B·H = 1 at the VAE's 4096 tokens
 @pytest.mark.parametrize("shape", [
     (3, 1000, 1000, 64), (2, 700, 700, 512), (10, 1024, 1024, 64),
     (3, 1000, 700, 64), (2, 700, 1000, 64), (1, 50, 700, 64),
-    (1, 4096, 4096, 64), (4, 200, 130, 64), (30, 4096, 4096, 64)])
+    (1, 4096, 4096, 64), (4, 200, 130, 64), (30, 4096, 4096, 64),
+    (1, 20, 300, 512), (2, 300, 130, 512), (2, 130, 300, 512),
+    (3, 250, 250, 512), (1, 4096, 4096, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     """K1 (and K2 at D=64) against their plain versions, one launch each,
-    on the wgmma design in bf16 at D=64 and the CUDA-core one otherwise."""
+    on the wgmma design in bf16 at D=64, tf32x3 in f32 at D=512 and the
+    CUDA-core one otherwise; on tf32x3 the gate rejects one TF32 product."""
     bh, sq, sk, d = shape
-    wgmma = d == 64 and dtype == torch.bfloat16
-    for kernel in ("K1", "K2"):
-        assert fa.design(kernel, d, dtype) == ("wgmma" if wgmma else "simt")
+    want = ("wgmma" if dtype == torch.bfloat16 else "simt") if d == 64 else (
+        "tf32x3" if dtype == torch.float32 else "simt")
+    assert fa.design("K1", d, dtype) == want
+    if d == 64:
+        assert fa.design("K2", d, dtype) == want
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(n, s, d, device=cuda, generator=gen).to(dtype)
                for n, s in ((bh, sq), (bh, sk), (bh, sk)))
@@ -54,12 +76,16 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     assert fa.flash_forward.launches == n0 + 1
     ref = fa.flash_forward_plain(q, k, v, d ** -0.5)
     assert out.dtype == dtype
-    # f32: the two differ only in the order of f32 sums; bf16: both round
-    # the same f32 value, so at most an ulp apart — two ulps of max |ref|
+    # f32 on simt: the two differ in the order of f32 sums; f32 on tf32x3:
+    # TF32X3_TOL, which one TF32 product per f32 product must miss; bf16:
+    # both round the same f32 value, so at most an ulp apart — two ulps of
+    # max |ref|
     top = ref.float().abs().max().item()
-    tol = 1e-4 if dtype == torch.float32 else (
+    tol = (TF32X3_TOL if want == "tf32x3" else 1e-4) if dtype == torch.float32 else (
         2 * torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top)))
     assert (out.float() - ref.float()).abs().max().item() <= tol
+    if want == "tf32x3":
+        assert (_one_tf32_forward(q, k, v, d ** -0.5) - ref).abs().max().item() > tol
     if d not in fa.PAIR_HEAD_DIMS:
         return
     n0 = fa.flash_forward_lse.launches
@@ -80,24 +106,25 @@ def _tol(ref, dtype):
     return 2 * torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top))
 
 
-# (B·H, Sq, Sk) at D=64. The bf16 backward (K4, K5) runs the wgmma design
-# with 64-row tiles: ragged Sq and Sk, Sq ≠ Sk both ways, Sq < 64 with
-# B·H = 1, and B·H > 1 with a ragged last tile in each head (a map over the
-# wrong heads would read the next head's rows there)
+# (B·H, Sq, Sk, probes) at D=64. The bf16 K3–K5 run the wgmma design with
+# 64-row tiles: ragged Sq and Sk, Sq ≠ Sk both ways, Sq < 64 with B·H = 1,
+# and B·H > 1 with a ragged last tile in each head (a map over the wrong
+# heads would read the next head's rows there); two probes as the main
+# path, and three (tangent slice b reads primal slice b % B·H)
 @pytest.mark.parametrize("shape", [
-    (3, 1000, 1000), (3, 1000, 700), (3, 700, 1000), (1, 50, 700), (4, 200, 130)])
+    (3, 1000, 1000, 2), (3, 1000, 700, 2), (3, 700, 1000, 2), (1, 50, 700, 2),
+    (4, 200, 130, 2), (3, 1000, 700, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
     """K2–K5 against their plain versions, one launch each, with the
-    tangents and the cotangent batched over two probes against one primal
+    tangents and the cotangent batched over r probes against one primal
     (the pullback's batching), on the design the rule reports, in the
     input dtype."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     rnd = lambda *shape: torch.randn(shape, device=cuda, generator=gen).to(dtype)
-    (bh, sq, sk), d, r, scale = shape, 64, 2, 0.125
+    (bh, sq, sk, r), d, scale = shape, 64, 0.125
     wgmma = "wgmma" if dtype == torch.bfloat16 else "simt"
-    assert [fa.design(f"K{i}", d, dtype) for i in range(2, 6)] == [
-        wgmma, "simt", wgmma, wgmma]
+    assert [fa.design(f"K{i}", d, dtype) for i in range(2, 6)] == [wgmma] * 4
     q, k, v = rnd(bh, sq, d), rnd(bh, sk, d), rnd(bh, sk, d)
     dq, do = rnd(r * bh, sq, d), rnd(r * bh, sq, d)
     dk, dv = rnd(r * bh, sk, d), rnd(r * bh, sk, d)
