@@ -34,7 +34,14 @@ Phases (any failure exits non-zero before the last line is printed):
                launches, by shape, must equal what the path launches, and
                their summed device time is reported, by shape and by design;
                then the pullback
-               again, warm, and the math-path pullback, cold and warm.
+               again, warm, and the math-path pullback, cold and warm;
+  5. uncond  — the CelebA-HQ-256 edit path at full width through the CLI's
+               builder (ddpm_celebahq_256 in bf16, the bundled images, 20-step
+               grids with performance boosting), which must launch none of
+               K1–K5 (its attention is 256- and 64-token single-head math
+               path); full-width ε and the ddpm_tiny(32) config-1 smoke
+               pipeline on the card against the CPU in f32, and bf16 against
+               f32 at full width.
 Then a JSON line of the kernels (one entry per kernel and design on the
 main path, at the shape that carries most of that design's device time
 there), the card's name and power limit, and
@@ -437,6 +444,43 @@ def phase_unet_eps(fa, unet, dtype, eps_math=None):
                              "the bf16 math path")
 
 
+def config1_smoke(unet, x0, v_init):
+    """The config-1 smoke pipeline of scripts/make_goldens.py
+    (compute_config1_smoke_artifacts) through the port's modules, on the
+    device of ``unet``: an 8-step inversion and forward to grid index 2, the
+    mid-tap pullback from ``v_init`` (4 probes, 3 iterations), a 4-step walk
+    along v_0 and the finish. x0 is (1, S, S, 3); returns the golden's
+    u_norms, s, vT and edit (in [0, 1]) as numpy arrays. On the CPU the
+    tests hold it to tests/goldens/config1_smoke_*."""
+    from diffusion_pullback_tpu_torch.experiments._common import to_nchw, to_nhwc
+    from diffusion_pullback_tpu_torch.geometry import local_pullback
+    from diffusion_pullback_tpu_torch.models import TapPoint
+    from diffusion_pullback_tpu_torch.ops.schedule import (
+        DiffusionSchedule, ddim_timestep_grid)
+    from diffusion_pullback_tpu_torch.samplers.ddim_loop import ddim_forward, ddim_invert
+    from diffusion_pullback_tpu_torch.samplers.guidance import x_space_guidance_scan
+
+    dev = next(unet.parameters()).device
+    sched, grid8, edit_idx = DiffusionSchedule.linear().to(dev), ddim_timestep_grid(8), 2
+    t_edit = grid8.timesteps[edit_idx]
+    eps = lambda q, t: to_nhwc(unet(to_nchw(q), t))
+    x0 = x0.to(dev)
+    with torch.no_grad():
+        xt = ddim_forward(eps, ddim_invert(eps, x0, sched, grid8), sched, grid8,
+                          end_idx=edit_idx)
+    res = local_pullback(
+        lambda z: to_nhwc(unet.encode(to_nchw(z), t_edit, TapPoint("mid", 0))),
+        xt, pca_rank=4, min_iter=3, max_iter=3, atol=0.0, v_init=v_init.to(dev))
+    with torch.no_grad():
+        traj = x_space_guidance_scan(eps, xt, t_edit, res.vT[0].reshape(x0.shape),
+                                     num_steps=4, edit_step=0.1, scale=0.1)
+        x0_edit = ddim_forward(eps, traj[-1], sched, grid8, start_idx=edit_idx)
+    host = lambda a: a.float().cpu().numpy()
+    return {"u_norms": host(torch.linalg.norm(res.u.float(), dim=0)),
+            "s": host(res.s), "vT": host(res.vT),
+            "edit": host(torch.clamp(x0_edit * 0.5 + 0.5, 0.0, 1.0))}
+
+
 def pullback_dist(res, ref):
     """Relative Frobenius distance between the rank-r pullback metrics
     Vᵀ diag(σ²) V of two results: blind to signs and to rotations inside a
@@ -676,6 +720,166 @@ def phase_edit(fa):
     return {kd: (heaviest[kd], n, ms) for kd, (n, ms) in by_design.items()}
 
 
+def golden_gates(art, ref):
+    """tests/test_golden_config1.py's gates of ``art`` against ``ref``: σ and
+    the u column norms to rtol 1e-3, the principal cosines of each group of
+    near-equal σ (gaps under 5 % of σ_0) ≥ 0.99, the edit's PSNR ≥ 35 dB.
+    Returns {gate: (value, passed)}."""
+    import numpy as np
+
+    s = ref["s"]
+    groups, cur = [], [0]
+    for i in range(1, len(s)):
+        if (s[i - 1] - s[i]) / max(s[0], 1e-12) < 0.05:
+            cur.append(i)
+        else:
+            groups, cur = groups + [cur], [i]
+    groups.append(cur)
+    cos = min(np.linalg.svd(np.linalg.qr(art["vT"][g].T)[0].T
+                            @ np.linalg.qr(ref["vT"][g].T)[0], compute_uv=False).min()
+              for g in groups)
+    srel = float(np.max(np.abs(art["s"] - s) / np.abs(s)))
+    urel = float(np.max(np.abs(art["u_norms"] - ref["u_norms"]) / np.abs(ref["u_norms"])))
+    mse = float(np.mean((art["edit"] - ref["edit"]) ** 2))
+    psnr = 10.0 * math.log10(1.0 / max(mse, 1e-12))
+    return {"sigma max rel err": (srel, srel <= 1e-3),
+            "u norms max rel err": (urel, urel <= 1e-3),
+            "min principal cos per sigma group": (float(cos), cos >= 0.99),
+            "edit PSNR dB": (psnr, psnr >= 35.0)}
+
+
+def phase_uncond(fa):
+    """The CelebA-HQ-256 uncond edit path at full width through the port
+    CLI's builder (ddpm_celebahq_256, 113.7 M parameters, bf16 on the card,
+    the bundled CelebA-HQ images), 20-step grids so that η = 1 runs on the
+    last three finish steps; it must launch none of K1–K5. Then the card
+    against the port on the CPU in f32 (TF32 off): full-width ε, and the
+    ddpm_tiny(32) config-1 smoke pipeline at the golden gates; and bf16
+    against f32 at full width (printed, no gate)."""
+    import copy
+
+    import numpy as np
+    from PIL import Image
+
+    from diffusion_pullback_tpu_torch import main as port_main
+    from diffusion_pullback_tpu_torch.experiments import BasisCache
+    from diffusion_pullback_tpu_torch.experiments._common import to_nchw, to_nhwc
+    from diffusion_pullback_tpu_torch.geometry import local_pullback
+    from diffusion_pullback_tpu_torch.geometry.pullback import _orthonormal_probes
+    from diffusion_pullback_tpu_torch.models import (
+        TapPoint, UNet2D, ddpm_tiny, model_for_name, random_init_)
+
+    out = os.path.join(OUT, "uncond")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    args = port_main.parse_args([
+        "--note", "chip_smoke", "--result_folder", out, "--model_name",
+        "CelebA_HQ_HF", "--dataset_name", "CelebA_HQ", "--for_steps", "20",
+        "--inv_steps", "20", "--edit_t", "0.5", "--performance_boosting_t", "0.2",
+        "--pca_rank", str(PCA_RANK), "--x_space_guidance_num_step", "2"])
+    t0 = time.perf_counter()
+    edit = port_main.build_uncond(args)
+    cfg = edit.cfg
+    cfg.pullback_min_iter, cfg.pullback_max_iter = 1, 3
+    cfg.basis_folder = os.path.join(out, "inputs")
+    edit.cache = BasisCache(cfg.basis_folder)
+    n_params = sum(p.numel() for p in edit.model.parameters())
+    log(f"[uncond] built the CelebA_HQ_HF driver in {time.perf_counter() - t0:.1f} s "
+        f"({n_params} parameters, {next(edit.model.parameters()).dtype}, dataset "
+        f"{type(edit.dataset).__name__} of {len(edit.dataset)}, boost from step "
+        f"{edit.boost_start_idx} of {edit.fwd_grid.num_steps})")
+
+    vis_num, vis_num_pc = 4, 2   # the CLI's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _, wrapper, _, _ in KERNELS.values():
+        getattr(fa, wrapper).launches = 0
+    t0 = time.perf_counter()
+    names = edit.run_edit_local_encoder_pullback_zt(
+        idx=0, pca_rank=PCA_RANK, vis_num=vis_num, vis_num_pc=vis_num_pc)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {label: getattr(fa, wrapper).launches
+                for label, wrapper, _, _ in KERNELS.values()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with open(edit.log.path) as f:
+        events = [json.loads(line) for line in f]
+    for e in events:
+        if "seconds" in e:
+            extra = {k: v for k, v in e.items() if k not in ("ts", "event", "seconds")}
+            log(f"[uncond] stage {e['event']}: {e['seconds']:.3f} s {extra}")
+    pullback = [e for e in events if e["event"] == "local_pullback"][-1]
+    with np.load(os.path.join(cfg.basis_folder, os.listdir(cfg.basis_folder)[0])) as z:
+        u, s, vT = z["u"], z["s"], z["vT"]
+    frames = len(range(0, cfg.x_space_guidance_num_step + 1,
+                       max(1, (cfg.x_space_guidance_num_step + 1) // vis_num)))
+    log(f"[uncond] main path {seconds:.2f} s, peak memory {peak_gb:.2f} GB, "
+        f"pullback {pullback['seconds']:.3f} s ({pullback['iterations']} "
+        f"iterations), sigma {s.tolist()}, K1–K5 launches {launches}")
+    finish = [e for e in events if e["event"] == "finish_and_save"]
+    checks = {
+        "four PNGs written": len(names) == 2 * vis_num_pc and all(
+            Image.open(os.path.join(cfg.result_folder, n + ".png")).size
+            == (256 * frames, 256) for n in names),
+        "edited images finite": bool(finish and finish[-1]["finite"]),
+        "basis finite, expected shapes": (
+            u.shape == (8 * 8 * 512, PCA_RANK) and vT.shape == (PCA_RANK, 256 * 256 * 3)
+            and all(np.isfinite(a).all() for a in (u, s, vT)) and (s > 0).all()),
+        "boosting on the last three finish steps": edit.boost_start_idx == 16,
+        "no K1–K5 launch": not any(launches.values()),
+    }
+    for what, ok in checks.items():
+        log(f"[uncond] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("uncond path checks failed")
+
+    # the card against the CPU, f32, and bf16 against f32 on the card
+    x = torch.as_tensor(edit.dataset[0])                   # (1, 256, 256, 3)
+    cpu = random_init_(model_for_name("CelebA_HQ_HF"), args.seed).eval().requires_grad_(False)
+    card = copy.deepcopy(cpu).cuda()
+    with torch.no_grad():
+        eps_cpu = cpu(to_nchw(x), 500.0)
+        eps_card = card(to_nchw(x).cuda(), 500.0).cpu()
+        eps_bf16 = copy.deepcopy(card).to(torch.bfloat16)(to_nchw(x).cuda(), 500.0)
+    scale = eps_cpu.abs().max().item()
+    err = (eps_card - eps_cpu).abs().max().item()
+    rel_bf16 = (eps_bf16.float().cpu() - eps_card).abs().max().item() / scale
+    log(f"[uncond] full-width eps f32, card vs CPU: max_abs_err {err:.3g} (max |eps| "
+        f"{scale:.3g}, tol 1e-4 relative); bf16 vs f32 on the card: max rel err "
+        f"{rel_bf16:.4g}")
+    if not (torch.isfinite(eps_card).all() and err <= 1e-4 * scale):
+        raise AssertionError("the full-width U-Net on the card disagrees with the CPU")
+    del cpu
+
+    xt = x.cuda()
+    v0 = _orthonormal_probes(torch.Generator().manual_seed(2), xt.numel(), PCA_RANK)
+    enc = lambda z: to_nhwc(card.encode(to_nchw(z), 500.0, TapPoint("mid", 0)))
+    res = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        card.to(dtype)   # the same weights, rounded to bf16 the second time
+        res[name] = local_pullback(enc, xt, pca_rank=PCA_RANK, min_iter=3,
+                                             max_iter=3, atol=0.0, v_init=v0)
+    srel = ((res["bf16"].s - res["f32"].s).abs() / res["f32"].s).max().item()
+    cos = (res["bf16"].vT * res["f32"].vT).sum(dim=1).abs()
+    log(f"[uncond] full-width mid-tap pullback bf16 vs f32 (3 iterations, same "
+        f"probes): sigma f32 {res['f32'].s.tolist()}, max rel err {srel:.4g}, |cos| "
+        f"per direction {cos.tolist()}, metric distance "
+        f"{pullback_dist(res['bf16'], res['f32']):.4g}")
+    del card, res
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(1)
+    tiny = random_init_(UNet2D(ddpm_tiny(32)), 0).eval().requires_grad_(False)
+    x0 = torch.randn(1, 32, 32, 3, generator=gen)
+    v0 = _orthonormal_probes(torch.Generator().manual_seed(2), x0.numel(), 4)
+    ref = config1_smoke(tiny, x0, v0)
+    gates = golden_gates(config1_smoke(copy.deepcopy(tiny).cuda(), x0, v0), ref)
+    log("[uncond] ddpm_tiny(32) config-1 smoke pipeline, card vs CPU f32: " + ", ".join(
+        f"{k} {v:.4g} ({'ok' if ok else 'FAILED'})" for k, (v, ok) in gates.items()))
+    if not all(ok for _, ok in gates.values()):
+        raise AssertionError("the smoke pipeline on the card misses the golden gates")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -709,6 +913,7 @@ def main():
     torch.cuda.empty_cache()
 
     on_path = phase_edit(fa)
+    phase_uncond(fa)
 
     # one entry per kernel and design on the main path: its launches and
     # summed device time there (path_ms), and the per-launch numbers of

@@ -2,6 +2,7 @@
 
 from .cache import BasisCache, basis_name
 from .edit_sd import EditStableDiffusion, SDExperimentConfig
+from .edit_uncond import EditUncondDiffusion, UncondExperimentConfig
 
-__all__ = ["BasisCache", "EditStableDiffusion", "SDExperimentConfig",
-           "basis_name"]
+__all__ = ["BasisCache", "EditStableDiffusion", "EditUncondDiffusion",
+           "SDExperimentConfig", "UncondExperimentConfig", "basis_name"]

@@ -2,10 +2,13 @@
 
 Counterpart of diffusion_pullback_tpu/experiments/cache.py with the same
 basis names and the same .npz layout (u (dim_h, k), s (k,), vT (k, dim_x),
-float32, h and x flattened in NHWC order), so each package reads the
-other's bases. It also reads the JAX package's native .dpb files (32-byte
-header of eight little-endian u32 — magic, version, u rows, u cols, k, vT
-rows, vT cols, 0 — then u, s, vT as raw float32); it writes .npz.
+float32, h and x flattened in NHWC order). It reads what the JAX cache
+reads: the native .dpb files (32-byte header of eight little-endian u32 —
+magic, version, u rows, u cols, k, vT rows, vT cols, 0 — then u, s, vT as
+raw float32), then the .npz, skipping a file it cannot read, and widens the
+raw bfloat16 bytes of legacy .npz files to float32. So each package reads
+the other's bases, under the folder names both CLIs build for the same
+flags. It writes .npz.
 """
 
 from __future__ import annotations
@@ -42,20 +45,33 @@ def _read_dpb(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return u, s, data[u0 * u1 + k:].reshape(v0, v1)
 
 
+def _from_npz(a: np.ndarray) -> np.ndarray:
+    """float32 of an .npz array; raw bfloat16 bytes (a 2-byte void dtype)
+    widen exactly: bf16 is the upper half of an f32's bits."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return (a.view("<u2").astype(np.uint32) << 16).view(np.float32)
+    return a
+
+
 class BasisCache:
     def __init__(self, root: str):
         self.root = root
         os.makedirs(root, exist_ok=True)
 
     def load(self, name: str) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
-        """(u, s, vT) of a cached basis, from .dpb or .npz; None when absent."""
-        dpb = os.path.join(self.root, name + ".dpb")
-        if os.path.exists(dpb):
-            return _read_dpb(dpb)
-        npz = os.path.join(self.root, name + ".npz")
-        if os.path.exists(npz):
-            with np.load(npz) as z:
-                return tuple(z[k] for k in ("u", "s", "vT"))
+        """(u, s, vT) of a cached basis from the first readable of .dpb and
+        .npz; None when neither is."""
+        for ext in (".dpb", ".npz"):
+            p = os.path.join(self.root, name + ext)
+            if not os.path.exists(p):
+                continue
+            try:
+                if ext == ".dpb":
+                    return _read_dpb(p)
+                with np.load(p) as z:
+                    return tuple(_from_npz(z[k]) for k in ("u", "s", "vT"))
+            except Exception:
+                continue
         return None
 
     def save(self, name: str, u, s, vT) -> str:

@@ -15,10 +15,8 @@ vmap over edit directions is a batch dimension here.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -34,10 +32,8 @@ from ..samplers.guidance import x_space_guidance_scan
 from ..utils.device import resolve_device, strict_f32
 from ..utils.images import save_image_grid
 from ..utils.logging import JSONLLogger
+from ._common import DriverCommonMixin, to_nchw, to_nhwc
 from .cache import BasisCache, basis_name
-
-to_nchw = lambda z: z.permute(0, 3, 1, 2)
-to_nhwc = lambda z: z.permute(0, 2, 3, 1)
 
 
 @dataclasses.dataclass
@@ -61,6 +57,7 @@ class SDExperimentConfig:
     pullback_min_iter: int = 10
     pullback_max_iter: int = 50
     pullback_atol: float = 1e-4
+    pullback_chunk_size: Optional[int] = None
     # attention inside the differentiated encoder ('' = the model's own;
     # 'flash' = the fused JVP/VJP kernel pair)
     pullback_attn_impl: str = ""
@@ -70,7 +67,7 @@ class SDExperimentConfig:
     vis_num_pc: int = 2
 
 
-class EditStableDiffusion:
+class EditStableDiffusion(DriverCommonMixin):
     def __init__(
         self,
         unet: UNet2DCondition,
@@ -105,18 +102,6 @@ class EditStableDiffusion:
             self.neg_prompt_emb = self._get_emb(config.neg_prompt)
             self.inv_prompt_emb = self._get_emb(config.inv_prompt)
             self.edit_prompt_emb = self._get_emb(config.edit_prompt)
-
-    @contextlib.contextmanager
-    def _stage(self, event: str, **fields):
-        """Log ``event`` with the seconds of the block, the device's work
-        included (synchronised on CUDA, where launches return early)."""
-        sync = (lambda: torch.cuda.synchronize(self.device)
-                if self.device.type == "cuda" else None)
-        sync()
-        t0 = time.perf_counter()
-        yield fields
-        sync()
-        self.log.log(event, seconds=time.perf_counter() - t0, **fields)
 
     # ---- prompt / ε ---------------------------------------------------------
 
@@ -207,7 +192,8 @@ class EditStableDiffusion:
                 enc, zt, torch.Generator().manual_seed(self.cfg.seed),
                 pca_rank=pca_rank, min_iter=self.cfg.pullback_min_iter,
                 max_iter=self.cfg.pullback_max_iter,
-                atol=self.cfg.pullback_atol, fn_vjp=enc_vjp)
+                atol=self.cfg.pullback_atol, fn_vjp=enc_vjp,
+                chunk_size=self.cfg.pullback_chunk_size)
             log.update(iterations=res.iterations,
                        top_s=res.s[:3].float().cpu().numpy().round(4))
         return res

@@ -1,0 +1,281 @@
+"""Unconditional (pixel-space DDPM) editing along the encoder pullback basis.
+
+Counterpart of the main-path subset of EditUncondDiffusion in
+diffusion_pullback_tpu/experiments/edit_uncond.py:
+
+    image → DDIM inversion → DDIM forward to the edit t → encoder pullback
+    at a U-Net tap → x-space-guidance walk along ±v_k → DDIM finish with
+    performance boosting (η = 1 below performance_boosting_t·T) → PNG grids.
+
+Images, ``vT`` and the basis cache are NHWC at this boundary, as in the JAX
+package, so ``vT`` rows flatten in the same order and a basis from either
+package loads in the other; the model runs NCHW inside. The JAX driver's
+vmap over edit directions is a batch dimension here, and the walk evaluates
+its (null, edit) pair as one batch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..geometry import PullbackResult, local_pullback
+from ..models.unet2d import TapPoint, UNet2D
+from ..ops.ddim import split_learned_sigma
+from ..ops.schedule import DiffusionSchedule, ddim_timestep_grid
+from ..samplers.ddim_loop import ddim_forward, ddim_invert
+from ..samplers.guidance import x_space_guidance_scan
+from ..utils.device import resolve_device, strict_f32
+from ..utils.images import save_image_grid
+from ..utils.logging import JSONLLogger
+from ._common import DriverCommonMixin, to_nchw, to_nhwc
+from .cache import BasisCache, basis_name
+
+
+@dataclasses.dataclass
+class UncondExperimentConfig:
+    dataset_name: str = "noise"
+    for_steps: int = 100
+    inv_steps: int = 100
+    edit_t: float = 0.7
+    seed: int = 0
+    x_space_guidance_edit_step: float = 1.0
+    x_space_guidance_scale: float = 0.1
+    x_space_guidance_num_step: int = 16
+    # (ε_null, ε_edit) evaluation of the walk: 'batch' | 'split' (the same
+    # numbers; the JAX driver always batches)
+    xsg_pair_impl: str = "batch"
+    # not ported: each raises when set (ROADMAP queue 1 items 12 and 16)
+    use_dynamic_thresholding: bool = False
+    use_preserve_contrast: bool = False
+    use_preserve_norm: bool = False
+    use_sega_reg: bool = False
+    sampling_timesteps: str = ""
+    classifier_scale: float = 0.0
+    mesh: Optional[object] = None
+    # performance boosting: η = 1 below this fraction of T
+    performance_boosting_t: float = 0.2
+    use_performance_boosting: bool = True
+    # pullback
+    pca_rank: int = 2
+    pullback_min_iter: int = 10
+    pullback_max_iter: int = 50
+    pullback_atol: float = 1e-4
+    pullback_chunk_size: Optional[int] = None
+    # io
+    result_folder: str = "./runs/uncond"
+    basis_folder: str = "./inputs/local_encoder_pullback_uncond"
+    vis_num: int = 4
+    vis_num_pc: int = 2
+
+
+def _refuse_unported(cfg: UncondExperimentConfig) -> None:
+    unported = [
+        ("the post-edit regularizers (use_dynamic_thresholding, "
+         "use_preserve_contrast, use_preserve_norm, use_sega_reg)",
+         cfg.use_dynamic_thresholding or cfg.use_preserve_contrast
+         or cfg.use_preserve_norm or cfg.use_sega_reg, 12),
+        ("respaced sampling grids (sampling_timesteps)",
+         bool(cfg.sampling_timesteps), 12),
+        ("classifier guidance (classifier_scale)", cfg.classifier_scale > 0, 12),
+        ("a device mesh", cfg.mesh is not None, 16),
+    ]
+    for what, asked, item in unported:
+        if asked:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+
+
+class EditUncondDiffusion(DriverCommonMixin):
+    """Experiment driver bound to one (model, schedule) pair."""
+
+    def __init__(
+        self,
+        model: UNet2D,
+        schedule: DiffusionSchedule,
+        dataset,
+        config: UncondExperimentConfig,
+        logger: Optional[JSONLLogger] = None,
+        device=None,
+    ):
+        _refuse_unported(config)
+        self.device = resolve_device(device)
+        strict_f32()
+        self.model = model.to(self.device).eval().requires_grad_(False)
+        self.schedule = schedule.to(self.device)
+        self.dataset = dataset
+        self.cfg = config
+        self.log = logger or JSONLLogger(
+            os.path.join(config.result_folder, "log.jsonl"))
+        self.cache = BasisCache(config.basis_folder)
+
+        self.fwd_grid = ddim_timestep_grid(config.for_steps)
+        self.inv_grid = ddim_timestep_grid(config.inv_steps, inversion=True)
+        # nearest grid index to edit_t·T
+        self.edit_t_idx = int(torch.argmin(
+            torch.abs(self.fwd_grid.timesteps - config.edit_t * 1000.0)))
+        # boost index: the first step below performance_boosting_t·T
+        below = self.fwd_grid.timesteps.numpy() < config.performance_boosting_t * 1000.0
+        self.boost_start_idx = int(below.argmax()) if below.any() else None
+
+    @property
+    def _arch_config(self):
+        return self.model.config
+
+    # ---- building blocks --------------------------------------------------
+
+    def _eps_with(self):
+        """ε(x, t) on NHWC images; a learned-σ head's ε half."""
+        def eps(x, t):
+            out = to_nhwc(self.model(to_nchw(x), t))
+            return split_learned_sigma(out)[0] if self.model.config.learn_sigma else out
+        return eps
+
+    def eps_fn(self, x, t):
+        return self._eps_with()(x, t)
+
+    def _basis_name_extras(self, tap: Optional[TapPoint] = None) -> str:
+        """Cache-key qualifier of an intra-block tap, so its bases do not
+        shadow the block output's."""
+        if tap is not None and tap.inner:
+            return f"-after_{tap.inner[0]}{tap.inner[1]}"
+        return ""
+
+    @torch.no_grad()
+    def run_ddim_inversion(self, idx: int) -> torch.Tensor:
+        """x0 → xT, NHWC."""
+        x0 = torch.as_tensor(self.dataset[idx], device=self.device)
+        with self._stage("ddim_inversion", idx=idx):
+            return ddim_invert(self._eps_with(), x0, self.schedule, self.inv_grid)
+
+    @torch.no_grad()
+    def run_ddim_forward(self, num_samples: int = 4,
+                         generator: Optional[torch.Generator] = None,
+                         save_as: Optional[str] = None) -> torch.Tensor:
+        """Sample from seeded noise (the smoke path of the reference's
+        run_DDIMforward)."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(self.cfg.seed)
+        s = self.model.config.sample_size
+        xT = torch.randn(num_samples, s, s, self.model.config.in_channels,
+                         generator=generator).to(self.device)
+        with self._stage("ddim_forward", num_samples=num_samples):
+            x0 = ddim_forward(self._eps_with(), xT, self.schedule, self.fwd_grid)
+        if save_as:
+            save_image_grid(x0.float().cpu().numpy(), save_as)
+        return x0
+
+    @torch.no_grad()
+    def forward_to_edit_t(self, xT: torch.Tensor) -> torch.Tensor:
+        with self._stage("ddim_forward_to_edit", steps=self.edit_t_idx):
+            return ddim_forward(self._eps_with(), xT, self.schedule, self.fwd_grid,
+                                start_idx=0, end_idx=self.edit_t_idx)
+
+    def compute_local_basis(self, xt, t, tap: TapPoint, pca_rank: int
+                            ) -> PullbackResult:
+        """Pullback of the encoder x → h at ``tap`` (NHWC on both sides)."""
+        cfg = self.cfg
+        encode = lambda z: to_nhwc(self.model.encode(to_nchw(z), t, tap))
+        with self._stage("local_pullback") as log:
+            res = local_pullback(
+                encode, xt, torch.Generator().manual_seed(cfg.seed),
+                pca_rank=pca_rank, min_iter=cfg.pullback_min_iter,
+                max_iter=cfg.pullback_max_iter, atol=cfg.pullback_atol,
+                chunk_size=cfg.pullback_chunk_size)
+            log.update(iterations=res.iterations, final_delta=res.final_delta,
+                       top_s=res.s[:3].float().cpu().numpy().round(4))
+        return res
+
+    # ---- headline experiment ---------------------------------------------
+
+    def run_edit_local_encoder_pullback_xt(
+        self,
+        idx: int,
+        op: str = "mid",
+        block_idx: int = 0,
+        pca_rank: Optional[int] = None,
+        vis_num: Optional[int] = None,
+        vis_num_pc: Optional[int] = None,
+        after_res: bool = False,
+        after_sa: bool = False,
+    ):
+        """Invert → partial forward → pullback basis (cached) → ±pc
+        x-space-guidance walks → boosted finish → PNGs; returns their
+        names."""
+        cfg = self.cfg
+        pca_rank = pca_rank or cfg.pca_rank
+        vis_num = vis_num or cfg.vis_num
+        vis_num_pc = vis_num_pc or cfg.vis_num_pc
+        tap = self._make_tap(op, block_idx, after_res, after_sa)
+
+        xt = self.forward_to_edit_t(self.run_ddim_inversion(idx))
+        t_edit = self.fwd_grid.timesteps[self.edit_t_idx]
+        name = basis_name(cfg.dataset_name, idx, cfg.edit_t, op, block_idx,
+                          cfg.seed, pca_rank=pca_rank) + self._basis_name_extras(tap)
+        cached = self.cache.load(name)
+        if cached is not None:
+            u, s, vT = (torch.as_tensor(np.asarray(a), device=self.device)
+                        for a in cached)
+            self.log.log("basis_cache_hit", name=name)
+        else:
+            res = self.compute_local_basis(xt, t_edit, tap, pca_rank)
+            u, s, vT = res.u.float(), res.s, res.vT
+            self.cache.save(name, u.cpu().numpy(), s.cpu().numpy(),
+                            vT.cpu().numpy())
+        vT = vT / torch.linalg.norm(vT, dim=1, keepdim=True)
+
+        shape = xt.shape[1:]
+        vks, names = [], []
+        for pc in range(vis_num_pc):
+            for sign, tag in ((1.0, "pos"), (-1.0, "neg")):
+                vks.append(sign * vT[pc].reshape(shape))
+                names.append(f"Edit_xt-{cfg.dataset_name}_{idx}-edit_{cfg.edit_t}T"
+                             f"-{op}-block_{block_idx}-pc_{pc:03d}_{tag}")
+        return self._edit_along_directions(xt, vks, names, vis_num)
+
+    @torch.no_grad()
+    def _edit_along_directions(self, xt, vks, names, vis_num):
+        """The walks of every direction whose PNG is missing (one batch),
+        the boosted finish of the selected frames, one PNG grid each."""
+        cfg = self.cfg
+        t_edit = self.fwd_grid.timesteps[self.edit_t_idx]
+        todo = [i for i, n in enumerate(names) if not os.path.exists(
+            os.path.join(cfg.result_folder, n + ".png"))]
+        if not todo:
+            self.log.log("all_edits_cached")
+            return names
+        stride = max(1, (cfg.x_space_guidance_num_step + 1) // vis_num)
+        boost = self.boost_start_idx if cfg.use_performance_boosting else None
+        eps = self._eps_with()
+
+        with self._stage("x_space_guidance_walk", directions=len(todo)):
+            vk = torch.stack([vks[i] for i in todo])        # (D, H, W, C)
+            traj = x_space_guidance_scan(
+                eps, xt.expand(len(todo), *xt.shape[1:]), t_edit, vk,
+                num_steps=cfg.x_space_guidance_num_step,
+                edit_step=cfg.x_space_guidance_edit_step,
+                scale=cfg.x_space_guidance_scale, pair_impl=cfg.xsg_pair_impl)
+        sel = traj[::stride].transpose(0, 1)                # (D, frames, H, W, C)
+        d, f = sel.shape[:2]
+        with self._stage("finish_and_save", batch=d * f) as log:
+            x0s = ddim_forward(
+                eps, sel.reshape(d * f, *sel.shape[2:]), self.schedule,
+                self.fwd_grid, start_idx=self.edit_t_idx, boost_start_idx=boost,
+                generator=torch.Generator().manual_seed(cfg.seed + 1))
+            imgs = x0s.reshape(d, f, *x0s.shape[1:]).float().cpu().numpy()
+            log.update(finite=bool(np.isfinite(imgs).all()))
+            for j, i in enumerate(todo):
+                save_image_grid(imgs[j], os.path.join(cfg.result_folder,
+                                                      names[i] + ".png"))
+        return names
+
+    def run_edit_local_encoder_pullback_zt(self, *a, **kw):
+        """The reference's name, which its CLI dispatches for both families
+        (an uncond model takes no prompt)."""
+        kw.pop("edit_prompt", None)
+        kw.pop("edit_t", None)
+        return self.run_edit_local_encoder_pullback_xt(*a, **kw)

@@ -53,6 +53,16 @@ def _short_fat_svd(m: torch.Tensor):
     return s, wT @ qtall.T
 
 
+def _batched(fn: Callable, chunk_size: Optional[int], rank: int):
+    """vmap ``fn`` over the probe axis; with ``chunk_size`` a loop of vmaps
+    over chunks of that many probes, to bound peak memory."""
+    if chunk_size is None or chunk_size >= rank:
+        return vmap(fn)
+    if rank % chunk_size != 0:
+        raise ValueError(f"pca_rank {rank} must be divisible by chunk_size {chunk_size}")
+    return lambda batch: torch.cat([vmap(fn)(c) for c in batch.split(chunk_size)])
+
+
 def local_pullback(
     fn: Callable[[torch.Tensor], torch.Tensor],
     x: torch.Tensor,
@@ -63,6 +73,7 @@ def local_pullback(
     atol: float = 1e-3,
     v_init: Optional[torch.Tensor] = None,
     fn_vjp: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    chunk_size: Optional[int] = None,
 ) -> PullbackResult:
     """Top-``pca_rank`` singular triplets of ∂fn/∂x at ``x``.
 
@@ -81,8 +92,10 @@ def local_pullback(
     x = x.to(torch.float32)
     dim_x = math.prod(x.shape)
     h, vjp_fn = vjp(fn if fn_vjp is None else fn_vjp, x)
-    fwd = vmap(lambda vi: jvp(fn, (x,), (vi.reshape(x.shape),))[1].reshape(-1))
-    bwd = vmap(lambda ui: vjp_fn(ui.reshape(h.shape).to(h.dtype))[0].reshape(-1))
+    fwd = _batched(lambda vi: jvp(fn, (x,), (vi.reshape(x.shape),))[1].reshape(-1),
+                   chunk_size, pca_rank)
+    bwd = _batched(lambda ui: vjp_fn(ui.reshape(h.shape).to(h.dtype))[0].reshape(-1),
+                   chunk_size, pca_rank)
 
     if v_init is not None:
         if tuple(v_init.shape) != (pca_rank, dim_x):

@@ -1,12 +1,17 @@
-"""Command-line entry point of the port: the SD 2.1-base subset of the JAX
-package's main.py (build_sd and the edit dispatch), with the same flag names.
+"""Command-line entry point of the port: the SD 2.1-base and DDPM-family
+(CelebA-HQ-256 and the other '*_HF' names) subsets of the JAX package's
+main.py, with the same flag names, experiment folders and basis folders.
 
     python -m diffusion_pullback_tpu_torch.main --note smoke \\
         --run_edit_local_encoder_pullback_zt True
+    python -m diffusion_pullback_tpu_torch.main --note smoke \\
+        --model_name CelebA_HQ_HF --dataset_name CelebA_HQ \\
+        --performance_boosting_t 0.2 --run_edit_local_encoder_pullback_zt True
 
 Runs on CUDA unless ``--device cpu`` is given. With no checkpoint in the
 repository, the models take seeded random weights (--seed), as the JAX CLI
-does without --checkpoint_path.
+does without --checkpoint_path. ``--model_name`` defaults to SD 2.1-base,
+where the JAX CLI's '' default raises.
 """
 
 from __future__ import annotations
@@ -15,7 +20,17 @@ import argparse
 import os
 import sys
 
-DATASET = "noise"  # the one dataset of this path: seeded noise images
+SD_MODEL = "stabilityai/stable-diffusion-2-1-base"
+
+# x-space guidance scale per h_t (--use_x_space_guidance): this package's
+# copy of the tables in the JAX package's configs/params.py
+X_SPACE_GUIDANCE_SCALE_DICT = {
+    "stable-diffusion": {
+        1.0: 0.5, 0.9: 0.5, 0.8: 1, 0.7: 1, 0.6: 2,
+        0.5: 2, 0.4: 2, 0.3: 2, 0.2: 2, 0.1: 2, 0.0: 0,
+    },
+    "uncond": {1.0: 0.5, 0.8: 1, 0.6: 4, 0.4: 16, 0.2: 16},
+}
 
 
 def str2bool(v):
@@ -29,6 +44,13 @@ def str2bool(v):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m diffusion_pullback_tpu_torch.main")
     p.add_argument("--note", type=str, required=True)
+    p.add_argument("--model_name", type=str, default=SD_MODEL,
+                   help=f"{SD_MODEL} or an uncond name (CelebA_HQ_HF, "
+                        "LSUN_church_HF, LSUN_bedroom_HF, FFHQ_HF)")
+    p.add_argument("--dataset_name", type=str, default="",
+                   help="an image folder under datasets/ (or --data_root); "
+                        "'' or 'noise' = seeded noise images")
+    p.add_argument("--data_root", type=str, default="")
     p.add_argument("--sample_idx", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="",
@@ -42,32 +64,119 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--neg_prompt", type=str, default="")
     p.add_argument("--for_steps", type=int, default=100)
     p.add_argument("--inv_steps", type=int, default=100)
+    p.add_argument("--performance_boosting_t", type=float, default=0.0)
     p.add_argument("--guidance_scale", type=float, default=0)
     p.add_argument("--edit_prompt", type=str, default="")
     p.add_argument("--edit_t", type=float, default=1.0)
+    p.add_argument("--use_x_space_guidance", type=str2bool, default=False,
+                   help="take --x_space_guidance_scale from the h_t table")
+    p.add_argument("--h_t", type=float, default=0.8)
     p.add_argument("--x_space_guidance_edit_step", type=float, default=1)
     p.add_argument("--x_space_guidance_scale", type=float, default=0)
     p.add_argument("--x_space_guidance_num_step", type=int, default=0)
     p.add_argument("--xsg_pair_impl", type=str, default="batch",
                    choices=["batch", "split"])
     p.add_argument("--pca_rank", type=int, default=2)
+    p.add_argument("--pullback_chunk_size", type=int, default=0,
+                   help="probes per tangent/cotangent batch; 0 = all")
     p.add_argument("--op", type=str, default="mid", choices=["down", "mid", "up"])
     p.add_argument("--block_idx", type=int, default=0)
+    p.add_argument("--after_res", type=str2bool, default=False)
+    p.add_argument("--after_sa", type=str2bool, default=False)
     p.add_argument("--attn_impl", type=str, default="auto",
                    choices=["auto", "xla", "flash"],
-                   help="'auto' = flash on cuda, xla on cpu")
+                   help="SD path: 'auto' = flash on cuda, xla on cpu (the "
+                        "DDPM U-Net's ≤256-token attention is always the "
+                        "math path)")
     p.add_argument("--pullback_attn_impl", type=str, default="",
                    choices=["", "xla", "flash"],
-                   help="attention inside the differentiated encoder: "
-                        "'flash' = the fused JVP/VJP kernel pair, 'xla' = "
-                        "the math path; '' = flash on cuda, xla on cpu")
+                   help="SD path: attention inside the differentiated "
+                        "encoder: 'flash' = the fused JVP/VJP kernel pair, "
+                        "'xla' = the math path; '' = flash on cuda, xla on cpu")
     p.add_argument("--run_edit_local_encoder_pullback_zt", type=str2bool,
                    default=False)
+    p.add_argument("--run_ddim_forward", type=str2bool, default=False)
     return p
 
 
 def parse_args(argv=None):
     return build_parser().parse_args(argv)
+
+
+def is_stable_diffusion(args) -> bool:
+    return "stable-diffusion" in args.model_name
+
+
+def experiment_folders(args):
+    """(experiment folder, basis folder) as the JAX CLI names them for the
+    same flags: ``preset`` in utils/config.py and the builders of main.py."""
+    if is_stable_diffusion(args):
+        exp = f"Stable_Diffusion-{args.dataset_name}-{args.note}"
+        family = "stable_diffusion"
+    else:
+        exp = f"{args.model_name}-{args.dataset_name}-{args.note}"
+        family = "uncond"
+    basis = os.path.join(
+        "./inputs", f"local_encoder_pullback_{family}-dataset_{args.dataset_name}"
+                    f"-num_steps_{args.for_steps}-pca_rank_{args.pca_rank}")
+    return os.path.join(args.result_folder, exp), basis
+
+
+def _guidance_scale(args, default: float) -> float:
+    scale = args.x_space_guidance_scale
+    if args.use_x_space_guidance:
+        family = "stable-diffusion" if is_stable_diffusion(args) else "uncond"
+        scale = X_SPACE_GUIDANCE_SCALE_DICT[family][args.h_t]
+    return scale or default
+
+
+def _dataset(args, image_size: int):
+    from .utils.datasets import NoiseDataset, get_dataset
+
+    try:
+        return get_dataset(args.dataset_name or "noise", image_size,
+                           args.data_root or None)
+    except FileNotFoundError as e:
+        print(f"[main] {e}; falling back to offline noise dataset")
+        return NoiseDataset(image_size)
+
+
+def build_uncond(args):
+    """The DDPM-family editing driver: the U-Net of ``--model_name`` with
+    seeded random weights, the linear schedule, 256 px images."""
+    from .experiments import EditUncondDiffusion, UncondExperimentConfig
+    from .models import model_for_name, random_init_
+    from .ops.schedule import DiffusionSchedule
+    from .utils.device import resolve_device
+    from .utils.logging import JSONLLogger
+
+    device = resolve_device(args.device or None)
+    dtype = args.dtype or ("bf16" if device.type == "cuda" else "fp32")
+    model = random_init_(model_for_name(
+        args.model_name, dtype="bfloat16" if dtype == "bf16" else "float32"),
+        args.seed)
+    exp_folder, basis_folder = experiment_folders(args)
+    cfg = UncondExperimentConfig(
+        dataset_name=args.dataset_name or "noise",
+        for_steps=args.for_steps,
+        inv_steps=args.inv_steps,
+        edit_t=args.edit_t,
+        seed=args.seed,
+        x_space_guidance_edit_step=args.x_space_guidance_edit_step,
+        x_space_guidance_scale=_guidance_scale(args, 0.1),
+        x_space_guidance_num_step=args.x_space_guidance_num_step or 16,
+        xsg_pair_impl=args.xsg_pair_impl,
+        performance_boosting_t=args.performance_boosting_t,
+        use_performance_boosting=args.performance_boosting_t > 0,
+        pca_rank=args.pca_rank,
+        pullback_chunk_size=args.pullback_chunk_size or None,
+        result_folder=os.path.join(exp_folder, "results"),
+        basis_folder=basis_folder,
+    )
+    return EditUncondDiffusion(
+        model, DiffusionSchedule.from_name("linear"),
+        _dataset(args, model.config.sample_size), cfg,
+        logger=JSONLLogger(os.path.join(exp_folder, "log.jsonl")), device=device)
 
 
 def build_sd(args):
@@ -84,10 +193,11 @@ def build_sd(args):
         sd_vae,
     )
     from .ops.schedule import DiffusionSchedule
-    from .utils.datasets import NoiseDataset
     from .utils.device import resolve_device
     from .utils.logging import JSONLLogger
 
+    if "-xl-" in args.model_name:
+        raise NotImplementedError("SDXL is not ported yet (ROADMAP queue 1, item 14)")
     device = resolve_device(args.device or None)
     on_cuda = device.type == "cuda"
     dtype = args.dtype or ("bf16" if on_cuda else "fp32")
@@ -100,10 +210,9 @@ def build_sd(args):
     vae = random_init_(AutoencoderKL(sd_vae(attn_impl=attn)), args.seed + 1)
     text = random_init_(CLIPTextModel(sd21_text_encoder()), args.seed + 2)
 
-    exp_folder = os.path.join(args.result_folder,
-                              f"Stable_Diffusion-{DATASET}-{args.note}")
+    exp_folder, basis_folder = experiment_folders(args)
     cfg = SDExperimentConfig(
-        dataset_name=DATASET,
+        dataset_name=args.dataset_name or "noise",
         for_steps=args.for_steps,
         inv_steps=args.inv_steps,
         edit_t=args.edit_t,
@@ -114,7 +223,7 @@ def build_sd(args):
         inv_prompt=args.inv_prompt,
         edit_prompt=args.edit_prompt,
         x_space_guidance_edit_step=args.x_space_guidance_edit_step,
-        x_space_guidance_scale=args.x_space_guidance_scale or 1.0,
+        x_space_guidance_scale=_guidance_scale(args, 1.0),
         x_space_guidance_num_step=args.x_space_guidance_num_step or 16,
         xsg_pair_impl=args.xsg_pair_impl,
         pca_rank=args.pca_rank,
@@ -122,27 +231,52 @@ def build_sd(args):
         # accelerator; --pullback_attn_impl xla opts out
         pullback_attn_impl=args.pullback_attn_impl or (
             "flash" if on_cuda else "xla"),
+        pullback_chunk_size=args.pullback_chunk_size or None,
         result_folder=os.path.join(exp_folder, "results"),
-        basis_folder=os.path.join(
-            "./inputs",
-            f"local_encoder_pullback_stable_diffusion-dataset_{DATASET}"
-            f"-num_steps_{args.for_steps}-pca_rank_{args.pca_rank}"),
+        basis_folder=basis_folder,
     )
     return EditStableDiffusion(
         unet, vae, text, DiffusionSchedule.from_name("scaled_linear"),
-        NoiseDataset(unet.config.sample_size * 8), cfg,
+        _dataset(args, unet.config.sample_size * 8), cfg,
         logger=JSONLLogger(os.path.join(exp_folder, "log.jsonl")),
         device=device)
 
 
+def check_preset(args) -> None:
+    """The JAX CLI's preset asserts: an uncond run takes 100 forward steps
+    and boosting at 0.2·T; an SD run takes no boosting."""
+    if is_stable_diffusion(args):
+        if args.performance_boosting_t > 0:
+            raise ValueError("Stable Diffusion runs take no performance "
+                             "boosting (--performance_boosting_t 0)")
+    elif args.for_steps != 100 or args.performance_boosting_t != 0.2:
+        raise ValueError("uncond runs take --for_steps 100 and "
+                         "--performance_boosting_t 0.2")
+
+
 def main(argv=None):
     args = parse_args(argv)
-    edit = build_sd(args)
+    check_preset(args)
+    edit = build_sd(args) if is_stable_diffusion(args) else build_uncond(args)
     if args.run_edit_local_encoder_pullback_zt:
+        taps = dict(after_res=args.after_res, after_sa=args.after_sa)
+        if is_stable_diffusion(args):
+            if any(taps.values()):
+                raise NotImplementedError(
+                    "intra-block taps of the SD U-Net are not ported yet "
+                    "(ROADMAP queue 1, item 8)")
+            taps = {}
         edit.run_edit_local_encoder_pullback_zt(
             idx=args.sample_idx, op=args.op, block_idx=args.block_idx,
             vis_num=4, vis_num_pc=2, pca_rank=args.pca_rank or 2,
-            edit_prompt=args.edit_prompt or None)
+            edit_prompt=args.edit_prompt or None, **taps)
+    if args.run_ddim_forward:
+        if is_stable_diffusion(args):
+            raise NotImplementedError(
+                "--run_ddim_forward is ported for the uncond family only "
+                "(the SD driver's run_DDIMforward: ROADMAP queue 1, item 9)")
+        edit.run_ddim_forward(num_samples=5, save_as=os.path.join(
+            edit.cfg.result_folder, "DDIMforward.png"))
     return edit
 
 

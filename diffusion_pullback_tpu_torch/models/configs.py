@@ -1,15 +1,90 @@
-"""Model architecture configs and presets of the SD 2.1-base path.
+"""Model architecture configs and presets of the ported paths.
 
-The SD 2.1 subset of the dataclasses and fields of
+The SD 2.1 and DDPM (UNet2D) subsets of the dataclasses and fields of
 diffusion_pullback_tpu/models/configs.py, under the same names, so one set of
 kwargs builds both packages. ``dtype`` is the parameter and compute dtype of
-the module ('float32' | 'bfloat16').
+the module ('float32' | 'bfloat16'). The JAX ``precision`` field is not
+carried: the port's float32 is full float32 on the card (strict_f32).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class UNet2DConfig:
+    """Unconditional 2-D U-Net (DDPM family).
+
+    ``down_block_types`` entries: 'down' | 'attn_down'; up: 'up' | 'attn_up'.
+    ``attention_head_dim=None`` → single attention head over all channels.
+    """
+
+    sample_size: int = 256
+    in_channels: int = 3
+    out_channels: int = 3
+    block_out_channels: Tuple[int, ...] = (128, 128, 256, 256, 512, 512)
+    down_block_types: Tuple[str, ...] = (
+        "down", "down", "down", "down", "attn_down", "down",
+    )
+    up_block_types: Tuple[str, ...] = (
+        "up", "attn_up", "up", "up", "up", "up",
+    )
+    layers_per_block: int = 2
+    attention_head_dim: Optional[int] = None
+    norm_num_groups: int = 32
+    norm_eps: float = 1e-6
+    dropout: float = 0.0
+    time_embed_dim: Optional[int] = None  # default: 4 * block_out_channels[0]
+    flip_sin_to_cos: bool = False
+    freq_shift: float = 1.0
+    add_mid_attention: bool = True
+    asymmetric_downsample: bool = False
+    learn_sigma: bool = False  # doubles out_channels at the head
+    dtype: str = "float32"
+
+    @property
+    def effective_out_channels(self) -> int:
+        return self.out_channels * (2 if self.learn_sigma else 1)
+
+
+def ddpm_celebahq_256() -> UNet2DConfig:
+    """Architecture of google/ddpm-ema-celebahq-256 (and the other google/ddpm
+    256 px checkpoints: CelebA_HQ_HF, LSUN_*_HF, FFHQ_HF)."""
+    return UNet2DConfig()
+
+
+def ddpm_ema_church_256() -> UNet2DConfig:
+    return UNet2DConfig()
+
+
+def ddpm_ema_bedroom_256() -> UNet2DConfig:
+    """google/ddpm-ema-bedroom-256: the same architecture as celebahq."""
+    return UNet2DConfig()
+
+
+def ddpm_ema_ffhq_256() -> UNet2DConfig:
+    """FFHQ 256 px HF checkpoint."""
+    return UNet2DConfig()
+
+
+def sdedit_celeba_256() -> UNet2DConfig:
+    """The SDEdit CelebA-HQ custom DDPM (ch=128, ch_mult=(1,1,2,2,4,4),
+    attention at 16×16, two res blocks, asymmetric downsampling)."""
+    return UNet2DConfig(asymmetric_downsample=True)
+
+
+def ddpm_tiny(sample_size: int = 32) -> UNet2DConfig:
+    """Tiny config for tests: 2 blocks, 8/16 channels, attention in block 1."""
+    return UNet2DConfig(
+        sample_size=sample_size,
+        block_out_channels=(8, 16),
+        down_block_types=("down", "attn_down"),
+        up_block_types=("attn_up", "up"),
+        layers_per_block=1,
+        norm_num_groups=4,
+    )
 
 
 @dataclasses.dataclass(frozen=True)

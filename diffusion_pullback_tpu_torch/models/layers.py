@@ -145,14 +145,18 @@ class SelfAttention2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    """Stride-2 3×3 conv, padding 1."""
+    """Stride-2 3×3 conv, padding 1; with ``asymmetric`` (the original DDPM
+    nets) the input is padded by one row and column at the bottom and right
+    and the conv pads nothing."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, asymmetric: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.asymmetric = asymmetric
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2,
+                              padding=0 if asymmetric else 1)
 
     def forward(self, x):
-        return self.conv(x)
+        return self.conv(F.pad(x, (0, 1, 0, 1)) if self.asymmetric else x)
 
 
 class Upsample2D(nn.Module):

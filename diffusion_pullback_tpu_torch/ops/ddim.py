@@ -35,3 +35,9 @@ def ddim_step(et, xt, at, at_next, eta: float = 0.0,
     d = torch.sqrt(torch.clamp(1.0 - at_next - eta * sigma**2, min=0.0)) * et
     prev = torch.sqrt(at_next) * p_x0 + d + eta * sigma * noise
     return DDIMStepOutput(prev, p_x0)
+
+
+def split_learned_sigma(model_out: torch.Tensor, axis: int = -1):
+    """(ε, logvar): the two halves of a learned-σ model output along
+    ``axis`` (default the trailing channel axis of an NHWC tensor)."""
+    return model_out.chunk(2, dim=axis)

@@ -39,6 +39,16 @@ class DiffusionSchedule(NamedTuple):
         )
 
     @staticmethod
+    def linear(
+        beta_start: float = 1e-4,
+        beta_end: float = 0.02,
+        num_train_timesteps: int = 1000,
+    ) -> "DiffusionSchedule":
+        """DDPM linear schedule: linear in beta."""
+        return DiffusionSchedule.from_betas(np.linspace(
+            beta_start, beta_end, num_train_timesteps, dtype=np.float64))
+
+    @staticmethod
     def scaled_linear(
         beta_start: float = 0.00085,
         beta_end: float = 0.012,
@@ -50,11 +60,27 @@ class DiffusionSchedule(NamedTuple):
         return DiffusionSchedule.from_betas(betas)
 
     @staticmethod
+    def cosine(num_train_timesteps: int = 1000, s: float = 0.008
+               ) -> "DiffusionSchedule":
+        """Improved-DDPM cosine schedule over a ``num_train_timesteps``-entry
+        table, betas clipped to [0, 0.999]."""
+        x = np.linspace(0, num_train_timesteps, num_train_timesteps + 1,
+                        dtype=np.float64)
+        ac = np.cos(((x / num_train_timesteps) + s) / (1 + s) * math.pi * 0.5) ** 2
+        ac = ac / ac[0]
+        return DiffusionSchedule.from_betas(
+            np.clip(1 - (ac[1:] / ac[:-1]), 0.0, 0.999))
+
+    @staticmethod
     def from_name(name: str, **kwargs) -> "DiffusionSchedule":
-        if name != "scaled_linear":
-            raise ValueError(f"noise schedule {name!r} is not ported; the SD "
-                             f"path uses 'scaled_linear'")
-        return DiffusionSchedule.scaled_linear(**kwargs)
+        try:
+            return {
+                "linear": DiffusionSchedule.linear,
+                "cosine": DiffusionSchedule.cosine,
+                "scaled_linear": DiffusionSchedule.scaled_linear,
+            }[name](**kwargs)
+        except KeyError:
+            raise ValueError(f"unknown noise schedule: {name!r}") from None
 
 
 class TimestepGrid(NamedTuple):
@@ -85,8 +111,17 @@ def ddim_timestep_grid(num_steps: int, t_max: float = 999.0,
     )
 
 
+def _lookup(table: torch.Tensor, t) -> torch.Tensor:
+    """table[t], flooring the float timestep to an index (clamped)."""
+    t = torch.as_tensor(t, device=table.device)
+    return table[t.to(torch.int64).clamp(0, table.shape[0] - 1)]
+
+
 def alpha_bar(schedule: DiffusionSchedule, t) -> torch.Tensor:
     """ᾱ_t lookup, flooring the float timestep to an index (clamped)."""
-    t = torch.as_tensor(t, device=schedule.alphas_cumprod.device)
-    idx = t.to(torch.int64).clamp(0, schedule.num_train_timesteps - 1)
-    return schedule.alphas_cumprod[idx]
+    return _lookup(schedule.alphas_cumprod, t)
+
+
+def beta(schedule: DiffusionSchedule, t) -> torch.Tensor:
+    """β_t lookup (floor-to-int, clamped), for the learned-σ DDPM step."""
+    return _lookup(schedule.betas, t)

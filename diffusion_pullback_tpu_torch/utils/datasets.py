@@ -1,9 +1,44 @@
-"""Offline data (counterpart of NoiseDataset in
-diffusion_pullback_tpu/utils/datasets.py)."""
+"""Datasets: numbered-image folders and seeded noise (counterpart of
+ImgDataset, NoiseDataset and get_dataset in
+diffusion_pullback_tpu/utils/datasets.py). Items are (1, S, S, 3) float32
+NHWC arrays in [-1, 1]."""
 
 from __future__ import annotations
 
+import os
+import re
+from typing import List, Optional
+
 import numpy as np
+
+from .images import load_image
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+class ImgDataset:
+    """Folder of images, ordered by the integer in each filename."""
+
+    EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
+
+    def __init__(self, root: str, image_size: int):
+        self.root = root
+        self.image_size = image_size
+        names = [f for f in os.listdir(root) if f.lower().endswith(self.EXTS)]
+
+        def key(name: str):
+            m = re.search(r"\d+", name)
+            return (int(m.group()) if m else 1 << 30, name)
+
+        self.files: List[str] = [os.path.join(root, f) for f in sorted(names, key=key)]
+        if not self.files:
+            raise FileNotFoundError(f"no images under {root}")
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        return load_image(self.files[idx], self.image_size)
 
 
 class NoiseDataset:
@@ -22,3 +57,27 @@ class NoiseDataset:
         rng = np.random.default_rng(idx)
         x = rng.normal(size=(1, self.image_size, self.image_size, 3))
         return np.tanh(x.astype(np.float32)) * self.scale
+
+
+def get_dataset(dataset_name: str, image_size: int,
+                data_root: Optional[str] = None):
+    """'noise' → NoiseDataset; any other name → the first image folder among
+    ``data_root``, ``data_root/<name lower>`` and the repository's
+    ``datasets/<name lower>`` and ``datasets/<name>``. Raises
+    FileNotFoundError when none holds images."""
+    if dataset_name == "noise":
+        return NoiseDataset(image_size)
+    candidates = []
+    if data_root:
+        candidates += [data_root, os.path.join(data_root, dataset_name.lower())]
+    candidates += [os.path.join(_REPO, "datasets", dataset_name.lower()),
+                   os.path.join(_REPO, "datasets", dataset_name)]
+    for c in candidates:
+        if os.path.isdir(c):
+            try:
+                return ImgDataset(c, image_size)
+            except FileNotFoundError:
+                continue
+    raise FileNotFoundError(
+        f"dataset {dataset_name!r} not found (searched {candidates}); "
+        "use dataset_name='noise' for offline runs or pass data_root")

@@ -1,4 +1,4 @@
-"""PNG grids of NHWC image batches in [-1, 1] (counterpart of
+"""Image I/O of NHWC batches in [-1, 1] (counterpart of load_image and
 save_image_grid in diffusion_pullback_tpu/utils/images.py)."""
 
 from __future__ import annotations
@@ -6,7 +6,26 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 from PIL import Image
+
+
+def load_image(path: str, image_size: int) -> np.ndarray:
+    """Center-crop to the largest square, resize bilinearly, scale to
+    [-1, 1] → (1, S, S, 3) float32. The resize samples at pixel centres
+    (align_corners=False) without antialiasing, the convention of the JAX
+    package's native loader (native/imageproc.cpp); PIL's antialiased
+    BILINEAR filter would differ from it by several uint8 levels at 2×."""
+    img = Image.open(path).convert("RGB")
+    w, h = img.size
+    side = min(w, h)
+    left, top = (w - side) // 2, (h - side) // 2
+    arr = np.asarray(img.crop((left, top, left + side, top + side)), np.float32)
+    x = torch.from_numpy(arr).permute(2, 0, 1)[None]
+    x = F.interpolate(x, size=(image_size, image_size), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return (x.permute(0, 2, 3, 1) * (2.0 / 255.0) - 1.0).numpy()
 
 
 def to_uint8(batch: np.ndarray) -> np.ndarray:

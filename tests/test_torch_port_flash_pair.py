@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 from torch.func import jvp, vjp, vmap
+from torch_port_common import one_torch_thread  # noqa: F401
 
 import diffusion_pullback_tpu.ops.pallas.flash_attention as jfa
 from diffusion_pullback_tpu_torch.ops import flash_attention as tfa

@@ -14,6 +14,7 @@ import sys
 
 import pytest
 import torch
+from torch_port_common import one_torch_thread  # noqa: F401
 
 from diffusion_pullback_tpu_torch import main as tmain
 from diffusion_pullback_tpu_torch.utils.device import resolve_device

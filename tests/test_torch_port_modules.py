@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_common import flax_params, nchw
+from torch_port_common import flax_params, nchw, one_torch_thread  # noqa: F401
 
 from diffusion_pullback_tpu.models import clip_text as jclip
 from diffusion_pullback_tpu.models.configs import clip_text_tiny as jclip_tiny

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_common import flax_params
+from torch_port_common import flax_params, one_torch_thread  # noqa: F401
 
 from diffusion_pullback_tpu.geometry import local_pullback as jlocal_pullback
 from diffusion_pullback_tpu.models import configs as jcfg

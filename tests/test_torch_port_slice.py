@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 from PIL import Image
-from torch_port_common import flax_params
+from torch_port_common import flax_params, one_torch_thread  # noqa: F401
 
 from diffusion_pullback_tpu import experiments as jexp
 from diffusion_pullback_tpu import models as jmodels

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_common import one_torch_thread  # noqa: F401
 
 import diffusion_pullback_tpu.ops.pallas.flash_attention as jfa
 

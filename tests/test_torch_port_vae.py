@@ -8,7 +8,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-from torch_port_common import flax_params, nchw, nhwc
+from torch_port_common import flax_params, nchw, nhwc, one_torch_thread  # noqa: F401
 
 from diffusion_pullback_tpu.models import configs as jcfg
 from diffusion_pullback_tpu.models.vae import AutoencoderKL as JVAE

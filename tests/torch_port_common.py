@@ -2,6 +2,7 @@
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 
@@ -33,3 +34,14 @@ def nchw(x: np.ndarray) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.permute(0, 2, 3, 1).detach().numpy()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a test module's small tensors: the tier-1 run
+    puts six test processes on the CPU's cores, and torch's per-op thread
+    team, spinning at every tiny op, slows all of them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
