@@ -41,9 +41,19 @@ Phases (any failure exits non-zero before the last line is printed):
                K1–K5 (its attention is 256- and 64-token single-head math
                path); full-width ε and the ddpm_tiny(32) config-1 smoke
                pipeline on the card against the CPU in f32, and bf16 against
-               f32 at full width.
-Then a JSON line of the kernels (one entry per kernel and design on the
-main path, at the shape that carries most of that design's device time
+               f32 at full width;
+  6. sd rest — the rest of the SD 2.1-base edit path at full width through
+               the CLI's builder with the with-prompt script's values (edit
+               prompt 'sitting dog', CFG inside the JVP at 7.5, edit t 0.7):
+               the encoder-pullback edit with CFG in the JVP, the decoder-
+               and x̂₀-pullback edits, the text-driven edit, the walk and the
+               finish under DeepCache (interval 1 identical to the plain
+               path), run_DDIMforward, each with its launches by shape held
+               to the count the code gives; then the CFG and decoder
+               pullbacks on the pair against the math path in f32 and bf16.
+Phases 1–2 hold every (kernel, shape) that phases 4 and 6 launch. Then a
+JSON line of the kernels (one entry per kernel and design over phases 4
+and 6, at the shape that carries most of that design's device time
 there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
@@ -77,10 +87,26 @@ PEAK_OPS = {torch.float32: 494.7e12 / 3, torch.bfloat16: 989e12}
 # the encode (1 image) and in each direction's decode (3 frames)
 K1_SHAPES = [(5 * b, 4096, 64) for b in (1, 4, 6)] + [
     (10 * b, 1024, 64) for b in (1, 4, 6)] + [(1, 4096, 512), (3, 4096, 512)]
+F32, BF16 = torch.float32, torch.bfloat16
+# (shape, dtype) of each K1 case: every K1_SHAPES entry in both dtypes, and
+# phase 6's new shapes in the path's dtype only: run_DDIMforward's 5
+# samples through the U-Net (bf16) and the VAE (f32)
+K1_CASES = [(s, dt) for s in K1_SHAPES for dt in (F32, BF16)] + [
+    ((25, 4096, 64), BF16), ((50, 1024, 64), BF16), ((5, 4096, 512), F32)]
 # the pullback's encoder (batch 1, mid tap) reaches the pair at these
 # primal (B·H, S, D); K3–K5 see the probes folded into B·H
 PCA_RANK = 2
 PAIR_SHAPES = [(5, 4096, 64), (10, 1024, 64)]
+# (primal B·H, S, D, probes, dtypes, kernels) of each K2–K5 case: the
+# pullback's encoder at batch 1 in both dtypes; phase 6's CFG pullback, its
+# 2·B primal (K2) with the probes folded outside it (K3–K5); and phase 6's
+# covector VJPs (Jᵀu), one cotangent against the primal (K4, K5 unfolded)
+PAIR_CASES = [(*shape, PCA_RANK, (F32, BF16), ("K2", "K3", "K4", "K5"))
+              for shape in PAIR_SHAPES] + [
+    (10, 4096, 64, PCA_RANK, (BF16,), ("K2", "K3", "K4", "K5")),
+    (20, 1024, 64, PCA_RANK, (BF16,), ("K2", "K3", "K4", "K5")),
+    (5, 4096, 64, 1, (BF16,), ("K4", "K5")),
+    (10, 1024, 64, 1, (BF16,), ("K4", "K5"))]
 # C symbol → (label, wrapper, source in ops/csrc by design, line of the
 # Pallas call it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
 KERNELS = {
@@ -96,6 +122,7 @@ KERNELS = {
     "flash_dkv": ("K5", "flash_dkv",
                   {"simt": "flash_bwd.cu", "wgmma": "flash_bwd_tc.cu"}, 396),
 }
+KERNELS_BY_LABEL = {label: sym for sym, (label, *_) in KERNELS.items()}
 # K2–K5's operations per (B·H)·S²·D, B·H the tangents' or the cotangent's
 PAIR_OPS = {"K2": 4, "K3": 10, "K4": 6, "K5": 8}
 # K1 on 'tf32x3' against its plain version (f32, TF32 off). Three TF32
@@ -235,55 +262,55 @@ def phase_k1(fa):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for shape in K1_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
-                       for _ in range(3))
-            scale = shape[-1] ** -0.5
-            out = fa.flash_forward(q, k, v, scale)
-            torch.cuda.synchronize()
-            ref = fa.flash_forward_plain(q, k, v, scale)
-            err = (out.float() - ref.float()).abs().max().item()
-            design = fa.design("K1", shape[-1], dtype)
-            tol = k1_tol(ref, dtype, design)
-            row = dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: fa.flash_forward(q, k, v, scale), 20),
-                host_us=host_us(lambda: fa.flash_forward(q, k, v, scale)),
-                plain_ms=cuda_ms(lambda: fa.flash_forward_plain(q, k, v, scale), 5),
-                # 4-D (1, B·H, S, D): SDPA picks its fused kernels only for 4-D
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q[None], k[None], v[None], scale=scale), 20),
-            )
-            row["bound_ms"], row["bound_by"] = k1_bound_ms(shape, dtype)
-            row["design"] = design
-            rows[(shape, dtype)] = row
-            if design == "tf32x3":
-                row["one_tf32_err"] = (one_tf32_forward(q, k, v, scale)
-                                       - ref).abs().max().item()
-                log(f"[k1] {shape} f32: sdpa served by " + served_by(
-                    lambda: F.scaled_dot_product_attention(
-                        q[None], k[None], v[None], scale=scale))
-                    + f"; one TF32 product per f32 product: max_abs_err "
-                    f"{row['one_tf32_err']:.3g} (must exceed the tol {tol:.3g})")
-                if not row["one_tf32_err"] > tol:
-                    raise AssertionError(f"K1's tf32x3 gate {tol} does not part "
-                                         f"three TF32 products from one at {shape}")
-            log(f"[k1] {shape} {str(dtype)[6:]}: max_abs_err {err:.3g} (tol "
-                f"{tol:.3g}) kernel {row['ms']:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
-                + rate(row, 4.0 * shape[0] * shape[1] ** 2 * shape[2]))
-            if not err <= tol:
-                raise AssertionError(f"K1 disagrees with its plain version at "
-                                     f"{shape} {dtype}: {err} > {tol}")
+    for shape, dtype in K1_CASES:
+        q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+        scale = shape[-1] ** -0.5
+        out = fa.flash_forward(q, k, v, scale)
+        torch.cuda.synchronize()
+        ref = fa.flash_forward_plain(q, k, v, scale)
+        err = (out.float() - ref.float()).abs().max().item()
+        design = fa.design("K1", shape[-1], dtype)
+        tol = k1_tol(ref, dtype, design)
+        row = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: fa.flash_forward(q, k, v, scale), 20),
+            host_us=host_us(lambda: fa.flash_forward(q, k, v, scale)),
+            plain_ms=cuda_ms(lambda: fa.flash_forward_plain(q, k, v, scale), 5),
+            # 4-D (1, B·H, S, D): SDPA picks its fused kernels only for 4-D
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], scale=scale), 20),
+        )
+        row["bound_ms"], row["bound_by"] = k1_bound_ms(shape, dtype)
+        row["design"] = design
+        rows[(shape, dtype)] = row
+        if design == "tf32x3":
+            row["one_tf32_err"] = (one_tf32_forward(q, k, v, scale)
+                                   - ref).abs().max().item()
+            log(f"[k1] {shape} f32: sdpa served by " + served_by(
+                lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], scale=scale))
+                + f"; one TF32 product per f32 product: max_abs_err "
+                f"{row['one_tf32_err']:.3g} (must exceed the tol {tol:.3g})")
+            if not row["one_tf32_err"] > tol:
+                raise AssertionError(f"K1's tf32x3 gate {tol} does not part "
+                                     f"three TF32 products from one at {shape}")
+        log(f"[k1] {shape} {str(dtype)[6:]}: max_abs_err {err:.3g} (tol "
+            f"{tol:.3g}) kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            + rate(row, 4.0 * shape[0] * shape[1] ** 2 * shape[2]))
+        if not err <= tol:
+            raise AssertionError(f"K1 disagrees with its plain version at "
+                                 f"{shape} {dtype}: {err} > {tol}")
     return rows
 
 
 def phase_pair(fa):
-    """K2–K5 against their plain versions at the pullback's shapes: K2 at
-    the primal (B·H, S, D), K3–K5 with the tangents / cotangent batched over
-    PCA_RANK probes against one primal, as the main path calls them."""
+    """K2–K5 against their plain versions at the pullback's shapes
+    (PAIR_CASES): K2 at the primal (B·H, S, D), K3–K5 with the tangents /
+    cotangent batched over the case's probes against one primal, as the
+    main path calls them."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -292,9 +319,9 @@ def phase_pair(fa):
     sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
     eff = torch.ops.aten._scaled_dot_product_efficient_attention
     eff_bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
-    rows, r = {}, PCA_RANK
-    for bhp, s, d in PAIR_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    rows = {}
+    for bhp, s, d, r, dtypes, labels in PAIR_CASES:
+        for dtype in dtypes:
             rnd = lambda n: torch.randn(n, s, d, device="cuda", generator=gen).to(dtype)
             q, k, v = rnd(bhp), rnd(bhp), rnd(bhp)
             dq, dk, dv, do = rnd(r * bhp), rnd(r * bhp), rnd(r * bhp), rnd(r * bhp)
@@ -312,6 +339,7 @@ def phase_pair(fa):
                 "K5": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, scale),
                        lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, scale)),
             }
+            calls = {label: calls[label] for label in labels}
             library = {}
             q4, k4, v4 = (t.repeat(r, 1, 1)[None] for t in (q, k, v))
             # K3's yardstick: the tangent of SDPA along the probes' tangents
@@ -321,16 +349,17 @@ def phase_pair(fa):
             sdpa_jvp = lambda: torch.func.jvp(
                 lambda a, b, c: F.scaled_dot_product_attention(a, b, c, scale=scale),
                 (q4, k4, v4), (dq[None], dk[None], dv[None]))
-            try:
-                sdpa_jvp()
-                default = "runs"
-            except RuntimeError as e:
-                default = "raises: " + str(e).splitlines()[0]
-            with sdpa_kernel(SDPBackend.MATH):
-                library["K3"] = cuda_ms(sdpa_jvp, 5)
-                log(f"[k3] ({r * bhp}, {s}, {d}) {str(dtype)[6:]}: torch.func.jvp "
-                    f"of SDPA on the math backend served by {served_by(sdpa_jvp)} "
-                    f"(on SDPA's own choice it {default})")
+            if "K3" in labels:
+                try:
+                    sdpa_jvp()
+                    default = "runs"
+                except RuntimeError as e:
+                    default = "raises: " + str(e).splitlines()[0]
+                with sdpa_kernel(SDPBackend.MATH):
+                    library["K3"] = cuda_ms(sdpa_jvp, 5)
+                    log(f"[k3] ({r * bhp}, {s}, {d}) {str(dtype)[6:]}: "
+                        f"torch.func.jvp of SDPA on the math backend served by "
+                        f"{served_by(sdpa_jvp)} (on SDPA's own choice it {default})")
             if dtype == torch.bfloat16:  # the flash SDPA ops take bf16 only
                 fwd4 = sdpa(q4, k4, v4, 0.0, False, False, scale=scale)
                 bwd_args = (do[None], q4, k4, v4, *fwd4[:6], 0.0, False, *fwd4[6:8])
@@ -566,6 +595,122 @@ def timed_launches(fa):
         fa._launch = launch
 
 
+def reset_launches(fa):
+    for _, wrapper, _, _ in KERNELS.values():
+        getattr(fa, wrapper).launches = 0
+
+
+def drive(fa, fn):
+    """One run of a main path: the launch counts set to 0 just before it,
+    CUDA events around every launch. Returns (fn's result, seconds, peak
+    memory in GB, launches by symbol as the wrappers count them, and
+    {(symbol, shape, dtype): [launches, summed device ms]})."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(fa)
+    t0 = time.perf_counter()
+    with timed_launches(fa) as events:
+        out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {sym: getattr(fa, k[1]).launches for sym, k in KERNELS.items()}
+    path = {key: [len(ev), sum(a.elapsed_time(b) for a, b in ev)]
+            for key, ev in events.items()}
+    return out, seconds, torch.cuda.max_memory_allocated() / 1e9, launches, path
+
+
+def unet_k1(expected, batch, calls, dtype, at_4096=5, at_1024=5):
+    """K1 launches of ``calls`` SD 2.1-base U-Net passes at ``batch``: a
+    whole pass runs five 4096-token self-attentions (down block 0, up block
+    3) and five 1024-token ones (down block 1, up block 2); a partial pass
+    gives its own counts."""
+    expected[("flash_fwd", (5 * batch, 4096, 64), dtype)] += at_4096 * calls
+    expected[("flash_fwd", (10 * batch, 1024, 64), dtype)] += at_1024 * calls
+
+
+def pair_k2_k5(expected, dtype, iterations, layers, primal=1):
+    """K2–K5 launches of a fused-pair pullback over a map that runs
+    ``layers`` self-attentions at each of 4096 and 1024 tokens, at a primal
+    batch ``primal``: one jvp per tangent pass (each iteration and the final
+    u), each running K2 and K3; one vjp (K2) whose function runs K4 and K5
+    once per iteration; K3–K5 with the probes folded into B·H."""
+    passes = iterations + 1
+    for bh, s, d in PAIR_SHAPES:
+        bhp = primal * bh
+        folded = (PCA_RANK * bhp, s, d)
+        expected[("flash_fwd_lse", (bhp, s, d), dtype)] += layers * (passes + 1)
+        expected[("flash_tangent", folded, dtype)] += layers * passes
+        expected[("flash_dq", folded, dtype)] += layers * iterations
+        expected[("flash_dkv", folded, dtype)] += layers * iterations
+
+
+def covector_k2_k5(expected, dtype, vjps, layers=2):
+    """K2, K4 and K5 launches of ``vjps`` covector VJPs (Jᵀu, one cotangent)
+    of the mid-tap encoder (``layers`` self-attentions at each length)."""
+    for shape in PAIR_SHAPES:
+        for sym in ("flash_fwd_lse", "flash_dq", "flash_dkv"):
+            expected[(sym, shape, dtype)] += layers * vjps
+
+
+def edit_k1(expected, edit, n_dir, frames, dtypes):
+    """K1 launches of an SD edit run outside its direction: VAE encode,
+    inversion and forward to the edit t at batch 1; the walk's (null, edit)
+    pair of every direction as one batch; the finish of every direction's
+    frames as one batch; one VAE decode of the frames per direction (no
+    classifier-free guidance: guidance_scale is 0)."""
+    cfg, (unet_dtype, vae_dtype) = edit.cfg, dtypes
+    unet_k1(expected, 1, (cfg.inv_steps - 2) + edit.edit_t_idx, unet_dtype)
+    unet_k1(expected, 2 * n_dir, cfg.x_space_guidance_num_step, unet_dtype)
+    unet_k1(expected, n_dir * frames, edit.fwd_grid.num_steps - edit.edit_t_idx,
+            unet_dtype)
+    expected[("flash_fwd", (1, 4096, 512), vae_dtype)] += 1
+    expected[("flash_fwd", (frames, 4096, 512), vae_dtype)] += n_dir
+
+
+def check_launches(tag, launches, path, expected):
+    """Log each (kernel, shape) of a run with its launches, the expected
+    count and its device time; True when the counts by shape equal the
+    expected ones and each kernel's total matches its wrapper's count."""
+    for (sym, shape, dtype), (n, ms) in sorted(path.items(), key=lambda kv: -kv[1][1]):
+        log(f"[{tag}] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches "
+            f"(expected {expected[(sym, shape, dtype)]}), {ms:.3f} ms on the device")
+    totals = {sym: sum(n for (s, _, _), n in expected.items() if s == sym)
+              for sym in KERNELS}
+    return ({k: n for k, (n, _) in path.items()} == +expected
+            and launches == totals)
+
+
+def read_events(edit, start=0):
+    with open(edit.log.path) as f:
+        return [json.loads(line) for line in f][start:]
+
+
+def log_stages(tag, events):
+    for e in events:
+        if "seconds" in e:
+            extra = {k: v for k, v in e.items() if k not in ("ts", "event", "seconds")}
+            log(f"[{tag}] stage {e['event']}: {e['seconds']:.3f} s {extra}")
+
+
+def by_design(fa, paths):
+    """(symbol, design) → (its heaviest (symbol, shape, dtype), launches,
+    summed device ms) over the runs' path dicts."""
+    total = collections.defaultdict(lambda: [0, 0.0])
+    for path in paths:
+        for key, (n, ms) in path.items():
+            total[key][0] += n
+            total[key][1] += ms
+    out = {}
+    for key, (n, ms) in total.items():
+        sym, shape, dtype = key
+        kd = (sym, fa.design(KERNELS[sym][0], shape[-1], dtype))
+        heaviest, n0, ms0 = out.get(kd, (key, 0, 0.0))
+        if ms > total[heaviest][1]:
+            heaviest = key
+        out[kd] = (heaviest, n0 + n, ms0 + ms)
+    return out
+
+
 def timed_pullback(edit, zt, impl, what):
     """One compute_local_basis with ``impl``: seconds and peak memory."""
     from diffusion_pullback_tpu_torch.models import TapPoint
@@ -610,71 +755,26 @@ def phase_edit(fa):
         raise AssertionError("the CLI's default pullback on CUDA is not the pair")
 
     vis_num, vis_num_pc = 2, 1
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for _, wrapper, _, _ in KERNELS.values():
-        getattr(fa, wrapper).launches = 0
-    t0 = time.perf_counter()
-    with timed_launches(fa) as kernel_events:
-        names = edit.run_edit_local_encoder_pullback_zt(
-            idx=0, pca_rank=PCA_RANK, vis_num=vis_num, vis_num_pc=vis_num_pc)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {sym: getattr(fa, k[1]).launches for sym, k in KERNELS.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # (symbol, shape, dtype) → [launches, summed device ms]
-    path = {key: [len(ev), sum(a.elapsed_time(b) for a, b in ev)]
-            for key, ev in kernel_events.items()}
-
-    with open(os.path.join(edit.log.path)) as f:
-        events = [json.loads(line) for line in f]
-    for e in events:
-        if "seconds" in e:
-            extra = {k: v for k, v in e.items() if k not in ("ts", "event", "seconds")}
-            log(f"[edit] stage {e['event']}: {e['seconds']:.3f} s {extra}")
+    names, seconds, peak_gb, launches, path = drive(
+        fa, lambda: edit.run_edit_local_encoder_pullback_zt(
+            idx=0, pca_rank=PCA_RANK, vis_num=vis_num, vis_num_pc=vis_num_pc))
+    events = read_events(edit)
+    log_stages("edit", events)
     pullback = [e for e in events if e["event"] == "sd_local_pullback"][-1]
     iterations = pullback["iterations"]
 
     n_dir = 2 * vis_num_pc
     stride = max(1, (cfg.x_space_guidance_num_step + 1) // vis_num)
     frames = len(range(0, cfg.x_space_guidance_num_step + 1, stride))
-    unet_dtype = next(edit.unet.parameters()).dtype
-    unet_calls = {  # batch → U-Net calls (no CFG: guidance_scale is 0)
-        1: (cfg.inv_steps - 2) + edit.edit_t_idx,
-        2 * n_dir: cfg.x_space_guidance_num_step,
-        n_dir * frames: cfg.for_steps - 1 - edit.edit_t_idx}
+    dtypes = (next(edit.unet.parameters()).dtype, next(edit.vae.parameters()).dtype)
     expected = collections.Counter()
-    for b, calls in unet_calls.items():
-        expected[("flash_fwd", (5 * b, 4096, 64), unet_dtype)] += 5 * calls
-        expected[("flash_fwd", (10 * b, 1024, 64), unet_dtype)] += 5 * calls
-    vae_dtype = next(edit.vae.parameters()).dtype
-    expected[("flash_fwd", (1, 4096, 512), vae_dtype)] += 1          # encode
-    expected[("flash_fwd", (frames, 4096, 512), vae_dtype)] += n_dir  # decodes
-    # the pullback: two self-attentions at each primal shape; one jvp per
-    # tangent pass (each iteration and the final u), each running K2 and K3;
-    # one vjp (K2) whose function runs K4 and K5 once per iteration; K3–K5
-    # with the probes folded into B·H
-    passes = iterations + 1
-    for bhp, s, d in PAIR_SHAPES:
-        expected[("flash_fwd_lse", (bhp, s, d), unet_dtype)] += 2 * (passes + 1)
-        folded = (PCA_RANK * bhp, s, d)
-        expected[("flash_tangent", folded, unet_dtype)] += 2 * passes
-        expected[("flash_dq", folded, unet_dtype)] += 2 * iterations
-        expected[("flash_dkv", folded, unet_dtype)] += 2 * iterations
-    for (sym, shape, dtype), (n, ms) in sorted(path.items(), key=lambda kv: -kv[1][1]):
-        log(f"[edit] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches "
-            f"(expected {expected[(sym, shape, dtype)]}), {ms:.3f} ms on the device")
+    edit_k1(expected, edit, n_dir, frames, dtypes)
+    # the pullback: two self-attentions at each primal shape (mid tap)
+    pair_k2_k5(expected, dtypes[0], iterations, layers=2)
+    launches_by_shape = check_launches("edit", launches, path, expected)
     kernel_ms = {sym: sum(ms for (s, _, _), (_, ms) in path.items() if s == sym)
                  for sym in KERNELS}
-    # (symbol, design) → [launches, summed device ms], and its heaviest key
-    by_design, heaviest = collections.defaultdict(lambda: [0, 0.0]), {}
-    for key, (n, ms) in path.items():
-        sym, shape, dtype = key
-        kd = (sym, fa.design(KERNELS[sym][0], shape[-1], dtype))
-        by_design[kd][0] += n
-        by_design[kd][1] += ms
-        if kd not in heaviest or ms > path[heaviest[kd]][1]:
-            heaviest[kd] = key
+    designs = by_design(fa, [path])
     expected_total = {sym: sum(n for (s, _, _), n in expected.items() if s == sym)
                       for sym in KERNELS}
 
@@ -689,8 +789,8 @@ def phase_edit(fa):
             f"{expected_total[sym]}), {kernel_ms[sym]:.2f} ms on the device "
             f"({100 * kernel_ms[sym] / 1e3 / seconds:.2f} % of the path)")
         log(f"[edit] {label} by design: " + ", ".join(
-            f"{dsg} {n} launches, {ms:.2f} ms" for (of, dsg), (n, ms)
-            in sorted(by_design.items()) if of == sym))
+            f"{dsg} {n} launches, {ms:.2f} ms" for (of, dsg), (_, n, ms)
+            in sorted(designs.items()) if of == sym))
 
     finite = [e for e in events if e["event"] == "sd_decode_and_save"]
     checks = {
@@ -703,7 +803,7 @@ def phase_edit(fa):
             and all(np.isfinite(a).all() for a in (u, s, vT)) and (s > 0).all()),
         "pullback through the fused pair": pullback["encoder"] == "flashpair",
         "launch counts": launches == expected_total and all(launches.values()),
-        "launches by shape": {k: n for k, (n, _) in path.items()} == dict(expected),
+        "launches by shape": launches_by_shape,
     }
     for what, ok in checks.items():
         log(f"[edit] check {what}: {'ok' if ok else 'FAILED'}")
@@ -717,7 +817,266 @@ def phase_edit(fa):
     timed_pullback(edit, zt, "flash", "fused pair, warm")
     timed_pullback(edit, zt, "xla", "math path, first in this process")
     timed_pullback(edit, zt, "xla", "math path, warm")
-    return {kd: (heaviest[kd], n, ms) for kd, (n, ms) in by_design.items()}
+    return path
+
+
+def pair_vs_math(tag, out, ref=None):
+    """Phase 3's gates for a pullback run on the pair and on the math path
+    from the same probes: in f32 σ within 1e-3 and |cos| ≥ 0.99 per
+    direction; in bf16 each held to the f32 math result, the pair at most
+    1.5× as far (metric distance) as the bf16 math path. Returns the f32
+    math result (the reference) or None."""
+    pair, math_ = out["flash"], out["xla"]
+    srel = ((pair.s - math_.s).abs() / math_.s).max().item()
+    cos = (pair.vT * math_.vT).sum(dim=1).abs()
+    log(f"[sd6] {tag} pair vs math: sigma pair {pair.s.tolist()}, math "
+        f"{math_.s.tolist()}, max rel err {srel:.3g}, |cos| per direction "
+        f"{cos.tolist()}, metric distance {pullback_dist(pair, math_):.4g}")
+    if ref is None:
+        if not (srel <= 1e-3 and cos.min().item() >= 0.99):
+            raise AssertionError(f"the f32 {tag} pullback on the pair disagrees "
+                                 f"with the math path")
+        return math_
+    d_pair, d_math = pullback_dist(pair, ref), pullback_dist(math_, ref)
+    log(f"[sd6] {tag} bf16 distance of the metric from f32 math: pair "
+        f"{d_pair:.4g}, math {d_math:.4g} (tol 1.5 × math = {1.5 * d_math:.4g})")
+    if not (all(torch.isfinite(r.s).all() for r in out.values())
+            and d_pair <= 1.5 * d_math):
+        raise AssertionError(f"the bf16 {tag} pullback on the pair strays from "
+                             f"f32 further than the bf16 math path")
+    return None
+
+
+def phase_sd_rest(fa):
+    """Phase 6: the rest of the SD 2.1-base edit path at full width through
+    the CLI's builder, with the with-prompt script's values (edit prompt
+    'sitting dog', CFG inside the JVP at 7.5, edit t 0.7) at 10/10 steps, 2
+    walk steps, pca_rank 2, pullback 1–3 iterations: (a) the encoder-pullback
+    edit with CFG in the JVP; (c) the decoder- and x̂₀-pullback edits; (d)
+    the text-driven edit; (e) the walk and the finish under DeepCache; (f)
+    run_DDIMforward; each with its K1–K5 launches by shape held to the count
+    the code gives; then (b) the CFG and decoder pullbacks on the pair
+    against the math path from the same probes, f32 and bf16. Returns the
+    path dicts of the runs."""
+    import numpy as np
+    from PIL import Image
+
+    from diffusion_pullback_tpu_torch import main as port_main
+    from diffusion_pullback_tpu_torch.experiments import BasisCache
+    from diffusion_pullback_tpu_torch.experiments._common import to_nchw, to_nhwc
+    from diffusion_pullback_tpu_torch.models import TapPoint
+    from diffusion_pullback_tpu_torch.samplers.deepcache import (
+        ddim_forward_deepcache_cond)
+    from diffusion_pullback_tpu_torch.samplers.guidance import (
+        x_space_guidance_scan_deepcache)
+
+    out = os.path.join(OUT, "sd_rest")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    args = port_main.parse_args([
+        "--note", "chip_smoke", "--result_folder", out, "--for_steps", "10",
+        "--inv_steps", "10", "--edit_t", "0.7", "--pca_rank", str(PCA_RANK),
+        "--x_space_guidance_num_step", "2", "--edit_prompt", "sitting dog",
+        "--pullback_guidance_scale", "7.5"])
+    t0 = time.perf_counter()
+    edit = port_main.build_sd(args)
+    cfg = edit.cfg
+    cfg.pullback_min_iter, cfg.pullback_max_iter = 1, 3
+    cfg.basis_folder = os.path.join(out, "inputs")
+    edit.cache = BasisCache(cfg.basis_folder)
+    dtypes = (next(edit.unet.parameters()).dtype, next(edit.vae.parameters()).dtype)
+    unet_dtype = dtypes[0]
+    log(f"[sd6] built the SD 2.1-base driver in {time.perf_counter() - t0:.1f} s "
+        f"(U-Net {unet_dtype}, pullback attn {cfg.pullback_attn_impl}, pullback "
+        f"guidance {cfg.pullback_guidance_scale}, edit t index {edit.edit_t_idx})")
+    vis_num, vis_num_pc = 2, 1
+    n_dir = 2 * vis_num_pc
+    stride = max(1, (cfg.x_space_guidance_num_step + 1) // vis_num)
+    frames = len(range(0, cfg.x_space_guidance_num_step + 1, stride))
+    paths, checks = [], {}
+
+    def run(tag, fn, expected_fn):
+        """Drive one run; check its launches by shape and its PNGs."""
+        start = len(read_events(edit))
+        names, seconds, peak, launches, path = drive(fa, fn)
+        events = read_events(edit, start)
+        log_stages(f"sd6 {tag}", events)
+        expected = collections.Counter()
+        expected_fn(expected, events)
+        checks[f"({tag}) launches by shape"] = check_launches(
+            f"sd6 {tag}", launches, path, expected)
+        log(f"[sd6] ({tag}) {seconds:.2f} s, peak memory {peak:.2f} GB, launches "
+            + ", ".join(f"{KERNELS[k][0]} {n}" for k, n in launches.items()))
+        saved = [e for e in events if e["event"] == "sd_decode_and_save"]
+        if isinstance(names, list):
+            checks[f"({tag}) PNGs written, finite"] = bool(
+                saved and saved[-1]["finite"]) and all(
+                Image.open(os.path.join(cfg.result_folder, n + ".png")).size
+                == (512 * frames, 512) for n in names)
+        paths.append(path)
+        return names, events
+
+    def last(events, name):
+        return [e for e in events if e["event"] == name][-1]
+
+    # (a) the encoder pullback with CFG inside the JVP: the 2·B primal
+    def exp_a(expected, events):
+        edit_k1(expected, edit, n_dir, frames, dtypes)
+        pair_k2_k5(expected, unet_dtype, last(events, "sd_local_pullback")["iterations"],
+                   layers=2, primal=2)
+
+    _, events = run("a", lambda: edit.run_edit_local_encoder_pullback_zt(
+        idx=0, pca_rank=PCA_RANK, vis_num=vis_num, vis_num_pc=vis_num_pc), exp_a)
+    basis = os.listdir(cfg.basis_folder)
+    checks["(a) encoder flashpair_cfg7.5"] = (
+        last(events, "sd_local_pullback")["encoder"] == "flashpair_cfg7.5")
+    checks["(a) basis name ends -cfg7.5"] = (
+        len(basis) == 1 and basis[0].endswith("-cfg7.5.npz"))
+    with np.load(os.path.join(cfg.basis_folder, basis[0])) as z:
+        checks["(a) basis finite, expected shapes"] = (
+            z["u"].shape == (8 * 8 * 1280, PCA_RANK)
+            and z["vT"].shape == (PCA_RANK, 64 * 64 * 4)
+            and all(np.isfinite(z[k]).all() for k in ("u", "s", "vT")))
+
+    # (c) the decoder and x̂₀ pullbacks: the state from one forward to the
+    # mid tap (K1), the pair through the decode (three self-attentions at
+    # each length, up blocks 2 and 3), one Jᵀu per direction pair
+    for x0 in (False, True):
+        def exp_c(expected, events):
+            edit_k1(expected, edit, n_dir, frames, dtypes)
+            unet_k1(expected, 1, 1, unet_dtype, at_4096=2, at_1024=2)
+            pair_k2_k5(expected, unet_dtype,
+                       last(events, "sd_decoder_pullback")["iterations"], layers=3)
+            covector_k2_k5(expected, unet_dtype, vis_num_pc)
+
+        run("c x0" if x0 else "c eps", lambda: edit.run_edit_local_decoder_pullback_zt(
+            idx=0, pca_rank=PCA_RANK, vis_num=vis_num, vis_num_pc=vis_num_pc,
+            x0_pullback=x0), exp_c)
+
+    # (d) the text-driven direction: Δh from two forwards to the mid tap,
+    # one Jᵀ Δh
+    def exp_d(expected, events):
+        edit_k1(expected, edit, 2, frames, dtypes)
+        unet_k1(expected, 1, 2, unet_dtype, at_4096=2, at_1024=2)
+        covector_k2_k5(expected, unet_dtype, 1)
+
+    run("d", lambda: edit.run_edit_text_driven_direction(idx=0, vis_num=vis_num), exp_d)
+
+    # (e) DeepCache on the walk and the finish at the edit t, 2 directions:
+    # interval 1 through the DeepCache samplers against the plain path,
+    # then the driver at walk interval 2 and finish interval 3
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    zt = torch.randn(1, 64, 64, 4, device="cuda", generator=gen)
+    vks = torch.randn(n_dir, 64, 64, 4, device="cuda", generator=gen)
+    vks = vks / torch.linalg.norm(vks.flatten(1), dim=1)[:, None, None, None]
+    t_edit = edit.fwd_grid.timesteps[edit.edit_t_idx]
+    steps = cfg.x_space_guidance_num_step
+    finish_steps = edit.fwd_grid.num_steps - edit.edit_t_idx
+    walk_kw = dict(num_steps=steps, edit_step=cfg.x_space_guidance_edit_step,
+                   scale=cfg.x_space_guidance_scale)
+
+    def select(traj):
+        sel = traj[::stride].transpose(0, 1)
+        return sel.reshape(-1, *sel.shape[2:])
+
+    def exp_e(walk_interval, finish_interval):
+        def fn(expected, events):
+            for i in range(steps):
+                full = i % walk_interval == 0
+                unet_k1(expected, 2 * n_dir, 1, unet_dtype, 5, 5 if full else 0)
+            for i in range(finish_steps):
+                full = i % finish_interval == 0
+                unet_k1(expected, n_dir * frames, 1, unet_dtype, 5, 5 if full else 0)
+        return fn
+
+    def walk_and_finish():
+        walk = edit._guidance_walk(zt, vks, t_edit)
+        return walk, edit._finish_forward(select(walk))
+
+    timing = {}
+    for itv in ((0, 0), (2, 3)):
+        cfg.guidance_deepcache_interval, cfg.edit_deepcache_interval = itv
+        tag = "e plain" if itv == (0, 0) else "e deepcache"
+        start = len(read_events(edit))
+        (walk, z0), seconds, peak, launches, path = drive(fa, walk_and_finish)
+        events = read_events(edit, start)
+        expected = collections.Counter()
+        exp_e(*(max(1, i) for i in itv))(expected, events)
+        checks[f"({tag}) launches by shape"] = check_launches(
+            f"sd6 {tag}", launches, path, expected)
+        paths.append(path)
+        timing[tag] = (walk, z0, seconds, peak)
+        log(f"[sd6] ({tag}) walk interval {itv[0]}, finish interval {itv[1]}: walk + "
+            f"finish {seconds:.3f} s, peak memory {peak:.2f} GB")
+    cfg.guidance_deepcache_interval = cfg.edit_deepcache_interval = 0
+    walk, z0 = timing["e plain"][:2]
+    with torch.no_grad():
+        walk1 = x_space_guidance_scan_deepcache(
+            *edit._deepcache_walk_fns(), zt.expand(n_dir, -1, -1, -1), t_edit, vks,
+            interval=1, **walk_kw)
+        z01 = to_nhwc(ddim_forward_deepcache_cond(
+            edit.unet, to_nchw(select(walk)), edit.for_prompt_emb, edit.schedule,
+            edit.fwd_grid, interval=1, start_idx=edit.edit_t_idx))
+    torch.cuda.synchronize()
+    diff = lambda a, b: (a.float() - b.float()).abs().max().item()
+    log(f"[sd6] (e) DeepCache interval 1 against the plain path: walk max_abs_err "
+        f"{diff(walk1, walk):.3g}, finish {diff(z01, z0):.3g} (must be 0)")
+    checks["(e) interval 1 identical to the plain walk"] = torch.equal(walk1, walk)
+    checks["(e) interval 1 identical to the plain finish"] = torch.equal(z01, z0)
+    walk_dc, z0_dc = timing["e deepcache"][:2]
+    rel = lambda a, b: (torch.linalg.norm((a - b).float()) / torch.linalg.norm(
+        b.float())).item()
+    log(f"[sd6] (e) DeepCache (walk 2, finish 3) against the plain path: walk "
+        f"relative error {rel(walk_dc[1:] - zt, walk[1:] - zt):.4g} (of the walk's "
+        f"displacement), finished latents relative error {rel(z0_dc, z0):.4g}; "
+        f"seconds {timing['e deepcache'][2]:.3f} against {timing['e plain'][2]:.3f}")
+    checks["(e) DeepCache output finite"] = bool(
+        torch.isfinite(walk_dc).all() and torch.isfinite(z0_dc).all())
+
+    # (f) run_DDIMforward: 5 samples through the whole grid, one VAE decode
+    def exp_f(expected, events):
+        unet_k1(expected, 5, edit.fwd_grid.num_steps, unet_dtype)
+        expected[("flash_fwd", (5, 4096, 512), dtypes[1])] += 1
+
+    grid_png = os.path.join(out, "DDIMforward.png")
+    imgs, _ = run("f", lambda: edit.run_DDIMforward(num_samples=5, save_as=grid_png),
+                  exp_f)
+    checks["(f) 5-image grid finite"] = (
+        imgs.shape == (5, 512, 512, 3) and bool(np.isfinite(imgs).all())
+        and Image.open(grid_png).size == (5 * 512, 512))
+
+    # (b) the CFG and decoder pullbacks, pair against math, from the same
+    # probes (the driver's seeded ones), 3 iterations, f32 then bf16
+    cfg.pullback_min_iter = cfg.pullback_max_iter = 3
+    cfg.pullback_atol = 0.0
+    zb = torch.randn(1, 64, 64, 4, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(7))
+    ref = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        edit.unet.to(dtype)   # the same weights, bf16-valued either way
+        for what, compute in (("CFG", edit.compute_local_basis),
+                              ("decoder", edit.compute_local_decoder_basis)):
+            res = {}
+            for impl in ("flash", "xla"):
+                cfg.pullback_attn_impl = impl
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[impl] = compute(zb, t_edit, TapPoint("mid"), PCA_RANK)
+                torch.cuda.synchronize()
+                log(f"[sd6] (b) {what} pullback {str(dtype)[6:]} {impl}: "
+                    f"{time.perf_counter() - t0:.3f} s")
+            tag = f"{what} {str(dtype)[6:]}"
+            if dtype == torch.float32:
+                ref[what] = pair_vs_math(tag, res)
+            else:
+                pair_vs_math(tag, res, ref[what])
+    cfg.pullback_attn_impl = "flash"
+
+    for what, ok in checks.items():
+        log(f"[sd6] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("phase 6 checks failed")
+    return paths
 
 
 def golden_gates(art, ref):
@@ -891,7 +1250,7 @@ def main():
     from diffusion_pullback_tpu_torch.utils.device import strict_f32
 
     strict_f32()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib, nvcc_out = fa.build()
     log(f"[build] {os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.1f} s")
     for line in nvcc_out.splitlines():
@@ -912,15 +1271,39 @@ def main():
     del unet
     torch.cuda.empty_cache()
 
-    on_path = phase_edit(fa)
+    paths = [phase_edit(fa)]
     phase_uncond(fa)
+    paths += phase_sd_rest(fa)
 
-    # one entry per kernel and design on the main path: its launches and
-    # summed device time there (path_ms), and the per-launch numbers of
-    # phase 2 at the shape that carries most of that device time
+    # every (kernel, shape, dtype) the main paths launched was held against
+    # its plain version in phases 1–2
+    held = {("flash_fwd", *key) for key in k1_rows} | {
+        (KERNELS_BY_LABEL[label], shape, dtype) for label, shape, dtype in pair_rows}
+    missing = {key for path in paths for key in path} - held
+    if missing:
+        raise AssertionError(f"main paths launched kernels at shapes phases 1–2 "
+                             f"did not hold against their plain versions: {missing}")
+
+    # launches and summed device time of each (kernel, shape) over the main
+    # paths of phases 4 and 6
+    merged = collections.defaultdict(lambda: [0, 0.0])
+    for path in paths:
+        for key, (n, ms) in path.items():
+            merged[key][0] += n
+            merged[key][1] += ms
+    for (sym, shape, dtype), (n, ms) in sorted(merged.items(), key=lambda kv: -kv[1][1]):
+        log(f"[paths] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches, "
+            f"{ms:.3f} ms on the device over phases 4 and 6")
+    log(f"[smoke] phases 1–6 in {time.perf_counter() - t_start:.1f} s")
+
+    # one entry per kernel and design on the main paths (phases 4 and 6):
+    # their launches and summed device time there (path_ms), and the
+    # per-launch numbers of phases 1–2 at the shape that carries most of
+    # that device time
     kernels = []
     for (sym, dsg), ((_, shape, dtype), n, ms) in sorted(
-            on_path.items(), key=lambda kv: (list(KERNELS).index(kv[0][0]), kv[0][1])):
+            by_design(fa, paths).items(),
+            key=lambda kv: (list(KERNELS).index(kv[0][0]), kv[0][1])):
         label, _, sources, line = KERNELS[sym]
         row = k1_rows[(shape, dtype)] if label == "K1" else pair_rows[(label, shape, dtype)]
         kernels.append(dict(

@@ -123,3 +123,28 @@ def local_pullback(
     u = fwd(v)
     return PullbackResult(u=u.T, s=torch.sqrt(s), vT=v, iterations=it,
                           final_delta=delta)
+
+
+def local_encoder_pullback(encode_fn: Callable[[torch.Tensor], torch.Tensor],
+                           sample: torch.Tensor, generator=None, **kwargs
+                           ) -> PullbackResult:
+    """Pullback of the U-Net encoder x_t → h: ``encode_fn`` is closed over
+    the weights, timestep, condition and tap."""
+    return local_pullback(encode_fn, sample, generator, **kwargs)
+
+
+def local_decoder_pullback(decode_fn: Callable[[torch.Tensor], torch.Tensor],
+                           h: torch.Tensor, generator=None, **kwargs
+                           ) -> PullbackResult:
+    """Pullback of the decoder h → ε (or of the Tweedie x̂₀ when
+    ``decode_fn`` wraps it)."""
+    return local_pullback(decode_fn, h, generator, **kwargs)
+
+
+def pullback_covector(fn: Callable[[torch.Tensor], torch.Tensor],
+                      x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """v = Jᵀu for one covector u of fn(x) (any shape with its number of
+    elements): one VJP of ⟨u, f(x)⟩. v has x's shape and dtype."""
+    h, vjp_fn = vjp(fn, x)
+    (v,) = vjp_fn(u.reshape(h.shape).to(h.dtype))
+    return v

@@ -4,6 +4,9 @@ main.py, with the same flag names, experiment folders and basis folders.
 
     python -m diffusion_pullback_tpu_torch.main --note smoke \\
         --run_edit_local_encoder_pullback_zt True
+    python -m diffusion_pullback_tpu_torch.main --note with_prompt \\
+        --edit_prompt "sitting dog" --pullback_guidance_scale 7.5 \\
+        --edit_t 0.7 --run_edit_local_encoder_pullback_zt True
     python -m diffusion_pullback_tpu_torch.main --note smoke \\
         --model_name CelebA_HQ_HF --dataset_name CelebA_HQ \\
         --performance_boosting_t 0.2 --run_edit_local_encoder_pullback_zt True
@@ -79,6 +82,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pca_rank", type=int, default=2)
     p.add_argument("--pullback_chunk_size", type=int, default=0,
                    help="probes per tangent/cotangent batch; 0 = all")
+    p.add_argument("--pullback_guidance_scale", type=float, default=0.0,
+                   help="SD path: CFG inside the JVP'd encoder (BASELINE "
+                        "config 4): >0 differentiates h_edit + s*(h_edit - "
+                        "h_neg) as a fused 2B batch; 0 = edit-prompt encoder "
+                        "alone")
+    p.add_argument("--edit_deepcache_interval", type=int, default=0,
+                   help="SD path: DeepCache on the edit's finish sampling, "
+                        "refresh the deep U-Net path every N steps; 0/1 = "
+                        "the full model every step")
+    p.add_argument("--guidance_deepcache_interval", type=int, default=0,
+                   help="SD path: DeepCache on the x-space-guidance walk's "
+                        "[z; z+dv] pair, refresh every N micro-steps; 0/1 = "
+                        "the full pair every micro-step")
+    p.add_argument("--text_driven_num_pc", type=int, default=0,
+                   help="run_edit_text_driven_direction: 0 = one J^T dh "
+                        "direction; k>0 = dh decomposed in the top-k pullback "
+                        "basis, each PC walked separately, signed toward dh")
     p.add_argument("--op", type=str, default="mid", choices=["down", "mid", "up"])
     p.add_argument("--block_idx", type=int, default=0)
     p.add_argument("--after_res", type=str2bool, default=False)
@@ -94,6 +114,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "encoder: 'flash' = the fused JVP/VJP kernel pair, "
                         "'xla' = the math path; '' = flash on cuda, xla on cpu")
     p.add_argument("--run_edit_local_encoder_pullback_zt", type=str2bool,
+                   default=False)
+    p.add_argument("--run_edit_local_decoder_pullback_zt", type=str2bool,
+                   default=False)
+    p.add_argument("--run_edit_local_x0_decoder_pullback_zt", type=str2bool,
+                   default=False)
+    p.add_argument("--run_edit_text_driven_direction", type=str2bool,
                    default=False)
     p.add_argument("--run_ddim_forward", type=str2bool, default=False)
     return p
@@ -232,6 +258,10 @@ def build_sd(args):
         pullback_attn_impl=args.pullback_attn_impl or (
             "flash" if on_cuda else "xla"),
         pullback_chunk_size=args.pullback_chunk_size or None,
+        pullback_guidance_scale=args.pullback_guidance_scale,
+        edit_deepcache_interval=args.edit_deepcache_interval,
+        guidance_deepcache_interval=args.guidance_deepcache_interval,
+        text_driven_num_pc=args.text_driven_num_pc,
         result_folder=os.path.join(exp_folder, "results"),
         basis_folder=basis_folder,
     )
@@ -257,26 +287,35 @@ def check_preset(args) -> None:
 def main(argv=None):
     args = parse_args(argv)
     check_preset(args)
-    edit = build_sd(args) if is_stable_diffusion(args) else build_uncond(args)
+    sd = is_stable_diffusion(args)
+    edit = build_sd(args) if sd else build_uncond(args)
     if args.run_edit_local_encoder_pullback_zt:
-        taps = dict(after_res=args.after_res, after_sa=args.after_sa)
-        if is_stable_diffusion(args):
-            if any(taps.values()):
-                raise NotImplementedError(
-                    "intra-block taps of the SD U-Net are not ported yet "
-                    "(ROADMAP queue 1, item 8)")
-            taps = {}
         edit.run_edit_local_encoder_pullback_zt(
             idx=args.sample_idx, op=args.op, block_idx=args.block_idx,
             vis_num=4, vis_num_pc=2, pca_rank=args.pca_rank or 2,
-            edit_prompt=args.edit_prompt or None, **taps)
-    if args.run_ddim_forward:
-        if is_stable_diffusion(args):
+            edit_prompt=args.edit_prompt or None,
+            after_res=args.after_res, after_sa=args.after_sa)
+    if args.run_edit_local_decoder_pullback_zt or \
+            args.run_edit_local_x0_decoder_pullback_zt:
+        if not sd:
             raise NotImplementedError(
-                "--run_ddim_forward is ported for the uncond family only "
-                "(the SD driver's run_DDIMforward: ROADMAP queue 1, item 9)")
-        edit.run_ddim_forward(num_samples=5, save_as=os.path.join(
-            edit.cfg.result_folder, "DDIMforward.png"))
+                "the uncond decoder pullback is not ported yet (ROADMAP "
+                "queue 1, item 11)")
+        edit.run_edit_local_decoder_pullback_zt(
+            idx=args.sample_idx, op=args.op, block_idx=args.block_idx,
+            pca_rank=args.pca_rank or 2,
+            x0_pullback=bool(args.run_edit_local_x0_decoder_pullback_zt))
+    if args.run_edit_text_driven_direction:
+        if not sd:
+            raise SystemExit(
+                "--run_edit_text_driven_direction needs a text-conditioned "
+                "model (SD family)")
+        edit.run_edit_text_driven_direction(
+            idx=args.sample_idx, op=args.op, block_idx=args.block_idx)
+    if args.run_ddim_forward:
+        fwd = edit.run_DDIMforward if sd else edit.run_ddim_forward
+        fwd(num_samples=5, save_as=os.path.join(edit.cfg.result_folder,
+                                                "DDIMforward.png"))
     return edit
 
 

@@ -29,7 +29,7 @@ from .configs import (
 )
 from .convert import load_flax_params
 from .unet2d import TapPoint, TapState, UNet2D
-from .unet2d_condition import UNet2DCondition
+from .unet2d_condition import CondTapState, UNet2DCondition
 from .vae import AutoencoderKL
 
 
@@ -83,8 +83,8 @@ def model_for_name(model_name: str, dtype: str = "float32") -> UNet2D:
 
 
 __all__ = [
-    "AutoencoderKL", "CLIPTextConfig", "CLIPTextModel", "HashTokenizer",
-    "TapPoint", "TapState", "UNet2D", "UNet2DCondition",
+    "AutoencoderKL", "CLIPTextConfig", "CLIPTextModel", "CondTapState",
+    "HashTokenizer", "TapPoint", "TapState", "UNet2D", "UNet2DCondition",
     "UNet2DConditionConfig", "UNet2DConfig", "VAEConfig", "clip_text_tiny",
     "ddpm_celebahq_256", "ddpm_tiny", "load_flax_params", "load_tokenizer",
     "model_for_name", "random_init_", "sd21_base_unet", "sd21_text_encoder",

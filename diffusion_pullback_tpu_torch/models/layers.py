@@ -24,10 +24,14 @@ class GroupNorm(nn.GroupNorm):
     Flax's norms compute their statistics in float32. It also keeps a bf16
     model's forward-mode tangents in bf16: on CUDA the bf16 norm kernels
     keep float32 statistics, and their JVP would return float32 tangents
-    that the next bf16 matmul refuses."""
+    that the next bf16 matmul refuses. The input is made contiguous:
+    torch.func's batched group_norm views it, which a channels-last
+    activation (a transformer's output) with more than one sample
+    refuses."""
 
     def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+        xf = x.to(torch.float32, memory_format=torch.contiguous_format)
+        return F.group_norm(xf, self.num_groups, self.weight.float(),
                             self.bias.float(), self.eps).to(x.dtype)
 
 

@@ -1,13 +1,24 @@
 """Text-conditioned 2-D U-Net (Stable Diffusion family) with feature taps.
 
 Counterpart of diffusion_pullback_tpu/models/unet2d_condition.py: the same
-blocks, ``forward`` (ε) and ``encode`` (the activation at a `TapPoint`),
-NCHW inside, diffusers parameter names (down_blocks.i.resnets.j,
-.attentions.j, .downsamplers.0.conv, mid_block, up_blocks, time_embedding,
-conv_in/conv_norm_out/conv_out).
+blocks and the same tap surface as models.unet2d.UNet2D, with the prompt
+embeddings threaded through, NCHW inside, diffusers parameter names
+(down_blocks.i.resnets.j, .attentions.j, .downsamplers.0.conv, mid_block,
+up_blocks, time_embedding, conv_in/conv_norm_out/conv_out):
+
+    eps       = unet(x, t, context)
+    h         = unet.encode(x, t, context, tap)
+    h, state  = unet.encode_with_state(x, t, context, tap)
+    eps       = unet.decode_with_state(h, state, tap)
+    state     = unet.shallow_encode(x, t, context)
+
+The state (``CondTapState``) carries the context too, so a batch-1 state
+fans out over a probe batch of h.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,12 +34,34 @@ from .layers import (
     timestep_embedding,
 )
 from .transformer2d import Transformer2D
-from .unet2d import TapPoint
+from .unet2d import TapPoint, TapState, _broadcast_state
+
+
+class CondTapState(NamedTuple):
+    """What resuming the pass from a tap needs: the time embedding, the
+    skips (for 'down' taps without the tapped activation itself) and the
+    context."""
+
+    emb: torch.Tensor
+    skips: Tuple[torch.Tensor, ...]
+    context: torch.Tensor
+
+
+def _broadcast_cond_state(state: CondTapState, batch: int) -> CondTapState:
+    """Expand a batch-1 state, context included, to h's batch (views)."""
+    base = _broadcast_state(TapState(state.emb, state.skips), batch)
+    ctx = state.context
+    if ctx.shape[0] != batch:
+        if ctx.shape[0] != 1:
+            raise ValueError(f"context batch {ctx.shape[0]} vs h batch {batch}")
+        ctx = ctx.expand(batch, *ctx.shape[1:])
+    return CondTapState(base.emb, base.skips, ctx)
 
 
 class DownBlock(nn.Module):
     """Resnets (each followed by a transformer when ``transformer`` builds
-    one), then an optional stride-2 downsampler. Returns (h, skips)."""
+    one), then an optional stride-2 downsampler. Returns (h, skips);
+    ``stop_at`` ('res' | 'attn', j) returns early with the skips so far."""
 
     def __init__(self, in_ch, out_ch, num_layers, temb_ch, add_downsample,
                  groups, eps, dropout, transformer=None):
@@ -44,17 +77,21 @@ class DownBlock(nn.Module):
         self.downsamplers = (nn.ModuleList([Downsample2D(out_ch)])
                              if add_downsample else None)
 
-    def forward(self, x, temb, context):
+    def forward(self, x, temb, context, stop_at=None):
         res = []
         for i, resnet in enumerate(self.resnets):
             x = resnet(x, temb)
+            if stop_at == ("res", i):
+                return x, tuple(res)
             if hasattr(self, "attentions"):
                 x = self.attentions[i](x, context)
+                if stop_at == ("attn", i):
+                    return x, tuple(res)
             res.append(x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
             res.append(x)
-        return x, res
+        return x, tuple(res)
 
 
 class UpBlock(nn.Module):
@@ -163,39 +200,93 @@ class UNet2DCondition(nn.Module):
                                   self.config.freq_shift)
         return self.conv_in(x), self.time_embedding(feat.to(dtype)), context
 
-    def _up(self, h, skips, emb, context, stop_at=None):
+    def _run_up(self, h, skips, emb, context, start: int = 0, stop_at=None):
+        """Up blocks ``start`` … (``stop_at`` inclusive); returns (h, the
+        skips left)."""
         n_res = self.config.layers_per_block + 1
-        for i, block in enumerate(self.up_blocks):
+        for i in range(start, len(self.up_blocks)):
             res, skips = skips[-n_res:], skips[:-n_res]
-            h = block(h, res, emb, context)
+            h = self.up_blocks[i](h, res, emb, context)
             if i == stop_at:
                 break
-        return h
+        return h, skips
+
+    def _head(self, h):
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+    def _tap(self, tap) -> TapPoint:
+        return TapPoint(*tap).validate(len(self.down_blocks), len(self.up_blocks))
 
     # ---- public -----------------------------------------------------------
 
     def forward(self, x, t, encoder_hidden_states):
         """ε(x, t | context). x: (B, C, H, W); t: scalar or (B,)."""
         h, emb, ctx = self._prologue(x, t, encoder_hidden_states)
-        skips = [h]
+        skips = (h,)
         for block in self.down_blocks:
             h, res = block(h, emb, ctx)
             skips += res
         h = self.mid_block(h, emb, ctx)
-        h = self._up(h, skips, emb, ctx)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self._head(self._run_up(h, skips, emb, ctx)[0])
 
     def encode(self, x, t, encoder_hidden_states, tap: TapPoint):
         """The activation at ``tap`` (only the sub-graph up to it runs)."""
-        tap = TapPoint(*tap).validate(len(self.down_blocks), len(self.up_blocks))
+        return self.encode_with_state(x, t, encoder_hidden_states, tap)[0]
+
+    def encode_with_state(self, x, t, encoder_hidden_states, tap: TapPoint):
+        """(h at ``tap``, the CondTapState that resumes the pass from it).
+        An inner tap stops inside a cross-attention down block and carries
+        no skips (decode from it is not supported)."""
+        tap = self._tap(tap)
         h, emb, ctx = self._prologue(x, t, encoder_hidden_states)
-        skips = [h]
+        if tap.inner is not None:
+            for i in range(tap.block_idx):
+                h, _ = self.down_blocks[i](h, emb, ctx)
+            block = self.down_blocks[tap.block_idx]
+            if not hasattr(block, "attentions"):
+                raise ValueError("inner taps need a cross-attention block")
+            h, _ = block(h, emb, ctx, stop_at=tap.inner)
+            return h, CondTapState(emb, (), ctx)
+        skips = (h,)
         for i, block in enumerate(self.down_blocks):
             h, res = block(h, emb, ctx)
             if tap.op == "down" and tap.block_idx == i:
-                return h
+                return h, CondTapState(emb, skips + res[:-1], ctx)
             skips += res
         h = self.mid_block(h, emb, ctx)
-        if tap.op == "mid":
-            return h
-        return self._up(h, skips, emb, ctx, stop_at=tap.block_idx)
+        if tap.op == "up":
+            h, skips = self._run_up(h, skips, emb, ctx, stop_at=tap.block_idx)
+        return h, CondTapState(emb, skips, ctx)
+
+    def decode_with_state(self, h, state: CondTapState, tap: TapPoint):
+        """Resume h(tap) → ε, the state broadcast over h's batch."""
+        tap = self._tap(tap)
+        if tap.inner is not None:
+            raise NotImplementedError(
+                "decode from intra-block taps is not supported")
+        emb, skips, ctx = _broadcast_cond_state(CondTapState(*state), h.shape[0])
+        h = h.to(emb.dtype)
+        if tap.op == "down":
+            skips = skips + (h,)
+            for i in range(tap.block_idx + 1, len(self.down_blocks)):
+                h, res = self.down_blocks[i](h, emb, ctx)
+                skips = skips + res
+            h = self.mid_block(h, emb, ctx)
+        start = tap.block_idx + 1 if tap.op == "up" else 0
+        return self._head(self._run_up(h, skips, emb, ctx, start=start)[0])
+
+    def forward_dh(self, x, t, encoder_hidden_states, dh, tap: TapPoint):
+        """ε with h(tap) replaced by h(tap) + dh."""
+        h, state = self.encode_with_state(x, t, encoder_hidden_states, tap)
+        return self.decode_with_state(h + dh, state, tap)
+
+    def shallow_encode(self, x, t, encoder_hidden_states) -> CondTapState:
+        """Time embedding, conv_in and the first down block's per-layer
+        outputs: exactly the skips the last up block consumes (the
+        per-step slice of DeepCache sampling, samplers/deepcache.py)."""
+        h, emb, ctx = self._prologue(x, t, encoder_hidden_states)
+        block = self.down_blocks[0]
+        kind = "attn" if hasattr(block, "attentions") else "res"
+        out, res = block(h, emb, ctx,
+                         stop_at=(kind, self.config.layers_per_block - 1))
+        return CondTapState(emb, (h,) + res + (out,), ctx)

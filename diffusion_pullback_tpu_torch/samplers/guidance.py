@@ -38,3 +38,30 @@ def x_space_guidance_scan(eps_fn: EpsFn, z0, t, vk, num_steps: int,
         traj.append(x_space_guidance_step(eps_fn, traj[-1], t, vk, edit_step,
                                           scale, pair_impl))
     return torch.stack(traj)
+
+
+def x_space_guidance_scan_deepcache(full_fn, reuse_fn, z0, t, vk,
+                                    num_steps: int, edit_step: float,
+                                    scale: float, interval: int
+                                    ) -> torch.Tensor:
+    """``x_space_guidance_scan`` (pair evaluated as one batch) with the deep
+    U-Net path of the [z; z + step·v_k] pair cached and refreshed every
+    ``interval`` micro-steps: every micro-step evaluates ε at the same t and
+    z moves only by scale·Δε, so the deep features drift slowly. Interval 1
+    runs the full pair every micro-step.
+
+    ``full_fn(pair, t) -> (eps, h)`` runs the full model and returns the
+    ('up', n-2) tap activation; ``reuse_fn(pair, t, h) -> eps`` resumes
+    from a cached h. Returns the trajectory with its start,
+    (num_steps + 1, B, ...)."""
+    traj, h = [z0], None
+    for i in range(num_steps):
+        z = traj[-1]
+        pair = torch.cat([z, z + edit_step * vk])
+        if i % interval == 0:
+            eps, h = full_fn(pair, t)
+        else:
+            eps = reuse_fn(pair, t, h)
+        et_null, et_edit = eps.chunk(2)
+        traj.append(z + scale * (et_edit - et_null))
+    return torch.stack(traj)

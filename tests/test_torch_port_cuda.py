@@ -49,13 +49,15 @@ def _one_tf32_forward(q, k, v, scale):
 # ragged last query tile (a 2-D tensor map would read the next head's rows
 # there). At D=512 in f32 the tf32x3 design has 32-row query tiles and
 # 32-key tiles: Sq < 32, Sq ≠ Sk both ways, a ragged last query tile with
-# B·H > 1, and B·H = 1 at the VAE's 4096 tokens
+# B·H > 1, and B·H = 1 at the VAE's 4096 tokens; and the U-Net's and the
+# VAE's calls of the SD driver's run_DDIMforward (5 samples)
 @pytest.mark.parametrize("shape", [
     (3, 1000, 1000, 64), (2, 700, 700, 512), (10, 1024, 1024, 64),
     (3, 1000, 700, 64), (2, 700, 1000, 64), (1, 50, 700, 64),
     (1, 4096, 4096, 64), (4, 200, 130, 64), (30, 4096, 4096, 64),
     (1, 20, 300, 512), (2, 300, 130, 512), (2, 130, 300, 512),
-    (3, 250, 250, 512), (1, 4096, 4096, 512)])
+    (3, 250, 250, 512), (1, 4096, 4096, 512), (25, 4096, 4096, 64),
+    (50, 1024, 1024, 64), (5, 4096, 4096, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     """K1 (and K2 at D=64) against their plain versions, one launch each,
@@ -110,10 +112,13 @@ def _tol(ref, dtype):
 # 64-row tiles: ragged Sq and Sk, Sq ≠ Sk both ways, Sq < 64 with B·H = 1,
 # and B·H > 1 with a ragged last tile in each head (a map over the wrong
 # heads would read the next head's rows there); two probes as the main
-# path, and three (tangent slice b reads primal slice b % B·H)
+# path, and three (tangent slice b reads primal slice b % B·H); the CFG
+# pullback's 2·B primal with two probes, and the covector VJPs' one
+# cotangent (r = 1) at the U-Net's shapes
 @pytest.mark.parametrize("shape", [
     (3, 1000, 1000, 2), (3, 1000, 700, 2), (3, 700, 1000, 2), (1, 50, 700, 2),
-    (4, 200, 130, 2), (3, 1000, 700, 3)])
+    (4, 200, 130, 2), (3, 1000, 700, 3), (10, 4096, 4096, 2), (20, 1024, 1024, 2),
+    (5, 4096, 4096, 1), (10, 1024, 1024, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
     """K2–K5 against their plain versions, one launch each, with the
@@ -174,3 +179,34 @@ def test_pair_under_torch_func_matches_math_path(cuda, dtype):
     with pytest.raises(ValueError, match="head dims"):
         y = torch.randn(1, 1024, 32, device=cuda)
         fa.flash_forward_lse(y, y, y, 0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cfg_pair_under_torch_func_matches_math_path(cuda, dtype):
+    """The pair under a CFG-style extrapolation built inside the
+    differentiated function ((1+s)·a[:1] − s·a[1:] of a 2-row primal made
+    by torch.cat), probes vmapped outside it: each probe must meet its own
+    rows of the 2-row primal, as the math path has them."""
+    from torch.func import jvp, vjp, vmap
+
+    from diffusion_pullback_tpu_torch.ops.attention import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    rnd = lambda *shape: torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    s, r = 2.5, 2
+    x = rnd(1, 1024, 4, 64)
+
+    def f(impl):
+        def g(y):
+            y2 = torch.cat([y, 0.5 * y])
+            a = attention(y2, torch.tanh(y2), y2 * y2, impl=impl)
+            return (1 + s) * a[:1] - s * a[1:]
+        return g
+
+    ts = rnd(r, *x.shape)
+    tan = {impl: vmap(lambda t: jvp(f(impl), (x,), (t,))[1])(ts)
+           for impl in ("flash_jvp", "xla")}
+    cot = {impl: vmap(vjp(f(impl), x)[1])(ts)[0] for impl in ("flash", "xla")}
+    for mine, math_path in ((tan["flash_jvp"], tan["xla"]), (cot["flash"], cot["xla"])):
+        assert (mine.float() - math_path.float()).abs().max().item() <= 4 * (
+            1 + 2 * s) * _tol(math_path, dtype)

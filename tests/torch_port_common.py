@@ -45,3 +45,77 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+PLAIN = ("flash_forward_plain", "flash_forward_lse_plain", "flash_tangent_plain",
+         "flash_dq_plain", "flash_dkv_plain")
+
+
+@pytest.fixture
+def plain_shapes(monkeypatch):
+    """The calls of the kernels' plain versions (the CPU side of K1–K5):
+    name → [(primal B·H, tangents' or cotangent's B·H, S), ...]."""
+    from diffusion_pullback_tpu_torch.ops import flash_attention as tfa
+
+    calls = {name: [] for name in PLAIN}
+    for name in PLAIN:
+        real = getattr(tfa, name)
+
+        def spy(q, k, v, *rest, _n=name, _f=real, **kw):
+            batched = rest[0] if _n in ("flash_tangent_plain", "flash_dq_plain",
+                                        "flash_dkv_plain") else q
+            calls[_n].append((q.shape[0], batched.shape[0], q.shape[1]))
+            return _f(q, k, v, *rest, **kw)
+
+        monkeypatch.setattr(tfa, name, spy)
+    return calls
+
+
+def sd_driver_pair(root, cfg: dict, size: int = 32):
+    """(JAX EditStableDiffusion, the port's) on shared f32 weights, carried
+    by load_flax_params: the tiny SD U-Net at ``size``² latents (at 32 its
+    first block self-attends over 1024 tokens and so reaches the fused
+    kernels), a tiny VAE at 2·``size`` px, a 16-wide text tower, the
+    scaled-linear schedule, seeded noise images, ``cfg`` as both drivers'
+    SDExperimentConfig fields, and folders under ``root``."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from diffusion_pullback_tpu import experiments as jexp
+    from diffusion_pullback_tpu import models as jmodels
+    from diffusion_pullback_tpu.ops import DiffusionSchedule as JSchedule
+    from diffusion_pullback_tpu.utils.datasets import NoiseDataset as JNoise
+    from diffusion_pullback_tpu.utils.logging import JSONLLogger as JLogger
+    from diffusion_pullback_tpu_torch import experiments as texp
+    from diffusion_pullback_tpu_torch import models as tmodels
+    from diffusion_pullback_tpu_torch.ops.schedule import DiffusionSchedule
+    from diffusion_pullback_tpu_torch.utils.datasets import NoiseDataset
+    from diffusion_pullback_tpu_torch.utils.logging import JSONLLogger
+
+    px = 2 * size
+    unet = jmodels.UNet2DCondition(jmodels.sd_tiny_unet(size))
+    vae = jmodels.AutoencoderKL(jmodels.vae_tiny(px))
+    tcfg = dataclasses.replace(jmodels.clip_text_tiny(), hidden_size=16)
+    text = jmodels.CLIPTextModel(tcfg)
+    up = flax_params(unet, jnp.zeros((1, size, size, 4)), jnp.float32(0.0),
+                     jnp.zeros((1, tcfg.max_length, 16)), seed=0)
+    vp = flax_params(vae, jnp.zeros((1, px, px, 3)), seed=1)
+    tp = flax_params(text, jnp.zeros((1, tcfg.max_length), jnp.int32), seed=2)
+    folders = lambda tag: dict(result_folder=str(root / tag / "runs"),
+                               basis_folder=str(root / tag / "in"))
+    jdrv = jexp.EditStableDiffusion(
+        unet, up, vae, vp, text, tp, JSchedule.scaled_linear(), JNoise(px, n=1),
+        jexp.SDExperimentConfig(**cfg, **folders("jax"),
+                                obs_folder=str(root / "jax" / "obs")),
+        logger=JLogger(path=None, echo=False))
+    load = tmodels.load_flax_params
+    tdrv = texp.EditStableDiffusion(
+        load(tmodels.UNet2DCondition(tmodels.sd_tiny_unet(size)), up),
+        load(tmodels.AutoencoderKL(tmodels.vae_tiny(px)), vp),
+        load(tmodels.CLIPTextModel(dataclasses.replace(
+            tmodels.clip_text_tiny(), hidden_size=16)), tp),
+        DiffusionSchedule.scaled_linear(), NoiseDataset(px, n=1),
+        texp.SDExperimentConfig(**cfg, **folders("port")),
+        logger=JSONLLogger(path=None, echo=False), device="cpu")
+    return jdrv, tdrv
