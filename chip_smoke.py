@@ -50,10 +50,23 @@ Phases (any failure exits non-zero before the last line is printed):
                finish under DeepCache (interval 1 identical to the plain
                path), run_DDIMforward, each with its launches by shape held
                to the count the code gives; then the CFG and decoder
-               pullbacks on the pair against the math path in f32 and bf16.
-Phases 1–2 hold every (kernel, shape) that phases 4 and 6 launch. Then a
-JSON line of the kernels (one entry per kernel and design over phases 4
-and 6, at the shape that carries most of that design's device time
+               pullbacks on the pair against the math path in f32 and bf16;
+  7. sdxl    — the SDXL-1024 edit path at full width through the CLI's
+               builder: the 2.57 B-parameter U-Net in bf16 at 128² latents,
+               the CLIP ViT-L and OpenCLIP bigG towers and the 1024 px VAE
+               in f32, seeded random weights drawn on the card, the bundled
+               example images, run_edit_local_encoder_pullback_zt with the
+               CLI's defaults on the card (K1 on 'tf32x3' in the VAE at
+               16 384 tokens, the fused pair in the pullback, one latent
+               per VAE decode) at 10/10 steps, edit t 0.5, pca_rank 2, 2
+               walk steps and 2 directions × 3 frames; its launches by
+               shape held to the count the code gives, each stage's seconds
+               and peak memory, the device time by shape and design; then
+               the pullback at pca_rank 8 with the CLI's chunking (one
+               probe per pass) and unchunked.
+Phases 1–2 hold every (kernel, shape) that phases 4, 6 and 7 launch. Then
+a JSON line of the kernels (one entry per kernel and design over phases
+4, 6 and 7, at the shape that carries most of that design's device time
 there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
@@ -93,6 +106,23 @@ F32, BF16 = torch.float32, torch.bfloat16
 # samples through the U-Net (bf16) and the VAE (f32)
 K1_CASES = [(s, dt) for s in K1_SHAPES for dt in (F32, BF16)] + [
     ((25, 4096, 64), BF16), ((50, 1024, 64), BF16), ((5, 4096, 512), F32)]
+# K1 launches of one U-Net pass at batch b: (heads · b, S, 64) for the
+# heads at 4096 and at 1024 tokens, and the number of calls at each. SD
+# 2.1-base: 5 and 10 heads, 5 calls each (down blocks 0–1, up blocks 2–3);
+# SDXL (depths 1, 2, 10; two layers down, three up): 10 heads, 10 calls
+# (down 1: 2×2, up 1: 3×2) and 20 heads, 60 calls (down 2: 2×10, mid: 10,
+# up 0: 3×10). tests/test_torch_port_sdxl_models.py counts them on the CPU
+SD_UNET = dict(at_4096=5, at_1024=5, heads=(5, 10))
+SDXL_UNET = dict(at_4096=10, at_1024=60, heads=(10, 20))
+# phase 7's K1 shapes, in the path's dtypes: the SDXL U-Net at batch 1, 4
+# (walk) and 6 (finish), and its VAE's one 512-wide head at 1024 px, 16 384
+# tokens, one image per call
+K1_CASES += [((10 * b, 4096, 64), BF16) for b in (1, 4, 6)] + [
+    ((20 * b, 1024, 64), BF16) for b in (1, 4, 6)] + [((1, 16384, 512), F32)]
+# the SDXL pullback's encoder (batch 1, mid tap) reaches the pair at these
+# primal shapes, 4 and 30 times per pass (down block 1; down block 2 and
+# the mid block); phase 2 holds them (PAIR_CASES' 2·B cases of SD)
+SDXL_PAIR = ([(10, 4096, 64), (20, 1024, 64)], (4, 30))
 # the pullback's encoder (batch 1, mid tap) reaches the pair at these
 # primal (B·H, S, D); K3–K5 see the probes folded into B·H
 PCA_RANK = 2
@@ -619,23 +649,26 @@ def drive(fa, fn):
     return out, seconds, torch.cuda.max_memory_allocated() / 1e9, launches, path
 
 
-def unet_k1(expected, batch, calls, dtype, at_4096=5, at_1024=5):
-    """K1 launches of ``calls`` SD 2.1-base U-Net passes at ``batch``: a
-    whole pass runs five 4096-token self-attentions (down block 0, up block
-    3) and five 1024-token ones (down block 1, up block 2); a partial pass
-    gives its own counts."""
-    expected[("flash_fwd", (5 * batch, 4096, 64), dtype)] += at_4096 * calls
-    expected[("flash_fwd", (10 * batch, 1024, 64), dtype)] += at_1024 * calls
+def unet_k1(expected, batch, calls, dtype, at_4096=5, at_1024=5, heads=(5, 10)):
+    """K1 launches of ``calls`` U-Net passes at ``batch``: a whole SD
+    2.1-base pass runs five 4096-token self-attentions of 5 heads (down
+    block 0, up block 3) and five 1024-token ones of 10 heads (down block
+    1, up block 2); SDXL_UNET gives SDXL's; a partial pass gives its own
+    counts."""
+    expected[("flash_fwd", (heads[0] * batch, 4096, 64), dtype)] += at_4096 * calls
+    expected[("flash_fwd", (heads[1] * batch, 1024, 64), dtype)] += at_1024 * calls
 
 
-def pair_k2_k5(expected, dtype, iterations, layers, primal=1):
+def pair_k2_k5(expected, dtype, iterations, layers, primal=1, shapes=PAIR_SHAPES):
     """K2–K5 launches of a fused-pair pullback over a map that runs
-    ``layers`` self-attentions at each of 4096 and 1024 tokens, at a primal
-    batch ``primal``: one jvp per tangent pass (each iteration and the final
-    u), each running K2 and K3; one vjp (K2) whose function runs K4 and K5
-    once per iteration; K3–K5 with the probes folded into B·H."""
+    ``layers`` self-attentions at each of the primal ``shapes`` (an int:
+    that many at each; a tuple: one count per shape), at a primal batch
+    ``primal``: one jvp per tangent pass (each iteration and the final u),
+    each running K2 and K3; one vjp (K2) whose function runs K4 and K5 once
+    per iteration; K3–K5 with the probes folded into B·H."""
     passes = iterations + 1
-    for bh, s, d in PAIR_SHAPES:
+    counts = layers if isinstance(layers, tuple) else (layers,) * len(shapes)
+    for (bh, s, d), layers in zip(shapes, counts):
         bhp = primal * bh
         folded = (PCA_RANK * bhp, s, d)
         expected[("flash_fwd_lse", (bhp, s, d), dtype)] += layers * (passes + 1)
@@ -652,19 +685,25 @@ def covector_k2_k5(expected, dtype, vjps, layers=2):
             expected[(sym, shape, dtype)] += layers * vjps
 
 
-def edit_k1(expected, edit, n_dir, frames, dtypes):
-    """K1 launches of an SD edit run outside its direction: VAE encode,
-    inversion and forward to the edit t at batch 1; the walk's (null, edit)
-    pair of every direction as one batch; the finish of every direction's
-    frames as one batch; one VAE decode of the frames per direction (no
-    classifier-free guidance: guidance_scale is 0)."""
+def edit_k1(expected, edit, n_dir, frames, dtypes, unet=SD_UNET, vae_tokens=4096):
+    """K1 launches of an SD-family edit run outside its direction: VAE
+    encode, inversion and forward to the edit t at batch 1; the walk's
+    (null, edit) pair of every direction as one batch; the finish of every
+    direction's frames as one batch; per direction the VAE decodes of its
+    frames, decode_chunk of them per call (all at once when it is None; no
+    classifier-free guidance: guidance_scale is 0). ``unet`` is the U-Net's
+    K1 geometry (SD_UNET, SDXL_UNET), ``vae_tokens`` the VAE's mid-block
+    tokens (4096 at 512 px, 16 384 at 1024 px)."""
     cfg, (unet_dtype, vae_dtype) = edit.cfg, dtypes
-    unet_k1(expected, 1, (cfg.inv_steps - 2) + edit.edit_t_idx, unet_dtype)
-    unet_k1(expected, 2 * n_dir, cfg.x_space_guidance_num_step, unet_dtype)
+    unet_k1(expected, 1, (cfg.inv_steps - 2) + edit.edit_t_idx, unet_dtype, **unet)
+    unet_k1(expected, 2 * n_dir, cfg.x_space_guidance_num_step, unet_dtype, **unet)
     unet_k1(expected, n_dir * frames, edit.fwd_grid.num_steps - edit.edit_t_idx,
-            unet_dtype)
-    expected[("flash_fwd", (1, 4096, 512), vae_dtype)] += 1
-    expected[("flash_fwd", (frames, 4096, 512), vae_dtype)] += n_dir
+            unet_dtype, **unet)
+    expected[("flash_fwd", (1, vae_tokens, 512), vae_dtype)] += 1
+    chunk = cfg.decode_chunk or frames
+    for start in range(0, frames, chunk):
+        expected[("flash_fwd", (min(chunk, frames - start), vae_tokens, 512),
+                  vae_dtype)] += n_dir
 
 
 def check_launches(tag, launches, path, expected):
@@ -1079,6 +1118,156 @@ def phase_sd_rest(fa):
     return paths
 
 
+@contextlib.contextmanager
+def stage_peaks(edit):
+    """Each driver stage's peak memory in GB (the card's peak counter reset
+    at the stage's start), as {event: [GB, ...]}; before each reset the
+    peak so far is kept under 'overall', so its max is the run's peak."""
+    peaks = collections.defaultdict(list)
+    real = edit._stage
+
+    @contextlib.contextmanager
+    def stage(event, **fields):
+        torch.cuda.synchronize()
+        peaks["overall"].append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        with real(event, **fields) as f:
+            yield f
+            torch.cuda.synchronize()
+            peaks[event].append(torch.cuda.max_memory_allocated() / 1e9)
+
+    edit._stage = stage
+    try:
+        yield peaks
+    finally:
+        del edit._stage
+
+
+def phase_sdxl(fa):
+    """Phase 7: the SDXL-1024 edit path at full width through the CLI's
+    builder (sdxl_base_unet in bf16, both text towers and the 1024 px VAE in
+    f32, --attn_impl flash, the fused-pair pullback, decode_chunk 1), the
+    bundled example images, edit t 0.5, 10/10 steps, pca_rank 2, pullback
+    1–3 iterations, 2 walk steps, 2 directions × 3 frames; its K1–K5
+    launches by shape held to the count the code gives; each stage's
+    seconds and peak memory; then the pullback at pca_rank 8 with the CLI's
+    chunking and unchunked. Returns the path dict of the run."""
+    import numpy as np
+    from PIL import Image
+
+    from diffusion_pullback_tpu_torch import main as port_main
+    from diffusion_pullback_tpu_torch.experiments import BasisCache
+    from diffusion_pullback_tpu_torch.models import TapPoint
+
+    out = os.path.join(OUT, "sdxl")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    flags = ["--note", "chip_smoke", "--model_name", port_main.SDXL_MODEL,
+             "--result_folder", out, "--dataset_name", "Examples", "--for_steps", "10",
+             "--inv_steps", "10", "--edit_t", "0.5", "--x_space_guidance_num_step", "2",
+             "--edit_prompt", "a photo of a tree"]
+    args = port_main.parse_args(flags + ["--pca_rank", str(PCA_RANK)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    edit = port_main.build_sdxl(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = edit.cfg
+    cfg.pullback_min_iter, cfg.pullback_max_iter = 1, 3
+    cfg.basis_folder = os.path.join(out, "inputs")
+    edit.cache = BasisCache(cfg.basis_folder)
+    models = {"U-Net": edit.unet, "VAE": edit.vae, "CLIP-L": edit.text_model,
+              "bigG": edit.text_model_2}
+    dtypes = (next(edit.unet.parameters()).dtype, next(edit.vae.parameters()).dtype)
+    log(f"[sdxl] built the SDXL driver in {build_s:.1f} s (models built and drawn "
+        f"on the card, prompts embedded), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; " + ", ".join(
+            f"{k} {sum(p.numel() for p in m.parameters())} parameters "
+            f"{next(m.parameters()).dtype}" for k, m in models.items())
+        + f"; attn {edit.unet.config.attn_impl}, pullback attn "
+        f"{cfg.pullback_attn_impl}, pullback chunk {cfg.pullback_chunk_size}, "
+        f"decode chunk {cfg.decode_chunk}, VAE scaling {edit.vae.config.scaling_factor}, "
+        f"dataset {type(edit.dataset).__name__} of {len(edit.dataset)}")
+
+    vis_num, vis_num_pc = 2, 1
+    n_dir = 2 * vis_num_pc
+    stride = max(1, (cfg.x_space_guidance_num_step + 1) // vis_num)
+    frames = len(range(0, cfg.x_space_guidance_num_step + 1, stride))
+    with stage_peaks(edit) as peaks:
+        names, seconds, peak_gb, launches, path = drive(
+            fa, lambda: edit.run_edit_local_encoder_pullback_zt(
+                idx=0, pca_rank=PCA_RANK, vis_num=vis_num, vis_num_pc=vis_num_pc))
+    peak_gb = max([peak_gb] + [g for v in peaks.values() for g in v])
+    events = read_events(edit)
+    for e in events:
+        if "seconds" in e:
+            extra = {k: v for k, v in e.items() if k not in ("ts", "event", "seconds")}
+            pk = peaks.get(e["event"])
+            log(f"[sdxl] stage {e['event']}: {e['seconds']:.3f} s, peak memory "
+                + (f"{max(pk):.2f} GB" if pk else "not measured (built before)")
+                + f" {extra}")
+    pullback = [e for e in events if e["event"] == "sd_local_pullback"][-1]
+    expected = collections.Counter()
+    edit_k1(expected, edit, n_dir, frames, dtypes, unet=SDXL_UNET, vae_tokens=16384)
+    pair_k2_k5(expected, dtypes[0], pullback["iterations"], SDXL_PAIR[1],
+               shapes=SDXL_PAIR[0])
+    launches_by_shape = check_launches("sdxl", launches, path, expected)
+    for (sym, dsg), (_, n, ms) in sorted(by_design(fa, [path]).items()):
+        log(f"[sdxl] {KERNELS[sym][0]} on {dsg}: {n} launches, {ms:.2f} ms on the "
+            f"device ({100 * ms / 1e3 / seconds:.2f} % of the path)")
+    basis = os.listdir(cfg.basis_folder)
+    with np.load(os.path.join(cfg.basis_folder, basis[0])) as z:
+        u, s, vT = z["u"], z["s"], z["vT"]
+    log(f"[sdxl] main path {seconds:.2f} s, peak memory {peak_gb:.2f} GB, sigma "
+        f"{s.tolist()}, pullback {pullback['seconds']:.3f} s (encoder "
+        f"{pullback['encoder']}, {pullback['iterations']} iterations)")
+    saved = [e for e in events if e["event"] == "sd_decode_and_save"]
+    checks = {
+        "two PNGs of 3 frames at 1024 px": len(names) == n_dir and all(
+            Image.open(os.path.join(cfg.result_folder, n + ".png")).size
+            == (1024 * frames, 1024) for n in names),
+        "edited latents and images finite": bool(saved and saved[-1]["finite"]),
+        "basis finite, expected shapes": (
+            u.shape == (32 * 32 * 1280, PCA_RANK) and vT.shape == (PCA_RANK, 128 * 128 * 4)
+            and all(np.isfinite(a).all() for a in (u, s, vT)) and (s > 0).all()),
+        "pullback through the fused pair": pullback["encoder"] == "flashpair",
+        "every kernel launched": all(launches.values()),
+        "launches by shape": launches_by_shape,
+    }
+
+    # the pullback at BASELINE config 5's rank, at a latent of the path's
+    # shape: with the CLI's chunking for it (one probe per pass, the JAX
+    # CLI's choice for a 16 GB chip), then all 8 probes in one batch
+    log(f"[sdxl] pullback at pca_rank 2 (the main path, unchunked): "
+        f"{pullback['seconds']:.3f} s, {pullback['iterations']} iterations, peak "
+        f"memory {max(peaks['sd_local_pullback']):.2f} GB")
+    zt = torch.randn(1, 128, 128, 4, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(8))
+    rank8 = {}
+    for chunk in (port_main.sdxl_pullback_chunk(
+            port_main.parse_args(flags + ["--pca_rank", "8"])), None):
+        cfg.pullback_chunk_size = chunk
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rank8[chunk] = edit.compute_local_basis(
+            zt, edit.fwd_grid.timesteps[edit.edit_t_idx], TapPoint("mid", 0), 8)
+        torch.cuda.synchronize()
+        log(f"[sdxl] pullback at pca_rank 8, chunk {chunk}: "
+            f"{time.perf_counter() - t0:.3f} s, {rank8[chunk].iterations} iterations, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, sigma "
+            f"{rank8[chunk].s.tolist()}")
+    checks["rank-8 pullbacks finite"] = all(
+        bool(torch.isfinite(r.s).all() and torch.isfinite(r.vT).all())
+        for r in rank8.values())
+    for what, ok in checks.items():
+        log(f"[sdxl] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("phase 7 checks failed")
+    return path
+
+
 def golden_gates(art, ref):
     """tests/test_golden_config1.py's gates of ``art`` against ``ref``: σ and
     the u column norms to rtol 1e-3, the principal cosines of each group of
@@ -1274,6 +1463,7 @@ def main():
     paths = [phase_edit(fa)]
     phase_uncond(fa)
     paths += phase_sd_rest(fa)
+    paths.append(phase_sdxl(fa))
 
     # every (kernel, shape, dtype) the main paths launched was held against
     # its plain version in phases 1–2
@@ -1285,7 +1475,7 @@ def main():
                              f"did not hold against their plain versions: {missing}")
 
     # launches and summed device time of each (kernel, shape) over the main
-    # paths of phases 4 and 6
+    # paths of phases 4, 6 and 7
     merged = collections.defaultdict(lambda: [0, 0.0])
     for path in paths:
         for key, (n, ms) in path.items():
@@ -1293,10 +1483,10 @@ def main():
             merged[key][1] += ms
     for (sym, shape, dtype), (n, ms) in sorted(merged.items(), key=lambda kv: -kv[1][1]):
         log(f"[paths] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches, "
-            f"{ms:.3f} ms on the device over phases 4 and 6")
-    log(f"[smoke] phases 1–6 in {time.perf_counter() - t_start:.1f} s")
+            f"{ms:.3f} ms on the device over phases 4, 6 and 7")
+    log(f"[smoke] phases 1–7 in {time.perf_counter() - t_start:.1f} s")
 
-    # one entry per kernel and design on the main paths (phases 4 and 6):
+    # one entry per kernel and design on the main paths (phases 4, 6, 7):
     # their launches and summed device time there (path_ms), and the
     # per-launch numbers of phases 1–2 at the shape that carries most of
     # that device time

@@ -1,8 +1,8 @@
 """Stable-Diffusion editing along pullback directions.
 
 Counterpart of EditStableDiffusion in
-diffusion_pullback_tpu/experiments/edit_sd.py (without the SDXL hooks, the
-regularizers, the harvests and the PCA runs):
+diffusion_pullback_tpu/experiments/edit_sd.py (without the regularizers,
+the harvests and the PCA runs):
 
     VAE encode → DDIM inversion → DDIM forward to the edit t → a direction
     (the encoder pullback at a U-Net tap, edit-prompt conditioned, with CFG
@@ -15,6 +15,13 @@ Latents, ``vT`` and the basis cache are NHWC at this boundary, as in the JAX
 package, so ``vT`` rows flatten in the same order and a basis from either
 package loads in the other; the models run NCHW inside. The JAX driver's
 vmap over edit directions is a batch dimension here.
+
+A prompt embedding is an opaque conditioning that only three hooks look
+inside: ``_get_emb`` makes it, ``_unet_cond`` turns it into the U-Net's
+(context, added_cond) at a batch, and ``_stack_cond`` stacks two of them
+into the rows of one fused 2·B batch. Here it is the (1, 77, C) context;
+the SDXL driver (edit_sdxl.py) overrides the first two for its
+(context, pooled) pair.
 """
 
 from __future__ import annotations
@@ -88,6 +95,9 @@ class SDExperimentConfig:
     # run_edit_text_driven_direction: 0 = one JᵀΔh direction; k > 0 = Δh
     # decomposed in the top-k pullback basis, each PC walked separately
     text_driven_num_pc: int = 0
+    # decode at most this many latents per VAE call (None = all at once):
+    # bounds the VAE's activations at 1024 px
+    decode_chunk: Optional[int] = None
     result_folder: str = "./runs/sd"
     basis_folder: str = "./inputs/local_encoder_pullback_stable_diffusion"
     vis_num: int = 4
@@ -137,28 +147,46 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
 
     # ---- prompt / ε ---------------------------------------------------------
 
+    def _ids(self, tokenizer, prompt: str) -> torch.Tensor:
+        return torch.as_tensor(tokenizer([prompt]), dtype=torch.long,
+                               device=self.device)
+
     @torch.no_grad()
-    def _get_emb(self, prompt: str) -> torch.Tensor:
-        ids = torch.as_tensor(self.tokenizer([prompt]), dtype=torch.long,
-                              device=self.device)
-        return self.text_model(ids)
+    def _get_emb(self, prompt: str):
+        """Prompt → its conditioning: the tower's (1, 77, C) hidden states."""
+        return self.text_model(self._ids(self.tokenizer, prompt))
+
+    def _unet_cond(self, emb, batch: int):
+        """A conditioning → the U-Net's (context, added_cond) for ``batch``
+        rows; a batch-1 context broadcasts inside the U-Net."""
+        return emb, None
+
+    @staticmethod
+    def _stack_cond(first, second, batch: int):
+        """Two conditionings (batch 1 or ``batch``) stacked into the
+        2·``batch`` rows [first; second] of a fused pair, leaf by leaf."""
+        if isinstance(first, tuple):
+            return tuple(EditStableDiffusion._stack_cond(a, b, batch)
+                         for a, b in zip(first, second))
+        return torch.cat([first.expand(batch, *first.shape[1:]),
+                          second.expand(batch, *second.shape[1:])])
 
     def eps_with(self, prompt_emb, cfg_neg_emb=None):
         """ε(z, t) on NHWC latents; with ``cfg_neg_emb`` and guidance_scale
         > 1, classifier-free guidance as one fused 2·B batch."""
         scale = self.cfg.guidance_scale
 
-        def unet(z, t, ctx):
-            return to_nhwc(self.unet(to_nchw(z), t, ctx))
+        def unet(z, t, emb):
+            ctx, added = self._unet_cond(emb, z.shape[0])
+            return to_nhwc(self.unet(to_nchw(z), t, ctx, added))
 
         if cfg_neg_emb is None or scale <= 1.0:
             return lambda z, t: unet(z, t, prompt_emb)
 
         def fn(z, t):
             b = z.shape[0]
-            ctx = torch.cat([cfg_neg_emb.expand(b, -1, -1),
-                             prompt_emb.expand(b, -1, -1)])
-            e_un, e_c = unet(torch.cat([z, z]), t, ctx).chunk(2)
+            emb2 = self._stack_cond(cfg_neg_emb, prompt_emb, b)
+            e_un, e_c = unet(torch.cat([z, z]), t, emb2).chunk(2)
             return e_un + scale * (e_c - e_un)
 
         return fn
@@ -189,8 +217,12 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
 
     @torch.no_grad()
     def decode_latents(self, z) -> np.ndarray:
-        """NHWC latents → NHWC images in [-1, 1] on the host."""
-        return to_nhwc(self.vae.decode(to_nchw(z))).float().cpu().numpy()
+        """NHWC latents → NHWC images in [-1, 1] on the host, at most
+        ``decode_chunk`` latents per VAE call."""
+        chunk = self.cfg.decode_chunk or z.shape[0]
+        return np.concatenate([
+            to_nhwc(self.vae.decode(to_nchw(z[i:i + chunk]))).float().cpu().numpy()
+            for i in range(0, z.shape[0], chunk)])
 
     @torch.no_grad()
     def run_DDIMforward(self, num_samples: int = 5, save_as: Optional[str] = None,
@@ -218,8 +250,9 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
         attention layer set to ``attn_impl`` for the call (so u and vT
         flatten as in the JAX package)."""
         def enc(z, emb):
+            ctx, added = self._unet_cond(emb, z.shape[0])
             with attn_impl_as(self.unet, attn_impl):
-                return to_nhwc(self.unet.encode(to_nchw(z), t, emb, tap))
+                return to_nhwc(self.unet.encode(to_nchw(z), t, ctx, tap, added))
         return enc
 
     def _pair_impls(self):
@@ -237,7 +270,8 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
     def _tap_encode_with_state(self, z, t, emb, tap: TapPoint):
         """(h at ``tap``, the state that resumes the pass) of NHWC latents;
         h and the state in the U-Net's NCHW layout."""
-        return self.unet.encode_with_state(to_nchw(z), t, emb, tap)
+        ctx, added = self._unet_cond(emb, z.shape[0])
+        return self.unet.encode_with_state(to_nchw(z), t, ctx, tap, added)
 
     def _tap_decode_with_state(self, h, state, tap: TapPoint):
         """ε (NHWC) resumed from a (possibly perturbed) h at ``tap``."""
@@ -257,11 +291,8 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
         s = self.cfg.pullback_guidance_scale
 
         def f(z, embs):
-            edit_emb, neg_emb = embs
             b = z.shape[0]
-            ctx = torch.cat([edit_emb.expand(b, *edit_emb.shape[1:]),
-                             neg_emb.expand(b, *neg_emb.shape[1:])])
-            h2 = enc(torch.cat([z, z]), ctx)
+            h2 = enc(torch.cat([z, z]), self._stack_cond(*embs, b))
             return (1.0 + s) * h2[:b] - s * h2[b:]
 
         return f
@@ -532,7 +563,8 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
             return self._tap_decode_with_state(h, state, tap), h
 
         def reuse_fn(pair, t, h):
-            state = self.unet.shallow_encode(to_nchw(pair), t, emb)
+            ctx, added = self._unet_cond(emb, pair.shape[0])
+            state = self.unet.shallow_encode(to_nchw(pair), t, ctx, added)
             return self._tap_decode_with_state(h, state, tap)
 
         return full_fn, reuse_fn
@@ -548,10 +580,14 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
         if itv <= 1:
             return self.DDIMforwardsteps(sel, self.edit_t_idx)
         cfg_on = cfg.guidance_scale > 1.0
+        b = sel.shape[0]
+        ctx, added = self._unet_cond(self.for_prompt_emb, b)
+        neg_ctx, neg_added = (self._unet_cond(self.neg_prompt_emb, b) if cfg_on
+                              else (None, None))
         return to_nhwc(ddim_forward_deepcache_cond(
-            self.unet, to_nchw(sel), self.for_prompt_emb, self.schedule,
-            self.fwd_grid, interval=itv, start_idx=self.edit_t_idx,
-            neg_context=self.neg_prompt_emb if cfg_on else None,
+            self.unet, to_nchw(sel), ctx, self.schedule, self.fwd_grid,
+            interval=itv, start_idx=self.edit_t_idx, added_cond=added,
+            neg_context=neg_ctx, neg_added_cond=neg_added,
             guidance_scale=cfg.guidance_scale if cfg_on else 0.0))
 
     def _edit_along_directions(self, zt, vks, names, vis_num):

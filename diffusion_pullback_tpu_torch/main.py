@@ -1,12 +1,16 @@
-"""Command-line entry point of the port: the SD 2.1-base and DDPM-family
-(CelebA-HQ-256 and the other '*_HF' names) subsets of the JAX package's
-main.py, with the same flag names, experiment folders and basis folders.
+"""Command-line entry point of the port: the SD 2.1-base, SDXL-base and
+DDPM-family (CelebA-HQ-256 and the other '*_HF' names) subsets of the JAX
+package's main.py, with the same flag names, experiment folders and basis
+folders.
 
     python -m diffusion_pullback_tpu_torch.main --note smoke \\
         --run_edit_local_encoder_pullback_zt True
     python -m diffusion_pullback_tpu_torch.main --note with_prompt \\
         --edit_prompt "sitting dog" --pullback_guidance_scale 7.5 \\
         --edit_t 0.7 --run_edit_local_encoder_pullback_zt True
+    python -m diffusion_pullback_tpu_torch.main --note smoke \\
+        --model_name stabilityai/stable-diffusion-xl-base-1.0 \\
+        --edit_t 0.5 --run_edit_local_encoder_pullback_zt True
     python -m diffusion_pullback_tpu_torch.main --note smoke \\
         --model_name CelebA_HQ_HF --dataset_name CelebA_HQ \\
         --performance_boosting_t 0.2 --run_edit_local_encoder_pullback_zt True
@@ -24,6 +28,7 @@ import os
 import sys
 
 SD_MODEL = "stabilityai/stable-diffusion-2-1-base"
+SDXL_MODEL = "stabilityai/stable-diffusion-xl-base-1.0"
 
 # x-space guidance scale per h_t (--use_x_space_guidance): this package's
 # copy of the tables in the JAX package's configs/params.py
@@ -45,11 +50,16 @@ def str2bool(v):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="python -m diffusion_pullback_tpu_torch.main")
+    p = argparse.ArgumentParser(
+        prog="python -m diffusion_pullback_tpu_torch.main",
+        epilog="The JAX CLI's --loop_impl, --loop_chunk and --weights_dtype "
+               "choose how its compiled programs loop and in which dtype its "
+               "weights sit on a 16 GB TPU chip; the port compiles no "
+               "programs, runs eagerly on the card and has no such flags.")
     p.add_argument("--note", type=str, required=True)
     p.add_argument("--model_name", type=str, default=SD_MODEL,
-                   help=f"{SD_MODEL} or an uncond name (CelebA_HQ_HF, "
-                        "LSUN_church_HF, LSUN_bedroom_HF, FFHQ_HF)")
+                   help=f"{SD_MODEL}, {SDXL_MODEL} or an uncond name "
+                        "(CelebA_HQ_HF, LSUN_church_HF, LSUN_bedroom_HF, FFHQ_HF)")
     p.add_argument("--dataset_name", type=str, default="",
                    help="an image folder under datasets/ (or --data_root); "
                         "'' or 'noise' = seeded noise images")
@@ -60,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'' = cuda (raises without a card); 'cpu' to force")
     p.add_argument("--dtype", type=str, default="", choices=["", "fp32", "bf16"],
                    help="U-Net compute/weight dtype; '' = bf16 on cuda, fp32 "
-                        "on cpu (the VAE and text tower stay fp32)")
+                        "on cpu (the VAE and text towers stay fp32)")
     p.add_argument("--result_folder", type=str, default="./runs/")
     p.add_argument("--for_prompt", type=str, default="")
     p.add_argument("--inv_prompt", type=str, default="")
@@ -81,7 +91,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["batch", "split"])
     p.add_argument("--pca_rank", type=int, default=2)
     p.add_argument("--pullback_chunk_size", type=int, default=0,
-                   help="probes per tangent/cotangent batch; 0 = all")
+                   help="probes per tangent/cotangent batch; 0 = all (SDXL: "
+                        "all at pca_rank <= 2, else 1)")
     p.add_argument("--pullback_guidance_scale", type=float, default=0.0,
                    help="SD path: CFG inside the JVP'd encoder (BASELINE "
                         "config 4): >0 differentiates h_edit + s*(h_edit - "
@@ -133,10 +144,17 @@ def is_stable_diffusion(args) -> bool:
     return "stable-diffusion" in args.model_name
 
 
+def is_sdxl(args) -> bool:
+    return is_stable_diffusion(args) and "-xl-" in args.model_name
+
+
 def experiment_folders(args):
     """(experiment folder, basis folder) as the JAX CLI names them for the
     same flags: ``preset`` in utils/config.py and the builders of main.py."""
-    if is_stable_diffusion(args):
+    if is_sdxl(args):
+        exp = f"Stable_Diffusion_XL-{args.dataset_name}-{args.note}"
+        family = "sdxl"
+    elif is_stable_diffusion(args):
         exp = f"Stable_Diffusion-{args.dataset_name}-{args.note}"
         family = "stable_diffusion"
     else:
@@ -205,39 +223,25 @@ def build_uncond(args):
         logger=JSONLLogger(os.path.join(exp_folder, "log.jsonl")), device=device)
 
 
-def build_sd(args):
-    """The SD 2.1-base editing driver: U-Net, VAE at 512 px and the 23-layer
-    OpenCLIP-H text tower with seeded random weights."""
-    from .experiments import EditStableDiffusion, SDExperimentConfig
-    from .models import (
-        AutoencoderKL,
-        CLIPTextModel,
-        UNet2DCondition,
-        random_init_,
-        sd21_base_unet,
-        sd21_text_encoder,
-        sd_vae,
-    )
-    from .ops.schedule import DiffusionSchedule
+def _sd_setup(args):
+    """(device, U-Net dtype name, attention impl) of an SD-family build."""
     from .utils.device import resolve_device
-    from .utils.logging import JSONLLogger
 
-    if "-xl-" in args.model_name:
-        raise NotImplementedError("SDXL is not ported yet (ROADMAP queue 1, item 14)")
     device = resolve_device(args.device or None)
     on_cuda = device.type == "cuda"
     dtype = args.dtype or ("bf16" if on_cuda else "fp32")
     attn = args.attn_impl if args.attn_impl != "auto" else (
         "flash" if on_cuda else "xla")
+    return device, "bfloat16" if dtype == "bf16" else "float32", attn
 
-    unet = random_init_(UNet2DCondition(sd21_base_unet(
-        attn_impl=attn, dtype="bfloat16" if dtype == "bf16" else "float32")),
-        args.seed)
-    vae = random_init_(AutoencoderKL(sd_vae(attn_impl=attn)), args.seed + 1)
-    text = random_init_(CLIPTextModel(sd21_text_encoder()), args.seed + 2)
+
+def _sd_config(args, device, **over):
+    """The SDExperimentConfig of an SD-family build from the flags;
+    ``over`` sets the family's own fields."""
+    from .experiments import SDExperimentConfig
 
     exp_folder, basis_folder = experiment_folders(args)
-    cfg = SDExperimentConfig(
+    fields = dict(
         dataset_name=args.dataset_name or "noise",
         for_steps=args.for_steps,
         inv_steps=args.inv_steps,
@@ -256,7 +260,7 @@ def build_sd(args):
         # the fused pair by default on the card, as the JAX CLI on an
         # accelerator; --pullback_attn_impl xla opts out
         pullback_attn_impl=args.pullback_attn_impl or (
-            "flash" if on_cuda else "xla"),
+            "flash" if device.type == "cuda" else "xla"),
         pullback_chunk_size=args.pullback_chunk_size or None,
         pullback_guidance_scale=args.pullback_guidance_scale,
         edit_deepcache_interval=args.edit_deepcache_interval,
@@ -265,11 +269,85 @@ def build_sd(args):
         result_folder=os.path.join(exp_folder, "results"),
         basis_folder=basis_folder,
     )
+    fields.update(over)
+    return SDExperimentConfig(**fields), os.path.join(exp_folder, "log.jsonl")
+
+
+def build_sd(args):
+    """The SD 2.1-base editing driver: U-Net, VAE at 512 px and the 23-layer
+    OpenCLIP-H text tower with seeded random weights."""
+    from .experiments import EditStableDiffusion
+    from .models import (
+        AutoencoderKL,
+        CLIPTextModel,
+        UNet2DCondition,
+        random_init_,
+        sd21_base_unet,
+        sd21_text_encoder,
+        sd_vae,
+    )
+    from .ops.schedule import DiffusionSchedule
+    from .utils.logging import JSONLLogger
+
+    if is_sdxl(args):
+        raise ValueError(f"{args.model_name} is built by build_sdxl")
+    device, dtype, attn = _sd_setup(args)
+    unet = random_init_(UNet2DCondition(sd21_base_unet(attn_impl=attn, dtype=dtype)),
+                        args.seed)
+    vae = random_init_(AutoencoderKL(sd_vae(attn_impl=attn)), args.seed + 1)
+    text = random_init_(CLIPTextModel(sd21_text_encoder()), args.seed + 2)
+    cfg, log_path = _sd_config(args, device)
     return EditStableDiffusion(
         unet, vae, text, DiffusionSchedule.from_name("scaled_linear"),
         _dataset(args, unet.config.sample_size * 8), cfg,
-        logger=JSONLLogger(os.path.join(exp_folder, "log.jsonl")),
-        device=device)
+        logger=JSONLLogger(log_path), device=device)
+
+
+def sdxl_pullback_chunk(args):
+    """The SDXL CLI's probes per pullback pass: --pullback_chunk_size, else
+    all at once up to pca_rank 2 and one at a time above, as the JAX CLI."""
+    return args.pullback_chunk_size or (None if (args.pca_rank or 2) <= 2 else 1)
+
+
+def build_sdxl(args):
+    """The SDXL-base editing driver: the 2.57 B-parameter U-Net at 128²
+    latents, the VAE at 1024 px with scaling factor 0.13025, the CLIP ViT-L
+    and OpenCLIP bigG towers, with seeded random weights (seeds seed … +3)
+    drawn on the device the models are built on; the JAX CLI's pullback
+    chunking (all probes at once up to pca_rank 2, else one at a time) and
+    one latent per VAE decode."""
+    import torch
+
+    from .experiments import EditStableDiffusionXL
+    from .models import (
+        AutoencoderKL,
+        CLIPTextModel,
+        UNet2DCondition,
+        random_init_,
+        sd_vae,
+        sdxl_base_unet,
+        sdxl_text_encoder_1,
+        sdxl_text_encoder_2,
+    )
+    from .ops.schedule import DiffusionSchedule
+    from .utils.logging import JSONLLogger
+
+    device, dtype, attn = _sd_setup(args)
+    with torch.device(device):
+        unet = random_init_(UNet2DCondition(sdxl_base_unet(attn_impl=attn,
+                                                           dtype=dtype)), args.seed)
+        vae = random_init_(AutoencoderKL(sd_vae(attn_impl=attn,
+                                                scaling_factor=0.13025)),
+                           args.seed + 1)
+        text1 = random_init_(CLIPTextModel(sdxl_text_encoder_1()), args.seed + 2)
+        text2 = random_init_(CLIPTextModel(sdxl_text_encoder_2(), projection=True),
+                             args.seed + 3)
+    cfg, log_path = _sd_config(args, device, decode_chunk=1,
+                               pullback_chunk_size=sdxl_pullback_chunk(args))
+    return EditStableDiffusionXL(
+        unet, vae, text1, text2, DiffusionSchedule.from_name("scaled_linear"),
+        _dataset(args, unet.config.sample_size * 8), cfg,
+        logger=JSONLLogger(log_path), device=device)
 
 
 def check_preset(args) -> None:
@@ -288,7 +366,8 @@ def main(argv=None):
     args = parse_args(argv)
     check_preset(args)
     sd = is_stable_diffusion(args)
-    edit = build_sd(args) if sd else build_uncond(args)
+    build = build_sdxl if is_sdxl(args) else build_sd if sd else build_uncond
+    edit = build(args)
     if args.run_edit_local_encoder_pullback_zt:
         edit.run_edit_local_encoder_pullback_zt(
             idx=args.sample_idx, op=args.op, block_idx=args.block_idx,

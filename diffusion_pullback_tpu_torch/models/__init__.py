@@ -1,5 +1,5 @@
-"""Models of the ported paths: the SD 2.1-base U-Net, VAE and CLIP text
-tower, and the DDPM-family UNet2D."""
+"""Models of the ported paths: the SD 2.1-base and SDXL U-Nets, the VAE,
+the CLIP text towers, and the DDPM-family UNet2D."""
 
 from __future__ import annotations
 
@@ -25,6 +25,10 @@ from .configs import (
     sd_tiny_unet,
     sd_vae,
     sdedit_celeba_256,
+    sdxl_base_unet,
+    sdxl_text_encoder_1,
+    sdxl_text_encoder_2,
+    sdxl_tiny_unet,
     vae_tiny,
 )
 from .convert import load_flax_params
@@ -38,19 +42,24 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
     """Deterministic random weights from ``seed`` (the offline stand-in for a
     checkpoint, like the JAX package's seeded init): LeCun-normal matrices
     and conv kernels, unit-variance-per-row embeddings, unit norm scales,
-    zero biases. Drawn on the CPU, so a seed gives the same weights on any
-    device."""
-    gen = torch.Generator().manual_seed(seed)
+    zero biases. Drawn in f32 from a generator on the device the module's
+    parameters are on: a module built on the CPU gets the same weights for
+    a seed whatever device it later moves to (the SD 2.1 and DDPM
+    builders); one built on the card draws there, with CUDA's generator,
+    which keeps the 3.5 B parameters of the SDXL models off the host (its
+    f32 draw on the CPU takes tens of seconds)."""
+    dev = next(module.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda shape: torch.randn(shape, generator=gen, device=dev)
     for name, p in module.named_parameters():
         if name.endswith("bias"):
-            w = torch.zeros(p.shape)
+            p.zero_()
         elif p.ndim == 1:
-            w = torch.ones(p.shape)
+            p.fill_(1.0)
         elif "embedding" in name:
-            w = torch.randn(p.shape, generator=gen) * p.shape[1] ** -0.5
+            p.copy_(randn(p.shape) * p.shape[1] ** -0.5)
         else:
-            w = torch.randn(p.shape, generator=gen) * (p[0].numel() ** -0.5)
-        p.copy_(w)
+            p.copy_(randn(p.shape) * (p[0].numel() ** -0.5))
     return module
 
 
@@ -88,5 +97,6 @@ __all__ = [
     "UNet2DConditionConfig", "UNet2DConfig", "VAEConfig", "clip_text_tiny",
     "ddpm_celebahq_256", "ddpm_tiny", "load_flax_params", "load_tokenizer",
     "model_for_name", "random_init_", "sd21_base_unet", "sd21_text_encoder",
-    "sd_tiny_unet", "sd_vae", "sdedit_celeba_256", "vae_tiny",
+    "sd_tiny_unet", "sd_vae", "sdedit_celeba_256", "sdxl_base_unet",
+    "sdxl_text_encoder_1", "sdxl_text_encoder_2", "sdxl_tiny_unet", "vae_tiny",
 ]

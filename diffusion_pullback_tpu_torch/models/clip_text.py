@@ -4,7 +4,10 @@ Counterpart of diffusion_pullback_tpu/models/clip_text.py: token +
 position embeddings, pre-LN transformer with a causal mask, final LN.
 Parameter names are those of transformers' CLIPTextModel
 (text_model.embeddings.token_embedding, text_model.encoder.layers.i.
-self_attn.q_proj, .mlp.fc1, text_model.final_layer_norm, ...).
+self_attn.q_proj, .mlp.fc1, text_model.final_layer_norm, ...); a tower
+built with ``projection=True`` (SDXL's bigG) also has the top-level
+``text_projection`` of CLIPTextModelWithProjection, so the text_encoder_2
+state dict of a diffusers SDXL directory names the same parameters.
 """
 
 from __future__ import annotations
@@ -101,22 +104,44 @@ class CLIPTextTransformer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
-    def __init__(self, config: CLIPTextConfig):
+    def __init__(self, config: CLIPTextConfig, projection: bool = False):
         super().__init__()
         self.config = config
         self.text_model = CLIPTextTransformer(config)
+        if projection:
+            self.text_projection = nn.Linear(config.hidden_size,
+                                             config.hidden_size, bias=False)
         self.to(getattr(torch, config.dtype))
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """(B, L) token ids → (B, L, hidden) final hidden states."""
+    def forward(self, input_ids: torch.Tensor, return_pooled: bool = False,
+                penultimate: bool = False):
+        """(B, L) token ids → (B, L, hidden) final hidden states.
+
+        ``penultimate`` returns the input of the last layer instead, without
+        the final LayerNorm (HF hidden_states[-2]): the context SDXL's two
+        towers give the U-Net. ``return_pooled`` also returns the pooled
+        embedding, (hidden, pooled): the row of the first EOS token of the
+        normalised output, through ``text_projection`` (needs
+        ``projection=True``)."""
         tm = self.text_model
         x = tm.embeddings(input_ids)
         s = input_ids.shape[1]
         causal = torch.tril(torch.ones(s, s, dtype=torch.bool,
                                        device=input_ids.device))[None, None]
-        for layer in tm.encoder.layers:
+        x_penult = x
+        for i, layer in enumerate(tm.encoder.layers):
+            if i == len(tm.encoder.layers) - 1:
+                x_penult = x
             x = layer(x, causal)
-        return tm.final_layer_norm(x)
+        if penultimate and not return_pooled:
+            return x_penult
+        hidden = tm.final_layer_norm(x)
+        if not return_pooled:
+            return hidden
+        eos = (input_ids == self.config.eos_token_id).int().argmax(dim=1)
+        pooled = self.text_projection(
+            hidden[torch.arange(hidden.shape[0], device=hidden.device), eos])
+        return (x_penult if penultimate else hidden), pooled
 
 
 # ---- tokenization ---------------------------------------------------------

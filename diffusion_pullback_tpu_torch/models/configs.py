@@ -1,6 +1,6 @@
 """Model architecture configs and presets of the ported paths.
 
-The SD 2.1 and DDPM (UNet2D) subsets of the dataclasses and fields of
+The SD 2.1, SDXL and DDPM (UNet2D) subsets of the dataclasses and fields of
 diffusion_pullback_tpu/models/configs.py, under the same names, so one set of
 kwargs builds both packages. ``dtype`` is the parameter and compute dtype of
 the module ('float32' | 'bfloat16'). The JAX ``precision`` field is not
@@ -114,6 +114,11 @@ class UNet2DConditionConfig:
     dropout: float = 0.0
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
+    # SDXL addition embeddings: the pooled text embedding (text_embeds) and
+    # the micro-conditioning time_ids, folded into the time embedding
+    addition_embed_dim: Optional[int] = None       # pooled-text dim (1280)
+    addition_time_embed_dim: Optional[int] = None  # Fourier dim per time_id (256)
+    num_time_ids: int = 6
     dtype: str = "float32"
     attn_impl: str = "xla"
 
@@ -121,6 +126,43 @@ class UNet2DConditionConfig:
 def sd21_base_unet(**over) -> UNet2DConditionConfig:
     """stabilityai/stable-diffusion-2-1-base U-Net."""
     return UNet2DConditionConfig(**over)
+
+
+def sdxl_base_unet(**over) -> UNet2DConditionConfig:
+    """stabilityai/stable-diffusion-xl-base-1.0 U-Net: 3 levels, transformer
+    depths (1, 2, 10), 2048-d context, pooled-text + time_ids addition
+    embeddings."""
+    return UNet2DConditionConfig(
+        sample_size=128,
+        block_out_channels=(320, 640, 1280),
+        down_block_types=("down", "cross", "cross"),
+        up_block_types=("cross", "cross", "up"),
+        attention_heads=(5, 10, 20),
+        transformer_depth=(1, 2, 10),
+        cross_attention_dim=2048,
+        addition_embed_dim=1280,
+        addition_time_embed_dim=256,
+        **over,
+    )
+
+
+def sdxl_tiny_unet(sample_size: int = 8) -> UNet2DConditionConfig:
+    """Tiny SDXL-style config (addition embeddings, a 2-deep transformer)
+    for tests."""
+    return UNet2DConditionConfig(
+        sample_size=sample_size,
+        block_out_channels=(8, 16),
+        down_block_types=("down", "cross"),
+        up_block_types=("cross", "up"),
+        layers_per_block=1,
+        attention_heads=(2, 2),
+        attention_head_dim=4,
+        transformer_depth=(1, 2),
+        cross_attention_dim=16,
+        addition_embed_dim=8,
+        addition_time_embed_dim=4,
+        norm_num_groups=4,
+    )
 
 
 def sd_tiny_unet(sample_size: int = 8) -> UNet2DConditionConfig:
@@ -187,6 +229,23 @@ class CLIPTextConfig:
 def sd21_text_encoder() -> CLIPTextConfig:
     """OpenCLIP ViT-H/14 text tower as shipped with SD2.1 (23 layers)."""
     return CLIPTextConfig()
+
+
+def sdxl_text_encoder_1() -> CLIPTextConfig:
+    """SDXL's first tower: CLIP ViT-L/14, read at its penultimate layer."""
+    return CLIPTextConfig(
+        hidden_size=768, intermediate_size=3072, num_layers=12, num_heads=12,
+        hidden_act="quick_gelu",
+    )
+
+
+def sdxl_text_encoder_2() -> CLIPTextConfig:
+    """SDXL's second tower: OpenCLIP ViT-bigG/14 (penultimate hidden states
+    and the pooled, projected text embedding)."""
+    return CLIPTextConfig(
+        hidden_size=1280, intermediate_size=5120, num_layers=32, num_heads=20,
+        hidden_act="gelu",
+    )
 
 
 def clip_text_tiny() -> CLIPTextConfig:

@@ -8,7 +8,8 @@ copy of the inverse mapping of the JAX package's models/convert.py
 (``flax_params_to_torch_state_dict``), plus the three places where the
 diffusers / transformers names differ from it (samplers keep their inner
 ``conv``, attention outputs are ``to_out.0``, CLIP is scoped under
-``text_model``).
+``text_model`` except for the projection of the pooled embedding,
+``text_projection``, which transformers keeps at the top level).
 
 Conventions: conv kernel HWIO → OIHW, dense kernel (in, out) → (out, in),
 norm scale → weight, embedding table → weight.
@@ -61,7 +62,7 @@ def _torch_name(mods, leaf: str, clip: bool) -> str:
     parts = ["time_embedding" if p == "time_mlp" else p for p in parts]
     if parts and parts[-1] == "to_out":
         parts.append("0")
-    if clip:
+    if clip and parts[0] != "text_projection":
         if parts[-1] in ("fc1", "fc2"):
             parts.insert(-1, "mlp")
         if parts[0] in ("token_embedding", "position_embedding"):

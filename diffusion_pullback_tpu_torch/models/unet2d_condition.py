@@ -13,7 +13,10 @@ up_blocks, time_embedding, conv_in/conv_norm_out/conv_out):
     state     = unet.shallow_encode(x, t, context)
 
 The state (``CondTapState``) carries the context too, so a batch-1 state
-fans out over a probe batch of h.
+fans out over a probe batch of h. A config with SDXL addition embeddings
+(``addition_embed_dim``) also takes ``added_cond=(text_embeds, time_ids)``
+in every call that starts from x; the embedding it adds to the time
+embedding travels in the state.
 """
 
 from __future__ import annotations
@@ -161,6 +164,12 @@ class UNet2DCondition(nn.Module):
 
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedMLP(ch[0], temb_ch)
+        if cfg.addition_embed_dim:
+            # diffusers' add_embedding: [text_embeds; Fourier(time_ids)]
+            # (1280 + 6·256 = 2816 wide on SDXL) → the time embedding's width
+            self.add_embedding = TimestepEmbedMLP(
+                cfg.addition_embed_dim
+                + cfg.num_time_ids * cfg.addition_time_embed_dim, temb_ch)
         self.down_blocks = nn.ModuleList([
             DownBlock(ch[max(i - 1, 0)], ch[i], cfg.layers_per_block, temb_ch,
                       i < n - 1, **norm,
@@ -184,7 +193,7 @@ class UNet2DCondition(nn.Module):
 
     # ---- internals --------------------------------------------------------
 
-    def _prologue(self, x, t, context):
+    def _prologue(self, x, t, context, added_cond=None):
         """(h after conv_in, time embedding, context at x's batch)."""
         dtype = self.conv_in.weight.dtype
         # contiguous: torch.func's batched group_norm views its input
@@ -195,10 +204,30 @@ class UNet2DCondition(nn.Module):
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
         if t.ndim == 0:
             t = t.expand(x.shape[0])
-        feat = timestep_embedding(t, self.config.block_out_channels[0],
-                                  self.config.flip_sin_to_cos,
-                                  self.config.freq_shift)
-        return self.conv_in(x), self.time_embedding(feat.to(dtype)), context
+        cfg = self.config
+        feat = timestep_embedding(t, cfg.block_out_channels[0],
+                                  cfg.flip_sin_to_cos, cfg.freq_shift)
+        emb = self.time_embedding(feat.to(dtype))
+        if cfg.addition_embed_dim:
+            emb = emb + self._added_embedding(added_cond, x.shape[0], dtype)
+        return self.conv_in(x), emb, context
+
+    def _added_embedding(self, added_cond, batch, dtype):
+        """add_embedding([text_embeds; Fourier features of each time_id]),
+        the features in f32 and cast to the module's dtype at the MLP, as
+        the JAX package does; a batch-1 pair broadcasts over ``batch``."""
+        if added_cond is None:
+            raise ValueError("this config uses SDXL addition embeddings: pass "
+                             "added_cond=(text_embeds, time_ids)")
+        cfg = self.config
+        text_embeds, time_ids = added_cond
+        tf = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                                cfg.flip_sin_to_cos, cfg.freq_shift)
+        add = torch.cat([text_embeds.float(), tf.reshape(time_ids.shape[0], -1)],
+                        dim=-1)
+        if add.shape[0] == 1 and batch > 1:
+            add = add.expand(batch, -1)
+        return self.add_embedding(add.to(dtype))
 
     def _run_up(self, h, skips, emb, context, start: int = 0, stop_at=None):
         """Up blocks ``start`` … (``stop_at`` inclusive); returns (h, the
@@ -219,9 +248,9 @@ class UNet2DCondition(nn.Module):
 
     # ---- public -----------------------------------------------------------
 
-    def forward(self, x, t, encoder_hidden_states):
+    def forward(self, x, t, encoder_hidden_states, added_cond=None):
         """ε(x, t | context). x: (B, C, H, W); t: scalar or (B,)."""
-        h, emb, ctx = self._prologue(x, t, encoder_hidden_states)
+        h, emb, ctx = self._prologue(x, t, encoder_hidden_states, added_cond)
         skips = (h,)
         for block in self.down_blocks:
             h, res = block(h, emb, ctx)
@@ -229,16 +258,18 @@ class UNet2DCondition(nn.Module):
         h = self.mid_block(h, emb, ctx)
         return self._head(self._run_up(h, skips, emb, ctx)[0])
 
-    def encode(self, x, t, encoder_hidden_states, tap: TapPoint):
+    def encode(self, x, t, encoder_hidden_states, tap: TapPoint, added_cond=None):
         """The activation at ``tap`` (only the sub-graph up to it runs)."""
-        return self.encode_with_state(x, t, encoder_hidden_states, tap)[0]
+        return self.encode_with_state(x, t, encoder_hidden_states, tap,
+                                      added_cond)[0]
 
-    def encode_with_state(self, x, t, encoder_hidden_states, tap: TapPoint):
+    def encode_with_state(self, x, t, encoder_hidden_states, tap: TapPoint,
+                          added_cond=None):
         """(h at ``tap``, the CondTapState that resumes the pass from it).
         An inner tap stops inside a cross-attention down block and carries
         no skips (decode from it is not supported)."""
         tap = self._tap(tap)
-        h, emb, ctx = self._prologue(x, t, encoder_hidden_states)
+        h, emb, ctx = self._prologue(x, t, encoder_hidden_states, added_cond)
         if tap.inner is not None:
             for i in range(tap.block_idx):
                 h, _ = self.down_blocks[i](h, emb, ctx)
@@ -280,11 +311,12 @@ class UNet2DCondition(nn.Module):
         h, state = self.encode_with_state(x, t, encoder_hidden_states, tap)
         return self.decode_with_state(h + dh, state, tap)
 
-    def shallow_encode(self, x, t, encoder_hidden_states) -> CondTapState:
+    def shallow_encode(self, x, t, encoder_hidden_states,
+                       added_cond=None) -> CondTapState:
         """Time embedding, conv_in and the first down block's per-layer
         outputs: exactly the skips the last up block consumes (the
         per-step slice of DeepCache sampling, samplers/deepcache.py)."""
-        h, emb, ctx = self._prologue(x, t, encoder_hidden_states)
+        h, emb, ctx = self._prologue(x, t, encoder_hidden_states, added_cond)
         block = self.down_blocks[0]
         kind = "attn" if hasattr(block, "attentions") else "res"
         out, res = block(h, emb, ctx,

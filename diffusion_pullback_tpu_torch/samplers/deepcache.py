@@ -31,14 +31,18 @@ def ddim_forward_deepcache_cond(
     interval: int = 3,
     start_idx: int = 0,
     end_idx: Optional[int] = None,
+    added_cond=None,
     neg_context: Optional[torch.Tensor] = None,
+    neg_added_cond=None,
     guidance_scale: float = 0.0,
 ) -> torch.Tensor:
     """Denoise x (NCHW, the model's layout) from grid index ``start_idx``
     to ``end_idx`` (None: to x0), refreshing the deep path every
     ``interval`` steps. With ``neg_context`` and ``guidance_scale`` > 1
     every ε is classifier-free guidance on one fused 2·B batch ([neg; cond]
-    rows), and the cache covers both rows."""
+    rows), and the cache covers both rows. ``added_cond`` (SDXL's
+    (text_embeds, time_ids)) stacks its [neg; cond] rows the same way, the
+    negative rows from ``neg_added_cond`` (default: ``added_cond``)."""
     n_up = len(model.up_blocks)
     if n_up < 2:
         raise ValueError("deepcache needs at least 2 up blocks")
@@ -46,9 +50,13 @@ def ddim_forward_deepcache_cond(
     end = grid.num_steps if end_idx is None else end_idx
 
     b = x.shape[0]
+    rows = lambda a: a.expand(b, *a.shape[1:])
     if neg_context is not None and guidance_scale > 1.0:
-        ctx = torch.cat([neg_context.expand(b, *neg_context.shape[1:]),
-                         context.expand(b, *context.shape[1:])])
+        ctx = torch.cat([rows(neg_context), rows(context)])
+        if added_cond is not None:
+            neg_added = added_cond if neg_added_cond is None else neg_added_cond
+            added_cond = tuple(torch.cat([rows(n), rows(c)])
+                               for n, c in zip(neg_added, added_cond))
         model_in = lambda z: torch.cat([z, z])
 
         def combine(eps):
@@ -62,9 +70,10 @@ def ddim_forward_deepcache_cond(
     for i, (t, tn) in enumerate(zip(grid.timesteps[start_idx:end],
                                     grid.timesteps_next[start_idx:end])):
         if i % interval == 0:
-            h, state = model.encode_with_state(model_in(x), t, ctx, tap)
+            h, state = model.encode_with_state(model_in(x), t, ctx, tap,
+                                               added_cond)
         else:
-            state = model.shallow_encode(model_in(x), t, ctx)
+            state = model.shallow_encode(model_in(x), t, ctx, added_cond)
         eps = combine(model.decode_with_state(h, state, tap))
         x = ddim_step(eps, x, alpha_bar(schedule, t),
                       alpha_bar(schedule, tn)).prev_sample

@@ -49,15 +49,17 @@ def _one_tf32_forward(q, k, v, scale):
 # ragged last query tile (a 2-D tensor map would read the next head's rows
 # there). At D=512 in f32 the tf32x3 design has 32-row query tiles and
 # 32-key tiles: Sq < 32, Sq ≠ Sk both ways, a ragged last query tile with
-# B·H > 1, and B·H = 1 at the VAE's 4096 tokens; and the U-Net's and the
-# VAE's calls of the SD driver's run_DDIMforward (5 samples)
+# B·H > 1, and B·H = 1 at the VAE's 4096 tokens; the U-Net's and the
+# VAE's calls of the SD driver's run_DDIMforward (5 samples); and the SDXL
+# U-Net's self-attentions at batch 1 (10 heads at 4096 tokens, 20 at 1024)
 @pytest.mark.parametrize("shape", [
     (3, 1000, 1000, 64), (2, 700, 700, 512), (10, 1024, 1024, 64),
     (3, 1000, 700, 64), (2, 700, 1000, 64), (1, 50, 700, 64),
     (1, 4096, 4096, 64), (4, 200, 130, 64), (30, 4096, 4096, 64),
     (1, 20, 300, 512), (2, 300, 130, 512), (2, 130, 300, 512),
     (3, 250, 250, 512), (1, 4096, 4096, 512), (25, 4096, 4096, 64),
-    (50, 1024, 1024, 64), (5, 4096, 4096, 512)])
+    (50, 1024, 1024, 64), (5, 4096, 4096, 512), (10, 4096, 4096, 64),
+    (20, 1024, 1024, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     """K1 (and K2 at D=64) against their plain versions, one launch each,
@@ -97,6 +99,24 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     ref_o, ref_lse = fa.flash_forward_lse_plain(q, k, v, d ** -0.5)
     assert (out.float() - ref_o.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+def test_tf32x3_at_the_sdxl_vae_tokens(cuda):
+    """K1 on 'tf32x3' at the SDXL VAE's mid-block attention, (1, 16384,
+    512) f32 at 1024 px: 512 query tiles and a key loop four times the 4096
+    tokens of SD's VAE, so the error sums over four times the keys. Held to
+    its plain version (blockwise over the keys) at TF32X3_TOL, and one TF32
+    product per f32 product must miss that gate there."""
+    assert fa.design("K1", 512, torch.float32) == "tf32x3"
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(1, 16384, 512, device=cuda, generator=gen) for _ in range(3))
+    n0 = fa.flash_forward.launches
+    out = fa.flash_forward(q, k, v, 512 ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_forward.launches == n0 + 1
+    ref = fa.flash_forward_plain(q, k, v, 512 ** -0.5)
+    assert (out - ref).abs().max().item() <= TF32X3_TOL
+    assert (_one_tf32_forward(q, k, v, 512 ** -0.5) - ref).abs().max().item() > TF32X3_TOL
 
 
 def _tol(ref, dtype):

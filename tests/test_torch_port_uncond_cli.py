@@ -156,7 +156,7 @@ def test_preset_checks():
                  ["--performance_boosting_t", "0.2"]):
         with pytest.raises(ValueError):
             tmain.check_preset(tmain.parse_args(["--note", "n"] + argv))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="build_sdxl"):
         tmain.build_sd(tmain.parse_args(
             ["--note", "n", "--model_name", "stabilityai/stable-diffusion-xl-base-1.0"]))
 

@@ -1,18 +1,22 @@
 """Shared helpers of the tests/test_torch_port_*.py files."""
 
+import functools
+
 import jax
 import numpy as np
 import pytest
 import torch
 
 
-def flax_params(module, *example_args, seed=0):
+def flax_params(module, *example_args, seed=0, **init_kw):
     """A Flax param tree for ``module`` with seeded numpy values, built from
     the shapes alone (jax.eval_shape, no compile): LeCun-normal kernels and
     embeddings, norm scales 1 + 0.1·N(0,1), biases 0.1·N(0,1) — so every
-    bias and scale is nonzero and its mapping into the port is exercised."""
+    bias and scale is nonzero and its mapping into the port is exercised.
+    ``init_kw`` go to init as they are (Python flags stay static)."""
     rng = np.random.default_rng(seed)
-    shapes = jax.eval_shape(module.init, jax.random.key(0), *example_args)
+    shapes = jax.eval_shape(functools.partial(module.init, **init_kw),
+                            jax.random.key(0), *example_args)
 
     def leaf(path, s):
         name = path[-1].key
@@ -115,6 +119,65 @@ def sd_driver_pair(root, cfg: dict, size: int = 32):
         load(tmodels.AutoencoderKL(tmodels.vae_tiny(px)), vp),
         load(tmodels.CLIPTextModel(dataclasses.replace(
             tmodels.clip_text_tiny(), hidden_size=16)), tp),
+        DiffusionSchedule.scaled_linear(), NoiseDataset(px, n=1),
+        texp.SDExperimentConfig(**cfg, **folders("port")),
+        logger=JSONLLogger(path=None, echo=False), device="cpu")
+    return jdrv, tdrv
+
+
+def sdxl_driver_pair(root, cfg: dict, size: int = 64):
+    """(JAX EditStableDiffusionXL, the port's) on shared f32 weights, as
+    sd_driver_pair: sdxl_tiny_unet at ``size``² latents (at 64 its
+    cross-attention level self-attends over 1024 tokens and so reaches the
+    fused kernels), the tiny VAE at 2·``size`` px with SDXL's scaling factor,
+    two 8-wide towers (the first with quick_gelu, the second with the pooled
+    projection), whose contexts concatenate to the U-Net's 16."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from diffusion_pullback_tpu import experiments as jexp
+    from diffusion_pullback_tpu import models as jmodels
+    from diffusion_pullback_tpu.ops import DiffusionSchedule as JSchedule
+    from diffusion_pullback_tpu.utils.datasets import NoiseDataset as JNoise
+    from diffusion_pullback_tpu.utils.logging import JSONLLogger as JLogger
+    from diffusion_pullback_tpu_torch import experiments as texp
+    from diffusion_pullback_tpu_torch import models as tmodels
+    from diffusion_pullback_tpu_torch.ops.schedule import DiffusionSchedule
+    from diffusion_pullback_tpu_torch.utils.datasets import NoiseDataset
+    from diffusion_pullback_tpu_torch.utils.logging import JSONLLogger
+
+    px = 2 * size
+    towers = [dict(hidden_size=8, intermediate_size=16, hidden_act=act)
+              for act in ("quick_gelu", "gelu")]
+    unet = jmodels.UNet2DCondition(jmodels.sdxl_tiny_unet(size))
+    vae = jmodels.AutoencoderKL(dataclasses.replace(jmodels.vae_tiny(px),
+                                                    scaling_factor=0.13025))
+    texts = [jmodels.CLIPTextModel(dataclasses.replace(jmodels.clip_text_tiny(), **t))
+             for t in towers]
+    n = texts[0].config.max_length
+    up = flax_params(unet, jnp.zeros((1, size, size, 4)), jnp.float32(0.0),
+                     jnp.zeros((1, n, 16)), seed=0,
+                     added_cond=(jnp.zeros((1, 8)), jnp.zeros((1, 6))))
+    vp = flax_params(vae, jnp.zeros((1, px, px, 3)), seed=1)
+    tps = [flax_params(t, jnp.zeros((1, n), jnp.int32), seed=2 + i, return_pooled=i == 1)
+           for i, t in enumerate(texts)]
+    folders = lambda tag: dict(result_folder=str(root / tag / "runs"),
+                               basis_folder=str(root / tag / "in"))
+    jdrv = jexp.EditStableDiffusionXL(
+        unet, up, vae, vp, texts[0], tps[0], texts[1], tps[1],
+        JSchedule.scaled_linear(), JNoise(px, n=1),
+        jexp.SDExperimentConfig(**cfg, **folders("jax"),
+                                obs_folder=str(root / "jax" / "obs")),
+        logger=JLogger(path=None, echo=False))
+    load = tmodels.load_flax_params
+    tdrv = texp.EditStableDiffusionXL(
+        load(tmodels.UNet2DCondition(tmodels.sdxl_tiny_unet(size)), up),
+        load(tmodels.AutoencoderKL(dataclasses.replace(tmodels.vae_tiny(px),
+                                                       scaling_factor=0.13025)), vp),
+        *(load(tmodels.CLIPTextModel(dataclasses.replace(tmodels.clip_text_tiny(), **t),
+                                     projection=i == 1), tp)
+          for i, (t, tp) in enumerate(zip(towers, tps))),
         DiffusionSchedule.scaled_linear(), NoiseDataset(px, n=1),
         texp.SDExperimentConfig(**cfg, **folders("port")),
         logger=JSONLLogger(path=None, echo=False), device="cpu")
