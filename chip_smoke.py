@@ -63,11 +63,25 @@ Phases (any failure exits non-zero before the last line is printed):
                shape held to the count the code gives, each stage's seconds
                and peak memory, the device time by shape and design; then
                the pullback at pca_rank 8 with the CLI's chunking (one
-               probe per pass) and unchunked.
-Phases 1–2 hold every (kernel, shape) that phases 4, 6 and 7 launch. Then
-a JSON line of the kernels (one entry per kernel and design over phases
-4, 6 and 7, at the shape that carries most of that design's device time
-there), the card's name and power limit, and
+               probe per pass) and unchunked;
+  8. adm     — the ADM-256 edit path at full width through the CLI's uncond
+               builder: ImageNet256Uncond (552 814 086 parameters, learned
+               σ) in bf16 with seeded random weights drawn on the card,
+               --attn_impl flash (K1 at its 8 heads of 64 over 1024
+               tokens), the fused-pair pullback (K2–K5), the bundled
+               example images at 256 px, 10/10 steps, edit t 0.5, pca_rank
+               2, 2 walk steps, 2 directions × 3 frames; its launches by
+               shape held to the count the code gives, each stage's seconds
+               and peak memory; the mid-tap pullback on the pair against
+               the math path in f32 and bf16; ε on the card against the CPU
+               in f32; run_ddim_forward(2) guided by adm_classifier(256) on
+               the respaced 'ddim10' grid, finite and unlike the unguided
+               run; and one ε pass of FFHQ_P2 (attention only at 256
+               tokens), which must launch none of K1–K5.
+Phases 1–2 hold every (kernel, shape) that phases 4, 6, 7 and 8 launch.
+Then a JSON line of the kernels (one entry per kernel and design over
+phases 4, 6, 7 and 8, at the shape that carries most of that design's
+device time there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
 
@@ -119,6 +133,14 @@ SDXL_UNET = dict(at_4096=10, at_1024=60, heads=(10, 20))
 # tokens, one image per call
 K1_CASES += [((10 * b, 4096, 64), BF16) for b in (1, 4, 6)] + [
     ((20 * b, 1024, 64), BF16) for b in (1, 4, 6)] + [((1, 16384, 512), F32)]
+# phase 8's K1 shapes: the ADM-256 U-Net's 8 heads of 64 at 1024 tokens
+# (32²) at batch 1, 2 (the guided run_ddim_forward), 4 (walk) and 6
+# (finish); its 256- and 64-token layers take the math path
+K1_CASES += [((8 * b, 1024, 64), BF16) for b in (1, 2, 4, 6)]
+# ADM-256: 5 self-attentions at 1024 tokens per pass (2 on the down path at
+# 32², 3 on the up path); the mid-tap encoder reaches 2 of them
+ADM_UNET = dict(at_4096=0, at_1024=5, heads=(8, 8))
+ADM_PAIR = [(8, 1024, 64)]
 # the SDXL pullback's encoder (batch 1, mid tap) reaches the pair at these
 # primal shapes, 4 and 30 times per pass (down block 1; down block 2 and
 # the mid block); phase 2 holds them (PAIR_CASES' 2·B cases of SD)
@@ -136,7 +158,8 @@ PAIR_CASES = [(*shape, PCA_RANK, (F32, BF16), ("K2", "K3", "K4", "K5"))
     (10, 4096, 64, PCA_RANK, (BF16,), ("K2", "K3", "K4", "K5")),
     (20, 1024, 64, PCA_RANK, (BF16,), ("K2", "K3", "K4", "K5")),
     (5, 4096, 64, 1, (BF16,), ("K4", "K5")),
-    (10, 1024, 64, 1, (BF16,), ("K4", "K5"))]
+    (10, 1024, 64, 1, (BF16,), ("K4", "K5")),
+    (8, 1024, 64, PCA_RANK, (BF16,), ("K2", "K3", "K4", "K5"))]
 # C symbol → (label, wrapper, source in ops/csrc by design, line of the
 # Pallas call it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
 KERNELS = {
@@ -859,7 +882,7 @@ def phase_edit(fa):
     return path
 
 
-def pair_vs_math(tag, out, ref=None):
+def pair_vs_math(tag, out, ref=None, phase="sd6"):
     """Phase 3's gates for a pullback run on the pair and on the math path
     from the same probes: in f32 σ within 1e-3 and |cos| ≥ 0.99 per
     direction; in bf16 each held to the f32 math result, the pair at most
@@ -868,7 +891,7 @@ def pair_vs_math(tag, out, ref=None):
     pair, math_ = out["flash"], out["xla"]
     srel = ((pair.s - math_.s).abs() / math_.s).max().item()
     cos = (pair.vT * math_.vT).sum(dim=1).abs()
-    log(f"[sd6] {tag} pair vs math: sigma pair {pair.s.tolist()}, math "
+    log(f"[{phase}] {tag} pair vs math: sigma pair {pair.s.tolist()}, math "
         f"{math_.s.tolist()}, max rel err {srel:.3g}, |cos| per direction "
         f"{cos.tolist()}, metric distance {pullback_dist(pair, math_):.4g}")
     if ref is None:
@@ -877,7 +900,7 @@ def pair_vs_math(tag, out, ref=None):
                                  f"with the math path")
         return math_
     d_pair, d_math = pullback_dist(pair, ref), pullback_dist(math_, ref)
-    log(f"[sd6] {tag} bf16 distance of the metric from f32 math: pair "
+    log(f"[{phase}] {tag} bf16 distance of the metric from f32 math: pair "
         f"{d_pair:.4g}, math {d_math:.4g} (tol 1.5 × math = {1.5 * d_math:.4g})")
     if not (all(torch.isfinite(r.s).all() for r in out.values())
             and d_pair <= 1.5 * d_math):
@@ -1238,13 +1261,16 @@ def phase_sdxl(fa):
 
     # the pullback at BASELINE config 5's rank, at a latent of the path's
     # shape: with the CLI's chunking for it (one probe per pass, the JAX
-    # CLI's choice for a 16 GB chip), then all 8 probes in one batch
+    # CLI's choice for a 16 GB chip), then all 8 probes in one batch; one
+    # power iteration each, as they measure the cost of the chunking per
+    # pass, not convergence
     log(f"[sdxl] pullback at pca_rank 2 (the main path, unchunked): "
         f"{pullback['seconds']:.3f} s, {pullback['iterations']} iterations, peak "
         f"memory {max(peaks['sd_local_pullback']):.2f} GB")
     zt = torch.randn(1, 128, 128, 4, device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(8))
     rank8 = {}
+    cfg.pullback_max_iter = 1
     for chunk in (port_main.sdxl_pullback_chunk(
             port_main.parse_args(flags + ["--pca_rank", "8"])), None):
         cfg.pullback_chunk_size = chunk
@@ -1427,6 +1453,195 @@ def phase_uncond(fa):
     if not all(ok for _, ok in gates.values()):
         raise AssertionError("the smoke pipeline on the card misses the golden gates")
 
+def phase_adm(fa):
+    """Phase 8: the ADM-256 edit path at full width through the CLI's uncond
+    builder (ImageNet256Uncond in bf16, weights drawn on the card,
+    --attn_impl flash, the fused-pair pullback), the bundled example images
+    at 256 px, 10/10 steps, edit t 0.5, pca_rank 2, pullback 1–3
+    iterations, 2 walk steps, 2 directions × 3 frames; its K1–K5 launches by
+    shape held to the count the code gives, each stage's seconds and peak
+    memory; then the mid-tap pullback on the pair against the math path
+    from the same probes in f32 and bf16, ε on the card against the CPU in
+    f32, a classifier-guided run_ddim_forward(2) on the respaced 'ddim10'
+    grid against the unguided one, and one ε pass of FFHQ_P2, which
+    launches no K1–K5. Returns the path dicts of the edit and of the guided
+    forward."""
+    import copy
+
+    import numpy as np
+    from PIL import Image
+
+    from diffusion_pullback_tpu_torch import main as port_main
+    from diffusion_pullback_tpu_torch.experiments import BasisCache
+    from diffusion_pullback_tpu_torch.experiments._common import to_nchw
+    from diffusion_pullback_tpu_torch.models import TapPoint, model_for_name, random_init_
+
+    out = os.path.join(OUT, "adm")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    flags = ["--note", "chip_smoke", "--model_name", "ImageNet256Uncond",
+             "--result_folder", out, "--dataset_name", "Examples", "--for_steps", "10",
+             "--inv_steps", "10", "--edit_t", "0.5", "--performance_boosting_t", "0.2",
+             "--pca_rank", str(PCA_RANK), "--x_space_guidance_num_step", "2"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    edit = port_main.build_uncond(port_main.parse_args(flags))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg, model = edit.cfg, edit.model
+    cfg.pullback_min_iter, cfg.pullback_max_iter = 1, 3
+    cfg.basis_folder = os.path.join(out, "inputs")
+    edit.cache = BasisCache(cfg.basis_folder)
+    n_params = sum(p.numel() for p in model.parameters())
+    dtype = next(model.parameters()).dtype
+    log(f"[adm] built the ImageNet256Uncond driver in {build_s:.1f} s (weights drawn "
+        f"on the card), peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"{type(model).__name__} {n_params} parameters {dtype}, attn "
+        f"{model.config.attn_impl}, pullback attn {cfg.pullback_attn_impl}, dataset "
+        f"{type(edit.dataset).__name__} of {len(edit.dataset)}, edit t index "
+        f"{edit.edit_t_idx}, boost from step {edit.boost_start_idx}")
+
+    vis_num, vis_num_pc = 2, 1
+    n_dir = 2 * vis_num_pc
+    stride = max(1, (cfg.x_space_guidance_num_step + 1) // vis_num)
+    frames = len(range(0, cfg.x_space_guidance_num_step + 1, stride))
+    with stage_peaks(edit) as peaks:
+        names, seconds, peak_gb, launches, path = drive(
+            fa, lambda: edit.run_edit_local_encoder_pullback_zt(
+                idx=0, pca_rank=PCA_RANK, vis_num=vis_num, vis_num_pc=vis_num_pc))
+    peak_gb = max([peak_gb] + [g for v in peaks.values() for g in v])
+    events = read_events(edit)
+    for e in events:
+        if "seconds" in e:
+            extra = {k: v for k, v in e.items() if k not in ("ts", "event", "seconds")}
+            log(f"[adm] stage {e['event']}: {e['seconds']:.3f} s, peak memory "
+                f"{max(peaks[e['event']]):.2f} GB {extra}")
+    pullback = [e for e in events if e["event"] == "local_pullback"][-1]
+    # inversion (inv_steps − 2 passes) and the forward to the edit t at batch
+    # 1, the walk's (null, edit) pairs of both directions, the finish of
+    # every direction's frames; the pullback's encoder on the pair
+    expected = collections.Counter()
+    unet_k1(expected, 1, (cfg.inv_steps - 2) + edit.edit_t_idx, dtype, **ADM_UNET)
+    unet_k1(expected, 2 * n_dir, cfg.x_space_guidance_num_step, dtype, **ADM_UNET)
+    unet_k1(expected, n_dir * frames, edit.fwd_grid.num_steps - edit.edit_t_idx, dtype,
+            **ADM_UNET)
+    pair_k2_k5(expected, dtype, pullback["iterations"], layers=2, shapes=ADM_PAIR)
+    launches_by_shape = check_launches("adm", launches, path, expected)
+    for (sym, dsg), (_, n, ms) in sorted(by_design(fa, [path]).items()):
+        log(f"[adm] {KERNELS[sym][0]} on {dsg}: {n} launches, {ms:.2f} ms on the "
+            f"device ({100 * ms / 1e3 / seconds:.2f} % of the path)")
+    with np.load(os.path.join(cfg.basis_folder, os.listdir(cfg.basis_folder)[0])) as z:
+        u, s, vT = z["u"], z["s"], z["vT"]
+    log(f"[adm] main path {seconds:.2f} s, peak memory {peak_gb:.2f} GB, sigma "
+        f"{s.tolist()}, pullback {pullback['seconds']:.3f} s (encoder "
+        f"{pullback['encoder']}, {pullback['iterations']} iterations)")
+    finish = [e for e in events if e["event"] == "finish_and_save"]
+    checks = {
+        "552 814 086 parameters in bf16, attn flash": (
+            n_params == 552_814_086 and dtype == torch.bfloat16
+            and model.config.attn_impl == "flash"),
+        "two PNGs of 3 frames at 256 px": len(names) == n_dir and all(
+            Image.open(os.path.join(cfg.result_folder, n + ".png")).size
+            == (256 * frames, 256) for n in names),
+        "edited images finite": bool(finish and finish[-1]["finite"]),
+        "basis finite, expected shapes": (
+            u.shape == (8 * 8 * 1024, PCA_RANK) and vT.shape == (PCA_RANK, 256 * 256 * 3)
+            and all(np.isfinite(a).all() for a in (u, s, vT)) and (s > 0).all()),
+        "pullback through the fused pair": pullback["encoder"] == "flashpair",
+        "every kernel launched": all(launches.values()),
+        "launches by shape": launches_by_shape,
+    }
+    paths = [path]
+
+    # the mid-tap pullback on the pair and on the math path from the same
+    # probes (the driver's seeded ones), 3 iterations, f32 then bf16 (the
+    # same bf16-valued weights); between them ε on the card against the CPU
+    cfg.pullback_min_iter = cfg.pullback_max_iter = 3
+    cfg.pullback_atol = 0.0
+    xb = torch.as_tensor(edit.dataset[0]).cuda()
+    t_edit = edit.fwd_grid.timesteps[edit.edit_t_idx]
+    ref = None
+    for dt in (torch.float32, torch.bfloat16):
+        model.to(dt)
+        res = {}
+        for impl in ("flash", "xla"):
+            cfg.pullback_attn_impl = impl
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[impl] = edit.compute_local_basis(xb, t_edit, TapPoint("mid"), PCA_RANK)
+            torch.cuda.synchronize()
+            log(f"[adm] mid-tap pullback {str(dt)[6:]} {impl}: "
+                f"{time.perf_counter() - t0:.3f} s")
+        if dt == torch.float32:
+            ref = pair_vs_math("mid-tap f32", res, phase="adm")
+            cpu = copy.deepcopy(model).cpu()
+            with torch.no_grad():
+                eps_card = model(to_nchw(xb), 500.0).cpu()
+                eps_cpu = cpu(to_nchw(xb).cpu(), 500.0)
+            del cpu
+            scale = eps_cpu.abs().max().item()
+            err = (eps_card - eps_cpu).abs().max().item()
+            log(f"[adm] full-width eps f32, card vs CPU: max_abs_err {err:.3g} (max "
+                f"|eps| {scale:.3g}, tol 1e-4 relative)")
+            checks["eps f32 card vs CPU"] = bool(
+                torch.isfinite(eps_card).all() and err <= 1e-4 * scale)
+        else:
+            pair_vs_math("mid-tap bf16", res, ref, phase="adm")
+    cfg.pullback_attn_impl = "flash"
+    del edit, model, res, ref
+    torch.cuda.empty_cache()
+
+    # classifier guidance on the respaced grid, through the CLI's builder
+    gedit = port_main.build_uncond(port_main.parse_args(
+        flags + ["--classifier_scale", "10", "--sampling_timesteps", "ddim10"]))
+    grid = gedit.fwd_grid
+    log(f"[adm] guided driver: {len(grid.timesteps)} steps from "
+        f"{grid.timesteps[0].item():.0f}, classifier guidance scale "
+        f"{gedit.cfg.classifier_scale}, label {gedit.cfg.classifier_label}")
+    gen = lambda: torch.Generator().manual_seed(11)
+    guided, g_s, g_peak, g_launches, g_path = drive(
+        fa, lambda: gedit.run_ddim_forward(num_samples=2, generator=gen()))
+    expected = collections.Counter()
+    unet_k1(expected, 2, grid.num_steps, next(gedit.model.parameters()).dtype, **ADM_UNET)
+    checks["(guided) launches by shape"] = check_launches("adm guided", g_launches,
+                                                          g_path, expected)
+    paths.append(g_path)
+    cond_fn, gedit.cond_fn = gedit.cond_fn, None
+    t0 = time.perf_counter()
+    plain = gedit.run_ddim_forward(num_samples=2, generator=gen())
+    torch.cuda.synchronize()
+    diff = (guided.float() - plain.float()).abs().max().item()
+    log(f"[adm] guided run_ddim_forward(2) on ddim10: {g_s:.3f} s, peak memory "
+        f"{g_peak:.2f} GB; unguided {time.perf_counter() - t0:.3f} s; max |guided − "
+        f"unguided| {diff:.4g}")
+    checks["(guided) grid ddim10 from 900"] = (
+        grid.num_steps == 9 and grid.timesteps[0].item() == 900.0 and cond_fn is not None)
+    checks["(guided) finite, unlike the unguided run"] = bool(
+        torch.isfinite(guided).all() and diff > 1e-3)
+    del gedit, guided, plain
+    torch.cuda.empty_cache()
+
+    # FFHQ_P2: attention only at 16² (256 tokens), math path, no K1–K5
+    with torch.device("cuda"):
+        p2 = random_init_(model_for_name("FFHQ_P2", dtype="bfloat16", attn_impl="flash"),
+                          0).eval().requires_grad_(False)
+    x = torch.randn(1, 3, 256, 256, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(12))
+    with torch.no_grad():
+        eps, p2_s, _, p2_launches, _ = drive(fa, lambda: p2(x, 500.0))
+    log(f"[adm] FFHQ_P2 ({sum(p.numel() for p in p2.parameters())} parameters) one eps "
+        f"pass: {p2_s:.3f} s, shape {tuple(eps.shape)}, K1–K5 launches "
+        f"{ {KERNELS[k][0]: n for k, n in p2_launches.items()} }")
+    checks["FFHQ_P2 finite eps, no K1–K5 launch"] = bool(
+        eps.shape == (1, 6, 256, 256) and torch.isfinite(eps).all()
+        and not any(p2_launches.values()))
+    for what, ok in checks.items():
+        log(f"[adm] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("phase 8 checks failed")
+    return paths
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1446,9 +1661,17 @@ def main():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        log(f"[smoke] {what}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     k1_rows = phase_k1(fa)
     pair_rows = phase_pair(fa)
     phase_compose(fa)
+    lap("phases 1–2")
 
     unet = random_init_(UNet2DCondition(sd21_base_unet(attn_impl="flash")), 0)
     unet = unet.cuda().eval().requires_grad_(False)
@@ -1459,11 +1682,18 @@ def main():
     phase_unet_pullback(unet, torch.bfloat16, ref)
     del unet
     torch.cuda.empty_cache()
+    lap("phase 3")
 
     paths = [phase_edit(fa)]
+    lap("phase 4")
     phase_uncond(fa)
+    lap("phase 5")
     paths += phase_sd_rest(fa)
+    lap("phase 6")
     paths.append(phase_sdxl(fa))
+    lap("phase 7")
+    paths += phase_adm(fa)
+    lap("phase 8")
 
     # every (kernel, shape, dtype) the main paths launched was held against
     # its plain version in phases 1–2
@@ -1475,7 +1705,7 @@ def main():
                              f"did not hold against their plain versions: {missing}")
 
     # launches and summed device time of each (kernel, shape) over the main
-    # paths of phases 4, 6 and 7
+    # paths of phases 4, 6, 7 and 8
     merged = collections.defaultdict(lambda: [0, 0.0])
     for path in paths:
         for key, (n, ms) in path.items():
@@ -1483,10 +1713,10 @@ def main():
             merged[key][1] += ms
     for (sym, shape, dtype), (n, ms) in sorted(merged.items(), key=lambda kv: -kv[1][1]):
         log(f"[paths] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches, "
-            f"{ms:.3f} ms on the device over phases 4, 6 and 7")
-    log(f"[smoke] phases 1–7 in {time.perf_counter() - t_start:.1f} s")
+            f"{ms:.3f} ms on the device over phases 4, 6, 7 and 8")
+    log(f"[smoke] phases 1–8 in {time.perf_counter() - t_start:.1f} s")
 
-    # one entry per kernel and design on the main paths (phases 4, 6, 7):
+    # one entry per kernel and design on the main paths (phases 4, 6, 7, 8):
     # their launches and summed device time there (path_ms), and the
     # per-launch numbers of phases 1–2 at the shape that carries most of
     # that device time

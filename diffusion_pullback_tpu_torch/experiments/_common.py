@@ -34,8 +34,12 @@ class DriverCommonMixin:
 
     def _make_tap(self, op, block_idx, after_res=False, after_sa=False) -> TapPoint:
         """``after_res`` / ``after_sa`` move the tap after the block's last
-        resnet / self-attention instead of the block output."""
+        resnet / self-attention instead of the block output; a family
+        without such blocks (ADM) raises."""
         if after_res or after_sa:
+            if not hasattr(self._arch_config, "layers_per_block"):
+                raise ValueError("intra-block taps (after_res/after_sa) are not "
+                                 "supported for this model family")
             layer = self._arch_config.layers_per_block - 1
             return TapPoint(op, block_idx, ("res", layer) if after_res else ("attn", layer))
         return TapPoint(op, block_idx)

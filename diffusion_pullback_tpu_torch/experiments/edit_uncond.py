@@ -12,6 +12,13 @@ package, so ``vT`` rows flatten in the same order and a basis from either
 package loads in the other; the model runs NCHW inside. The JAX driver's
 vmap over edit directions is a batch dimension here, and the walk evaluates
 its (null, edit) pair as one batch.
+
+The model is the DDPM-family UNet2D or the ADM family's UNetADM (learned σ:
+the samplers take the ε half). On an ADM net the pullback differentiates
+the encoder through the fused kernel pair when the net samples with
+'flash' (or ``pullback_attn_impl`` asks for it), as the SD driver does;
+with ``cond_fn`` set (classifier guidance) every sampler loop runs guided,
+and ``sampling_timesteps`` puts them on an OpenAI respacing grid.
 """
 
 from __future__ import annotations
@@ -24,11 +31,13 @@ import numpy as np
 import torch
 
 from ..geometry import PullbackResult, local_pullback
+from ..models.layers import attn_impl_as
 from ..models.unet2d import TapPoint, UNet2D
 from ..ops.ddim import split_learned_sigma
-from ..ops.schedule import DiffusionSchedule, ddim_timestep_grid
+from ..ops.schedule import (DiffusionSchedule, ddim_timestep_grid,
+                            respaced_timestep_grid)
 from ..samplers.ddim_loop import ddim_forward, ddim_invert
-from ..samplers.guidance import x_space_guidance_scan
+from ..samplers.guidance import guided_eps_fn, x_space_guidance_scan
 from ..utils.device import resolve_device, strict_f32
 from ..utils.images import save_image_grid
 from ..utils.logging import JSONLLogger
@@ -54,9 +63,17 @@ class UncondExperimentConfig:
     use_preserve_contrast: bool = False
     use_preserve_norm: bool = False
     use_sega_reg: bool = False
-    sampling_timesteps: str = ""
-    classifier_scale: float = 0.0
     mesh: Optional[object] = None
+    # OpenAI respacing grid ('ddim25', '250', '25,25,25'; '' = the linspace
+    # grid of for_steps / inv_steps)
+    sampling_timesteps: str = ""
+    # classifier guidance: recorded for the basis cache's key; the driver's
+    # cond_fn does the guiding
+    classifier_scale: float = 0.0
+    classifier_label: int = 0
+    # attention of the differentiated encoder ('' = the model's own; 'flash'
+    # = the fused pair, which a model sampling with 'flash' needs)
+    pullback_attn_impl: str = ""
     # performance boosting: η = 1 below this fraction of T
     performance_boosting_t: float = 0.2
     use_performance_boosting: bool = True
@@ -79,9 +96,6 @@ def _refuse_unported(cfg: UncondExperimentConfig) -> None:
          "use_preserve_contrast, use_preserve_norm, use_sega_reg)",
          cfg.use_dynamic_thresholding or cfg.use_preserve_contrast
          or cfg.use_preserve_norm or cfg.use_sega_reg, 12),
-        ("respaced sampling grids (sampling_timesteps)",
-         bool(cfg.sampling_timesteps), 12),
-        ("classifier guidance (classifier_scale)", cfg.classifier_scale > 0, 12),
         ("a device mesh", cfg.mesh is not None, 16),
     ]
     for what, asked, item in unported:
@@ -91,7 +105,9 @@ def _refuse_unported(cfg: UncondExperimentConfig) -> None:
 
 
 class EditUncondDiffusion(DriverCommonMixin):
-    """Experiment driver bound to one (model, schedule) pair."""
+    """Experiment driver bound to one (model, schedule) pair. ``cond_fn``
+    (x, t) → ∇ₓ log p(y | x), set after construction
+    (samplers.guidance.classifier_grad_fn), guides every sampler loop."""
 
     def __init__(
         self,
@@ -113,14 +129,23 @@ class EditUncondDiffusion(DriverCommonMixin):
             os.path.join(config.result_folder, "log.jsonl"))
         self.cache = BasisCache(config.basis_folder)
 
-        self.fwd_grid = ddim_timestep_grid(config.for_steps)
-        self.inv_grid = ddim_timestep_grid(config.inv_steps, inversion=True)
+        if config.sampling_timesteps:
+            self.fwd_grid = respaced_timestep_grid(config.sampling_timesteps)
+            self.inv_grid = respaced_timestep_grid(config.sampling_timesteps,
+                                                   inversion=True)
+        else:
+            self.fwd_grid = ddim_timestep_grid(config.for_steps)
+            self.inv_grid = ddim_timestep_grid(config.inv_steps, inversion=True)
         # nearest grid index to edit_t·T
         self.edit_t_idx = int(torch.argmin(
             torch.abs(self.fwd_grid.timesteps - config.edit_t * 1000.0)))
         # boost index: the first step below performance_boosting_t·T
         below = self.fwd_grid.timesteps.numpy() < config.performance_boosting_t * 1000.0
         self.boost_start_idx = int(below.argmax()) if below.any() else None
+        self.cond_fn = None
+        # UNet2DConfig calls it sample_size, ADMConfig image_size
+        self._sample_size = getattr(model.config, "sample_size", None) or \
+            model.config.image_size
 
     @property
     def _arch_config(self):
@@ -129,21 +154,52 @@ class EditUncondDiffusion(DriverCommonMixin):
     # ---- building blocks --------------------------------------------------
 
     def _eps_with(self):
-        """ε(x, t) on NHWC images; a learned-σ head's ε half."""
+        """ε(x, t) on NHWC images; a learned-σ head's ε half; with a
+        ``cond_fn`` the classifier-guided ε."""
         def eps(x, t):
             out = to_nhwc(self.model(to_nchw(x), t))
             return split_learned_sigma(out)[0] if self.model.config.learn_sigma else out
+        if self.cond_fn is not None:
+            return guided_eps_fn(eps, self.cond_fn, self.schedule)
         return eps
 
     def eps_fn(self, x, t):
         return self._eps_with()(x, t)
 
     def _basis_name_extras(self, tap: Optional[TapPoint] = None) -> str:
-        """Cache-key qualifier of an intra-block tap, so its bases do not
-        shadow the block output's."""
+        """Cache-key qualifiers: an intra-block tap, and classifier guidance
+        (guided runs invert and sample to other latents), so their bases do
+        not shadow the plain ones."""
+        s = ""
         if tap is not None and tap.inner:
-            return f"-after_{tap.inner[0]}{tap.inner[1]}"
-        return ""
+            s += f"-after_{tap.inner[0]}{tap.inner[1]}"
+        if self.cond_fn is not None:
+            s += f"-clsg{self.cfg.classifier_scale}-y{self.cfg.classifier_label}"
+        return s
+
+    def _model_variant(self, attn_impl: str):
+        """The model's encode with every attention layer set to
+        ``attn_impl`` for the call: the same weights under other kernels."""
+        def encode(x, t, tap):
+            with attn_impl_as(self.model, attn_impl):
+                return self.model.encode(x, t, tap)
+        return encode
+
+    def _pullback_models(self):
+        """(encode of the tangent passes, encode of the cotangent pass or
+        None, impl tag) of the differentiated encoder. A model that samples
+        with 'flash' (or pullback_attn_impl 'flash') maps to the fused
+        pair: 'flash_jvp' (K2, K3) for the tangents, 'flash' (K2, K4, K5)
+        for the cotangent, tag 'flashpair'. The UNet2D has no attention
+        switch (its ≤256-token attention is the math path)."""
+        model_impl = getattr(self.model.config, "attn_impl", None)
+        if model_impl is None:
+            return self.model.encode, None, "xla"
+        impl = self.cfg.pullback_attn_impl or model_impl
+        if impl in ("flash", "flash_jvp"):
+            return (self._model_variant("flash_jvp"), self._model_variant("flash"),
+                    "flashpair")
+        return self._model_variant(impl), None, impl
 
     @torch.no_grad()
     def run_ddim_inversion(self, idx: int) -> torch.Tensor:
@@ -160,7 +216,7 @@ class EditUncondDiffusion(DriverCommonMixin):
         run_DDIMforward)."""
         if generator is None:
             generator = torch.Generator().manual_seed(self.cfg.seed)
-        s = self.model.config.sample_size
+        s = self._sample_size
         xT = torch.randn(num_samples, s, s, self.model.config.in_channels,
                          generator=generator).to(self.device)
         with self._stage("ddim_forward", num_samples=num_samples):
@@ -177,15 +233,17 @@ class EditUncondDiffusion(DriverCommonMixin):
 
     def compute_local_basis(self, xt, t, tap: TapPoint, pca_rank: int
                             ) -> PullbackResult:
-        """Pullback of the encoder x → h at ``tap`` (NHWC on both sides)."""
+        """Pullback of the encoder x → h at ``tap`` (NHWC on both sides),
+        on the fused pair where ``_pullback_models`` gives it."""
         cfg = self.cfg
-        encode = lambda z: to_nhwc(self.model.encode(to_nchw(z), t, tap))
-        with self._stage("local_pullback") as log:
+        enc, enc_vjp, tag = self._pullback_models()
+        nhwc = lambda e: e and (lambda z: to_nhwc(e(to_nchw(z), t, tap)))
+        with self._stage("local_pullback", encoder=tag) as log:
             res = local_pullback(
-                encode, xt, torch.Generator().manual_seed(cfg.seed),
+                nhwc(enc), xt, torch.Generator().manual_seed(cfg.seed),
                 pca_rank=pca_rank, min_iter=cfg.pullback_min_iter,
                 max_iter=cfg.pullback_max_iter, atol=cfg.pullback_atol,
-                chunk_size=cfg.pullback_chunk_size)
+                fn_vjp=nhwc(enc_vjp), chunk_size=cfg.pullback_chunk_size)
             log.update(iterations=res.iterations, final_delta=res.final_delta,
                        top_s=res.s[:3].float().cpu().numpy().round(4))
         return res

@@ -1,7 +1,7 @@
-"""Command-line entry point of the port: the SD 2.1-base, SDXL-base and
-DDPM-family (CelebA-HQ-256 and the other '*_HF' names) subsets of the JAX
-package's main.py, with the same flag names, experiment folders and basis
-folders.
+"""Command-line entry point of the port: the SD 2.1-base, SDXL-base,
+DDPM-family (CelebA-HQ-256 and the other '*_HF' names) and ADM-family
+(ImageNet256Uncond, LSUN_*, *_P2, …) subsets of the JAX package's main.py,
+with the same flag names, experiment folders and basis folders.
 
     python -m diffusion_pullback_tpu_torch.main --note smoke \\
         --run_edit_local_encoder_pullback_zt True
@@ -14,6 +14,10 @@ folders.
     python -m diffusion_pullback_tpu_torch.main --note smoke \\
         --model_name CelebA_HQ_HF --dataset_name CelebA_HQ \\
         --performance_boosting_t 0.2 --run_edit_local_encoder_pullback_zt True
+    python -m diffusion_pullback_tpu_torch.main --note guided \\
+        --model_name ImageNet256Uncond --performance_boosting_t 0.2 \\
+        --classifier_scale 2.5 --sampling_timesteps ddim25 \\
+        --run_edit_local_encoder_pullback_zt True
 
 Runs on CUDA unless ``--device cpu`` is given. With no checkpoint in the
 repository, the models take seeded random weights (--seed), as the JAX CLI
@@ -58,8 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
                "programs, runs eagerly on the card and has no such flags.")
     p.add_argument("--note", type=str, required=True)
     p.add_argument("--model_name", type=str, default=SD_MODEL,
-                   help=f"{SD_MODEL}, {SDXL_MODEL} or an uncond name "
-                        "(CelebA_HQ_HF, LSUN_church_HF, LSUN_bedroom_HF, FFHQ_HF)")
+                   help=f"{SD_MODEL}, {SDXL_MODEL} or an uncond name: "
+                        "CelebA_HQ_HF, LSUN_church_HF, LSUN_bedroom_HF, FFHQ_HF "
+                        "(DDPM U-Net) or an ADM one (ImageNet256Uncond, "
+                        "LSUN_bedroom, FFHQ_P2, CIFAR10, …)")
     p.add_argument("--dataset_name", type=str, default="",
                    help="an image folder under datasets/ (or --data_root); "
                         "'' or 'noise' = seeded noise images")
@@ -115,15 +121,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--after_res", type=str2bool, default=False)
     p.add_argument("--after_sa", type=str2bool, default=False)
     p.add_argument("--attn_impl", type=str, default="auto",
-                   choices=["auto", "xla", "flash"],
-                   help="SD path: 'auto' = flash on cuda, xla on cpu (the "
-                        "DDPM U-Net's ≤256-token attention is always the "
-                        "math path)")
+                   choices=["auto", "xla", "blockwise", "flash"],
+                   help="sampling attention of the SD and ADM nets: 'auto' = "
+                        "flash on cuda, xla on cpu (the DDPM U-Net's "
+                        "≤256-token attention is always the math path)")
     p.add_argument("--pullback_attn_impl", type=str, default="",
-                   choices=["", "xla", "flash"],
-                   help="SD path: attention inside the differentiated "
-                        "encoder: 'flash' = the fused JVP/VJP kernel pair, "
-                        "'xla' = the math path; '' = flash on cuda, xla on cpu")
+                   choices=["", "xla", "blockwise", "flash"],
+                   help="attention inside the differentiated encoder: "
+                        "'flash' = the fused JVP/VJP kernel pair, 'xla' = "
+                        "the math path; '' = flash on cuda, else the model's "
+                        "own")
+    p.add_argument("--classifier_scale", type=float, default=0.0,
+                   help="uncond path: classifier guidance scale; > 0 guides "
+                        "every sampler loop with the gradient of a noisy-image "
+                        "classifier (adm_classifier at the model's size, "
+                        "seeded random weights, seed + 1)")
+    p.add_argument("--classifier_label", type=int, default=0,
+                   help="target class y of classifier guidance")
+    p.add_argument("--sampling_timesteps", type=str, default="",
+                   help="uncond path: OpenAI respacing grid ('ddim25', '250', "
+                        "'25,25,25'); '' = the linspace grid of --for_steps")
     p.add_argument("--run_edit_local_encoder_pullback_zt", type=str2bool,
                    default=False)
     p.add_argument("--run_edit_local_decoder_pullback_zt", type=str2bool,
@@ -186,8 +203,13 @@ def _dataset(args, image_size: int):
 
 
 def build_uncond(args):
-    """The DDPM-family editing driver: the U-Net of ``--model_name`` with
-    seeded random weights, the linear schedule, 256 px images."""
+    """The uncond editing driver: the DDPM or ADM U-Net of ``--model_name``
+    with seeded random weights drawn on the device, the linear schedule,
+    images at the model's size; with --classifier_scale the guidance
+    classifier adm_classifier(size), seeded seed + 1, in f32 with the math
+    path's attention (the JAX CLI's)."""
+    import torch
+
     from .experiments import EditUncondDiffusion, UncondExperimentConfig
     from .models import model_for_name, random_init_
     from .ops.schedule import DiffusionSchedule
@@ -195,10 +217,15 @@ def build_uncond(args):
     from .utils.logging import JSONLLogger
 
     device = resolve_device(args.device or None)
-    dtype = args.dtype or ("bf16" if device.type == "cuda" else "fp32")
-    model = random_init_(model_for_name(
-        args.model_name, dtype="bfloat16" if dtype == "bf16" else "float32"),
-        args.seed)
+    on_cuda = device.type == "cuda"
+    dtype = args.dtype or ("bf16" if on_cuda else "fp32")
+    # the sampling kernel of an ADM net ('' keeps its config's math path)
+    attn = args.attn_impl if args.attn_impl != "auto" else ("flash" if on_cuda else "")
+    with torch.device(device):
+        model = random_init_(model_for_name(
+            args.model_name, dtype="bfloat16" if dtype == "bf16" else "float32",
+            attn_impl=attn), args.seed)
+    size = getattr(model.config, "sample_size", None) or model.config.image_size
     exp_folder, basis_folder = experiment_folders(args)
     cfg = UncondExperimentConfig(
         dataset_name=args.dataset_name or "noise",
@@ -214,13 +241,31 @@ def build_uncond(args):
         use_performance_boosting=args.performance_boosting_t > 0,
         pca_rank=args.pca_rank,
         pullback_chunk_size=args.pullback_chunk_size or None,
+        # the fused pair on the card, as the JAX CLI on an accelerator; at
+        # the DDPM nets' ≤256 tokens every impl is the math path anyway
+        pullback_attn_impl=args.pullback_attn_impl or ("flash" if on_cuda else ""),
+        sampling_timesteps=args.sampling_timesteps,
+        classifier_scale=args.classifier_scale,
+        classifier_label=args.classifier_label,
         result_folder=os.path.join(exp_folder, "results"),
         basis_folder=basis_folder,
     )
-    return EditUncondDiffusion(
-        model, DiffusionSchedule.from_name("linear"),
-        _dataset(args, model.config.sample_size), cfg,
+    edit = EditUncondDiffusion(
+        model, DiffusionSchedule.from_name("linear"), _dataset(args, size), cfg,
         logger=JSONLLogger(os.path.join(exp_folder, "log.jsonl")), device=device)
+    if args.classifier_scale > 0:
+        from .experiments._common import to_nchw
+        from .models import EncoderUNetADM, adm_classifier
+        from .samplers.guidance import classifier_grad_fn
+
+        with torch.device(device):
+            clf = random_init_(EncoderUNetADM(adm_classifier(size)), args.seed + 1)
+        clf.eval().requires_grad_(False)
+        edit.cond_fn = classifier_grad_fn(
+            lambda z, t: clf(to_nchw(z), t),
+            torch.full((1,), args.classifier_label, device=device),
+            scale=args.classifier_scale)
+    return edit
 
 
 def _sd_setup(args):

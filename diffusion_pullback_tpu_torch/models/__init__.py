@@ -1,5 +1,6 @@
 """Models of the ported paths: the SD 2.1-base and SDXL U-Nets, the VAE,
-the CLIP text towers, and the DDPM-family UNet2D."""
+the CLIP text towers, the DDPM-family UNet2D and the ADM family (UNetADM,
+its classifier EncoderUNetADM, SuperResUNetADM)."""
 
 from __future__ import annotations
 
@@ -8,12 +9,33 @@ import dataclasses
 import torch
 from torch import nn
 
+from .adm import (
+    ADMTapState,
+    AttentionPool2d,
+    EncoderUNetADM,
+    SuperResUNetADM,
+    UNetADM,
+)
 from .clip_text import CLIPTextModel, HashTokenizer, load_tokenizer
 from .configs import (
+    ADMConfig,
+    ADMEncoderConfig,
     CLIPTextConfig,
     UNet2DConditionConfig,
     UNet2DConfig,
     VAEConfig,
+    adm_cifar10,
+    adm_classifier,
+    adm_classifier_imagenet256,
+    adm_encoder_tiny,
+    adm_ffhq_p2,
+    adm_imagenet64_cond,
+    adm_imagenet64_uncond,
+    adm_imagenet128_cond,
+    adm_imagenet256_cond,
+    adm_imagenet256_uncond,
+    adm_lsun_256,
+    adm_tiny,
     clip_text_tiny,
     ddpm_celebahq_256,
     ddpm_ema_bedroom_256,
@@ -47,7 +69,10 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
     a seed whatever device it later moves to (the SD 2.1 and DDPM
     builders); one built on the card draws there, with CUDA's generator,
     which keeps the 3.5 B parameters of the SDXL models off the host (its
-    f32 draw on the CPU takes tens of seconds)."""
+    f32 draw on the CPU takes tens of seconds). Every weight is drawn, the
+    ones the JAX init of an ADM net zeroes too (its output convs and
+    attention proj_out): with those at 0 the attention would drop out of ε
+    and of the Jacobian."""
     dev = next(module.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     randn = lambda shape: torch.randn(shape, generator=gen, device=dev)
@@ -70,28 +95,47 @@ _HF_MODELS = {
     "LSUN_bedroom_HF": ddpm_ema_bedroom_256,
     "FFHQ_HF": ddpm_ema_ffhq_256,
 }
-# the checkpoint-era ADM / P2 names, which build UNetADM in the JAX package
+# the checkpoint-era ADM / P2 names (learned-σ heads)
 _ADM_MODELS = {
-    "LSUN_bedroom", "LSUN_cat", "LSUN_horse", "FFHQ_P2", "AFHQ_P2",
-    "Flower_P2", "CIFAR10", "CIFAR10Uncond", "ImageNet64Uncond",
-    "ImageNet256Uncond", "ImageNet256Cond", "ImageNet128Cond",
-    "ImageNet64Cond",
+    "LSUN_bedroom": adm_lsun_256,
+    "LSUN_cat": adm_lsun_256,
+    "LSUN_horse": adm_lsun_256,
+    "FFHQ_P2": adm_ffhq_p2,
+    "AFHQ_P2": adm_ffhq_p2,
+    "Flower_P2": adm_ffhq_p2,
+    "CIFAR10": adm_cifar10,
+    "CIFAR10Uncond": adm_cifar10,
+    "ImageNet64Uncond": adm_imagenet64_uncond,
+    "ImageNet256Uncond": adm_imagenet256_uncond,
+    "ImageNet256Cond": adm_imagenet256_cond,
+    "ImageNet128Cond": adm_imagenet128_cond,
+    "ImageNet64Cond": adm_imagenet64_cond,
 }
 
 
-def model_for_name(model_name: str, dtype: str = "float32") -> UNet2D:
-    """model_name → the uncond diffusion module (uninitialised weights)."""
+def model_for_name(model_name: str, dtype: str = "float32", attn_impl: str = ""):
+    """model_name → the uncond diffusion module (uninitialised weights): the
+    '*_HF' names build UNet2D (no attention switch: its ≤256-token attention
+    is the math path), the ADM names UNetADM with ``attn_impl`` ('' keeps
+    the config's 'xla')."""
     if model_name in _HF_MODELS:
         return UNet2D(dataclasses.replace(_HF_MODELS[model_name](), dtype=dtype))
     if model_name in _ADM_MODELS:
-        raise NotImplementedError(
-            f"{model_name!r} builds the ADM U-Net, which the port does not "
-            f"have yet (ROADMAP queue 1, item 13)")
+        cfg = dataclasses.replace(_ADM_MODELS[model_name](), dtype=dtype)
+        if attn_impl:
+            cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
+        return UNetADM(cfg)
     raise ValueError(f"model_name choice: {sorted(_HF_MODELS) + sorted(_ADM_MODELS)} "
                      f"(got {model_name!r})")
 
 
 __all__ = [
+    "ADMConfig", "ADMEncoderConfig", "ADMTapState", "AttentionPool2d",
+    "EncoderUNetADM", "SuperResUNetADM", "UNetADM", "adm_cifar10",
+    "adm_classifier", "adm_classifier_imagenet256", "adm_encoder_tiny",
+    "adm_ffhq_p2", "adm_imagenet64_cond", "adm_imagenet64_uncond",
+    "adm_imagenet128_cond", "adm_imagenet256_cond", "adm_imagenet256_uncond",
+    "adm_lsun_256", "adm_tiny",
     "AutoencoderKL", "CLIPTextConfig", "CLIPTextModel", "CondTapState",
     "HashTokenizer", "TapPoint", "TapState", "UNet2D", "UNet2DCondition",
     "UNet2DConditionConfig", "UNet2DConfig", "VAEConfig", "clip_text_tiny",

@@ -1,6 +1,6 @@
 """Model architecture configs and presets of the ported paths.
 
-The SD 2.1, SDXL and DDPM (UNet2D) subsets of the dataclasses and fields of
+The SD 2.1, SDXL, DDPM (UNet2D) and ADM subsets of the dataclasses and fields of
 diffusion_pullback_tpu/models/configs.py, under the same names, so one set of
 kwargs builds both packages. ``dtype`` is the parameter and compute dtype of
 the module ('float32' | 'bfloat16'). The JAX ``precision`` field is not
@@ -252,4 +252,169 @@ def clip_text_tiny() -> CLIPTextConfig:
     return CLIPTextConfig(
         vocab_size=128, hidden_size=16, intermediate_size=32,
         num_layers=2, num_heads=2, max_length=8, eos_token_id=1,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ADMConfig:
+    """ADM / guided-diffusion U-Net (UNetADM). ``attention_resolutions``
+    holds downsample factors (1, 2, 4, …), the argument of the torch
+    ``UNetModel`` itself, not the "32,16,8" resolution strings of the
+    published script dicts (which map through image_size // res; at 256 px
+    the two coincide). ``num_head_channels`` > 0 sets the heads per layer
+    as channels // num_head_channels, else ``num_heads``.
+    ``time_embed_style``: 'adm' = [cos, sin] features with frequencies over
+    half; 'ddpm' = [sin, cos] over half − 1 (the improved_ddpm_old nets).
+    ``use_new_attention_order``: qkv laid out [Q; K; V] over all heads
+    instead of the legacy per-head [q, k, v] interleave. ``zero_init`` is
+    the JAX init's zero output layers; the port's weights come from
+    ``random_init_`` or a checkpoint, so it changes nothing here."""
+
+    image_size: int = 256
+    in_channels: int = 3
+    out_channels: int = 3
+    model_channels: int = 256
+    num_res_blocks: int = 2
+    channel_mult: Tuple[float, ...] = (1, 1, 2, 2, 4, 4)
+    attention_resolutions: Tuple[int, ...] = (32, 16, 8)
+    num_heads: int = 4
+    num_head_channels: int = 64
+    use_scale_shift_norm: bool = True
+    resblock_updown: bool = True
+    learn_sigma: bool = True
+    num_classes: Optional[int] = None
+    dropout: float = 0.0
+    norm_num_groups: int = 32
+    zero_init: bool = True
+    dtype: str = "float32"
+    attn_impl: str = "xla"
+    time_embed_style: str = "adm"
+    use_new_attention_order: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ADMEncoderConfig:
+    """Half-U-Net noisy-image classifier (EncoderUNetADM): the ADM down path
+    and middle with a pooled head. ``pool``: 'adaptive' | 'attention' |
+    'spatial' | 'spatial_v2'. The defaults are the published 256 px
+    ImageNet classifier."""
+
+    image_size: int = 256
+    in_channels: int = 3
+    out_channels: int = 1000
+    model_channels: int = 128
+    num_res_blocks: int = 2
+    channel_mult: Tuple[float, ...] = (1, 1, 2, 2, 4, 4)
+    attention_resolutions: Tuple[int, ...] = (32, 16, 8)
+    num_heads: int = 4
+    num_head_channels: int = 64
+    use_scale_shift_norm: bool = True
+    resblock_updown: bool = True
+    pool: str = "attention"
+    dropout: float = 0.0
+    norm_num_groups: int = 32
+    zero_init: bool = True
+    dtype: str = "float32"
+    attn_impl: str = "xla"
+
+
+def adm_classifier_imagenet256() -> ADMEncoderConfig:
+    return ADMEncoderConfig()
+
+
+def adm_classifier(image_size: int = 256, *, width: int = 128, depth: int = 2,
+                   attn_res: Tuple[int, ...] = (32, 16, 8),
+                   pool: str = "attention") -> ADMEncoderConfig:
+    """The published guidance classifier at ``image_size``: channel_mult
+    and the attention's downsample factors (image_size // res) both change
+    with the size."""
+    mults = {
+        512: (0.5, 1, 1, 2, 2, 4, 4),
+        256: (1, 1, 2, 2, 4, 4),
+        128: (1, 1, 2, 3, 4),
+        64: (1, 2, 3, 4),
+    }
+    if image_size not in mults:
+        raise ValueError(f"unsupported classifier image size: {image_size}")
+    return ADMEncoderConfig(
+        image_size=image_size, model_channels=width, num_res_blocks=depth,
+        channel_mult=mults[image_size],
+        attention_resolutions=tuple(image_size // r for r in attn_res),
+        pool=pool,
+    )
+
+
+def adm_encoder_tiny(image_size: int = 16, pool: str = "attention"
+                     ) -> ADMEncoderConfig:
+    return ADMEncoderConfig(
+        image_size=image_size, out_channels=10, model_channels=8,
+        num_res_blocks=1, channel_mult=(1, 2), attention_resolutions=(2,),
+        num_heads=2, num_head_channels=4, norm_num_groups=4, pool=pool,
+    )
+
+
+def adm_imagenet256_uncond() -> ADMConfig:
+    """ImageNet256Uncond: 256 px, 256 channels, attention at 32², 16², 8²
+    with heads of 64 (8 heads at 32² = 1024 tokens)."""
+    return ADMConfig()
+
+
+def adm_imagenet256_cond() -> ADMConfig:
+    return ADMConfig(num_classes=1000)
+
+
+def adm_imagenet128_cond() -> ADMConfig:
+    """ImageNet128Cond: 128 px, 4 heads per layer (no head_channels), so
+    heads of 128 at 32² = 1024 tokens."""
+    return ADMConfig(image_size=128, channel_mult=(1, 1, 2, 3, 4),
+                     attention_resolutions=(4, 8, 16), num_heads=4,
+                     num_head_channels=-1, num_classes=1000)
+
+
+def adm_imagenet64_cond() -> ADMConfig:
+    """ImageNet64Cond: 64 px, 192 channels, 3 res blocks, the new qkv
+    order."""
+    return ADMConfig(image_size=64, model_channels=192, num_res_blocks=3,
+                     channel_mult=(1, 2, 3, 4), attention_resolutions=(2, 4, 8),
+                     num_classes=1000, use_new_attention_order=True)
+
+
+def adm_lsun_256() -> ADMConfig:
+    """LSUN bedroom / cat / horse 256 px: the ImageNet256Uncond
+    architecture (attention at downsample factors 8, 16, 32)."""
+    return ADMConfig(attention_resolutions=(8, 16, 32))
+
+
+def adm_ffhq_p2() -> ADMConfig:
+    """The P2-weighting FFHQ / AFHQ / Flower 256 px nets: 128 channels, 1
+    res block, attention only at 16² (256 tokens)."""
+    return ADMConfig(model_channels=128, num_res_blocks=1,
+                     channel_mult=(1, 1, 2, 2, 4, 4),
+                     attention_resolutions=(16,), num_head_channels=64,
+                     resblock_updown=True, use_scale_shift_norm=True)
+
+
+def adm_cifar10() -> ADMConfig:
+    """CIFAR10Uncond: 32 px, 128 channels, 3 res blocks, 4 heads, plain
+    conv down / up sampling."""
+    return ADMConfig(image_size=32, model_channels=128, num_res_blocks=3,
+                     channel_mult=(1, 2, 2, 2), attention_resolutions=(2, 4),
+                     num_heads=4, num_head_channels=-1,
+                     resblock_updown=False)
+
+
+def adm_imagenet64_uncond() -> ADMConfig:
+    """ImageNet64Uncond: 64 px, 128 channels, 3 res blocks, 4 heads, plain
+    conv down / up sampling."""
+    return ADMConfig(image_size=64, model_channels=128, num_res_blocks=3,
+                     channel_mult=(1, 2, 3, 4), attention_resolutions=(4, 8),
+                     num_heads=4, num_head_channels=-1,
+                     resblock_updown=False)
+
+
+def adm_tiny(image_size: int = 16) -> ADMConfig:
+    return ADMConfig(
+        image_size=image_size, model_channels=8, num_res_blocks=1,
+        channel_mult=(1, 2), attention_resolutions=(2,), num_heads=2,
+        num_head_channels=-1, norm_num_groups=4, learn_sigma=True,
     )

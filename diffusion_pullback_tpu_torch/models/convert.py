@@ -9,10 +9,15 @@ copy of the inverse mapping of the JAX package's models/convert.py
 diffusers / transformers names differ from it (samplers keep their inner
 ``conv``, attention outputs are ``to_out.0``, CLIP is scoped under
 ``text_model`` except for the projection of the pooled embedding,
-``text_projection``, which transformers keeps at the top level).
+``text_projection``, which transformers keeps at the top level). ADM trees
+take guided-diffusion's names: the Sequential stems (input_blocks_4_1,
+in_layers_0, time_embed_2, out_0, …) expand to '.N.', and a plain sampler
+conv gains ``op`` (input blocks, not the stem input_blocks_0_0) or ``conv``
+(output blocks).
 
 Conventions: conv kernel HWIO → OIHW, dense kernel (in, out) → (out, in),
-norm scale → weight, embedding table → weight.
+norm scale → weight, embedding table → weight, the attention pool's
+positional_embedding (S+1, C) → (C, S+1).
 """
 
 from __future__ import annotations
@@ -30,15 +35,20 @@ from .clip_text import CLIPTextModel
 # torch '.N.' form (down_blocks_0 → down_blocks.0)
 _EXPAND_STEMS = {
     "down_blocks", "up_blocks", "resnets", "attentions", "downsamplers",
-    "upsamplers", "transformer_blocks", "net", "layers",
+    "upsamplers", "transformer_blocks", "net", "layers", "input_blocks",
+    "output_blocks", "middle_block", "time_embed", "in_layers", "out_layers",
+    "emb_layers", "out",
 }
 
 
 def _expand_list_indices(comp: str):
+    """'resnets_1' → ['resnets', '1']; 'input_blocks_4_1' → ['input_blocks',
+    '4', '1'] (a Sequential inside a ModuleList)."""
     suffix = []
     while True:
         m = re.match(r"(.+)_(\d+)$", comp)
-        if not m or m.group(1) not in _EXPAND_STEMS:
+        if not m or not (m.group(1) in _EXPAND_STEMS or re.fullmatch(
+                r"(?:input|output)_blocks_\d+", m.group(1))):
             break
         suffix.insert(0, m.group(2))
         comp = m.group(1)
@@ -56,6 +66,13 @@ def _torch_name(mods, leaf: str, clip: bool) -> str:
             expanded += ([f"{m.group(1)}_{m.group(2)}",
                           f"{m.group(3)}_{m.group(4)}"] if m else [comp])
         mods = expanded
+    # ADM's plain Downsample / Upsample: the Flax conv sits at the block,
+    # torch nests it as '.op' / '.conv' (the stem input_blocks_0_0 does not)
+    if mods and leaf in ("kernel", "bias"):
+        if re.fullmatch(r"input_blocks_\d+_\d+", mods[-1]) and mods[-1] != "input_blocks_0_0":
+            mods.append("op")
+        elif re.fullmatch(r"output_blocks_\d+_\d+", mods[-1]):
+            mods.append("conv")
     parts = []
     for p in mods:
         parts += _expand_list_indices(p)
@@ -89,6 +106,8 @@ def flax_to_state_dict(params: Dict[str, Any], clip: bool = False
         leaf = path[-1]
         if leaf == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        elif leaf == "positional_embedding":
+            arr = arr.T
         out[_torch_name(path[:-1], leaf, clip)] = torch.tensor(arr)
 
     walk(inner, ())

@@ -1,16 +1,20 @@
 """Attention with switchable implementations (layout (B, S, H, D)).
 
-Counterpart of diffusion_pullback_tpu/ops/attention.py for 'xla', 'flash'
-and 'flash_jvp'. 'xla' is the math path: explicit matmuls with the softmax
-in float32, which torch.func.jvp / vjp / vmap differentiate (it never calls
-F.scaled_dot_product_attention). 'flash' and 'flash_jvp' route long
-self-attention to the fused kernels and everything else to the math path:
-'flash' is the reverse-mode entry (K1, or K2 with K4/K5 as its backward),
-'flash_jvp' the forward-mode one (K2 with K3 as its tangent rule).
+Counterpart of diffusion_pullback_tpu/ops/attention.py. 'xla' is the math
+path: explicit matmuls with the softmax in float32, which torch.func.jvp /
+vjp / vmap differentiate (it never calls F.scaled_dot_product_attention).
+'blockwise' is the math path as an online softmax over key blocks, whose
+logits never exceed (Sq, block_k); 'auto' takes it from 1024 tokens on and
+the math path below. 'flash' and 'flash_jvp' route long self-attention to
+the fused kernels and everything else to the math path: 'flash' is the
+reverse-mode entry (K1, or K2 with K4/K5 as its backward), 'flash_jvp' the
+forward-mode one (K2 with K3 as its tangent rule). 'ring' (sequence
+parallel over a device mesh) is not ported.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -30,12 +34,57 @@ def xla_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     return out.to(dtype)
 
 
+def blockwise_attention(q, k, v, scale: Optional[float] = None,
+                        block_k: int = 1024) -> torch.Tensor:
+    """softmax(q kᵀ · scale) v by an online softmax over key blocks of
+    ``block_k`` (running max, normaliser and f32 accumulator), built from
+    ordinary ops so torch.func differentiates it in both modes. A key length
+    that ``block_k`` does not divide takes its largest divisor below it;
+    when that falls under max(64, block_k // 8), and at sk ≤ block_k, the
+    dense math path runs instead."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if sk <= block_k:
+        return xla_attention(q, k, v, scale)
+    if sk % block_k:
+        bk = block_k
+        while sk % bk:
+            bk -= 1
+        if bk < max(64, block_k // 8):
+            return xla_attention(q, k, v, scale)
+        block_k = bk
+    dtype, qf = q.dtype, q.float()
+    m = torch.full((b, h, sq, 1), -math.inf, device=q.device)
+    l = torch.zeros((b, h, sq, 1), device=q.device)
+    acc = torch.zeros((b, sq, h, d), device=q.device)
+    for kb, vb in zip(k.split(block_k, dim=1), v.split(block_k, dim=1)):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb.float()) * scale
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bhqk,bkhd->bqhd", p.to(dtype).float(), vb.float())
+        acc = acc * corr.transpose(1, 2) + pv
+        m = m_new
+    return (acc / l.transpose(1, 2)).to(dtype)
+
+
 def attention(q, k, v, scale: Optional[float] = None,
               impl: str = "xla") -> torch.Tensor:
-    """'xla': the math path. 'flash' / 'flash_jvp': the fused kernels when
-    sq ≥ 1024, sk ≥ 128 and both divide by min(512, s); the math path
-    otherwise (e.g. the 77-token cross-attention)."""
+    """'xla': the math path. 'blockwise': ``blockwise_attention``. 'auto':
+    blockwise when sq and sk are both ≥ 1024, else the math path. 'flash' /
+    'flash_jvp': the fused kernels when sq ≥ 1024, sk ≥ 128 and both divide
+    by min(512, s); the math path otherwise (e.g. the 77-token
+    cross-attention)."""
     if impl == "xla":
+        return xla_attention(q, k, v, scale)
+    if impl == "blockwise":
+        return blockwise_attention(q, k, v, scale)
+    if impl == "auto":
+        if q.shape[1] >= 1024 and k.shape[1] >= 1024:
+            return blockwise_attention(q, k, v, scale)
         return xla_attention(q, k, v, scale)
     if impl in ("flash", "flash_jvp"):
         sq, sk = q.shape[1], k.shape[1]
@@ -45,5 +94,9 @@ def attention(q, k, v, scale: Optional[float] = None,
         if impl == "flash":
             return flash_attention(q, k, v, scale)
         return flash_attention_jvp(q, k, v, scale)
-    raise ValueError(f"attention impl {impl!r} is not ported "
-                     f"(the port has 'xla', 'flash' and 'flash_jvp')")
+    if impl in ("ring", "ring_xla"):
+        raise NotImplementedError(
+            "ring attention (sequence parallel over a device mesh) is not "
+            "ported yet (ROADMAP queue 1, item 16)")
+    raise ValueError(f"unknown attention impl: {impl!r} (the port has 'xla', "
+                     f"'blockwise', 'auto', 'flash' and 'flash_jvp')")

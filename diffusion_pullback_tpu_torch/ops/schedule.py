@@ -3,7 +3,9 @@
 Counterpart of diffusion_pullback_tpu/ops/schedule.py: beta tables are built
 in float64 on the host and only then cast to float32 tensors; the DDIM grid
 pairs inversion and forward steps over the same (ᾱ_t, ᾱ_next) pairs; the ᾱ
-lookup floors the float timestep to an integer index.
+lookup floors the float timestep to an integer index. The OpenAI respacing
+grids ('ddim25', '250', '25,25,25') of the published ADM checkpoints visit
+other steps than the linspace grid: ``respaced_timestep_grid``.
 """
 
 from __future__ import annotations
@@ -109,6 +111,71 @@ def ddim_timestep_grid(num_steps: int, t_max: float = 999.0,
         timesteps=torch.tensor(ts.copy(), dtype=torch.float32),
         timesteps_next=torch.tensor(ts_next.copy(), dtype=torch.float32),
     )
+
+
+def space_timesteps(num_timesteps: int, section_counts) -> frozenset:
+    """The retained steps of OpenAI's respacing: ``section_counts`` steps
+    from equal sections of the process (a list, a comma-separated string),
+    or ``"ddimN"``, the integer stride that gives exactly N steps."""
+    if isinstance(section_counts, str):
+        if section_counts.startswith("ddim"):
+            desired = int(section_counts[len("ddim"):])
+            for stride in range(1, num_timesteps):
+                if len(range(0, num_timesteps, stride)) == desired:
+                    return frozenset(range(0, num_timesteps, stride))
+            raise ValueError(
+                f"cannot create exactly {desired} steps with an integer stride")
+        section_counts = [int(x) for x in section_counts.split(",")]
+    size_per, extra = divmod(num_timesteps, len(section_counts))
+    start_idx, all_steps = 0, []
+    for i, section_count in enumerate(section_counts):
+        size = size_per + (1 if i < extra else 0)
+        if size < section_count:
+            raise ValueError(
+                f"cannot divide section of {size} steps into {section_count}")
+        frac_stride = 1 if section_count <= 1 else (size - 1) / (section_count - 1)
+        cur = 0.0
+        for _ in range(section_count):
+            all_steps.append(start_idx + round(cur))
+            cur += frac_stride
+        start_idx += size
+    return frozenset(all_steps)
+
+
+def respaced_timestep_grid(section_counts, num_train_timesteps: int = 1000,
+                           inversion: bool = False) -> TimestepGrid:
+    """A grid over exactly the ``space_timesteps`` steps, paired as
+    ``ddim_timestep_grid`` pairs its own (forward descending, inversion
+    ascending with the +1e-6 tag). ᾱ lookups hit the retained steps, which
+    is what the respaced process's β table preserves, so sampling needs no
+    new table."""
+    seq = np.asarray(sorted(space_timesteps(num_train_timesteps, section_counts)),
+                     dtype=np.float64)
+    if inversion:
+        seq = seq + 1e-6
+        ts, ts_next = seq[:-1], seq[1:]
+    else:
+        ts, ts_next = seq[1:][::-1], seq[:-1][::-1]
+    return TimestepGrid(
+        timesteps=torch.tensor(ts.copy(), dtype=torch.float32),
+        timesteps_next=torch.tensor(ts_next.copy(), dtype=torch.float32),
+    )
+
+
+def respaced_betas(schedule: DiffusionSchedule, use_timesteps):
+    """The respaced process's β table, β_i = 1 − ᾱ_i / ᾱ_prev over the
+    retained steps (its cumulative ᾱ equals the original at each of them),
+    and the map from new to original step. Returns (betas float64 array,
+    timestep_map)."""
+    ac = np.cumprod(1.0 - schedule.betas.double().cpu().numpy())
+    keep = set(int(t) for t in use_timesteps)
+    last, new_betas, tmap = 1.0, [], []
+    for i, a in enumerate(ac):
+        if i in keep:
+            new_betas.append(1.0 - a / last)
+            last = a
+            tmap.append(i)
+    return np.asarray(new_betas, dtype=np.float64), tmap
 
 
 def _lookup(table: torch.Tensor, t) -> torch.Tensor:

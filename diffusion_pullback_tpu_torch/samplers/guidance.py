@@ -2,13 +2,20 @@
 (counterpart of diffusion_pullback_tpu/samplers/guidance.py).
 
 Each micro-step evaluates ε on the pair [z, z + step·v_k] and moves z by
-scale·(ε_edit − ε_null)."""
+scale·(ε_edit − ε_null).
+
+Classifier guidance (the ADM family): a noisy-image classifier's
+∇ₓ log p(y | x_t) folded into ε (condition_score) or into the DDPM
+posterior mean (condition_mean); ``guided_eps_fn`` wraps an ε function so
+every sampler loop runs guided."""
 
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+
+from ..ops.schedule import alpha_bar
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -65,3 +72,41 @@ def x_space_guidance_scan_deepcache(full_fn, reuse_fn, z0, t, vk,
         et_null, et_edit = eps.chunk(2)
         traj.append(z + scale * (et_edit - et_null))
     return torch.stack(traj)
+
+
+def classifier_grad_fn(logit_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                       y, scale: float = 1.0):
+    """cond_fn(x, t) = scale · ∇ₓ log softmax(logit_fn(x, t))[y], ``y`` the
+    (B,) labels (or one, broadcast over x's batch). torch.func.grad takes
+    the gradient, so it flows under the samplers' ``torch.no_grad``."""
+
+    def cond_fn(x, t):
+        yb = torch.as_tensor(y, device=x.device).reshape(-1).expand(x.shape[0])
+
+        def log_prob(xx):
+            logp = torch.log_softmax(logit_fn(xx, t).float(), dim=-1)
+            return logp.gather(-1, yb[:, None]).sum()
+
+        return scale * torch.func.grad(log_prob)(x)
+
+    return cond_fn
+
+
+def condition_eps(eps, grad, abar_t):
+    """condition_score in ε form: ε − √(1 − ᾱ_t) · ∇ₓ log p(y | x)."""
+    return eps - torch.sqrt(1.0 - abar_t) * grad
+
+
+def condition_mean(mean, variance, grad):
+    """condition_mean: the DDPM posterior mean μ + Σ·∇ₓ log p(y | x)."""
+    return mean + variance * grad
+
+
+def guided_eps_fn(eps_fn: EpsFn, cond_fn, schedule) -> EpsFn:
+    """``eps_fn`` with classifier guidance: each call evaluates ε(x, t) and
+    the classifier gradient, and returns ``condition_eps`` of the two."""
+
+    def fn(x, t):
+        return condition_eps(eps_fn(x, t), cond_fn(x, t), alpha_bar(schedule, t))
+
+    return fn

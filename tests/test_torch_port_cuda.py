@@ -50,8 +50,10 @@ def _one_tf32_forward(q, k, v, scale):
 # there). At D=512 in f32 the tf32x3 design has 32-row query tiles and
 # 32-key tiles: Sq < 32, Sq ≠ Sk both ways, a ragged last query tile with
 # B·H > 1, and B·H = 1 at the VAE's 4096 tokens; the U-Net's and the
-# VAE's calls of the SD driver's run_DDIMforward (5 samples); and the SDXL
-# U-Net's self-attentions at batch 1 (10 heads at 4096 tokens, 20 at 1024)
+# VAE's calls of the SD driver's run_DDIMforward (5 samples); the SDXL
+# U-Net's self-attentions at batch 1 (10 heads at 4096 tokens, 20 at 1024);
+# and the ADM-256 U-Net's 8 heads at 1024 tokens at batch 1, 2 (guided
+# run_ddim_forward), 4 (walk) and 6 (finish)
 @pytest.mark.parametrize("shape", [
     (3, 1000, 1000, 64), (2, 700, 700, 512), (10, 1024, 1024, 64),
     (3, 1000, 700, 64), (2, 700, 1000, 64), (1, 50, 700, 64),
@@ -59,7 +61,8 @@ def _one_tf32_forward(q, k, v, scale):
     (1, 20, 300, 512), (2, 300, 130, 512), (2, 130, 300, 512),
     (3, 250, 250, 512), (1, 4096, 4096, 512), (25, 4096, 4096, 64),
     (50, 1024, 1024, 64), (5, 4096, 4096, 512), (10, 4096, 4096, 64),
-    (20, 1024, 1024, 64)])
+    (20, 1024, 1024, 64), (8, 1024, 1024, 64), (16, 1024, 1024, 64),
+    (32, 1024, 1024, 64), (48, 1024, 1024, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     """K1 (and K2 at D=64) against their plain versions, one launch each,
@@ -133,12 +136,13 @@ def _tol(ref, dtype):
 # and B·H > 1 with a ragged last tile in each head (a map over the wrong
 # heads would read the next head's rows there); two probes as the main
 # path, and three (tangent slice b reads primal slice b % B·H); the CFG
-# pullback's 2·B primal with two probes, and the covector VJPs' one
-# cotangent (r = 1) at the U-Net's shapes
+# pullback's 2·B primal with two probes, the covector VJPs' one cotangent
+# (r = 1) at the U-Net's shapes, and the ADM-256 encoder's 8 heads at 1024
+# tokens with two probes
 @pytest.mark.parametrize("shape", [
     (3, 1000, 1000, 2), (3, 1000, 700, 2), (3, 700, 1000, 2), (1, 50, 700, 2),
     (4, 200, 130, 2), (3, 1000, 700, 3), (10, 4096, 4096, 2), (20, 1024, 1024, 2),
-    (5, 4096, 4096, 1), (10, 1024, 1024, 1)])
+    (5, 4096, 4096, 1), (10, 1024, 1024, 1), (8, 1024, 1024, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
     """K2–K5 against their plain versions, one launch each, with the

@@ -124,7 +124,7 @@ def test_ddim_forward_dispatch(tiny_sd):
 def test_uncond_refuses_the_sd_runs(monkeypatch, tmp_path, flag):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(tmodels, "model_for_name",
-                        lambda name, dtype="float32": tmodels.UNet2D(tmodels.ddpm_tiny(8)))
+                        lambda name, dtype="float32", **kw: tmodels.UNet2D(tmodels.ddpm_tiny(8)))
     argv = ["--note", "x", "--device", "cpu", "--model_name", "CelebA_HQ_HF",
             "--performance_boosting_t", "0.2", flag, "True"]
     if "text_driven" in flag:

@@ -77,7 +77,7 @@ def _stub_models(monkeypatch):
     for name in ("UNet2DCondition", "AutoencoderKL", "CLIPTextModel"):
         monkeypatch.setattr(jmodels, name, _Shape)
     monkeypatch.setattr(tmodels, "model_for_name",
-                        lambda name, dtype="float32": tmodels.UNet2D(tmodels.ddpm_tiny(8)))
+                        lambda name, dtype="float32", **kw: tmodels.UNet2D(tmodels.ddpm_tiny(8)))
     monkeypatch.setattr(tmodels, "sd21_base_unet", lambda **over: dataclasses.replace(
         tmodels.sd_tiny_unet(2), **over))
     monkeypatch.setattr(tmodels, "sd_vae", lambda **over: dataclasses.replace(
@@ -163,7 +163,6 @@ def test_preset_checks():
 
 @pytest.mark.parametrize("field,value,item", [
     ("use_dynamic_thresholding", True, 12), ("use_preserve_norm", True, 12),
-    ("sampling_timesteps", "ddim25", 12), ("classifier_scale", 1.0, 12),
     ("mesh", object(), 16)])
 def test_unported_options_raise(tmp_path, field, value, item):
     cfg = texp.UncondExperimentConfig(**{field: value}, basis_folder=str(tmp_path))
@@ -183,7 +182,7 @@ def test_uncond_cli_runs_on_cpu(tmp_path, monkeypatch):
     """The CLI end to end at the preset's 100 steps, on the bundled images,
     with ddpm_tiny(32) in place of the 256 px U-Net."""
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(tmodels, "model_for_name", lambda name, dtype="float32":
+    monkeypatch.setattr(tmodels, "model_for_name", lambda name, dtype="float32", **kw:
                         tmodels.UNet2D(dataclasses.replace(tmodels.ddpm_tiny(32),
                                                            dtype=dtype)))
     edit = tmain.main([

@@ -181,7 +181,12 @@ def test_model_for_name_routes_hf_and_refuses_adm():
         m = tmodels.model_for_name("LSUN_church_HF", dtype="bfloat16")
     assert m.config == tmodels.ddpm_celebahq_256().__class__(dtype="bfloat16")
     assert m.conv_in.weight.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmodels.model_for_name("ImageNet256Uncond")
+    with torch.device("meta"):
+        adm = tmodels.model_for_name("ImageNet256Uncond", dtype="bfloat16",
+                                     attn_impl="flash")
+    assert isinstance(adm, tmodels.UNetADM)
+    assert adm.config == tmodels.adm_imagenet256_uncond().__class__(
+        dtype="bfloat16", attn_impl="flash")
+    assert adm.out[2].weight.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="model_name choice"):
         tmodels.model_for_name("WAT")

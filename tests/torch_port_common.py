@@ -182,3 +182,50 @@ def sdxl_driver_pair(root, cfg: dict, size: int = 64):
         texp.SDExperimentConfig(**cfg, **folders("port")),
         logger=JSONLLogger(path=None, echo=False), device="cpu")
     return jdrv, tdrv
+
+
+ADM_TINY_1024 = dict(image_size=64, model_channels=32, channel_mult=(1, 2),
+                     num_res_blocks=1, attention_resolutions=(2,),
+                     num_head_channels=64, norm_num_groups=8)
+
+
+def adm_driver_pair(root, cfg: dict, jax_attn: str = "xla", port_attn: str = "flash",
+                    net: dict = ADM_TINY_1024):
+    """(JAX EditUncondDiffusion, the port's) on a tiny UNetADM with shared
+    f32 weights, carried by load_flax_params: by default ADM_TINY_1024, 64
+    px, two levels, attention at 32² (1024 tokens, one head of 64, so the
+    port's 'flash' reaches the kernels' plain versions) and in the mid
+    block, learned σ; ``net`` gives other ADMConfig fields. Seeded noise
+    images, the linear schedule, ``cfg`` as both drivers' config fields,
+    folders under ``root``. The models sample with ``jax_attn`` /
+    ``port_attn``."""
+    import jax.numpy as jnp
+
+    from diffusion_pullback_tpu import experiments as jexp
+    from diffusion_pullback_tpu import models as jmodels
+    from diffusion_pullback_tpu.ops import DiffusionSchedule as JSchedule
+    from diffusion_pullback_tpu.utils.datasets import NoiseDataset as JNoise
+    from diffusion_pullback_tpu.utils.logging import JSONLLogger as JLogger
+    from diffusion_pullback_tpu_torch import experiments as texp
+    from diffusion_pullback_tpu_torch import models as tmodels
+    from diffusion_pullback_tpu_torch.ops.schedule import DiffusionSchedule
+    from diffusion_pullback_tpu_torch.utils.datasets import NoiseDataset
+    from diffusion_pullback_tpu_torch.utils.logging import JSONLLogger
+
+    px = net["image_size"]
+    jm = jmodels.UNetADM(jmodels.ADMConfig(**net, attn_impl=jax_attn))
+    params = flax_params(jm, jnp.zeros((1, px, px, 3)), jnp.float32(0.0), seed=9)
+    tm = tmodels.load_flax_params(
+        tmodels.UNetADM(tmodels.ADMConfig(**net, attn_impl=port_attn)), params)
+    folders = lambda tag: dict(result_folder=str(root / tag / "runs"),
+                               basis_folder=str(root / tag / "in"))
+    jdrv = jexp.EditUncondDiffusion(
+        jm, params, JSchedule.linear(), JNoise(px, n=1),
+        jexp.UncondExperimentConfig(**cfg, **folders("jax"),
+                                    obs_folder=str(root / "jax" / "obs")),
+        logger=JLogger(path=None, echo=False))
+    tdrv = texp.EditUncondDiffusion(
+        tm, DiffusionSchedule.linear(), NoiseDataset(px, n=1),
+        texp.UncondExperimentConfig(**cfg, **folders("port")),
+        logger=JSONLLogger(path=None, echo=False), device="cpu")
+    return jdrv, tdrv
