@@ -77,11 +77,24 @@ Phases (any failure exits non-zero before the last line is printed):
                in f32; run_ddim_forward(2) guided by adm_classifier(256) on
                the respaced 'ddim10' grid, finite and unlike the unguided
                run; and one ε pass of FFHQ_P2 (attention only at 256
-               tokens), which must launch none of K1–K5.
-Phases 1–2 hold every (kernel, shape) that phases 4, 6, 7 and 8 launch.
+               tokens), which must launch none of K1–K5;
+  9. harvest — the basis harvests and PCA runs: SD 2.1-base at full width
+               through the CLI's builder (U-Net bf16 drawn on the card,
+               10/10 steps, edit t 0.5, one power iteration per pullback):
+               the t-grid harvest at two points of the CLI's grid at its
+               pca_rank 50 (K3–K5 at B·H 250 over 4096 tokens and 500 over
+               1024), each rank-50 pullback's seconds and peak memory and
+               the seconds per basis; the CLI's prompt sweep over 3 bundled
+               prompts and its edit loop, which must read every basis from
+               the cache; local PCA of 32 perturbations in chunks of 16 and
+               global PCA of 16 latents (K1 at 16 latents' B·H); then the
+               CLI's Fréchet-mean edit on ADM-256 over two samples'
+               pca_rank-10 bases; each run's launches by shape held to the
+               count the code gives.
+Phases 1–2 hold every (kernel, shape) that phases 4 and 6–9 launch.
 Then a JSON line of the kernels (one entry per kernel and design over
-phases 4, 6, 7 and 8, at the shape that carries most of that design's
-device time there), the card's name and power limit, and
+phases 4 and 6–9, at the shape that carries most of that design's device
+time there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
 
@@ -137,6 +150,14 @@ K1_CASES += [((10 * b, 4096, 64), BF16) for b in (1, 4, 6)] + [
 # (32²) at batch 1, 2 (the guided run_ddim_forward), 4 (walk) and 6
 # (finish); its 256- and 64-token layers take the math path
 K1_CASES += [((8 * b, 1024, 64), BF16) for b in (1, 2, 4, 6)]
+# phase 9's K1 shapes: the SD 2.1-base U-Net over 16 latents at once (local
+# PCA's chunk of 16 perturbations through the mid-tap encoder) and over 100
+# (the CLI's global PCA population, --num_local_basis), and the ADM-256
+# U-Net at batch 8 (walk: 4 directions × the (null, edit) pair) and 12
+# (finish: 4 directions × 3 frames)
+K1_CASES += [((80, 4096, 64), BF16), ((160, 1024, 64), BF16),
+             ((500, 4096, 64), BF16), ((1000, 1024, 64), BF16),
+             ((64, 1024, 64), BF16), ((96, 1024, 64), BF16)]
 # ADM-256: 5 self-attentions at 1024 tokens per pass (2 on the down path at
 # 32², 3 on the up path); the mid-tap encoder reaches 2 of them
 ADM_UNET = dict(at_4096=0, at_1024=5, heads=(8, 8))
@@ -160,6 +181,16 @@ PAIR_CASES = [(*shape, PCA_RANK, (F32, BF16), ("K2", "K3", "K4", "K5"))
     (5, 4096, 64, 1, (BF16,), ("K4", "K5")),
     (10, 1024, 64, 1, (BF16,), ("K4", "K5")),
     (8, 1024, 64, PCA_RANK, (BF16,), ("K2", "K3", "K4", "K5"))]
+# phase 9: the SD harvest's rank-50 pullback (K3–K5 at B·H 250 over 4096
+# tokens and 500 over 1024, bf16 on the path and f32 in its check against
+# the math path; its K2 is the rank-2 cases' primal), the ADM Fréchet
+# harvest's rank-10 pullback (K3–K5 at 80 over 1024) and the ADM covector
+# VJPs (one cotangent)
+HARVEST_RANK, MEAN_RANK = 50, 10
+PAIR_CASES += [(*shape, HARVEST_RANK, (F32, BF16), ("K3", "K4", "K5"))
+               for shape in PAIR_SHAPES]
+PAIR_CASES += [(8, 1024, 64, MEAN_RANK, (BF16,), ("K3", "K4", "K5")),
+               (8, 1024, 64, 1, (BF16,), ("K4", "K5"))]
 # C symbol → (label, wrapper, source in ops/csrc by design, line of the
 # Pallas call it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
 KERNELS = {
@@ -176,7 +207,9 @@ KERNELS = {
                   {"simt": "flash_bwd.cu", "wgmma": "flash_bwd_tc.cu"}, 396),
 }
 KERNELS_BY_LABEL = {label: sym for sym, (label, *_) in KERNELS.items()}
-# K2–K5's operations per (B·H)·S²·D, B·H the tangents' or the cotangent's
+# K2–K5's operations per (B·H)·S²·D, B·H the tangents' or the cotangent's,
+# with the primal's QKᵀ (2 of them) recomputed for every probe, as the
+# kernels do; pair_ops counts what the function needs
 PAIR_OPS = {"K2": 4, "K3": 10, "K4": 6, "K5": 8}
 # K1 on 'tf32x3' against its plain version (f32, TF32 off). Three TF32
 # products per f32 product read 9.39e-6 at (3,4096,512) and 5.25e-6 at
@@ -272,7 +305,8 @@ def pair_tol(ref):
 
 
 def rate(row, ops):
-    """The row's achieved TFLOP/s and its bound's share of its time."""
+    """The row's achieved TFLOP/s on the function's operations ``ops`` (the
+    bound's) and its bound's share of its time."""
     row["tflops"] = ops / row["ms"] / 1e9
     row["bound_frac"] = row["bound_ms"] / row["ms"]
     return (f"{row['design']}, {row['tflops']:.1f} TFLOP/s, "
@@ -295,10 +329,18 @@ def k1_bound_ms(shape, dtype):
                     4.0 * bh * s * s * d, dtype)
 
 
+def pair_ops(label, bhp, r, s, d):
+    """The operations K2–K5 must do with the primal at B·H = bhp and r
+    probes: PAIR_OPS·(r·bhp)·S²·D less the primal's QKᵀ, which the r
+    probes share, counted once per primal head: (PAIR_OPS − 2)·r·bhp·S²·D
+    + 2·bhp·S²·D (K2, r = 1: 4·bhp·S²·D)."""
+    return float((PAIR_OPS[label] - 2) * r * bhp + 2 * bhp) * s * s * d
+
+
 def pair_bound_ms(label, bhp, r, s, d, dtype):
     """K2–K5 with the primal at B·H = bhp and r probes: bytes of each input
     read once and each output written once (primal q, k, v, o in the dtype,
-    L and δ in f32), operations PAIR_OPS·(r·bhp)·S²·D."""
+    L and δ in f32), operations pair_ops."""
     e, bh = torch.tensor([], dtype=dtype).element_size(), r * bhp
     sd = s * d
     nbytes = {
@@ -307,7 +349,7 @@ def pair_bound_ms(label, bhp, r, s, d, dtype):
         "K4": 3 * bhp * sd * e + 4 * bhp * s + 2 * bh * sd * e + 4 * bh * s,
         "K5": 3 * bhp * sd * e + 4 * bhp * s + 3 * bh * sd * e + 4 * bh * s,
     }[label]
-    return bound_ms(nbytes, PAIR_OPS[label] * bh * s * s * d, dtype)
+    return bound_ms(nbytes, pair_ops(label, bhp, r, s, d), dtype)
 
 
 def phase_k1(fa):
@@ -393,26 +435,48 @@ def phase_pair(fa):
                        lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, scale)),
             }
             calls = {label: calls[label] for label in labels}
-            library = {}
+            library, library_calls = {}, {}
             q4, k4, v4 = (t.repeat(r, 1, 1)[None] for t in (q, k, v))
             # K3's yardstick: the tangent of SDPA along the probes' tangents
-            # at the primal repeated per probe, one torch.func.jvp call. The
-            # fused backends SDPA picks have no forward-mode rule, so it is
-            # timed on the math backend (the one that has it)
-            sdpa_jvp = lambda: torch.func.jvp(
-                lambda a, b, c: F.scaled_dot_product_attention(a, b, c, scale=scale),
-                (q4, k4, v4), (dq[None], dk[None], dv[None]))
+            # at the primal repeated per probe, torch.func.jvp. The fused
+            # backends SDPA picks have no forward-mode rule, so it is timed on
+            # the math backend (the one that has it), which holds B·H × S²
+            # scores and their tangents: where one call over all of B·H does
+            # not fit in the card's memory (B·H 250 over 4096 tokens), the
+            # time is the sum of the fewest equal B·H chunks that fit
             if "K3" in labels:
+                bh = r * bhp
+
+                def sdpa_jvp(n=1):
+                    step = bh // n
+                    for i in range(0, bh, step):
+                        sl = slice(i, i + step)
+                        torch.func.jvp(
+                            lambda a, b, c: F.scaled_dot_product_attention(
+                                a, b, c, scale=scale),
+                            (q4[:, sl], k4[:, sl], v4[:, sl]),
+                            (dq[None, sl], dk[None, sl], dv[None, sl]))
                 try:
                     sdpa_jvp()
                     default = "runs"
                 except RuntimeError as e:
                     default = "raises: " + str(e).splitlines()[0]
+                library["K3"] = None
                 with sdpa_kernel(SDPBackend.MATH):
-                    library["K3"] = cuda_ms(sdpa_jvp, 5)
-                    log(f"[k3] ({r * bhp}, {s}, {d}) {str(dtype)[6:]}: "
-                        f"torch.func.jvp of SDPA on the math backend served by "
-                        f"{served_by(sdpa_jvp)} (on SDPA's own choice it {default})")
+                    for n in (n for n in range(1, bh + 1) if bh % n == 0):
+                        try:
+                            library["K3"] = cuda_ms(lambda: sdpa_jvp(n), 5)
+                            break
+                        except torch.OutOfMemoryError:
+                            torch.cuda.empty_cache()
+                    served = (f"in {n} call(s) of B·H {bh // n}, served by "
+                              f"{served_by(lambda: sdpa_jvp(n))}"
+                              if library["K3"] is not None else
+                              "does not fit in the card's memory at B·H 1")
+                    library_calls["K3"] = n
+                    log(f"[k3] ({bh}, {s}, {d}) {str(dtype)[6:]}: "
+                        f"torch.func.jvp of SDPA on the math backend {served} (on "
+                        f"SDPA's own choice it {default})")
             if dtype == torch.bfloat16:  # the flash SDPA ops take bf16 only
                 fwd4 = sdpa(q4, k4, v4, 0.0, False, False, scale=scale)
                 bwd_args = (do[None], q4, k4, v4, *fwd4[:6], 0.0, False, *fwd4[6:8])
@@ -441,17 +505,19 @@ def phase_pair(fa):
                 row = dict(max_abs_err=max(e for e, _ in errs),
                            ms=cuda_ms(kernel, 20), host_us=host_us(kernel),
                            plain_ms=cuda_ms(plain, 3),
-                           library_ms=library[label])
+                           library_ms=library[label],
+                           library_calls=library_calls.get(label, 1))
+                rr = 1 if label == "K2" else r
                 row["bound_ms"], row["bound_by"] = pair_bound_ms(
-                    label, bhp, 1 if label == "K2" else r, s, d, dtype)
+                    label, bhp, rr, s, d, dtype)
                 row["design"] = fa.design(label, shape[-1], dtype)
                 rows[(label, shape, dtype)] = row
                 log(f"[{label.lower()}] {shape} {str(dtype)[6:]}: max_abs_err "
                     + ", ".join(f"{e:.3g} (tol {t:.3g})" for e, t in errs)
                     + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-                    f"ms, library {row['library_ms']:.4f} ms, bound "
+                    f"ms, library {row['library_ms'] or float('nan'):.4f} ms, bound "
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
-                    + rate(row, PAIR_OPS[label] * shape[0] * s * s * d))
+                    + rate(row, pair_ops(label, bhp, rr, s, d)))
                 if not all(e <= t for e, t in errs):
                     raise AssertionError(f"{label} disagrees with its plain "
                                          f"version at {shape} {dtype}: {errs}")
@@ -682,28 +748,30 @@ def unet_k1(expected, batch, calls, dtype, at_4096=5, at_1024=5, heads=(5, 10)):
     expected[("flash_fwd", (heads[1] * batch, 1024, 64), dtype)] += at_1024 * calls
 
 
-def pair_k2_k5(expected, dtype, iterations, layers, primal=1, shapes=PAIR_SHAPES):
-    """K2–K5 launches of a fused-pair pullback over a map that runs
-    ``layers`` self-attentions at each of the primal ``shapes`` (an int:
-    that many at each; a tuple: one count per shape), at a primal batch
-    ``primal``: one jvp per tangent pass (each iteration and the final u),
-    each running K2 and K3; one vjp (K2) whose function runs K4 and K5 once
-    per iteration; K3–K5 with the probes folded into B·H."""
+def pair_k2_k5(expected, dtype, iterations, layers, primal=1, shapes=PAIR_SHAPES,
+               rank=PCA_RANK):
+    """K2–K5 launches of a fused-pair pullback of ``rank`` probes over a map
+    that runs ``layers`` self-attentions at each of the primal ``shapes``
+    (an int: that many at each; a tuple: one count per shape), at a primal
+    batch ``primal``: one jvp per tangent pass (each iteration and the final
+    u), each running K2 and K3; one vjp (K2) whose function runs K4 and K5
+    once per iteration; K3–K5 with the probes folded into B·H."""
     passes = iterations + 1
     counts = layers if isinstance(layers, tuple) else (layers,) * len(shapes)
     for (bh, s, d), layers in zip(shapes, counts):
         bhp = primal * bh
-        folded = (PCA_RANK * bhp, s, d)
+        folded = (rank * bhp, s, d)
         expected[("flash_fwd_lse", (bhp, s, d), dtype)] += layers * (passes + 1)
         expected[("flash_tangent", folded, dtype)] += layers * passes
         expected[("flash_dq", folded, dtype)] += layers * iterations
         expected[("flash_dkv", folded, dtype)] += layers * iterations
 
 
-def covector_k2_k5(expected, dtype, vjps, layers=2):
+def covector_k2_k5(expected, dtype, vjps, layers=2, shapes=PAIR_SHAPES):
     """K2, K4 and K5 launches of ``vjps`` covector VJPs (Jᵀu, one cotangent)
-    of the mid-tap encoder (``layers`` self-attentions at each length)."""
-    for shape in PAIR_SHAPES:
+    of the mid-tap encoder (``layers`` self-attentions at each of the
+    primal ``shapes``)."""
+    for shape in shapes:
         for sym in ("flash_fwd_lse", "flash_dq", "flash_dkv"):
             expected[(sym, shape, dtype)] += layers * vjps
 
@@ -1643,6 +1711,254 @@ def phase_adm(fa):
     return paths
 
 
+def phase_harvest(fa):
+    """Phase 9: the basis harvests and PCA runs at full width. SD 2.1-base
+    through the CLI's builder (U-Net bf16, drawn on the card), 10/10 steps,
+    edit t 0.5, one power iteration per pullback: (a) the t-grid harvest at
+    two points of the CLI's grid (1.0 and 0.5) at its pca_rank 50, with
+    each pullback's seconds and peak memory; (b) the CLI's prompt sweep
+    over the first 3 prompts of inputs/prompts_coco50.txt and the edit loop
+    that follows, which must read every basis from the cache; (c) local PCA
+    of 32 perturbations in chunks of 16; (d) the CLI's global PCA (100
+    latents); (e) the rank-50 pullback on the pair against the math path in
+    f32; then (f) the CLI's Fréchet-mean edit on ADM-256 over two samples'
+    pca_rank-10 bases. Each run's K1–K5 launches by shape are held to the
+    count the code gives. Returns the path dicts of the runs."""
+    import numpy as np
+    from PIL import Image
+
+    from diffusion_pullback_tpu_torch import main as port_main
+    from diffusion_pullback_tpu_torch.experiments import BasisCache
+
+    out = os.path.join(OUT, "harvest")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    flags = ["--note", "chip_smoke", "--result_folder", out, "--for_steps", "10",
+             "--inv_steps", "10", "--edit_t", "0.5", "--x_space_guidance_num_step", "2",
+             "--edit_prompt", "a photo of a smiling face"]
+    t0 = time.perf_counter()
+    with torch.device("cuda"):      # weights drawn on the card
+        edit = port_main.build_sd(port_main.parse_args(flags))
+    torch.cuda.synchronize()
+    cfg = edit.cfg
+    cfg.pullback_max_iter = 1
+    cfg.basis_folder = os.path.join(out, "inputs")
+    edit.cache = BasisCache(cfg.basis_folder)
+    dtypes = (next(edit.unet.parameters()).dtype, next(edit.vae.parameters()).dtype)
+    unet_dtype = dtypes[0]
+    log(f"[harvest] built the SD 2.1-base driver in {time.perf_counter() - t0:.1f} s "
+        f"(drawn on the card; U-Net {unet_dtype}, pullback attn {cfg.pullback_attn_impl}, "
+        f"edit t index {edit.edit_t_idx}, {cfg.pullback_max_iter} power iteration)")
+    paths, checks = [], {}
+
+    def run(tag, drv, fn, expected_fn):
+        """Drive one run with each stage's peak memory; check its launches
+        by shape. Returns (fn's result, its events, stage peaks, seconds)."""
+        start = len(read_events(drv))
+        with stage_peaks(drv) as peaks:
+            res, seconds, peak, launches, path = drive(fa, fn)
+        events = read_events(drv, start)
+        for e in events:
+            if "seconds" in e:
+                extra = {k: v for k, v in e.items() if k not in ("ts", "event", "seconds")}
+                log(f"[harvest {tag}] stage {e['event']}: {e['seconds']:.3f} s, peak "
+                    f"memory {max(peaks[e['event']]):.2f} GB {extra}")
+        expected = collections.Counter()
+        expected_fn(expected, events)
+        checks[f"({tag}) launches by shape"] = check_launches(
+            f"harvest {tag}", launches, path, expected)
+        log(f"[harvest] ({tag}) {seconds:.2f} s, peak memory "
+            f"{max([peak] + [g for v in peaks.values() for g in v]):.2f} GB, launches "
+            + ", ".join(f"{KERNELS[k][0]} {n}" for k, n in launches.items()))
+        paths.append(path)
+        return res, events, peaks, seconds
+
+    def named(events, name):
+        return [e for e in events if e["event"] == name]
+
+    def pngs(names, size=512, frames=3):
+        return len(names) > 0 and all(
+            Image.open(os.path.join(cfg.result_folder, n + ".png")).size
+            == (size * frames, size) for n in names)
+
+    def encode_invert_forward(expected, steps=None):
+        """VAE encode, inversion and forward to grid index ``steps`` (the
+        edit t by default) at batch 1."""
+        expected[("flash_fwd", (1, 4096, 512), dtypes[1])] += 1
+        unet_k1(expected, 1, (cfg.inv_steps - 2) + (
+            edit.edit_t_idx if steps is None else steps), unet_dtype)
+
+    # (a) the t-grid harvest at the CLI's rank: one walk down the
+    # trajectory, a rank-50 pullback at each point
+    grid = (port_main.HARVEST_T_GRID[0], port_main.HARVEST_T_GRID[10])
+
+    def exp_a(expected, events):
+        encode_invert_forward(expected, max(edit._t_index(t) for t in grid))
+        for e in named(events, "sd_local_pullback"):
+            pair_k2_k5(expected, unet_dtype, e["iterations"], layers=2, rank=HARVEST_RANK)
+
+    files, events, peaks, _ = run("a", edit, lambda: edit.run_sample_encoder_local_tangent_space_zt_batched(
+        idx=0, pca_rank=HARVEST_RANK, t_grid=grid), exp_a)
+    pulls = named(events, "sd_local_pullback")
+    harvest = named(events, "sd_tangent_harvest")[0]
+    for t, e, gb in zip(grid, pulls, peaks["sd_local_pullback"]):
+        log(f"[harvest] rank-{HARVEST_RANK} pullback at t {t} (unchunked, "
+            f"{e['iterations']} power iteration): {e['seconds']:.3f} s, peak memory "
+            f"{gb:.2f} GB, top sigma {e['top_s']}")
+    log(f"[harvest] (a) {len(grid)} bases in {harvest['seconds']:.3f} s: "
+        f"{harvest['seconds'] / len(grid):.3f} s per basis (inversion and walk "
+        f"included), {sum(e['seconds'] for e in pulls) / len(pulls):.3f} s per pullback")
+    bases = [BasisCache(cfg.basis_folder).load(os.path.splitext(os.path.basename(f))[0])
+             for f in files.values()]
+    checks["(a) rank-50 bases finite, expected shapes"] = len(bases) == 2 and all(
+        b is not None and b[0].shape == (8 * 8 * 1280, HARVEST_RANK)
+        and b[2].shape == (HARVEST_RANK, 64 * 64 * 4)
+        and all(np.isfinite(a).all() for a in b) and (b[1] > 0).all() for b in bases)
+    checks["(a) pullbacks through the fused pair"] = all(
+        e["encoder"] == "flashpair" for e in pulls) and len(pulls) == 2
+
+    # (b) the CLI's prompt sweep and the edit loop after it (vis_num 4,
+    # vis_num_pc 2: 4 directions of 3 frames per prompt)
+    sweep_args = port_main.parse_args(flags + [
+        "--run_edit_local_encoder_pullback_zt_with_various_prompt", "True",
+        "--num_local_basis", "3"])
+
+    def exp_b(expected, events):
+        encode_invert_forward(expected)
+        for e in named(events, "sd_local_pullback"):
+            pair_k2_k5(expected, unet_dtype, e["iterations"], layers=2)
+        for _ in range(3):
+            edit_k1(expected, edit, 4, 3, dtypes)
+
+    _, events, _, seconds = run("b", edit, lambda: port_main.dispatch(edit, sweep_args),
+                                exp_b)
+    hits = [e["name"] for e in named(events, "basis_cache_hit")]
+    log(f"[harvest] (b) sweep {named(events, 'sd_prompt_sweep')[0]['seconds']:.3f} s "
+        f"for 3 prompts, then 3 edits from the cache: {seconds:.2f} s in all")
+    checks["(b) one pullback per prompt, in the sweep only"] = (
+        len(named(events, "sd_local_pullback")) == 3 and len(hits) == 3
+        and [e["event"] for e in events].index("sd_prompt_sweep")
+        < [e["event"] for e in events].index("basis_cache_hit"))
+    names = [n for n in os.listdir(cfg.result_folder) if n.startswith("Edit_zt-")]
+    checks["(b) 12 PNGs, finite"] = len(names) == 12 and pngs(
+        [os.path.splitext(n)[0] for n in names]) and all(
+        e["finite"] for e in named(events, "sd_decode_and_save"))
+
+    # (c) local PCA: 2 chunks of 16 perturbations through the mid-tap
+    # encoder in each of the two passes, one Jᵀ per direction pair
+    def exp_c(expected, events):
+        edit_k1(expected, edit, 2, 3, dtypes)
+        unet_k1(expected, 16, 4, unet_dtype, at_4096=2, at_1024=2)
+        covector_k2_k5(expected, unet_dtype, 1)
+
+    names, events, _, _ = run("c", edit, lambda: edit.run_edit_local_pca_zt(
+        idx=0, pca_rank=4, num_samples=32, vis_num=2, vis_num_pc=1), exp_c)
+    checks["(c) local-PCA PNGs, finite"] = pngs(names) and all(
+        e["finite"] for e in named(events, "sd_decode_and_save"))
+
+    # (d) the CLI's global PCA: --num_local_basis (100 by default) latents
+    # forwarded to the edit t as one batch and tapped there, then the edit
+    # of sample 0 (vis_num 4, vis_num_pc 2: 2 Jᵀ, 4 directions of 3 frames)
+    gpca_args = port_main.parse_args(flags + ["--run_edit_global_pca_zt", "True"])
+    n_lat = gpca_args.num_local_basis
+
+    def exp_d(expected, events):
+        unet_k1(expected, n_lat, edit.edit_t_idx, unet_dtype)
+        unet_k1(expected, n_lat, 1, unet_dtype, at_4096=2, at_1024=2)
+        edit_k1(expected, edit, 4, 3, dtypes)
+        covector_k2_k5(expected, unet_dtype, 2)
+
+    _, events, _, _ = run("d", edit, lambda: port_main.dispatch(edit, gpca_args), exp_d)
+    names = [os.path.splitext(n)[0] for n in os.listdir(cfg.result_folder)
+             if n.startswith("Edit_global_pca-")]
+    checks[f"(d) global PCA of {n_lat} latents: 4 PNGs, finite"] = (
+        [e["num_samples"] for e in named(events, "sd_global_pca_harvest")] == [n_lat]
+        and len(names) == 4 and pngs(names)
+        and all(e["finite"] for e in named(events, "sd_decode_and_save")))
+
+    # (e) the composed rank-50 pullback at the grid's t 0.5 in f32: the
+    # fused pair unchunked (K3–K5 at B·H 250 and 500) against the math path
+    # from the same probes, one power iteration each; the math path takes
+    # 10 probes per pass (its B·H × S² scores at 50 probes would not fit).
+    # Held as the CPU tests hold harvested bases: σ within 1e-3, |cos| ≥
+    # 0.99 per σ-gap group (geometry.metrics); the 50 σ of a random U-Net
+    # may chain into one group, so the metric Vᵀσ²V is held too, within
+    # 1e-3 (relative Frobenius distance)
+    from diffusion_pullback_tpu_torch.geometry import compare_bases, passes_acceptance
+
+    edit.unet.to(torch.float32)    # the same weights, bf16-valued
+    zb = torch.randn(1, 64, 64, 4, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(7))
+    t_b, res = edit.fwd_grid.timesteps[edit._t_index(grid[1])], {}
+    for impl, chunk in (("flash", None), ("xla", 10)):
+        cfg.pullback_attn_impl, cfg.pullback_chunk_size = impl, chunk
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res[impl] = edit.compute_local_basis(zb, t_b, edit._make_tap("mid", 0),
+                                             HARVEST_RANK)
+        torch.cuda.synchronize()
+        log(f"[harvest] (e) rank-{HARVEST_RANK} pullback f32 {impl} (chunk "
+            f"{chunk}): {time.perf_counter() - t0:.3f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    cfg.pullback_attn_impl, cfg.pullback_chunk_size = "flash", None
+    host = lambda r: (r.vT.float().cpu().numpy(), r.s.float().cpu().numpy())
+    cmp = compare_bases(*host(res["flash"]), *host(res["xla"]))
+    dist = pullback_dist(res["flash"], res["xla"])
+    log(f"[harvest] (e) f32 pair vs math at rank {HARVEST_RANK}: sigma max rel err "
+        f"{cmp.sigma_rel_err.max():.3g} (tol 1e-3), min |cos| per σ-gap group "
+        f"{cmp.per_direction_cos.min():.6f} (tol ≥ 0.99) over "
+        f"{len(cmp.gap_groups)} groups, metric distance {dist:.3g} (tol 1e-3)")
+    checks[f"(e) f32 rank-{HARVEST_RANK} pair pullback vs math"] = passes_acceptance(
+        cmp, cos_min=0.99, sigma_rtol=1e-3) and dist <= 1e-3
+    del edit
+    torch.cuda.empty_cache()
+
+    # (f) the CLI's Fréchet-mean edit on ADM-256: two samples' pca_rank-10
+    # bases (inversion, forward, pullback each), their mean, the edit of
+    # sample 0 along its 2 directions (4 walks of 3 frames)
+    adm_flags = ["--note", "chip_smoke", "--model_name", "ImageNet256Uncond",
+                 "--result_folder", os.path.join(out, "adm"), "--dataset_name", "Examples",
+                 "--for_steps", "10", "--inv_steps", "10", "--edit_t", "0.5",
+                 "--performance_boosting_t", "0.2", "--x_space_guidance_num_step", "2",
+                 "--run_edit_global_frechet_mean_zt", "True", "--num_local_basis", "2"]
+    adm_args = port_main.parse_args(adm_flags)
+    adm = port_main.build_uncond(adm_args)
+    adm.cfg.pullback_max_iter = 1
+    adm.cfg.basis_folder = os.path.join(out, "adm", "inputs")
+    adm.cache = BasisCache(adm.cfg.basis_folder)
+    adm_dtype = next(adm.model.parameters()).dtype
+
+    def exp_f(expected, events):
+        for _ in range(3):   # the two samples' harvest, then sample 0's edit
+            unet_k1(expected, 1, (adm.cfg.inv_steps - 2) + adm.edit_t_idx, adm_dtype,
+                    **ADM_UNET)
+        for e in named(events, "local_pullback"):
+            pair_k2_k5(expected, adm_dtype, e["iterations"], layers=2, shapes=ADM_PAIR,
+                       rank=MEAN_RANK)
+        covector_k2_k5(expected, adm_dtype, 2, shapes=ADM_PAIR)
+        unet_k1(expected, 2 * 4, adm.cfg.x_space_guidance_num_step, adm_dtype, **ADM_UNET)
+        unet_k1(expected, 4 * 3, adm.fwd_grid.num_steps - adm.edit_t_idx, adm_dtype,
+                **ADM_UNET)
+
+    _, events, _, seconds = run("f", adm, lambda: port_main.dispatch(adm, adm_args), exp_f)
+    names = [os.path.splitext(n)[0] for n in os.listdir(adm.cfg.result_folder)
+             if n.startswith("Edit_global_frechet-")]
+    checks["(f) two rank-10 bases, four PNGs, finite"] = (
+        len(os.listdir(adm.cfg.basis_folder)) == 2 and len(names) == 4
+        and all(Image.open(os.path.join(adm.cfg.result_folder, n + ".png")).size
+                == (256 * 3, 256) for n in names)
+        and all(e["finite"] for e in named(events, "finish_and_save")))
+    del adm
+    torch.cuda.empty_cache()
+
+    for what, ok in checks.items():
+        log(f"[harvest] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("phase 9 checks failed")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -1694,6 +2010,8 @@ def main():
     lap("phase 7")
     paths += phase_adm(fa)
     lap("phase 8")
+    paths += phase_harvest(fa)
+    lap("phase 9")
 
     # every (kernel, shape, dtype) the main paths launched was held against
     # its plain version in phases 1–2
@@ -1705,7 +2023,7 @@ def main():
                              f"did not hold against their plain versions: {missing}")
 
     # launches and summed device time of each (kernel, shape) over the main
-    # paths of phases 4, 6, 7 and 8
+    # paths of phases 4 and 6–9
     merged = collections.defaultdict(lambda: [0, 0.0])
     for path in paths:
         for key, (n, ms) in path.items():
@@ -1713,10 +2031,10 @@ def main():
             merged[key][1] += ms
     for (sym, shape, dtype), (n, ms) in sorted(merged.items(), key=lambda kv: -kv[1][1]):
         log(f"[paths] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches, "
-            f"{ms:.3f} ms on the device over phases 4, 6, 7 and 8")
-    log(f"[smoke] phases 1–8 in {time.perf_counter() - t_start:.1f} s")
+            f"{ms:.3f} ms on the device over phases 4 and 6–9")
+    log(f"[smoke] phases 1–9 in {time.perf_counter() - t_start:.1f} s")
 
-    # one entry per kernel and design on the main paths (phases 4, 6, 7, 8):
+    # one entry per kernel and design on the main paths (phases 4, 6–9):
     # their launches and summed device time there (path_ms), and the
     # per-launch numbers of phases 1–2 at the shape that carries most of
     # that device time

@@ -1,11 +1,13 @@
 """What the experiment drivers share (counterpart of
 diffusion_pullback_tpu/experiments/_common.py): the NHWC ↔ NCHW boundary,
-the synchronised stage timer and the tap construction."""
+the synchronised stage timer, the tap construction, the grid index of a
+t, the seeded sample draw and the basis write."""
 
 from __future__ import annotations
 
 import contextlib
 import time
+from typing import Optional
 
 import torch
 
@@ -18,7 +20,7 @@ to_nhwc = lambda z: z.permute(0, 2, 3, 1)
 class DriverCommonMixin:
     """Requires ``self.device`` and ``self.log`` (a JSONLLogger);
     ``_make_tap`` also ``self._arch_config`` (the differentiated model's
-    config)."""
+    config), ``_draw_latents`` ``self.cfg`` and ``self._sample_shape``."""
 
     @contextlib.contextmanager
     def _stage(self, event: str, **fields):
@@ -31,6 +33,25 @@ class DriverCommonMixin:
         yield fields
         sync()
         self.log.log(event, seconds=time.perf_counter() - t0, **fields)
+
+    def _t_index(self, t: float) -> int:
+        """The forward grid's index nearest t·1000 (needs ``self.fwd_grid``)."""
+        return int(torch.argmin(torch.abs(self.fwd_grid.timesteps - t * 1000.0)))
+
+    def _draw_latents(self, num_samples: int,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Gaussian NHWC samples of the driver's ``_sample_shape``, drawn on
+        the CPU from ``generator`` (by default one seeded with cfg.seed)."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(self.cfg.seed)
+        return torch.randn(num_samples, *self._sample_shape,
+                           generator=generator).to(self.device)
+
+    def _save_basis(self, name: str, res) -> str:
+        """Write a PullbackResult's (u, s, vT) to the basis cache (needs
+        ``self.cache``); returns the file."""
+        f32 = lambda a: a.float().cpu().numpy()
+        return self.cache.save(name, f32(res.u), f32(res.s), f32(res.vT))
 
     def _make_tap(self, op, block_idx, after_res=False, after_sa=False) -> TapPoint:
         """``after_res`` / ``after_sa`` move the tap after the block's last

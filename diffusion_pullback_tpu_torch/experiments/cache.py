@@ -63,16 +63,31 @@ class BasisCache:
         .npz; None when neither is."""
         for ext in (".dpb", ".npz"):
             p = os.path.join(self.root, name + ext)
-            if not os.path.exists(p):
-                continue
-            try:
-                if ext == ".dpb":
-                    return _read_dpb(p)
-                with np.load(p) as z:
-                    return tuple(_from_npz(z[k]) for k in ("u", "s", "vT"))
-            except Exception:
-                continue
+            if os.path.exists(p):
+                basis = self._load_file(p, ext)
+                if basis is not None:
+                    return basis
         return None
+
+    @staticmethod
+    def _load_file(p: str, ext: str):
+        try:
+            if ext == ".dpb":
+                return _read_dpb(p)
+            with np.load(p) as z:
+                return tuple(_from_npz(z[k]) for k in ("u", "s", "vT"))
+        except Exception:
+            return None
+
+    def path(self, name: str) -> str:
+        """The basis file for ``name``: the first of .dpb and .npz that
+        exists (the one load() reads once it has read ``name``), else the
+        .npz that save() writes. Checks existence only, reads nothing."""
+        for ext in (".dpb", ".npz"):
+            p = os.path.join(self.root, name + ext)
+            if os.path.exists(p):
+                return p
+        return os.path.join(self.root, name + ".npz")
 
     def save(self, name: str, u, s, vT) -> str:
         """Write the basis as float32 .npz (atomically: temp file + rename)."""

@@ -1,8 +1,8 @@
 """Stable-Diffusion editing along pullback directions.
 
 Counterpart of EditStableDiffusion in
-diffusion_pullback_tpu/experiments/edit_sd.py (without the regularizers,
-the harvests and the PCA runs):
+diffusion_pullback_tpu/experiments/edit_sd.py (without the regularizers;
+the harvests are in sd_harvest.py, the PCA runs in sd_pca.py):
 
     VAE encode → DDIM inversion → DDIM forward to the edit t → a direction
     (the encoder pullback at a U-Net tap, edit-prompt conditioned, with CFG
@@ -55,6 +55,7 @@ from ..utils.images import save_image_grid
 from ..utils.logging import JSONLLogger
 from ._common import DriverCommonMixin, to_nchw, to_nhwc
 from .cache import BasisCache, basis_name
+from .sd_harvest import SDHarvestMixin
 from .sd_pca import SDPCAMixin
 
 
@@ -98,13 +99,16 @@ class SDExperimentConfig:
     # decode at most this many latents per VAE call (None = all at once):
     # bounds the VAE's activations at 1024 px
     decode_chunk: Optional[int] = None
+    # a device mesh (the JAX driver's sharded pullback and sweeps): not
+    # ported, refused (ROADMAP queue 1, item 16)
+    mesh: Optional[object] = None
     result_folder: str = "./runs/sd"
     basis_folder: str = "./inputs/local_encoder_pullback_stable_diffusion"
     vis_num: int = 4
     vis_num_pc: int = 2
 
 
-class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
+class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
     def __init__(
         self,
         unet: UNet2DCondition,
@@ -117,6 +121,9 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
         logger: Optional[JSONLLogger] = None,
         device=None,
     ):
+        if config.mesh is not None:
+            raise NotImplementedError("a device mesh is not ported yet (ROADMAP "
+                                      "queue 1, item 16)")
         self.device = resolve_device(device)
         strict_f32()
         prep = lambda m: m.to(self.device).eval().requires_grad_(False)
@@ -131,8 +138,7 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
 
         self.fwd_grid = ddim_timestep_grid(config.for_steps)
         self.inv_grid = ddim_timestep_grid(config.inv_steps, inversion=True)
-        self.edit_t_idx = int(torch.argmin(
-            torch.abs(self.fwd_grid.timesteps - config.edit_t * 1000.0)))
+        self.edit_t_idx = self._t_index(config.edit_t)
 
         with self._stage("sd_prompts_embedded"):
             self.for_prompt_emb = self._get_emb(config.for_prompt)
@@ -230,10 +236,7 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
         """Sample from seeded noise (zT drawn on the CPU from ``generator``,
         by default one seeded with cfg.seed) through the full forward grid
         and decode; NHWC images in [-1, 1] on the host."""
-        if generator is None:
-            generator = torch.Generator().manual_seed(self.cfg.seed)
-        s, c = self.unet.config.sample_size, self.unet.config.in_channels
-        zT = torch.randn(num_samples, s, s, c, generator=generator).to(self.device)
+        zT = self._draw_latents(num_samples, generator)
         with self._stage("sd_ddim_forward", num_samples=num_samples):
             z0 = self.DDIMforwardsteps(zT, 0)
         with self._stage("sd_decode_and_save", directions=1) as log:
@@ -242,6 +245,12 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
             if save_as:
                 save_image_grid(x0, save_as)
         return x0
+
+    @property
+    def _sample_shape(self):
+        """(H, W, C) of one NHWC latent at the U-Net's size."""
+        s, c = self.unet.config.sample_size, self.unet.config.in_channels
+        return s, s, c
 
     # ---- tap encoders -------------------------------------------------------
 
@@ -297,29 +306,31 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
 
         return f
 
-    def _pullback_tap_encoders(self, t, tap: TapPoint):
+    def _pullback_tap_encoders(self, t, tap: TapPoint, edit_emb=None):
         """(encode, encode_vjp or None, impl tag) of the encoder z → h at
-        ``tap`` that the pullback differentiates: edit-prompt conditioned,
-        or with pullback_guidance_scale s > 0 the CFG extrapolation against
-        the negative prompt (tag suffix '_cfg{s}'). The pair's tag is
+        ``tap`` that the pullback differentiates: conditioned on
+        ``edit_emb`` (default the edit prompt's), or with
+        pullback_guidance_scale s > 0 the CFG extrapolation against the
+        negative prompt (tag suffix '_cfg{s}'). The pair's tag is
         'flashpair'."""
         impl, impl_vjp = self._pair_impls()
         encs = [self._encoder(t, tap, impl),
                 impl_vjp and self._encoder(t, tap, impl_vjp)]
         tag = "flashpair" if impl_vjp else impl
         s = self.cfg.pullback_guidance_scale
-        emb = self.edit_prompt_emb
+        emb = self.edit_prompt_emb if edit_emb is None else edit_emb
         if s > 0:
             encs = [e and self._cfg_encoder(e) for e in encs]
-            emb = (self.edit_prompt_emb, self.neg_prompt_emb)
+            emb = (emb, self.neg_prompt_emb)
             tag = f"{tag}_cfg{s}"
         bind = lambda e: e and (lambda z: e(z, emb))
         return bind(encs[0]), bind(encs[1]), tag
 
-    def compute_local_basis(self, zt, t, tap: TapPoint, pca_rank: int
-                            ) -> PullbackResult:
-        """Pullback of the encoder z → h at ``tap``."""
-        enc, enc_vjp, tag = self._pullback_tap_encoders(t, tap)
+    def compute_local_basis(self, zt, t, tap: TapPoint, pca_rank: int,
+                            edit_emb=None) -> PullbackResult:
+        """Pullback of the encoder z → h at ``tap``, conditioned on
+        ``edit_emb`` (default the edit prompt's)."""
+        enc, enc_vjp, tag = self._pullback_tap_encoders(t, tap, edit_emb)
         with self._stage("sd_local_pullback", encoder=tag) as log:
             res = local_encoder_pullback(
                 enc, zt, torch.Generator().manual_seed(self.cfg.seed),
@@ -405,8 +416,7 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin):
         else:
             res = self.compute_local_basis(zt, t_edit, tap, pca_rank)
             u, s, vT = res.u.float(), res.s, res.vT
-            self.cache.save(name, u.cpu().numpy(), s.cpu().numpy(),
-                            vT.cpu().numpy())
+            self._save_basis(name, res)
         u = u / torch.linalg.norm(u, dim=0, keepdim=True)
         vT = vT / torch.linalg.norm(vT, dim=1, keepdim=True)
         return u, s, vT

@@ -1,11 +1,16 @@
 """Unconditional (pixel-space DDPM) editing along the encoder pullback basis.
 
-Counterpart of the main-path subset of EditUncondDiffusion in
-diffusion_pullback_tpu/experiments/edit_uncond.py:
+Counterpart of EditUncondDiffusion in
+diffusion_pullback_tpu/experiments/edit_uncond.py, without h-space
+guidance, parallel transport and the decoder pullback. The main path:
 
     image → DDIM inversion → DDIM forward to the edit t → encoder pullback
     at a U-Net tap → x-space-guidance walk along ±v_k → DDIM finish with
     performance boosting (η = 1 below performance_boosting_t·T) → PNG grids.
+
+The analysis runs: local and global PCA of the tapped h, Fréchet and
+Hungarian mean bases over samples (each edit maps its h-space directions
+to x through Jᵀ), and the tangent-space harvests over a timestep grid.
 
 Images, ``vT`` and the basis cache are NHWC at this boundary, as in the JAX
 package, so ``vT`` rows flatten in the same order and a basis from either
@@ -25,12 +30,21 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..geometry import PullbackResult, local_pullback
+from ..geometry import (
+    PullbackResult,
+    frechet_mean_basis,
+    global_pca,
+    hungarian_mean_basis,
+    local_pca,
+    local_pullback,
+    pca_to_x_direction,
+    pullback_covector,
+)
 from ..models.layers import attn_impl_as
 from ..models.unet2d import TapPoint, UNet2D
 from ..ops.ddim import split_learned_sigma
@@ -136,9 +150,7 @@ class EditUncondDiffusion(DriverCommonMixin):
         else:
             self.fwd_grid = ddim_timestep_grid(config.for_steps)
             self.inv_grid = ddim_timestep_grid(config.inv_steps, inversion=True)
-        # nearest grid index to edit_t·T
-        self.edit_t_idx = int(torch.argmin(
-            torch.abs(self.fwd_grid.timesteps - config.edit_t * 1000.0)))
+        self.edit_t_idx = self._t_index(config.edit_t)
         # boost index: the first step below performance_boosting_t·T
         below = self.fwd_grid.timesteps.numpy() < config.performance_boosting_t * 1000.0
         self.boost_start_idx = int(below.argmax()) if below.any() else None
@@ -146,6 +158,9 @@ class EditUncondDiffusion(DriverCommonMixin):
         # UNet2DConfig calls it sample_size, ADMConfig image_size
         self._sample_size = getattr(model.config, "sample_size", None) or \
             model.config.image_size
+        # (H, W, C) of one NHWC image
+        self._sample_shape = (self._sample_size, self._sample_size,
+                              model.config.in_channels)
 
     @property
     def _arch_config(self):
@@ -214,11 +229,7 @@ class EditUncondDiffusion(DriverCommonMixin):
                          save_as: Optional[str] = None) -> torch.Tensor:
         """Sample from seeded noise (the smoke path of the reference's
         run_DDIMforward)."""
-        if generator is None:
-            generator = torch.Generator().manual_seed(self.cfg.seed)
-        s = self._sample_size
-        xT = torch.randn(num_samples, s, s, self.model.config.in_channels,
-                         generator=generator).to(self.device)
+        xT = self._draw_latents(num_samples, generator)
         with self._stage("ddim_forward", num_samples=num_samples):
             x0 = ddim_forward(self._eps_with(), xT, self.schedule, self.fwd_grid)
         if save_as:
@@ -227,9 +238,20 @@ class EditUncondDiffusion(DriverCommonMixin):
 
     @torch.no_grad()
     def forward_to_edit_t(self, xT: torch.Tensor) -> torch.Tensor:
-        with self._stage("ddim_forward_to_edit", steps=self.edit_t_idx):
-            return ddim_forward(self._eps_with(), xT, self.schedule, self.fwd_grid,
-                                start_idx=0, end_idx=self.edit_t_idx)
+        return self._forward_steps(xT, 0, self.edit_t_idx, "ddim_forward_to_edit")
+
+    @torch.no_grad()
+    def _forward_steps(self, x: torch.Tensor, start: int, end: int,
+                       event: str = "ddim_forward_steps") -> torch.Tensor:
+        """The forward grid's steps start … end − 1 from x (NHWC)."""
+        with self._stage(event, steps=end - start):
+            return ddim_forward(self._eps_with(), x, self.schedule, self.fwd_grid,
+                                start_idx=start, end_idx=end)
+
+    def _encode_nhwc(self, encode, t, tap: TapPoint):
+        """x → h at ``tap``, NHWC on both sides, through ``encode`` (one of
+        _pullback_models' encoders)."""
+        return lambda x: to_nhwc(encode(to_nchw(x), t, tap))
 
     def compute_local_basis(self, xt, t, tap: TapPoint, pca_rank: int
                             ) -> PullbackResult:
@@ -237,13 +259,14 @@ class EditUncondDiffusion(DriverCommonMixin):
         on the fused pair where ``_pullback_models`` gives it."""
         cfg = self.cfg
         enc, enc_vjp, tag = self._pullback_models()
-        nhwc = lambda e: e and (lambda z: to_nhwc(e(to_nchw(z), t, tap)))
         with self._stage("local_pullback", encoder=tag) as log:
             res = local_pullback(
-                nhwc(enc), xt, torch.Generator().manual_seed(cfg.seed),
+                self._encode_nhwc(enc, t, tap), xt,
+                torch.Generator().manual_seed(cfg.seed),
                 pca_rank=pca_rank, min_iter=cfg.pullback_min_iter,
                 max_iter=cfg.pullback_max_iter, atol=cfg.pullback_atol,
-                fn_vjp=nhwc(enc_vjp), chunk_size=cfg.pullback_chunk_size)
+                fn_vjp=enc_vjp and self._encode_nhwc(enc_vjp, t, tap),
+                chunk_size=cfg.pullback_chunk_size)
             log.update(iterations=res.iterations, final_delta=res.final_delta,
                        top_s=res.s[:3].float().cpu().numpy().round(4))
         return res
@@ -282,8 +305,7 @@ class EditUncondDiffusion(DriverCommonMixin):
         else:
             res = self.compute_local_basis(xt, t_edit, tap, pca_rank)
             u, s, vT = res.u.float(), res.s, res.vT
-            self.cache.save(name, u.cpu().numpy(), s.cpu().numpy(),
-                            vT.cpu().numpy())
+            self._save_basis(name, res)
         vT = vT / torch.linalg.norm(vT, dim=1, keepdim=True)
 
         shape = xt.shape[1:]
@@ -337,3 +359,211 @@ class EditUncondDiffusion(DriverCommonMixin):
         kw.pop("edit_prompt", None)
         kw.pop("edit_t", None)
         return self.run_edit_local_encoder_pullback_xt(*a, **kw)
+
+    def run_edit_local_pca_zt(self, *a, **kw):
+        kw.pop("edit_prompt", None)
+        return self.run_edit_local_pca_xt(*a, **kw)
+
+    def run_edit_global_pca_zt(self, *a, **kw):
+        kw.pop("edit_prompt", None)
+        return self.run_edit_global_pca_xt(*a, **kw)
+
+    # ---- analysis runs ----------------------------------------------------
+
+    def _vjp_encode(self, t, tap: TapPoint):
+        """x → h at ``tap`` (NHWC) for a reverse-mode pass (Jᵀu)."""
+        enc, enc_vjp, _ = self._pullback_models()
+        return self._encode_nhwc(enc_vjp or enc, t, tap)
+
+    def _edit_with_global_h_basis(self, idx, u_mean, op, block_idx, vis_num,
+                                  vis_num_pc, tag, xt=None):
+        """Map h-space directions (the columns of ``u_mean``, (dim_h, k),
+        NHWC-flattened) to x at the sample through Jᵀ, v = Jᵀu/‖Jᵀu‖, and
+        run the guidance edit. ``xt`` reuses a caller's inverted image."""
+        cfg = self.cfg
+        tap = TapPoint(op, block_idx)
+        if xt is None:
+            xt = self.forward_to_edit_t(self.run_ddim_inversion(idx))
+        enc = self._vjp_encode(self.fwd_grid.timesteps[self.edit_t_idx], tap)
+        shape = xt.shape[1:]
+        vks, names = [], []
+        with self._stage("inverse_jacobian", directions=vis_num_pc):
+            for pc in range(vis_num_pc):
+                v = pullback_covector(enc, xt, u_mean[:, pc])
+                v = v / torch.linalg.norm(v)
+                for sign, stag in ((1.0, "pos"), (-1.0, "neg")):
+                    vks.append(sign * v.reshape(shape))
+                    names.append(f"Edit_{tag}-{cfg.dataset_name}_{idx}-edit_{cfg.edit_t}T"
+                                 f"-{op}-block_{block_idx}-pc_{pc:03d}_{stag}")
+        return self._edit_along_directions(xt, vks, names, vis_num)
+
+    def run_edit_local_pca_xt(self, idx: int, op: str = "mid", block_idx: int = 0,
+                              pca_rank: int = 8, num_samples: int = 1024,
+                              sigma: float = 0.1, vis_num: int = 4, vis_num_pc: int = 2):
+        """Edit along local-PCA h-directions: the streaming PCA of the
+        encoder's h over ``num_samples`` perturbations σδ of the image at
+        the edit t (chunks of min(32, num_samples), seed cfg.seed), each
+        component mapped to x through Jᵀ, then the guidance edit."""
+        cfg = self.cfg
+        tap = TapPoint(op, block_idx)
+        xt = self.forward_to_edit_t(self.run_ddim_inversion(idx))
+        t_edit = self.fwd_grid.timesteps[self.edit_t_idx]
+        with self._stage("local_pca", num_samples=num_samples) as log:
+            pca = local_pca(self._encode_nhwc(self.model.encode, t_edit, tap), xt,
+                            cfg.seed, rank=pca_rank, num_samples=num_samples,
+                            chunk=min(32, num_samples), sigma=sigma)
+            log.update(top_var=pca.variances[:3].cpu().numpy().round(5))
+        to_x = self._vjp_encode(t_edit, tap)
+        shape = xt.shape[1:]
+        vks, names = [], []
+        for pc in range(vis_num_pc):
+            v = pca_to_x_direction(to_x, xt, pca.components[pc])
+            for sign, tag in ((1.0, "pos"), (-1.0, "neg")):
+                vks.append(sign * v.reshape(shape))
+                names.append(f"Edit_local_pca-{cfg.dataset_name}_{idx}-edit_{cfg.edit_t}T"
+                             f"-{op}-block_{block_idx}-pc_{pc:03d}_{tag}")
+        return self._edit_along_directions(xt, vks, names, vis_num)
+
+    def run_edit_global_pca_xt(self, idx: int, num_samples: int = 16, op: str = "mid",
+                               block_idx: int = 0, pca_rank: int = 2,
+                               vis_num: Optional[int] = None,
+                               vis_num_pc: Optional[int] = None,
+                               generator: Optional[torch.Generator] = None):
+        """Global-PCA edit: ``num_samples`` Gaussian images (from
+        ``generator``, by default one seeded with cfg.seed) forwarded to the
+        edit t as one batch, their tapped h PCA'd, and the top directions
+        mapped to x at the sample through Jᵀ for the guidance edit."""
+        cfg = self.cfg
+        vis_num = vis_num or cfg.vis_num
+        vis_num_pc = vis_num_pc or cfg.vis_num_pc
+        tap = TapPoint(op, block_idx)
+        t_edit = self.fwd_grid.timesteps[self.edit_t_idx]
+        with self._stage("global_pca_harvest", num_samples=num_samples) as log:
+            xt = self.forward_to_edit_t(self._draw_latents(num_samples, generator))
+            with torch.no_grad():
+                h = self._encode_nhwc(self.model.encode, t_edit, tap)(xt)
+            res = global_pca(h, rank=pca_rank)
+            log.update(top_var=res.variances[:3].cpu().numpy().round(4))
+        # components are unit h-directions: (k, dim_h) → (dim_h, k)
+        return self._edit_with_global_h_basis(
+            idx, res.components.T, op, block_idx, vis_num, vis_num_pc, "global_pca")
+
+    def _harvest_bases(self, sample_indices, op, block_idx, pca_rank):
+        """{idx: (u, s, vT)} of each sample's pullback basis at the edit t,
+        from the cache or computed and saved, one sample after another (the
+        JAX driver's device-mesh sweep is refused with the mesh)."""
+        cfg = self.cfg
+        tap = TapPoint(op, block_idx)
+        t_edit = self.fwd_grid.timesteps[self.edit_t_idx]
+        out = {}
+        for idx in sample_indices:
+            name = basis_name(cfg.dataset_name, idx, cfg.edit_t, op, block_idx,
+                              cfg.seed, pca_rank=pca_rank) + self._basis_name_extras(tap)
+            basis = self.cache.load(name)
+            if basis is None:
+                xt = self.forward_to_edit_t(self.run_ddim_inversion(idx))
+                res = self.compute_local_basis(xt, t_edit, tap, pca_rank)
+                self._save_basis(name, res)
+                basis = (res.u, res.s, res.vT)
+            out[idx] = tuple(torch.as_tensor(a).float().to(self.device) for a in basis)
+        return out
+
+    def _edit_with_mean_basis(self, mean_basis, tag, idx, basis_indices, op,
+                              block_idx, pca_rank, vis_num, vis_num_pc):
+        """The guidance edit of ``idx`` along the top vis_num_pc directions of
+        ``mean_basis`` over the samples' bases, columns normalised first."""
+        bases = self._harvest_bases(basis_indices, op, block_idx, pca_rank)
+        us = [u / torch.linalg.norm(u, dim=0, keepdim=True) for u, _, _ in bases.values()]
+        return self._edit_with_global_h_basis(
+            idx, mean_basis(us, rank=vis_num_pc), op, block_idx, vis_num, vis_num_pc, tag)
+
+    def run_edit_global_frechet_mean_xt(self, idx, basis_indices, op="mid", block_idx=0,
+                                        pca_rank=10, vis_num=4, vis_num_pc=2):
+        """Edit ``idx`` along the Fréchet (Grassmannian) mean of the
+        samples' h-space bases."""
+        return self._edit_with_mean_basis(frechet_mean_basis, "global_frechet", idx,
+                                          basis_indices, op, block_idx, pca_rank,
+                                          vis_num, vis_num_pc)
+
+    def run_edit_global_hungarian_mean_xt(self, idx, basis_indices, op="mid",
+                                          block_idx=0, pca_rank=10, vis_num=4,
+                                          vis_num_pc=2):
+        """Edit ``idx`` along the Hungarian-matched mean of the samples'
+        h-space bases (each direction keeps its identity)."""
+        return self._edit_with_mean_basis(hungarian_mean_basis, "global_hungarian", idx,
+                                          basis_indices, op, block_idx, pca_rank,
+                                          vis_num, vis_num_pc)
+
+    # ---- tangent-space harvests -------------------------------------------
+
+    def run_sample_encoder_local_tangent_space_xt_batched(
+        self,
+        idx: int,
+        op: str = "mid",
+        block_idx: int = 0,
+        pca_rank: int = 50,
+        t_grid: Optional[Tuple[float, ...]] = None,
+        sequential: Optional[bool] = None,
+        fix_xt: bool = False,
+        fix_t: bool = False,
+        after_res: bool = False,
+        after_sa: bool = False,
+    ):
+        """Harvest the bases of sample ``idx`` over a timestep grid (default
+        0.1 … 1.0 in tenths): one inversion, one walk down the forward
+        trajectory in t-index order (the image at grid index i is the input
+        of forward step i), a pullback at each grid point. Ablations:
+        ``fix_xt`` evaluates every basis at the first grid point's image
+        while t varies, ``fix_t`` pins the network's timestep to the first
+        grid point's while the image varies; each adds its name suffix.
+        Returns {t: basis file}. ``sequential`` is the JAX signature's: on
+        one device the JAX package too maps the per-t pullbacks in
+        sequence, and here they always run so."""
+        cfg = self.cfg
+        tap = self._make_tap(op, block_idx, after_res, after_sa)
+        t_grid = tuple(t_grid or np.linspace(0.1, 1.0, 10).round(2))
+        t_indices = [self._t_index(et) for et in t_grid]
+        suffix = (("-fix_xt" if fix_xt else "") + ("-fix_t" if fix_t else "")
+                  + self._basis_name_extras(tap))
+        names = [basis_name(cfg.dataset_name, idx, et, op, block_idx, cfg.seed,
+                            pca_rank=pca_rank) + suffix for et in t_grid]
+        if all(self.cache.load(n) is not None for n in names):
+            return {et: self.cache.path(n) for et, n in zip(t_grid, names)}
+
+        x, cur, images = self.run_ddim_inversion(idx), 0, {}
+        for ti in sorted(set(t_indices)):
+            if ti > cur:
+                x, cur = self._forward_steps(x, cur, ti), ti
+            images[ti] = x
+        out = {}
+        with self._stage("tangent_harvest", num_t=len(t_grid), pca_rank=pca_rank):
+            for et, ti, name in zip(t_grid, t_indices, names):
+                res = self.compute_local_basis(
+                    images[t_indices[0] if fix_xt else ti],
+                    self.fwd_grid.timesteps[t_indices[0] if fix_t else ti], tap, pca_rank)
+                out[et] = self._save_basis(name, res)
+        return out
+
+    def run_sample_encoder_local_tangent_space_xt(
+        self, idx: int, op: str = "mid", block_idx: int = 0, pca_rank: int = 50,
+        t_grid: Optional[Tuple[float, ...]] = None,
+    ):
+        """Harvest the bases of sample ``idx`` over a timestep grid point by
+        point: one inversion, then for each t missing from the cache the
+        forward from x_T to t and the pullback. Returns {t: basis file} of
+        the bases computed."""
+        cfg = self.cfg
+        tap = TapPoint(op, block_idx)
+        t_grid = tuple(t_grid or np.linspace(0.1, 1.0, 10).round(2))
+        xT = self.run_ddim_inversion(idx)
+        out = {}
+        for et in t_grid:
+            t_idx = self._t_index(et)
+            name = basis_name(cfg.dataset_name, idx, et, op, block_idx, cfg.seed,
+                              pca_rank=pca_rank) + self._basis_name_extras(tap)
+            if self.cache.load(name) is not None:
+                continue
+            res = self.compute_local_basis(self._forward_steps(xT, 0, t_idx),
+                                           self.fwd_grid.timesteps[t_idx], tap, pca_rank)
+            out[et] = self._save_basis(name, res)
+        return out

@@ -18,6 +18,11 @@ with the same flag names, experiment folders and basis folders.
         --model_name ImageNet256Uncond --performance_boosting_t 0.2 \\
         --classifier_scale 2.5 --sampling_timesteps ddim25 \\
         --run_edit_local_encoder_pullback_zt True
+    python -m diffusion_pullback_tpu_torch.main --note harvest \\
+        --run_sample_encoder_local_tangent_space_zt True
+    python -m diffusion_pullback_tpu_torch.main --note prompts --edit_t 0.5 \\
+        --num_local_basis 50 \\
+        --run_edit_local_encoder_pullback_zt_with_various_prompt True
 
 Runs on CUDA unless ``--device cpu`` is given. With no checkpoint in the
 repository, the models take seeded random weights (--seed), as the JAX CLI
@@ -43,6 +48,10 @@ X_SPACE_GUIDANCE_SCALE_DICT = {
     },
     "uncond": {1.0: 0.5, 0.8: 1, 0.6: 4, 0.4: 16, 0.2: 16},
 }
+
+
+# the t grid of --run_sample_encoder_local_tangent_space_zt: 1.0, 0.95, …, 0.05
+HARVEST_T_GRID = tuple(reversed([round(0.05 * i, 2) for i in range(1, 21)]))
 
 
 def str2bool(v):
@@ -150,6 +159,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--run_edit_text_driven_direction", type=str2bool,
                    default=False)
     p.add_argument("--run_ddim_forward", type=str2bool, default=False)
+    # the harvests and the PCA / mean-basis runs
+    p.add_argument("--run_edit_local_encoder_pullback_zt_with_various_prompt",
+                   type=str2bool, default=False,
+                   help="harvest one basis per prompt of the bundled captions "
+                        "(--num_local_basis of them, 5 when 0), then edit with each")
+    p.add_argument("--various_prompt_sample_idx", type=int, default=0,
+                   help="the prompt sweep's sample; 0 = --sample_idx")
+    p.add_argument("--num_local_basis", type=int, default=100,
+                   help="prompts of the prompt sweep, latents of global PCA, "
+                        "samples (at most 5) of the mean-basis edits")
+    p.add_argument("--run_edit_global_pca_zt", type=str2bool, default=False)
+    p.add_argument("--run_edit_local_pca_zt", type=str2bool, default=False)
+    p.add_argument("--run_sample_encoder_local_tangent_space_zt", type=str2bool,
+                   default=False,
+                   help="harvest pca_rank-50 bases over the 20-point t grid "
+                        "1.0, 0.95, …, 0.05")
+    p.add_argument("--fix_xt", type=str2bool, default=False,
+                   help="uncond t-grid harvest: every basis at the first grid "
+                        "point's image")
+    p.add_argument("--fix_t", type=str2bool, default=False,
+                   help="uncond t-grid harvest: every basis at the first grid "
+                        "point's timestep")
+    p.add_argument("--run_edit_global_frechet_mean_zt", type=str2bool, default=False,
+                   help="uncond: edit along the Frechet mean of the first "
+                        "min(num_local_basis, 5) samples' bases at pca_rank 10")
+    p.add_argument("--run_edit_global_hungarian_mean_zt", type=str2bool,
+                   default=False,
+                   help="uncond: as the Frechet run, with the Hungarian-matched "
+                        "mean")
     return p
 
 
@@ -410,15 +448,38 @@ def check_preset(args) -> None:
 def main(argv=None):
     args = parse_args(argv)
     check_preset(args)
-    sd = is_stable_diffusion(args)
-    build = build_sdxl if is_sdxl(args) else build_sd if sd else build_uncond
+    build = build_sdxl if is_sdxl(args) else (
+        build_sd if is_stable_diffusion(args) else build_uncond)
     edit = build(args)
+    dispatch(edit, args)
+    return edit
+
+
+def dispatch(edit, args) -> None:
+    """Run on ``edit`` (a driver the builders made from ``args``) every run
+    its flags ask for, in the JAX CLI's order and with its values."""
+    sd = is_stable_diffusion(args)
     if args.run_edit_local_encoder_pullback_zt:
         edit.run_edit_local_encoder_pullback_zt(
             idx=args.sample_idx, op=args.op, block_idx=args.block_idx,
             vis_num=4, vis_num_pc=2, pca_rank=args.pca_rank or 2,
             edit_prompt=args.edit_prompt or None,
             after_res=args.after_res, after_sa=args.after_sa)
+    if args.run_edit_local_encoder_pullback_zt_with_various_prompt:
+        from .utils.datasets import get_prompt_list
+
+        prompts = get_prompt_list(num_captions=args.num_local_basis or 5)
+        sweep_idx = args.various_prompt_sample_idx or args.sample_idx
+        if hasattr(edit, "run_sample_encoder_local_tangent_space_zt_various_prompt"):
+            # fills the basis cache of every prompt, so the edits below
+            # run no pullback
+            edit.run_sample_encoder_local_tangent_space_zt_various_prompt(
+                prompts, idx=sweep_idx, op=args.op, block_idx=args.block_idx,
+                pca_rank=args.pca_rank or 2)
+        for prompt in prompts:
+            edit.run_edit_local_encoder_pullback_zt(
+                idx=sweep_idx, op=args.op, block_idx=args.block_idx, vis_num=4,
+                vis_num_pc=2, pca_rank=args.pca_rank or 2, edit_prompt=prompt)
     if args.run_edit_local_decoder_pullback_zt or \
             args.run_edit_local_x0_decoder_pullback_zt:
         if not sd:
@@ -429,6 +490,34 @@ def main(argv=None):
             idx=args.sample_idx, op=args.op, block_idx=args.block_idx,
             pca_rank=args.pca_rank or 2,
             x0_pullback=bool(args.run_edit_local_x0_decoder_pullback_zt))
+    if args.run_edit_global_pca_zt:
+        edit.run_edit_global_pca_zt(
+            idx=args.sample_idx, op=args.op, block_idx=args.block_idx,
+            pca_rank=args.pca_rank or 2, num_samples=args.num_local_basis or 16)
+    if args.run_edit_local_pca_zt:
+        edit.run_edit_local_pca_zt(
+            idx=args.sample_idx, op=args.op, block_idx=args.block_idx,
+            pca_rank=max(args.pca_rank, 4), vis_num=4, vis_num_pc=2)
+    if args.run_sample_encoder_local_tangent_space_zt:
+        kwargs = dict(idx=args.sample_idx, op=args.op, block_idx=args.block_idx,
+                      pca_rank=50, t_grid=HARVEST_T_GRID, after_res=args.after_res,
+                      after_sa=args.after_sa)
+        if sd:
+            edit.run_sample_encoder_local_tangent_space_zt_batched(**kwargs)
+        else:
+            edit.run_sample_encoder_local_tangent_space_xt_batched(
+                fix_xt=args.fix_xt, fix_t=args.fix_t, **kwargs)
+    for flag, run in (("run_edit_global_frechet_mean_zt", "run_edit_global_frechet_mean_xt"),
+                      ("run_edit_global_hungarian_mean_zt",
+                       "run_edit_global_hungarian_mean_xt")):
+        if getattr(args, flag):
+            if not hasattr(edit, run):
+                raise SystemExit(f"--{flag} is only implemented for the "
+                                 "unconditional family")
+            getattr(edit, run)(
+                idx=args.sample_idx, basis_indices=list(range(min(args.num_local_basis, 5))),
+                op=args.op, block_idx=args.block_idx, pca_rank=10, vis_num=4,
+                vis_num_pc=2)
     if args.run_edit_text_driven_direction:
         if not sd:
             raise SystemExit(
@@ -440,7 +529,6 @@ def main(argv=None):
         fwd = edit.run_DDIMforward if sd else edit.run_ddim_forward
         fwd(num_samples=5, save_as=os.path.join(edit.cfg.result_folder,
                                                 "DDIMforward.png"))
-    return edit
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Datasets: numbered-image folders and seeded noise (counterpart of
-ImgDataset, NoiseDataset and get_dataset in
+"""Datasets: numbered-image folders, seeded noise and prompt lists
+(counterpart of ImgDataset, NoiseDataset, get_dataset and get_prompt_list in
 diffusion_pullback_tpu/utils/datasets.py). Items are (1, S, S, 3) float32
 NHWC arrays in [-1, 1]."""
 
@@ -81,3 +81,33 @@ def get_dataset(dataset_name: str, image_size: int,
     raise FileNotFoundError(
         f"dataset {dataset_name!r} not found (searched {candidates}); "
         "use dataset_name='noise' for offline runs or pass data_root")
+
+
+# the built-in caption bank (this package's copy of the JAX package's), the
+# last fallback of get_prompt_list
+_BUILTIN_CAPTIONS = [
+    "a photo of a dog", "a photo of a cat", "a person smiling",
+    "a red car on the street", "a mountain landscape at sunset",
+    "a bowl of fruit on a table", "a city skyline at night",
+    "a bird sitting on a branch", "a plate of pasta", "a child playing",
+]
+# the bundled 50 COCO-style captions, one per line
+_SHIPPED_PROMPT_FILE = os.path.join(_REPO, "inputs", "prompts_coco50.txt")
+
+
+def get_prompt_list(num_captions: int = 10, path: Optional[str] = None) -> List[str]:
+    """``num_captions`` prompts from a local captions file (one per line, or
+    a .json list), else the bundled inputs/prompts_coco50.txt, else the
+    built-in 10-caption bank; the list repeats to reach ``num_captions``."""
+    if not (path and os.path.exists(path)):
+        path = _SHIPPED_PROMPT_FILE if os.path.exists(_SHIPPED_PROMPT_FILE) else None
+    caps: List[str] = []
+    if path:
+        import json
+
+        with open(path) as f:
+            caps = json.load(f) if path.endswith(".json") else [
+                line.strip() for line in f if line.strip()]
+    caps = caps or _BUILTIN_CAPTIONS
+    reps = (num_captions + len(caps) - 1) // len(caps)
+    return (caps * reps)[:num_captions]

@@ -52,8 +52,9 @@ def _one_tf32_forward(q, k, v, scale):
 # B·H > 1, and B·H = 1 at the VAE's 4096 tokens; the U-Net's and the
 # VAE's calls of the SD driver's run_DDIMforward (5 samples); the SDXL
 # U-Net's self-attentions at batch 1 (10 heads at 4096 tokens, 20 at 1024);
-# and the ADM-256 U-Net's 8 heads at 1024 tokens at batch 1, 2 (guided
-# run_ddim_forward), 4 (walk) and 6 (finish)
+# the ADM-256 U-Net's 8 heads at 1024 tokens at batch 1, 2 (guided
+# run_ddim_forward), 4 (walk) and 6 (finish); and the SD U-Net's 10 heads
+# at 1024 tokens over global PCA's 16 latents
 @pytest.mark.parametrize("shape", [
     (3, 1000, 1000, 64), (2, 700, 700, 512), (10, 1024, 1024, 64),
     (3, 1000, 700, 64), (2, 700, 1000, 64), (1, 50, 700, 64),
@@ -62,7 +63,7 @@ def _one_tf32_forward(q, k, v, scale):
     (3, 250, 250, 512), (1, 4096, 4096, 512), (25, 4096, 4096, 64),
     (50, 1024, 1024, 64), (5, 4096, 4096, 512), (10, 4096, 4096, 64),
     (20, 1024, 1024, 64), (8, 1024, 1024, 64), (16, 1024, 1024, 64),
-    (32, 1024, 1024, 64), (48, 1024, 1024, 64)])
+    (32, 1024, 1024, 64), (48, 1024, 1024, 64), (160, 1024, 1024, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     """K1 (and K2 at D=64) against their plain versions, one launch each,
@@ -137,12 +138,14 @@ def _tol(ref, dtype):
 # heads would read the next head's rows there); two probes as the main
 # path, and three (tangent slice b reads primal slice b % B·H); the CFG
 # pullback's 2·B primal with two probes, the covector VJPs' one cotangent
-# (r = 1) at the U-Net's shapes, and the ADM-256 encoder's 8 heads at 1024
-# tokens with two probes
+# (r = 1) at the U-Net's shapes, the ADM-256 encoder's 8 heads at 1024
+# tokens with two probes and with the mean-basis harvest's ten, and the SD
+# harvest's rank-50 pullback at 1024 tokens (B·H 500)
 @pytest.mark.parametrize("shape", [
     (3, 1000, 1000, 2), (3, 1000, 700, 2), (3, 700, 1000, 2), (1, 50, 700, 2),
     (4, 200, 130, 2), (3, 1000, 700, 3), (10, 4096, 4096, 2), (20, 1024, 1024, 2),
-    (5, 4096, 4096, 1), (10, 1024, 1024, 1), (8, 1024, 1024, 2)])
+    (5, 4096, 4096, 1), (10, 1024, 1024, 1), (8, 1024, 1024, 2), (8, 1024, 1024, 10),
+    (10, 1024, 1024, 50)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
     """K2–K5 against their plain versions, one launch each, with the

@@ -229,3 +229,156 @@ def adm_driver_pair(root, cfg: dict, jax_attn: str = "xla", port_attn: str = "fl
         texp.UncondExperimentConfig(**cfg, **folders("port")),
         logger=JSONLLogger(path=None, echo=False), device="cpu")
     return jdrv, tdrv
+
+
+def sd_same_start(monkeypatch, jdrv, tdrv, zT: np.ndarray, rank: int, seed: int = 41):
+    """Hand an SD-family driver pair the same z_T (their inversions
+    replaced) and the same orthonormal probes (v_init into every pullback
+    either driver runs: the JAX compute_local_basis and fused sweeps, the
+    port's local_encoder_pullback)."""
+    import jax.numpy as jnp
+
+    from diffusion_pullback_tpu.experiments import edit_sd as jedit_sd
+    from diffusion_pullback_tpu.experiments import sd_harvest as jsd_harvest
+    from diffusion_pullback_tpu_torch.experiments import edit_sd as tedit_sd
+
+    v_init = np.linalg.qr(np.random.default_rng(seed).normal(
+        size=(zT.size, rank)))[0].T.astype(np.float32)
+    monkeypatch.setattr(jdrv, "run_DDIMinversion", lambda idx: jnp.asarray(zT))
+    monkeypatch.setattr(tdrv, "run_DDIMinversion", lambda idx: torch.from_numpy(zT))
+    for mod, name, cast in ((jedit_sd, "local_pullback", jnp.asarray),
+                            (jsd_harvest, "local_pullback", jnp.asarray),
+                            (tedit_sd, "local_encoder_pullback", torch.from_numpy)):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _c=cast, **kw: _r(
+            *a, **{**kw, "v_init": _c(v_init)}))
+
+
+def basis_stem(path: str) -> str:
+    """A basis file's name without folder and extension (.npz or .dpb)."""
+    import os
+
+    return os.path.splitext(os.path.basename(path))[0]
+
+
+def same_basis_files(a: str, b: str, cos_min: float = 0.99, sigma_rtol: float = 1e-3):
+    """Two basis files (the port's .npz, the JAX package's .dpb or .npz)
+    within σ rtol ``sigma_rtol`` and cosine ≥ ``cos_min`` per σ-gap group."""
+    import os
+
+    from diffusion_pullback_tpu_torch.experiments.cache import BasisCache
+    from diffusion_pullback_tpu_torch.geometry import compare_bases, passes_acceptance
+
+    (_, s_a, vT_a), (_, s_b, vT_b) = (
+        BasisCache(os.path.dirname(p)).load(basis_stem(p)) for p in (a, b))
+    cmp = compare_bases(vT_a, s_a, vT_b, s_b)
+    assert passes_acceptance(cmp, cos_min=cos_min, sigma_rtol=sigma_rtol), cmp
+
+
+def ddpm_driver_pair(root, cfg: dict, size: int = 16):
+    """(JAX EditUncondDiffusion, the port's) on ddpm_tiny(``size``) with
+    shared f32 weights carried by load_flax_params, four seeded noise
+    images, the linear schedule, ``cfg`` as both drivers' config fields,
+    folders under ``root``."""
+    import jax.numpy as jnp
+
+    from diffusion_pullback_tpu import experiments as jexp
+    from diffusion_pullback_tpu import models as jmodels
+    from diffusion_pullback_tpu.ops import DiffusionSchedule as JSchedule
+    from diffusion_pullback_tpu.utils.datasets import NoiseDataset as JNoise
+    from diffusion_pullback_tpu.utils.logging import JSONLLogger as JLogger
+    from diffusion_pullback_tpu_torch import experiments as texp
+    from diffusion_pullback_tpu_torch import models as tmodels
+    from diffusion_pullback_tpu_torch.ops.schedule import DiffusionSchedule
+    from diffusion_pullback_tpu_torch.utils.datasets import NoiseDataset
+    from diffusion_pullback_tpu_torch.utils.logging import JSONLLogger
+
+    jm = jmodels.UNet2D(jmodels.ddpm_tiny(size))
+    params = flax_params(jm, jnp.zeros((1, size, size, 3)), jnp.float32(0.0), seed=6)
+    tm = tmodels.load_flax_params(tmodels.UNet2D(tmodels.ddpm_tiny(size)), params)
+    folders = lambda tag: dict(result_folder=str(root / tag / "runs"),
+                               basis_folder=str(root / tag / "in"))
+    jdrv = jexp.EditUncondDiffusion(
+        jm, params, JSchedule.linear(), JNoise(size, n=4),
+        jexp.UncondExperimentConfig(**cfg, **folders("jax"),
+                                    obs_folder=str(root / "jax" / "obs")),
+        logger=JLogger(path=None, echo=False))
+    tdrv = texp.EditUncondDiffusion(
+        tm, DiffusionSchedule.linear(), NoiseDataset(size, n=4),
+        texp.UncondExperimentConfig(**cfg, **folders("port")),
+        logger=JSONLLogger(path=None, echo=False), device="cpu")
+    return jdrv, tdrv
+
+
+def uncond_same_start(monkeypatch, jdrv, tdrv, rank: int, seed: int = 60):
+    """Hand an uncond driver pair the same x_T for each sample idx (drawn
+    from seed + idx; their inversions replaced) and the same orthonormal
+    probes (v_init into every pullback either driver runs). Returns the
+    x_T of an idx as a numpy array."""
+    import jax.numpy as jnp
+
+    from diffusion_pullback_tpu.experiments import edit_uncond as jedit_uncond
+    from diffusion_pullback_tpu_torch.experiments import edit_uncond as tedit_uncond
+
+    size = tdrv._sample_size
+    shape = (1, size, size, tdrv.model.config.in_channels)
+    xT = lambda idx: np.random.default_rng(seed + idx).normal(size=shape).astype(np.float32)
+    monkeypatch.setattr(jdrv, "run_ddim_inversion", lambda idx: jnp.asarray(xT(idx)))
+    monkeypatch.setattr(tdrv, "run_ddim_inversion", lambda idx: torch.from_numpy(xT(idx)))
+    v_init = np.linalg.qr(np.random.default_rng(seed - 1).normal(
+        size=(int(np.prod(shape)), rank)))[0].T.astype(np.float32)
+    for mod, cast in ((jedit_uncond, jnp.asarray), (tedit_uncond, torch.from_numpy)):
+        real = mod.local_pullback
+        monkeypatch.setattr(mod, "local_pullback", lambda *a, _r=real, _c=cast, **kw: _r(
+            *a, **{**kw, "v_init": _c(v_init)}))
+    return xT
+
+
+def record_edits(monkeypatch, jdrv, tdrv):
+    """{'jax' | 'port': (directions flattened, names)} of what each
+    driver hands its edit tail, which is replaced by the recorder."""
+    got = {}
+    for key, drv in (("jax", jdrv), ("port", tdrv)):
+        def record(zt, vks, names, vis_num, _k=key):
+            got[_k] = ([np.asarray(v, np.float64).reshape(-1) for v in vks], list(names))
+            return names
+        monkeypatch.setattr(drv, "_edit_along_directions", record)
+    return got
+
+
+def same_directions(got, tol: float = 0.999):
+    """record_edits' two records: the same names, each direction within
+    |cos| ≥ tol of the JAX one. A principal or mean direction is defined
+    up to its sign (the two packages' solvers may pick either), and each
+    is walked both ways, so a flip only swaps a ± pair."""
+    (jv, jn), (tv, tn) = got["jax"], got["port"]
+    assert tn == jn and len(tv) == len(jv) > 0
+    for a, b, n in zip(tv, jv, tn):
+        cos = float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+        assert abs(cos) >= tol, (n, cos)
+
+
+def inject_jax_draws(monkeypatch, module, rank: int, seed: int = 0, oversample: int = 8):
+    """Make ``module``'s local_pca take the JAX local_pca's own draws for
+    every chunk i (δ from fold_in(key, i), Ω from
+    fold_in(fold_in(key, 0x0FF5E7), i), key = jax.random.key(seed))
+    through its ``draw`` argument."""
+    import jax
+    import jax.numpy as jnp
+
+    real = module.local_pca
+    key = jax.random.key(seed)
+
+    def with_jax_draws(fn, x, _seed, **kw):
+        chunk = kw["chunk"]
+
+        def draw(i):
+            delta = jax.random.normal(jax.random.fold_in(key, i),
+                                      (chunk,) + tuple(x.shape[1:]), jnp.float32)
+            omega = jax.random.normal(
+                jax.random.fold_in(jax.random.fold_in(key, 0x0FF5E7), i),
+                (chunk, rank + oversample), jnp.float32)
+            return torch.from_numpy(np.array(delta)), torch.from_numpy(np.array(omega))
+        return real(fn, x, _seed, draw=draw, **kw)
+
+    monkeypatch.setattr(module, "local_pca", with_jax_draws)
