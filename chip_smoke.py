@@ -87,13 +87,26 @@ Phases (any failure exits non-zero before the last line is printed):
                the seconds per basis; the CLI's prompt sweep over 3 bundled
                prompts and its edit loop, which must read every basis from
                the cache; local PCA of 32 perturbations in chunks of 16 and
-               global PCA of 16 latents (K1 at 16 latents' B·H); then the
-               CLI's Fréchet-mean edit on ADM-256 over two samples'
+               the CLI's global PCA of 100 latents (K1 at their B·H); the
+               rank-50 pullback on the pair against the math path in f32;
+               then the CLI's Fréchet-mean edit on ADM-256 over two samples'
                pca_rank-10 bases; each run's launches by shape held to the
-               count the code gives.
-Phases 1–2 hold every (kernel, shape) that phases 4 and 6–9 launch.
+               count the code gives;
+ 10. uncond  — the rest of the uncond edit runs on ADM-256 at full width
+     runs      through the CLI (bf16, weights drawn on the card, the fused
+               pair, 10/10 steps, edit t 0.5, one power iteration per
+               pullback): h-space guidance at pca_rank 2, the decoder-
+               pullback edit and that pullback on the pair against the math
+               path in f32 and bf16, parallel transport at pca_rank 50 (K3–
+               K5 at B·H 400 over 1024 tokens), run_ddim_forward(5) with the
+               power spectra of its trajectories and the inversion, each
+               with its launches by shape held to the count the code gives;
+               then a checkpoint round trip at full width (CelebA-HQ-256's
+               U-Net and adm_classifier(256) through torch.save,
+               --checkpoint_path and --classifier_path, bit for bit).
+Phases 1–2 hold every (kernel, shape) that phases 4 and 6–10 launch.
 Then a JSON line of the kernels (one entry per kernel and design over
-phases 4 and 6–9, at the shape that carries most of that design's device
+phases 4 and 6–10, at the shape that carries most of that design's device
 time there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
@@ -191,6 +204,9 @@ PAIR_CASES += [(*shape, HARVEST_RANK, (F32, BF16), ("K3", "K4", "K5"))
                for shape in PAIR_SHAPES]
 PAIR_CASES += [(8, 1024, 64, MEAN_RANK, (BF16,), ("K3", "K4", "K5")),
                (8, 1024, 64, 1, (BF16,), ("K4", "K5"))]
+# phase 10: parallel transport's two rank-50 pullbacks on ADM-256 (K3–K5 at
+# B·H 400 over 1024 tokens; the decoder pullback's are the rank-2 cases')
+PAIR_CASES += [(8, 1024, 64, HARVEST_RANK, (BF16,), ("K3", "K4", "K5"))]
 # C symbol → (label, wrapper, source in ops/csrc by design, line of the
 # Pallas call it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
 KERNELS = {
@@ -1234,6 +1250,35 @@ def stage_peaks(edit):
         del edit._stage
 
 
+def named(events, name):
+    return [e for e in events if e["event"] == name]
+
+
+def checked_run(fa, prefix, tag, drv, fn, expected_fn, checks, paths):
+    """Drive one run of the driver ``drv`` with each stage's peak memory;
+    hold its launches by shape to expected_fn(expected, the run's events)
+    under checks[f"({tag}) launches by shape"] and append its path dict to
+    ``paths``. Returns (fn's result, its events, stage peaks, seconds)."""
+    start = len(read_events(drv))
+    with stage_peaks(drv) as peaks:
+        res, seconds, peak, launches, path = drive(fa, fn)
+    events = read_events(drv, start)
+    for e in events:
+        if "seconds" in e:
+            extra = {k: v for k, v in e.items() if k not in ("ts", "event", "seconds")}
+            log(f"[{prefix} {tag}] stage {e['event']}: {e['seconds']:.3f} s, peak "
+                f"memory {max(peaks[e['event']]):.2f} GB {extra}")
+    expected = collections.Counter()
+    expected_fn(expected, events)
+    checks[f"({tag}) launches by shape"] = check_launches(
+        f"{prefix} {tag}", launches, path, expected)
+    log(f"[{prefix}] ({tag}) {seconds:.2f} s, peak memory "
+        f"{max([peak] + [g for v in peaks.values() for g in v]):.2f} GB, launches "
+        + ", ".join(f"{KERNELS[k][0]} {n}" for k, n in launches.items()))
+    paths.append(path)
+    return res, events, peaks, seconds
+
+
 def phase_sdxl(fa):
     """Phase 7: the SDXL-1024 edit path at full width through the CLI's
     builder (sdxl_base_unet in bf16, both text towers and the 1024 px VAE in
@@ -1752,29 +1797,7 @@ def phase_harvest(fa):
     paths, checks = [], {}
 
     def run(tag, drv, fn, expected_fn):
-        """Drive one run with each stage's peak memory; check its launches
-        by shape. Returns (fn's result, its events, stage peaks, seconds)."""
-        start = len(read_events(drv))
-        with stage_peaks(drv) as peaks:
-            res, seconds, peak, launches, path = drive(fa, fn)
-        events = read_events(drv, start)
-        for e in events:
-            if "seconds" in e:
-                extra = {k: v for k, v in e.items() if k not in ("ts", "event", "seconds")}
-                log(f"[harvest {tag}] stage {e['event']}: {e['seconds']:.3f} s, peak "
-                    f"memory {max(peaks[e['event']]):.2f} GB {extra}")
-        expected = collections.Counter()
-        expected_fn(expected, events)
-        checks[f"({tag}) launches by shape"] = check_launches(
-            f"harvest {tag}", launches, path, expected)
-        log(f"[harvest] ({tag}) {seconds:.2f} s, peak memory "
-            f"{max([peak] + [g for v in peaks.values() for g in v]):.2f} GB, launches "
-            + ", ".join(f"{KERNELS[k][0]} {n}" for k, n in launches.items()))
-        paths.append(path)
-        return res, events, peaks, seconds
-
-    def named(events, name):
-        return [e for e in events if e["event"] == name]
+        return checked_run(fa, "harvest", tag, drv, fn, expected_fn, checks, paths)
 
     def pngs(names, size=512, frames=3):
         return len(names) > 0 and all(
@@ -1959,6 +1982,249 @@ def phase_harvest(fa):
     return paths
 
 
+# guided-diffusion keeps these attention projections as conv_nd(1, …): (out, in, 1)
+CONV1D_PROJECTIONS = ("qkv", "proj_out", "qkv_proj", "c_proj")
+
+
+def phase_uncond_runs(fa):
+    """Phase 10: the rest of the uncond edit runs on ADM-256 at full width
+    through the CLI (build_uncond, main.dispatch): ImageNet256Uncond in bf16
+    with weights drawn on the card, --attn_impl flash, the fused-pair
+    pullbacks, the bundled example images at 256 px, 10/10 steps, edit t
+    0.5, 2 walk steps, one power iteration per pullback. (a) h-space
+    guidance at pca_rank 2; (b) the decoder-pullback edit, then the decoder
+    pullback on the pair against the math path in f32 and bf16; (c)
+    parallel transport at pca_rank 50 (two rank-50 pullbacks, unchunked),
+    each pullback's seconds and peak memory; (d) run_ddim_forward(5) with
+    --vis_psd (the radial power spectra of its x_t and ε_t trajectories;
+    plotted only where matplotlib is installed) and --run_ddim_inversion;
+    (e) a checkpoint round trip at full width: CelebA-HQ-256's U-Net and
+    adm_classifier(256) (its attention projections stored as
+    guided-diffusion's 1-D convs) saved with torch.save and loaded back
+    through --checkpoint_path / --classifier_path, ε and logits equal to
+    the in-memory models' bit for bit. Each run's K1–K5 launches by shape
+    are held to the count the code gives. Returns the path dicts of
+    (a)–(d)."""
+    import importlib.util
+
+    import numpy as np
+    from PIL import Image
+
+    from diffusion_pullback_tpu_torch import main as port_main
+    from diffusion_pullback_tpu_torch.experiments import BasisCache
+    from diffusion_pullback_tpu_torch.experiments import vis as port_vis
+    from diffusion_pullback_tpu_torch.models import (
+        EncoderUNetADM, TapPoint, adm_classifier, model_for_name, random_init_)
+
+    out = os.path.join(OUT, "uncond_runs")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    flags = ["--note", "chip_smoke", "--model_name", "ImageNet256Uncond",
+             "--result_folder", out, "--dataset_name", "Examples", "--for_steps", "10",
+             "--inv_steps", "10", "--edit_t", "0.5", "--performance_boosting_t", "0.2",
+             "--x_space_guidance_num_step", "2"]
+    cli = lambda *more: port_main.parse_args(flags + list(more))
+    t0 = time.perf_counter()
+    edit = port_main.build_uncond(cli())
+    torch.cuda.synchronize()
+    cfg, model = edit.cfg, edit.model
+    cfg.pullback_max_iter = 1
+    cfg.basis_folder = os.path.join(out, "inputs")
+    edit.cache = BasisCache(cfg.basis_folder)
+    dtype = next(model.parameters()).dtype
+    log(f"[uncond10] built the ImageNet256Uncond driver in {time.perf_counter() - t0:.1f} "
+        f"s (drawn on the card; {dtype}, attn {model.config.attn_impl}, pullback attn "
+        f"{cfg.pullback_attn_impl}, edit t index {edit.edit_t_idx}, "
+        f"{cfg.pullback_max_iter} power iteration per pullback)")
+    paths, checks = [], {}
+    run = lambda tag, fn, expected_fn: checked_run(fa, "uncond10", tag, edit, fn,
+                                                   expected_fn, checks, paths)
+    to_t = (cfg.inv_steps - 2) + edit.edit_t_idx        # inversion + forward to t
+    finish = edit.fwd_grid.num_steps - edit.edit_t_idx
+    # the mid-tap encoder reaches 2 of ADM-256's 1024-token self-attentions,
+    # the decode from the tap the other 3
+    encoder, decoder = dict(at_4096=0, at_1024=2, heads=(8, 8)), dict(
+        at_4096=0, at_1024=3, heads=(8, 8))
+
+    def walk_and_finish(expected, n_dir=4, frames=3):
+        unet_k1(expected, 2 * n_dir, cfg.x_space_guidance_num_step, dtype, **ADM_UNET)
+        unet_k1(expected, n_dir * frames, finish, dtype, **ADM_UNET)
+
+    def pngs(prefix, n=4):
+        names = sorted(f for f in os.listdir(cfg.result_folder) if f.startswith(prefix))
+        return len(names) == n and all(
+            Image.open(os.path.join(cfg.result_folder, f)).size == (256 * 3, 256)
+            for f in names)
+
+    # (a) h-space guidance: per micro-step the encoder at the 4 directions'
+    # rows, the decode of the 8 [h; h + δ·û] rows; then the finish
+    def exp_a(expected, events):
+        unet_k1(expected, 1, to_t, dtype, **ADM_UNET)
+        for e in named(events, "local_pullback"):
+            pair_k2_k5(expected, dtype, e["iterations"], layers=2, shapes=ADM_PAIR)
+        unet_k1(expected, 4, cfg.x_space_guidance_num_step, dtype, **encoder)
+        unet_k1(expected, 8, cfg.x_space_guidance_num_step, dtype, **decoder)
+        unet_k1(expected, 4 * 3, finish, dtype, **ADM_UNET)
+
+    _, events, _, _ = run("a", lambda: port_main.dispatch(edit, cli(
+        "--run_edit_h_space_guidance", "True", "--pca_rank", str(PCA_RANK))), exp_a)
+    checks["(a) 4 h-space PNGs of 3 frames, finite"] = pngs(
+        "Edit_h_space-Examples_0-edit_0.5T-mid-block_0-scale_0.1-pc_") and all(
+        e["finite"] for e in named(events, "h_space_guidance_edit"))
+
+    # (b) the decoder-pullback edit: the state from one pass to the tap, the
+    # pullback through the decode on the pair, one Jᵀu per direction pair
+    def exp_b(expected, events):
+        unet_k1(expected, 1, to_t, dtype, **ADM_UNET)
+        unet_k1(expected, 1, 1, dtype, **encoder)
+        for e in named(events, "local_decoder_pullback"):
+            pair_k2_k5(expected, dtype, e["iterations"], layers=3, shapes=ADM_PAIR)
+        covector_k2_k5(expected, dtype, 2, shapes=ADM_PAIR)
+        walk_and_finish(expected)
+
+    _, events, _, _ = run("b", lambda: port_main.dispatch(edit, cli(
+        "--run_edit_local_decoder_pullback_zt", "True")), exp_b)
+    dec = named(events, "local_decoder_pullback")
+    checks["(b) decoder pullback on the pair, 4 PNGs, finite"] = (
+        [e["decoder"] for e in dec] == ["flashpair"] and pngs("Edit_local_dec-")
+        and all(e["finite"] for e in named(events, "finish_and_save")))
+    # the same pullback on the pair and on the math path from the same
+    # probes, 3 iterations, f32 then bf16 (the same bf16-valued weights)
+    cfg.pullback_min_iter = cfg.pullback_max_iter = 3
+    cfg.pullback_atol = 0.0
+    xb = torch.as_tensor(edit.dataset[0]).cuda()
+    t_edit = edit.fwd_grid.timesteps[edit.edit_t_idx]
+    ref = None
+    for dt in (torch.float32, torch.bfloat16):
+        model.to(dt)
+        res = {}
+        for impl in ("flash", "xla"):
+            cfg.pullback_attn_impl = impl
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[impl] = edit.compute_local_decoder_basis(xb, t_edit, TapPoint("mid"),
+                                                         PCA_RANK)
+            torch.cuda.synchronize()
+            log(f"[uncond10] decoder pullback {str(dt)[6:]} {impl}: "
+                f"{time.perf_counter() - t0:.3f} s")
+        if dt == torch.float32:
+            ref = pair_vs_math("decoder f32", res, phase="uncond10")
+        else:
+            pair_vs_math("decoder bf16", res, ref, phase="uncond10")
+    cfg.pullback_attn_impl, cfg.pullback_min_iter, cfg.pullback_max_iter = "flash", 10, 1
+    del res, ref
+    torch.cuda.empty_cache()
+
+    # (c) parallel transport at the CLI's pca_rank 50: samples 0 and 1
+    # inverted, each one's rank-50 basis (K3–K5 at B·H 400), the edit of 1
+    def exp_c(expected, events):
+        for _ in range(2):
+            unet_k1(expected, 1, to_t, dtype, **ADM_UNET)
+        for e in named(events, "local_pullback"):
+            pair_k2_k5(expected, dtype, e["iterations"], layers=2, shapes=ADM_PAIR,
+                       rank=HARVEST_RANK)
+        walk_and_finish(expected)
+
+    _, events, peaks, seconds = run("c", lambda: port_main.dispatch(edit, cli(
+        "--run_edit_parallel_transport", "True", "--sample_idx_0", "0",
+        "--sample_idx_1", "1")), exp_c)
+    pulls = named(events, "local_pullback")
+    for i, (e, gb) in enumerate(zip(pulls, peaks["local_pullback"])):
+        log(f"[uncond10] (c) rank-{HARVEST_RANK} pullback of sample {i} (unchunked, "
+            f"{e['iterations']} power iteration): {e['seconds']:.3f} s, peak memory "
+            f"{gb:.2f} GB, top sigma {e['top_s']}")
+    bases = [BasisCache(cfg.basis_folder).load(
+        f"local_basis-Examples_{i}-0.5T-mid-block_0-seed_0-pca_rank_{HARVEST_RANK}")
+        for i in (0, 1)]
+    checks["(c) two rank-50 bases through the pair, 4 transport PNGs"] = (
+        len(pulls) == 2 and all(e["encoder"] == "flashpair" for e in pulls)
+        and all(b is not None and b[0].shape == (8 * 8 * 1024, HARVEST_RANK)
+                and b[2].shape == (HARVEST_RANK, 256 * 256 * 3)
+                and all(np.isfinite(a).all() for a in b) for b in bases)
+        and pngs("Edit_transport-Examples_0to1-"))
+
+    # (d) run_ddim_forward(5) with the trajectories' power spectra (plotted
+    # where matplotlib is installed), then the inversion of sample 0
+    curves = []
+    plot = importlib.util.find_spec("matplotlib") is not None
+    real_psd = port_vis.vis_power_spectral_density
+
+    def psd(traj, path, **kw):
+        curves.append(port_vis.psd_curves(traj, **kw))
+        return real_psd(traj, path, **kw) if plot else curves[-1]
+
+    def exp_d(expected, events):
+        unet_k1(expected, 5, edit.fwd_grid.num_steps, dtype, **ADM_UNET)
+        unet_k1(expected, 1, cfg.inv_steps - 2, dtype, **ADM_UNET)
+
+    port_vis.vis_power_spectral_density = psd
+    try:
+        run("d", lambda: port_main.dispatch(edit, cli(
+            "--run_ddim_forward", "True", "--vis_psd", "True",
+            "--run_ddim_inversion", "True")), exp_d)
+    finally:
+        port_vis.vis_power_spectral_density = real_psd
+    log(f"[uncond10] (d) radial PSD of x_t and eps_t: shapes "
+        f"{[c.shape for c in curves]}, matplotlib {'present' if plot else 'absent'}"
+        + ("" if plot else ": the plot call was replaced by psd_curves in this run; "
+           "the CLI's own --vis_psd raises ModuleNotFoundError after the forward "
+           "pass here, as the JAX CLI does"))
+    checks["(d) PSD curves (steps, 64), finite, positive"] = len(curves) == 2 and all(
+        c.shape == (edit.fwd_grid.num_steps, 64) and np.isfinite(c).all()
+        and (c > 0).all() for c in curves) and (not plot or {"xt_psd.png", "et_psd.png"}
+                                                <= set(os.listdir(cfg.obs_folder)))
+    checks["(d) DDIMforward.png of 5 samples"] = Image.open(os.path.join(
+        cfg.result_folder, "DDIMforward.png")).size == (256 * 5, 256)
+    del edit, model
+    torch.cuda.empty_cache()
+
+    # (e) the checkpoint round trip at full width
+    ckpt = os.path.join(out, "checkpoints")
+    os.makedirs(ckpt)
+    with torch.device("cuda"):
+        unet = random_init_(model_for_name("CelebA_HQ_HF"), 21).eval().requires_grad_(False)
+        clf = random_init_(EncoderUNetADM(adm_classifier(256)), 22).eval().requires_grad_(False)
+    t0 = time.perf_counter()
+    torch.save(unet.state_dict(), os.path.join(ckpt, "celebahq.pt"))
+    torch.save({k: v[:, :, None] if k.rsplit(".", 2)[-2] in CONV1D_PROJECTIONS
+                and v.ndim == 2 else v for k, v in clf.state_dict().items()},
+               os.path.join(ckpt, "classifier.pt"))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = port_main.build_uncond(port_main.parse_args([
+        "--note", "chip_smoke", "--model_name", "CelebA_HQ_HF", "--result_folder",
+        os.path.join(out, "ckpt"), "--dataset_name", "Examples",
+        "--performance_boosting_t", "0.2", "--classifier_scale", "1",
+        "--checkpoint_path", os.path.join(ckpt, "celebahq.pt"),
+        "--classifier_path", os.path.join(ckpt, "classifier.pt")]))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_unet = sum(p.numel() for p in unet.parameters())
+    n_clf = sum(p.numel() for p in clf.parameters())
+    sizes = {f: os.path.getsize(os.path.join(ckpt, f)) / 1e6 for f in os.listdir(ckpt)}
+    x = torch.randn(2, 3, 256, 256, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(23))
+    unet.to(next(loaded.model.parameters()).dtype)
+    with torch.no_grad():
+        eps_equal = torch.equal(loaded.model(x, 500.0), unet(x, 500.0))
+        logits_equal = torch.equal(loaded.classifier(x, 500.0), clf(x, 500.0))
+    log(f"[uncond10] (e) saved {n_unet} U-Net and {n_clf} classifier parameters in "
+        f"{save_s:.2f} s ({ {f: round(mb, 1) for f, mb in sizes.items()} } MB), built "
+        f"the driver from them in {load_s:.2f} s; eps equal bit for bit: {eps_equal}, "
+        f"logits equal bit for bit: {logits_equal}")
+    checks["(e) CelebA-HQ-256 U-Net and ADM-256 classifier round trip, bit for bit"] = (
+        eps_equal and logits_equal and n_unet == 113_673_219)
+    del unet, clf, loaded
+    shutil.rmtree(ckpt)
+    torch.cuda.empty_cache()
+
+    for what, ok in checks.items():
+        log(f"[uncond10] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("phase 10 checks failed")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -2012,6 +2278,8 @@ def main():
     lap("phase 8")
     paths += phase_harvest(fa)
     lap("phase 9")
+    paths += phase_uncond_runs(fa)
+    lap("phase 10")
 
     # every (kernel, shape, dtype) the main paths launched was held against
     # its plain version in phases 1–2
@@ -2023,7 +2291,7 @@ def main():
                              f"did not hold against their plain versions: {missing}")
 
     # launches and summed device time of each (kernel, shape) over the main
-    # paths of phases 4 and 6–9
+    # paths of phases 4 and 6–10
     merged = collections.defaultdict(lambda: [0, 0.0])
     for path in paths:
         for key, (n, ms) in path.items():
@@ -2031,10 +2299,10 @@ def main():
             merged[key][1] += ms
     for (sym, shape, dtype), (n, ms) in sorted(merged.items(), key=lambda kv: -kv[1][1]):
         log(f"[paths] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches, "
-            f"{ms:.3f} ms on the device over phases 4 and 6–9")
-    log(f"[smoke] phases 1–9 in {time.perf_counter() - t_start:.1f} s")
+            f"{ms:.3f} ms on the device over phases 4 and 6–10")
+    log(f"[smoke] phases 1–10 in {time.perf_counter() - t_start:.1f} s")
 
-    # one entry per kernel and design on the main paths (phases 4, 6–9):
+    # one entry per kernel and design on the main paths (phases 4, 6–10):
     # their launches and summed device time there (path_ms), and the
     # per-launch numbers of phases 1–2 at the shape that carries most of
     # that device time

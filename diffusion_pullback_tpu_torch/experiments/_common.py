@@ -1,11 +1,12 @@
 """What the experiment drivers share (counterpart of
 diffusion_pullback_tpu/experiments/_common.py): the NHWC ↔ NCHW boundary,
 the synchronised stage timer, the tap construction, the grid index of a
-t, the seeded sample draw and the basis write."""
+t, the seeded sample draw, the basis write and its analysis artifacts."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Optional
 
@@ -52,6 +53,22 @@ class DriverCommonMixin:
         ``self.cache``); returns the file."""
         f32 = lambda a: a.float().cpu().numpy()
         return self.cache.save(name, f32(res.u), f32(res.s), f32(res.vT))
+
+    def _vis_basis(self, name: str, s, vT, shape) -> None:
+        """The analysis artifacts of a freshly computed basis in
+        cfg.obs_folder: its eigenvalue spectrum and the RGB map of its
+        directions (``shape`` one sample's (H, W, C)). Visualisation never
+        ends a run: a failure to plot (matplotlib absent, say) is logged as
+        ``vis_failed``."""
+        s, vT = s.float().cpu().numpy(), vT.float().cpu().numpy()
+        try:
+            from .vis import plot_eigenvalue_spectrum, visualize_vT_rgb
+
+            obs = self.cfg.obs_folder
+            plot_eigenvalue_spectrum(s, os.path.join(obs, f"eigenvalue_spectrum-{name}.png"))
+            visualize_vT_rgb(vT, shape, os.path.join(obs, f"vT-{name}.png"))
+        except Exception as e:
+            self.log.log("vis_failed", error=str(e))
 
     def _make_tap(self, op, block_idx, after_res=False, after_sa=False) -> TapPoint:
         """``after_res`` / ``after_sa`` move the tap after the block's last

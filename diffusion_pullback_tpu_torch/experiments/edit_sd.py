@@ -103,6 +103,8 @@ class SDExperimentConfig:
     # ported, refused (ROADMAP queue 1, item 16)
     mesh: Optional[object] = None
     result_folder: str = "./runs/sd"
+    # the analysis artifacts of freshly computed bases
+    obs_folder: str = "./runs/sd/obs"
     basis_folder: str = "./inputs/local_encoder_pullback_stable_diffusion"
     vis_num: int = 4
     vis_num_pc: int = 2
@@ -402,8 +404,8 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
         return self._edit_along_directions(zt, vks, names, vis_num)
 
     def _cached_local_basis(self, zt, t_edit, tap, pca_rank, idx):
-        """Load-or-compute (u, s, vT); factors come back column/row
-        normalised."""
+        """Load-or-compute (u, s, vT), with the analysis artifacts of a
+        computed one; factors come back column/row normalised."""
         cfg = self.cfg
         name = basis_name(cfg.dataset_name, idx, cfg.edit_t, tap.op,
                           tap.block_idx, cfg.seed, edit_prompt=cfg.edit_prompt,
@@ -417,6 +419,7 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
             res = self.compute_local_basis(zt, t_edit, tap, pca_rank)
             u, s, vT = res.u.float(), res.s, res.vT
             self._save_basis(name, res)
+            self._vis_basis(name, s, vT, tuple(zt.shape[1:]))
         u = u / torch.linalg.norm(u, dim=0, keepdim=True)
         vT = vT / torch.linalg.norm(vT, dim=1, keepdim=True)
         return u, s, vT

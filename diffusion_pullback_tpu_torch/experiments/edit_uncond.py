@@ -1,16 +1,23 @@
 """Unconditional (pixel-space DDPM) editing along the encoder pullback basis.
 
 Counterpart of EditUncondDiffusion in
-diffusion_pullback_tpu/experiments/edit_uncond.py, without h-space
-guidance, parallel transport and the decoder pullback. The main path:
+diffusion_pullback_tpu/experiments/edit_uncond.py. The main path:
 
     image → DDIM inversion → DDIM forward to the edit t → encoder pullback
     at a U-Net tap → x-space-guidance walk along ±v_k → DDIM finish with
     performance boosting (η = 1 below performance_boosting_t·T) → PNG grids.
 
-The analysis runs: local and global PCA of the tapped h, Fréchet and
-Hungarian mean bases over samples (each edit maps its h-space directions
-to x through Jᵀ), and the tangent-space harvests over a timestep grid.
+A freshly computed basis also leaves its eigenvalue spectrum and the RGB
+map of its directions in ``obs_folder`` (experiments/vis.py).
+
+The other edits: h-space guidance (the walk perturbs the tapped feature
+along ±u_k and resumes the pass), parallel transport of a direction from
+one sample to another, and the decoder (or x̂₀) pullback, whose h-space
+directions map to x through the encoder's Jᵀ. The analysis runs: local
+and global PCA of the tapped h, Fréchet and Hungarian mean bases over
+samples (each edit maps its h-space directions to x through Jᵀ), the
+tangent-space harvests over a timestep grid, and the power spectra of a
+sampling trajectory.
 
 Images, ``vT`` and the basis cache are NHWC at this boundary, as in the JAX
 package, so ``vT`` rows flatten in the same order and a basis from either
@@ -44,13 +51,14 @@ from ..geometry import (
     local_pullback,
     pca_to_x_direction,
     pullback_covector,
+    transport_all,
 )
 from ..models.layers import attn_impl_as
 from ..models.unet2d import TapPoint, UNet2D
-from ..ops.ddim import split_learned_sigma
-from ..ops.schedule import (DiffusionSchedule, ddim_timestep_grid,
+from ..ops.ddim import predict_x0, split_learned_sigma
+from ..ops.schedule import (DiffusionSchedule, alpha_bar, ddim_timestep_grid,
                             respaced_timestep_grid)
-from ..samplers.ddim_loop import ddim_forward, ddim_invert
+from ..samplers.ddim_loop import ddim_forward, ddim_invert, ddim_scan
 from ..samplers.guidance import guided_eps_fn, x_space_guidance_scan
 from ..utils.device import resolve_device, strict_f32
 from ..utils.images import save_image_grid
@@ -69,6 +77,8 @@ class UncondExperimentConfig:
     x_space_guidance_edit_step: float = 1.0
     x_space_guidance_scale: float = 0.1
     x_space_guidance_num_step: int = 16
+    # h-space guidance's scale (0 = x_space_guidance_scale)
+    h_space_guidance_scale: float = 0.0
     # (ε_null, ε_edit) evaluation of the walk: 'batch' | 'split' (the same
     # numbers; the JAX driver always batches)
     xsg_pair_impl: str = "batch"
@@ -99,6 +109,8 @@ class UncondExperimentConfig:
     pullback_chunk_size: Optional[int] = None
     # io
     result_folder: str = "./runs/uncond"
+    # the analysis artifacts (spectra, direction maps, power spectra)
+    obs_folder: str = "./runs/uncond/obs"
     basis_folder: str = "./inputs/local_encoder_pullback_uncond"
     vis_num: int = 4
     vis_num_pc: int = 2
@@ -192,29 +204,39 @@ class EditUncondDiffusion(DriverCommonMixin):
             s += f"-clsg{self.cfg.classifier_scale}-y{self.cfg.classifier_label}"
         return s
 
-    def _model_variant(self, attn_impl: str):
-        """The model's encode with every attention layer set to
-        ``attn_impl`` for the call: the same weights under other kernels."""
-        def encode(x, t, tap):
+    def _pair_impls(self):
+        """(attention impl of the tangent passes, of the cotangent pass or
+        None, tag) of a differentiated map. A model that samples with
+        'flash' (or pullback_attn_impl 'flash') maps to the fused pair:
+        'flash_jvp' (K2, K3) for the tangents, 'flash' (K2, K4, K5) for the
+        cotangent, tag 'flashpair'. The UNet2D has no attention switch (its
+        ≤256-token attention is the math path): impl None, tag 'xla'."""
+        model_impl = getattr(self.model.config, "attn_impl", None)
+        if model_impl is None:
+            return None, None, "xla"
+        impl = self.cfg.pullback_attn_impl or model_impl
+        if impl in ("flash", "flash_jvp"):
+            return "flash_jvp", "flash", "flashpair"
+        return impl, None, impl
+
+    def _with_impl(self, fn, attn_impl: Optional[str]):
+        """``fn`` run with every attention layer of the model set to
+        ``attn_impl`` for the call (the same weights under other kernels);
+        None leaves the model as it is."""
+        if attn_impl is None:
+            return fn
+
+        def run(*args):
             with attn_impl_as(self.model, attn_impl):
-                return self.model.encode(x, t, tap)
-        return encode
+                return fn(*args)
+        return run
 
     def _pullback_models(self):
         """(encode of the tangent passes, encode of the cotangent pass or
-        None, impl tag) of the differentiated encoder. A model that samples
-        with 'flash' (or pullback_attn_impl 'flash') maps to the fused
-        pair: 'flash_jvp' (K2, K3) for the tangents, 'flash' (K2, K4, K5)
-        for the cotangent, tag 'flashpair'. The UNet2D has no attention
-        switch (its ≤256-token attention is the math path)."""
-        model_impl = getattr(self.model.config, "attn_impl", None)
-        if model_impl is None:
-            return self.model.encode, None, "xla"
-        impl = self.cfg.pullback_attn_impl or model_impl
-        if impl in ("flash", "flash_jvp"):
-            return (self._model_variant("flash_jvp"), self._model_variant("flash"),
-                    "flashpair")
-        return self._model_variant(impl), None, impl
+        None, impl tag) of the differentiated encoder (``_pair_impls``)."""
+        impl, impl_vjp, tag = self._pair_impls()
+        encode = lambda i: self._with_impl(self.model.encode, i)
+        return encode(impl), impl_vjp and encode(impl_vjp), tag
 
     @torch.no_grad()
     def run_ddim_inversion(self, idx: int) -> torch.Tensor:
@@ -226,12 +248,24 @@ class EditUncondDiffusion(DriverCommonMixin):
     @torch.no_grad()
     def run_ddim_forward(self, num_samples: int = 4,
                          generator: Optional[torch.Generator] = None,
-                         save_as: Optional[str] = None) -> torch.Tensor:
+                         save_as: Optional[str] = None,
+                         vis_psd: bool = False) -> torch.Tensor:
         """Sample from seeded noise (the smoke path of the reference's
-        run_DDIMforward)."""
+        run_DDIMforward). ``vis_psd`` also collects the x_t and ε_t
+        trajectories and plots the radial power spectrum of each step's
+        first sample into obs_folder (xt_psd.png, et_psd.png)."""
         xT = self._draw_latents(num_samples, generator)
-        with self._stage("ddim_forward", num_samples=num_samples):
-            x0 = ddim_forward(self._eps_with(), xT, self.schedule, self.fwd_grid)
+        grid = self.fwd_grid
+        with self._stage("ddim_forward", num_samples=num_samples, vis_psd=vis_psd):
+            x0, trajs = ddim_scan(self._eps_with(), xT, self.schedule, grid.timesteps,
+                                  grid.timesteps_next, collect_trajectory=vis_psd,
+                                  collect_eps=vis_psd)
+        if vis_psd:
+            from .vis import vis_power_spectral_density
+
+            for traj, fname in zip(trajs, ("xt_psd.png", "et_psd.png")):
+                vis_power_spectral_density(traj[:, :1].float().cpu().numpy(),
+                                           os.path.join(self.cfg.obs_folder, fname))
         if save_as:
             save_image_grid(x0.float().cpu().numpy(), save_as)
         return x0
@@ -306,6 +340,7 @@ class EditUncondDiffusion(DriverCommonMixin):
             res = self.compute_local_basis(xt, t_edit, tap, pca_rank)
             u, s, vT = res.u.float(), res.s, res.vT
             self._save_basis(name, res)
+            self._vis_basis(name, s, vT, tuple(xt.shape[1:]))
         vT = vT / torch.linalg.norm(vT, dim=1, keepdim=True)
 
         shape = xt.shape[1:]
@@ -367,6 +402,206 @@ class EditUncondDiffusion(DriverCommonMixin):
     def run_edit_global_pca_zt(self, *a, **kw):
         kw.pop("edit_prompt", None)
         return self.run_edit_global_pca_xt(*a, **kw)
+
+    def run_edit_local_decoder_pullback_zt(self, *a, **kw):
+        kw.pop("edit_prompt", None)
+        return self.run_edit_local_decoder_pullback_xt(*a, **kw)
+
+    # ---- h-space guidance, parallel transport, the decoder pullback -------
+
+    def _basis(self, idx, tap: TapPoint, pca_rank: int, xt=None):
+        """(u, s, vT) of sample ``idx``'s encoder basis at the edit t, as f32
+        on the device: from the cache, else computed at ``xt`` (by default
+        the sample inverted and forwarded to the edit t) and saved."""
+        cfg = self.cfg
+        name = basis_name(cfg.dataset_name, idx, cfg.edit_t, tap.op, tap.block_idx,
+                          cfg.seed, pca_rank=pca_rank) + self._basis_name_extras(tap)
+        basis = self.cache.load(name)
+        if basis is None:
+            if xt is None:
+                xt = self.forward_to_edit_t(self.run_ddim_inversion(idx))
+            res = self.compute_local_basis(
+                xt, self.fwd_grid.timesteps[self.edit_t_idx], tap, pca_rank)
+            self._save_basis(name, res)
+            basis = (res.u, res.s, res.vT)
+        return tuple(torch.as_tensor(a).float().to(self.device) for a in basis)
+
+    def run_edit_h_space_guidance(
+        self,
+        idx: int,
+        op: str = "mid",
+        block_idx: int = 0,
+        pca_rank: Optional[int] = None,
+        vis_num: Optional[int] = None,
+        vis_num_pc: Optional[int] = None,
+        scale: Optional[float] = None,
+    ):
+        """h-space editing along the basis' h-directions û_k: each
+        micro-step runs ONE encoder pass to the tap and resumes the pass
+        for the pair [h; h + δ·û_k] from its state, then moves x as the
+        x-space walk does (the model's ε, without classifier guidance):
+
+            h, state = encode_with_state(x_t)
+            [ε_null; ε_edit] = decode_with_state([h; h + δ·û_k], state)
+            x_t ← x_t + scale·(ε_edit − ε_null)
+
+        δ = x_space_guidance_edit_step; ``scale`` defaults to
+        h_space_guidance_scale, else x_space_guidance_scale. Every direction
+        whose PNG is missing walks in one batch; the strided trajectory (its
+        start included) finishes with performance boosting (noise seeded
+        seed + 2). Returns the PNGs' names."""
+        cfg = self.cfg
+        pca_rank = pca_rank or max(cfg.pca_rank, 2)
+        vis_num = vis_num or cfg.vis_num
+        vis_num_pc = vis_num_pc or cfg.vis_num_pc
+        scale = scale if scale is not None else (
+            cfg.h_space_guidance_scale or cfg.x_space_guidance_scale)
+        tap = TapPoint(op, block_idx)
+        xt = self.forward_to_edit_t(self.run_ddim_inversion(idx))
+        t_edit = self.fwd_grid.timesteps[self.edit_t_idx]
+        u = self._basis(idx, tap, pca_rank, xt)[0]
+        if vis_num_pc > u.shape[1]:
+            self.log.log("vis_num_pc_clamped", requested=vis_num_pc,
+                         available=int(u.shape[1]))
+            vis_num_pc = int(u.shape[1])
+
+        signs, names = [], []
+        for pc in range(vis_num_pc):
+            for sign, stag in ((1.0, "pos"), (-1.0, "neg")):
+                signs.append((pc, sign))
+                names.append(f"Edit_h_space-{cfg.dataset_name}_{idx}-edit_{cfg.edit_t}T"
+                             f"-{op}-block_{block_idx}-scale_{scale}-pc_{pc:03d}_{stag}")
+        todo = [i for i, n in enumerate(names) if not os.path.exists(
+            os.path.join(cfg.result_folder, n + ".png"))]
+        if not todo:
+            self.log.log("all_edits_cached")
+            return names
+        stride = max(1, (cfg.x_space_guidance_num_step + 1) // vis_num)
+        boost = self.boost_start_idx if cfg.use_performance_boosting else None
+        learn_sigma, c_out = self.model.config.learn_sigma, self.model.config.out_channels
+        d = len(todo)
+
+        with torch.no_grad(), self._stage("h_space_guidance_edit", directions=d) as log:
+            z, dh = xt.expand(d, *xt.shape[1:]), None
+            traj = [z]
+            for _ in range(cfg.x_space_guidance_num_step):
+                h, state = self.model.encode_with_state(to_nchw(z), t_edit, tap)
+                if dh is None:
+                    # û_k flattens NHWC: to the NHWC h shape, then to NCHW
+                    hw = (1, h.shape[2], h.shape[3], h.shape[1])
+                    dh = torch.cat([
+                        to_nchw((sign * cfg.x_space_guidance_edit_step
+                                 * u[:, pc] / torch.linalg.norm(u[:, pc])).reshape(hw))
+                        for pc, sign in (signs[i] for i in todo)])
+                pair = lambda a: torch.cat([a.expand(d, *a.shape[1:])] * 2)
+                state = type(state)(pair(state.emb), tuple(pair(a) for a in state.skips))
+                eps2 = self.model.decode_with_state(torch.cat([h, h + dh]), state, tap)
+                if learn_sigma:
+                    eps2 = eps2[:, :c_out]
+                z = z + scale * to_nhwc(eps2[d:] - eps2[:d]).float()
+                traj.append(z)
+            sel = torch.stack(traj)[::stride].transpose(0, 1)   # (D, frames, H, W, C)
+            f = sel.shape[1]
+            x0s = ddim_forward(
+                self._eps_with(), sel.reshape(d * f, *sel.shape[2:]), self.schedule,
+                self.fwd_grid, start_idx=self.edit_t_idx, boost_start_idx=boost,
+                generator=torch.Generator().manual_seed(cfg.seed + 2))
+            imgs = x0s.reshape(d, f, *x0s.shape[1:]).float().cpu().numpy()
+            log.update(finite=bool(np.isfinite(imgs).all()))
+        for j, i in enumerate(todo):
+            save_image_grid(imgs[j], os.path.join(cfg.result_folder, names[i] + ".png"))
+        return names
+
+    def run_edit_parallel_transport(self, sample_idx_0: int, sample_idx_1: int,
+                                    op: str = "mid", block_idx: int = 0,
+                                    pca_rank: int = 50, vis_num: int = 4,
+                                    vis_num_pc: int = 2):
+        """Transport the directions found at sample 0 to sample 1 and edit
+        sample 1 along them: v_k^(1) = v₁ᵀᵀ(u₁ᵀu₀[:, k]), the two samples'
+        bases (cached) with u₀, u₁ and v₁ᵀ normalised first."""
+        cfg = self.cfg
+        tap = TapPoint(op, block_idx)
+        bases, xts = {}, {}
+        for idx in (sample_idx_0, sample_idx_1):
+            xts[idx] = self.forward_to_edit_t(self.run_ddim_inversion(idx))
+            bases[idx] = self._basis(idx, tap, pca_rank, xts[idx])
+        u0 = bases[sample_idx_0][0]
+        u1, _, vT1 = bases[sample_idx_1]
+        vt_trans = transport_all(                                          # (r, dim_x)
+            u0 / torch.linalg.norm(u0, dim=0, keepdim=True),
+            u1 / torch.linalg.norm(u1, dim=0, keepdim=True),
+            vT1 / torch.linalg.norm(vT1, dim=1, keepdim=True))
+
+        shape = xts[sample_idx_1].shape[1:]
+        vks, names = [], []
+        for pc in range(vis_num_pc):
+            for sign, tag in ((1.0, "pos"), (-1.0, "neg")):
+                vks.append(sign * vt_trans[pc].reshape(shape))
+                names.append(f"Edit_transport-{cfg.dataset_name}_{sample_idx_0}to"
+                             f"{sample_idx_1}-edit_{cfg.edit_t}T-{op}-block_{block_idx}"
+                             f"-pc_{pc:03d}_{tag}")
+        return self._edit_along_directions(xts[sample_idx_1], vks, names, vis_num)
+
+    def compute_local_decoder_basis(self, xt, t, tap: TapPoint, pca_rank: int = 50,
+                                    x0_pullback: bool = False) -> PullbackResult:
+        """Top-k triplets of ∂ε/∂h (or, with ``x0_pullback``, of the Tweedie
+        map ∂x̂₀/∂h) at the tapped feature: the state (skips, time
+        embedding) from one encoder pass outside the differentiated map,
+        then the pullback of h ↦ decode_with_state(h, state) on the pair
+        where ``_pair_impls`` gives it. h and the basis flatten NHWC. A
+        learned-σ head's output is not cut, as in the JAX package: ε there
+        carries [ε, σ], twice x_t's channels, so its x̂₀ map is undefined
+        and raises."""
+        cfg = self.cfg
+        if x0_pullback and self.model.config.learn_sigma:
+            c = self.model.config.out_channels
+            raise ValueError(
+                f"x0_pullback on a learned-sigma net: its decoder emits [eps, sigma] "
+                f"({2 * c} channels) and x_t has {c}, so x0 = (x_t - sqrt(1 - "
+                "abar) eps) / sqrt(abar) cannot be formed (the JAX package fails "
+                "on it too)")
+        impl, impl_vjp, tag = self._pair_impls()
+        with torch.no_grad():
+            h, state = self.model.encode_with_state(to_nchw(xt), t, tap)
+        at = alpha_bar(self.schedule, t)
+
+        def decode_with(attn_impl):
+            def decode(hh):
+                eps = to_nhwc(self.model.decode_with_state(to_nchw(hh), state, tap))
+                return predict_x0(eps.float(), xt, at) if x0_pullback else eps
+            return self._with_impl(decode, attn_impl)
+
+        with self._stage("local_decoder_pullback", decoder=tag,
+                         x0_pullback=x0_pullback) as log:
+            res = local_pullback(
+                decode_with(impl), to_nhwc(h), torch.Generator().manual_seed(cfg.seed),
+                pca_rank=pca_rank, min_iter=cfg.pullback_min_iter,
+                max_iter=cfg.pullback_max_iter, atol=cfg.pullback_atol,
+                fn_vjp=impl_vjp and decode_with(impl_vjp),
+                chunk_size=cfg.pullback_chunk_size)
+            log.update(iterations=res.iterations, final_delta=res.final_delta,
+                       top_s=res.s[:3].float().cpu().numpy().round(4))
+        return res
+
+    def run_edit_local_decoder_pullback_xt(self, idx: int, op: str = "mid",
+                                           block_idx: int = 0, pca_rank: int = 2,
+                                           vis_num: Optional[int] = None,
+                                           vis_num_pc: Optional[int] = None,
+                                           x0_pullback: bool = False):
+        """Decoder-pullback edit: the top h-directions by decoder
+        sensitivity (∂ε/∂h, or ∂x̂₀/∂h with ``x0_pullback``), pulled back to
+        x through the encoder's Jᵀ, then the guidance edit."""
+        cfg = self.cfg
+        vis_num = vis_num or cfg.vis_num
+        vis_num_pc = vis_num_pc or cfg.vis_num_pc
+        xt = self.forward_to_edit_t(self.run_ddim_inversion(idx))
+        res = self.compute_local_decoder_basis(
+            xt, self.fwd_grid.timesteps[self.edit_t_idx], TapPoint(op, block_idx),
+            pca_rank, x0_pullback)
+        # the decoder's right-singular vectors live in h-space: (dim_h, k)
+        return self._edit_with_global_h_basis(
+            idx, res.vT.T, op, block_idx, vis_num, vis_num_pc,
+            "local_dec_x0" if x0_pullback else "local_dec", xt=xt)
 
     # ---- analysis runs ----------------------------------------------------
 
@@ -452,21 +687,8 @@ class EditUncondDiffusion(DriverCommonMixin):
         """{idx: (u, s, vT)} of each sample's pullback basis at the edit t,
         from the cache or computed and saved, one sample after another (the
         JAX driver's device-mesh sweep is refused with the mesh)."""
-        cfg = self.cfg
         tap = TapPoint(op, block_idx)
-        t_edit = self.fwd_grid.timesteps[self.edit_t_idx]
-        out = {}
-        for idx in sample_indices:
-            name = basis_name(cfg.dataset_name, idx, cfg.edit_t, op, block_idx,
-                              cfg.seed, pca_rank=pca_rank) + self._basis_name_extras(tap)
-            basis = self.cache.load(name)
-            if basis is None:
-                xt = self.forward_to_edit_t(self.run_ddim_inversion(idx))
-                res = self.compute_local_basis(xt, t_edit, tap, pca_rank)
-                self._save_basis(name, res)
-                basis = (res.u, res.s, res.vT)
-            out[idx] = tuple(torch.as_tensor(a).float().to(self.device) for a in basis)
-        return out
+        return {idx: self._basis(idx, tap, pca_rank) for idx in sample_indices}
 
     def _edit_with_mean_basis(self, mean_basis, tag, idx, basis_indices, op,
                               block_idx, pca_rank, vis_num, vis_num_pc):

@@ -23,11 +23,22 @@ with the same flag names, experiment folders and basis folders.
     python -m diffusion_pullback_tpu_torch.main --note prompts --edit_t 0.5 \\
         --num_local_basis 50 \\
         --run_edit_local_encoder_pullback_zt_with_various_prompt True
+    python -m diffusion_pullback_tpu_torch.main --note h --model_name \\
+        ImageNet256Uncond --performance_boosting_t 0.2 \\
+        --checkpoint_path 256x256_diffusion_uncond.pt \\
+        --run_edit_h_space_guidance True
 
-Runs on CUDA unless ``--device cpu`` is given. With no checkpoint in the
-repository, the models take seeded random weights (--seed), as the JAX CLI
-does without --checkpoint_path. ``--model_name`` defaults to SD 2.1-base,
-where the JAX CLI's '' default raises.
+Runs on CUDA unless ``--device cpu`` is given. Without --checkpoint_path
+the models take seeded random weights (--seed), as the JAX CLI's do; with
+it they load local torch files (nothing is downloaded): one file for an
+uncond model, a diffusers folder (unet/, vae/, text_encoder/ and, for
+SDXL, text_encoder_2/) for the SD family; --classifier_path is the
+guidance classifier's file. ``--model_name`` defaults to SD 2.1-base,
+where the JAX CLI's '' default raises. An uncond net edits images at its
+own size and is guided by adm_classifier at that size, where the JAX
+CLI's preset takes 256 px for every name without CIFAR10 (32 px): the two
+differ for ImageNet64Uncond, ImageNet64Cond and ImageNet128Cond, and
+build_uncond says so when it builds one of them.
 """
 
 from __future__ import annotations
@@ -80,6 +91,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "'' or 'noise' = seeded noise images")
     p.add_argument("--data_root", type=str, default="")
     p.add_argument("--sample_idx", type=int, default=0)
+    p.add_argument("--sample_idx_0", type=int, default=0,
+                   help="run_edit_parallel_transport: the sample whose directions move")
+    p.add_argument("--sample_idx_1", type=int, default=0,
+                   help="run_edit_parallel_transport: the sample edited along them")
+    p.add_argument("--checkpoint_path", type=str, default="",
+                   help="local torch weights (.bin/.pt/.ckpt, or .safetensors "
+                        "with the safetensors package): an uncond model's one "
+                        "file, or the SD family's diffusers folder (unet/, vae/, "
+                        "text_encoder/, text_encoder_2/ for SDXL); '' = seeded "
+                        "random init")
+    p.add_argument("--classifier_path", type=str, default="",
+                   help="the guidance classifier's torch file (guided-diffusion "
+                        "EncoderUNetModel layout); '' = seeded random init")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="",
                    help="'' = cuda (raises without a card); 'cpu' to force")
@@ -102,6 +126,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--x_space_guidance_edit_step", type=float, default=1)
     p.add_argument("--x_space_guidance_scale", type=float, default=0)
     p.add_argument("--x_space_guidance_num_step", type=int, default=0)
+    p.add_argument("--edit_ht", type=str, default="default",
+                   help="'h_space_guidance' runs run_edit_h_space_guidance")
+    p.add_argument("--h_space_guidance_scale", type=float, default=0.0,
+                   help="h-space guidance's scale; 0 = --x_space_guidance_scale")
     p.add_argument("--xsg_pair_impl", type=str, default="batch",
                    choices=["batch", "split"])
     p.add_argument("--pca_rank", type=int, default=2)
@@ -159,6 +187,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--run_edit_text_driven_direction", type=str2bool,
                    default=False)
     p.add_argument("--run_ddim_forward", type=str2bool, default=False)
+    p.add_argument("--vis_psd", type=str2bool, default=False,
+                   help="uncond --run_ddim_forward: also plot the radial power "
+                        "spectra of the x_t and eps_t trajectories into obs/")
+    p.add_argument("--run_ddim_inversion", type=str2bool, default=False)
+    p.add_argument("--run_edit_h_space_guidance", type=str2bool, default=False,
+                   help="uncond: walk the tapped feature along the basis' "
+                        "h-directions")
+    p.add_argument("--run_edit_parallel_transport", type=str2bool, default=False,
+                   help="uncond: edit --sample_idx_1 along the pca_rank-50 "
+                        "directions of --sample_idx_0, transported")
     # the harvests and the PCA / mean-basis runs
     p.add_argument("--run_edit_local_encoder_pullback_zt_with_various_prompt",
                    type=str2bool, default=False,
@@ -240,16 +278,31 @@ def _dataset(args, image_size: int):
         return NoiseDataset(image_size)
 
 
+def _weights(module, path: str, seed: int):
+    """``module`` with the torch checkpoint at ``path`` loaded, or with
+    seeded random weights where no path is given."""
+    from .models import random_init_
+    from .models.convert import load_torch_checkpoint
+
+    if not path:
+        return random_init_(module, seed)
+    return load_torch_checkpoint(path, module)
+
+
 def build_uncond(args):
     """The uncond editing driver: the DDPM or ADM U-Net of ``--model_name``
-    with seeded random weights drawn on the device, the linear schedule,
-    images at the model's size; with --classifier_scale the guidance
-    classifier adm_classifier(size), seeded seed + 1, in f32 with the math
-    path's attention (the JAX CLI's)."""
+    with the weights of --checkpoint_path or seeded random ones, drawn or
+    loaded on the device, the linear schedule, images at the model's size;
+    with --classifier_scale the guidance classifier adm_classifier(size)
+    (--classifier_path, else seeded seed + 1) in f32 with the math path's
+    attention (the JAX CLI's), kept as the driver's ``classifier``. The JAX
+    CLI takes images and classifier at its preset size instead (32 px for
+    names with CIFAR10, else 256); where the two differ, build_uncond
+    prints so."""
     import torch
 
     from .experiments import EditUncondDiffusion, UncondExperimentConfig
-    from .models import model_for_name, random_init_
+    from .models import model_for_name
     from .ops.schedule import DiffusionSchedule
     from .utils.device import resolve_device
     from .utils.logging import JSONLLogger
@@ -259,11 +312,18 @@ def build_uncond(args):
     dtype = args.dtype or ("bf16" if on_cuda else "fp32")
     # the sampling kernel of an ADM net ('' keeps its config's math path)
     attn = args.attn_impl if args.attn_impl != "auto" else ("flash" if on_cuda else "")
+    if not args.checkpoint_path:
+        print("[main] no --checkpoint_path: deterministic random init (offline)")
     with torch.device(device):
-        model = random_init_(model_for_name(
+        model = _weights(model_for_name(
             args.model_name, dtype="bfloat16" if dtype == "bf16" else "float32",
-            attn_impl=attn), args.seed)
+            attn_impl=attn), args.checkpoint_path, args.seed)
     size = getattr(model.config, "sample_size", None) or model.config.image_size
+    jax_size = 32 if "CIFAR10" in args.model_name else 256
+    if size != jax_size:
+        print(f"[main] {args.model_name}: images and the guidance classifier at the "
+              f"model's {size} px; the JAX CLI's preset takes {jax_size} px (a "
+              "deliberate departure)")
     exp_folder, basis_folder = experiment_folders(args)
     cfg = UncondExperimentConfig(
         dataset_name=args.dataset_name or "noise",
@@ -274,6 +334,7 @@ def build_uncond(args):
         x_space_guidance_edit_step=args.x_space_guidance_edit_step,
         x_space_guidance_scale=_guidance_scale(args, 0.1),
         x_space_guidance_num_step=args.x_space_guidance_num_step or 16,
+        h_space_guidance_scale=args.h_space_guidance_scale,
         xsg_pair_impl=args.xsg_pair_impl,
         performance_boosting_t=args.performance_boosting_t,
         use_performance_boosting=args.performance_boosting_t > 0,
@@ -286,6 +347,7 @@ def build_uncond(args):
         classifier_scale=args.classifier_scale,
         classifier_label=args.classifier_label,
         result_folder=os.path.join(exp_folder, "results"),
+        obs_folder=os.path.join(exp_folder, "obs"),
         basis_folder=basis_folder,
     )
     edit = EditUncondDiffusion(
@@ -296,9 +358,14 @@ def build_uncond(args):
         from .models import EncoderUNetADM, adm_classifier
         from .samplers.guidance import classifier_grad_fn
 
+        if not args.classifier_path:
+            print("[main] classifier guidance with random-init classifier "
+                  "(no --classifier_path)")
         with torch.device(device):
-            clf = random_init_(EncoderUNetADM(adm_classifier(size)), args.seed + 1)
+            clf = _weights(EncoderUNetADM(adm_classifier(size)), args.classifier_path,
+                           args.seed + 1)
         clf.eval().requires_grad_(False)
+        edit.classifier = clf
         edit.cond_fn = classifier_grad_fn(
             lambda z, t: clf(to_nchw(z), t),
             torch.full((1,), args.classifier_label, device=device),
@@ -350,21 +417,40 @@ def _sd_config(args, device, **over):
         guidance_deepcache_interval=args.guidance_deepcache_interval,
         text_driven_num_pc=args.text_driven_num_pc,
         result_folder=os.path.join(exp_folder, "results"),
+        obs_folder=os.path.join(exp_folder, "obs"),
         basis_folder=basis_folder,
     )
     fields.update(over)
     return SDExperimentConfig(**fields), os.path.join(exp_folder, "log.jsonl")
 
 
+# the files of a diffusers folder (--checkpoint_path of the SD family)
+SD_CHECKPOINT_FILES = ("unet/diffusion_pytorch_model.bin",
+                       "vae/diffusion_pytorch_model.bin",
+                       "text_encoder/pytorch_model.bin",
+                       "text_encoder_2/pytorch_model.bin")
+
+
+def _sd_weights(args, modules):
+    """The SD family's modules (U-Net, VAE, the text towers, in the order
+    of SD_CHECKPOINT_FILES) with the weights of the diffusers folder
+    --checkpoint_path, or seeded random ones (seed, seed + 1, …)."""
+    root = args.checkpoint_path
+    if not root:
+        print("[main] no --checkpoint_path: deterministic random init (offline)")
+    return [_weights(m, root and os.path.join(root, f), args.seed + i)
+            for i, (m, f) in enumerate(zip(modules, SD_CHECKPOINT_FILES))]
+
+
 def build_sd(args):
     """The SD 2.1-base editing driver: U-Net, VAE at 512 px and the 23-layer
-    OpenCLIP-H text tower with seeded random weights."""
+    OpenCLIP-H text tower with the weights of --checkpoint_path or seeded
+    random ones."""
     from .experiments import EditStableDiffusion
     from .models import (
         AutoencoderKL,
         CLIPTextModel,
         UNet2DCondition,
-        random_init_,
         sd21_base_unet,
         sd21_text_encoder,
         sd_vae,
@@ -375,10 +461,9 @@ def build_sd(args):
     if is_sdxl(args):
         raise ValueError(f"{args.model_name} is built by build_sdxl")
     device, dtype, attn = _sd_setup(args)
-    unet = random_init_(UNet2DCondition(sd21_base_unet(attn_impl=attn, dtype=dtype)),
-                        args.seed)
-    vae = random_init_(AutoencoderKL(sd_vae(attn_impl=attn)), args.seed + 1)
-    text = random_init_(CLIPTextModel(sd21_text_encoder()), args.seed + 2)
+    unet, vae, text = _sd_weights(args, (
+        UNet2DCondition(sd21_base_unet(attn_impl=attn, dtype=dtype)),
+        AutoencoderKL(sd_vae(attn_impl=attn)), CLIPTextModel(sd21_text_encoder())))
     cfg, log_path = _sd_config(args, device)
     return EditStableDiffusion(
         unet, vae, text, DiffusionSchedule.from_name("scaled_linear"),
@@ -395,10 +480,11 @@ def sdxl_pullback_chunk(args):
 def build_sdxl(args):
     """The SDXL-base editing driver: the 2.57 B-parameter U-Net at 128²
     latents, the VAE at 1024 px with scaling factor 0.13025, the CLIP ViT-L
-    and OpenCLIP bigG towers, with seeded random weights (seeds seed … +3)
-    drawn on the device the models are built on; the JAX CLI's pullback
-    chunking (all probes at once up to pca_rank 2, else one at a time) and
-    one latent per VAE decode."""
+    and OpenCLIP bigG towers, with the weights of --checkpoint_path or
+    seeded random ones (seeds seed … +3), drawn or loaded on the device the
+    models are built on; the JAX CLI's pullback chunking (all probes at
+    once up to pca_rank 2, else one at a time) and one latent per VAE
+    decode."""
     import torch
 
     from .experiments import EditStableDiffusionXL
@@ -406,7 +492,6 @@ def build_sdxl(args):
         AutoencoderKL,
         CLIPTextModel,
         UNet2DCondition,
-        random_init_,
         sd_vae,
         sdxl_base_unet,
         sdxl_text_encoder_1,
@@ -417,14 +502,11 @@ def build_sdxl(args):
 
     device, dtype, attn = _sd_setup(args)
     with torch.device(device):
-        unet = random_init_(UNet2DCondition(sdxl_base_unet(attn_impl=attn,
-                                                           dtype=dtype)), args.seed)
-        vae = random_init_(AutoencoderKL(sd_vae(attn_impl=attn,
-                                                scaling_factor=0.13025)),
-                           args.seed + 1)
-        text1 = random_init_(CLIPTextModel(sdxl_text_encoder_1()), args.seed + 2)
-        text2 = random_init_(CLIPTextModel(sdxl_text_encoder_2(), projection=True),
-                             args.seed + 3)
+        unet, vae, text1, text2 = _sd_weights(args, (
+            UNet2DCondition(sdxl_base_unet(attn_impl=attn, dtype=dtype)),
+            AutoencoderKL(sd_vae(attn_impl=attn, scaling_factor=0.13025)),
+            CLIPTextModel(sdxl_text_encoder_1()),
+            CLIPTextModel(sdxl_text_encoder_2(), projection=True)))
     cfg, log_path = _sd_config(args, device, decode_chunk=1,
                                pullback_chunk_size=sdxl_pullback_chunk(args))
     return EditStableDiffusionXL(
@@ -480,12 +562,15 @@ def dispatch(edit, args) -> None:
             edit.run_edit_local_encoder_pullback_zt(
                 idx=sweep_idx, op=args.op, block_idx=args.block_idx, vis_num=4,
                 vis_num_pc=2, pca_rank=args.pca_rank or 2, edit_prompt=prompt)
+    if args.run_edit_parallel_transport:
+        if not hasattr(edit, "run_edit_parallel_transport"):
+            raise SystemExit("--run_edit_parallel_transport is only implemented for "
+                             "the unconditional family")
+        edit.run_edit_parallel_transport(
+            sample_idx_0=args.sample_idx_0, sample_idx_1=args.sample_idx_1,
+            op=args.op, block_idx=args.block_idx, vis_num=4, vis_num_pc=2, pca_rank=50)
     if args.run_edit_local_decoder_pullback_zt or \
             args.run_edit_local_x0_decoder_pullback_zt:
-        if not sd:
-            raise NotImplementedError(
-                "the uncond decoder pullback is not ported yet (ROADMAP "
-                "queue 1, item 11)")
         edit.run_edit_local_decoder_pullback_zt(
             idx=args.sample_idx, op=args.op, block_idx=args.block_idx,
             pca_rank=args.pca_rank or 2,
@@ -518,6 +603,13 @@ def dispatch(edit, args) -> None:
                 idx=args.sample_idx, basis_indices=list(range(min(args.num_local_basis, 5))),
                 op=args.op, block_idx=args.block_idx, pca_rank=10, vis_num=4,
                 vis_num_pc=2)
+    if args.run_edit_h_space_guidance or args.edit_ht == "h_space_guidance":
+        if not hasattr(edit, "run_edit_h_space_guidance"):
+            raise SystemExit("--run_edit_h_space_guidance is implemented on the "
+                             "unconditional family")
+        edit.run_edit_h_space_guidance(
+            idx=args.sample_idx, op=args.op, block_idx=args.block_idx,
+            pca_rank=args.pca_rank or 2, scale=args.h_space_guidance_scale or None)
     if args.run_edit_text_driven_direction:
         if not sd:
             raise SystemExit(
@@ -526,9 +618,14 @@ def dispatch(edit, args) -> None:
         edit.run_edit_text_driven_direction(
             idx=args.sample_idx, op=args.op, block_idx=args.block_idx)
     if args.run_ddim_forward:
-        fwd = edit.run_DDIMforward if sd else edit.run_ddim_forward
-        fwd(num_samples=5, save_as=os.path.join(edit.cfg.result_folder,
-                                                "DDIMforward.png"))
+        save_as = os.path.join(edit.cfg.result_folder, "DDIMforward.png")
+        if sd:
+            edit.run_DDIMforward(num_samples=5, save_as=save_as)
+        else:
+            edit.run_ddim_forward(num_samples=5, save_as=save_as,
+                                  **({"vis_psd": True} if args.vis_psd else {}))
+    if args.run_ddim_inversion:
+        (edit.run_DDIMinversion if sd else edit.run_ddim_inversion)(idx=args.sample_idx)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,15 @@
-"""Carry a Flax param tree of the JAX package into a port module.
+"""Load weights into a port module: torch checkpoints from local files,
+and the Flax param trees of the JAX package.
+
+``convert_torch_state_dict(state_dict, module)`` pours a diffusers,
+transformers or guided-diffusion state dict into a port module, whose
+parameters carry those names: it strips ``module.`` wrappers, maps the old
+diffusers attention names (query / key / value / proj_attn), squeezes
+guided-diffusion's 1-D conv weights (out, in, 1) onto the port's linears,
+skips the buffers and EMA stems a module does not have, casts each tensor
+to the module's dtype and loads with ``strict=True``, so a missing, extra
+or misshapen tensor raises. ``load_torch_checkpoint_file`` reads the file
+(torch.load with weights_only=True, or safetensors).
 
 ``load_flax_params(module, params)`` renames the Flax tree to the port's
 diffusers / transformers parameter names, transposes each leaf to torch's
@@ -125,3 +136,88 @@ def load_flax_params(module: nn.Module, params: Dict[str, Any]) -> nn.Module:
                              f" vs port {tuple(mine[name].shape)}")
     module.load_state_dict(sd, strict=True)
     return module
+
+
+# ---- torch checkpoints ------------------------------------------------------
+
+# the scope torch.nn.DataParallel / DistributedDataParallel wrap names in
+_WRAPPER = "module."
+# the attention names of diffusers before 0.12 (AttentionBlock) → today's
+_OLD_ATTENTION_NAMES = {"query": "to_q", "key": "to_k", "value": "to_v",
+                        "proj_attn": "to_out.0"}
+
+
+def load_torch_checkpoint_file(path: str) -> Dict[str, torch.Tensor]:
+    """A state dict from a local file: .bin / .pt / .ckpt through
+    torch.load(weights_only=True), unwrapping a ``state_dict`` entry, or
+    .safetensors through the safetensors package."""
+    if path.endswith(".safetensors"):
+        try:
+            from safetensors.torch import load_file
+        except ImportError as e:
+            raise RuntimeError(f"reading {path} needs the safetensors package, which "
+                               "is not installed; save the weights with torch.save "
+                               "(.bin / .pt) instead") from e
+        return load_file(path)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return obj
+
+
+def _port_name(name: str, mine) -> str:
+    """The port's name of a checkpoint tensor: an old diffusers attention
+    projection renamed, where the name as it is does not exist."""
+    if name in mine:
+        return name
+    mod, _, leaf = name.rpartition(".")
+    stem, _, last = mod.rpartition(".")
+    if last in _OLD_ATTENTION_NAMES:
+        return f"{stem}.{_OLD_ATTENTION_NAMES[last]}.{leaf}"
+    return name
+
+
+def _ignorable(name: str) -> bool:
+    """Tensors a checkpoint may carry that no port module has: BatchNorm
+    step counters, position-id buffers, EMA shadows."""
+    return (name.rpartition(".")[2] in ("num_batches_tracked", "position_ids")
+            or "ema" in name.split(".")[0].lower())
+
+
+def convert_torch_state_dict(state_dict: Dict[str, Any], module: nn.Module) -> nn.Module:
+    """Load a torch state dict (tensors or arrays) into ``module`` and return
+    it. Raises KeyError on a missing or an unconsumed tensor and ValueError
+    on a shape mismatch, so a partial load cannot pass silently."""
+    mine = module.state_dict()
+    out = {}
+    for name, value in state_dict.items():
+        while name.startswith(_WRAPPER):
+            name = name[len(_WRAPPER):]
+        name = _port_name(name, mine)
+        if name not in mine and _ignorable(name):
+            continue
+        t = torch.as_tensor(value)
+        target = mine.get(name)
+        if target is not None:
+            if t.ndim == 3 and t.shape[-1] == 1 and target.ndim == 2:
+                t = t[..., 0]       # guided-diffusion's conv_nd(1, …) weights
+            if tuple(t.shape) != tuple(target.shape):
+                raise ValueError(f"shape mismatch at {name}: checkpoint "
+                                 f"{tuple(t.shape)} vs model {tuple(target.shape)}")
+            t = t.to(target.dtype)
+        out[name] = t
+    missing = [n for n in mine if n not in out]
+    if missing:
+        raise KeyError(f"checkpoint missing parameter {missing[0]} "
+                       f"({len(missing)} missing)")
+    extra = [n for n in out if n not in mine]
+    if extra:
+        raise KeyError(f"checkpoint has {len(extra)} unconsumed tensors, e.g. {extra[0]}")
+    module.load_state_dict(out, strict=True)
+    return module
+
+
+def load_torch_checkpoint(path: str, module: nn.Module) -> nn.Module:
+    """``module`` (any port model: a U-Net, the classifier, the VAE or a
+    text tower) with the checkpoint file at ``path`` loaded."""
+    return convert_torch_state_dict(load_torch_checkpoint_file(path), module)

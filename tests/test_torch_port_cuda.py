@@ -63,7 +63,8 @@ def _one_tf32_forward(q, k, v, scale):
     (3, 250, 250, 512), (1, 4096, 4096, 512), (25, 4096, 4096, 64),
     (50, 1024, 1024, 64), (5, 4096, 4096, 512), (10, 4096, 4096, 64),
     (20, 1024, 1024, 64), (8, 1024, 1024, 64), (16, 1024, 1024, 64),
-    (32, 1024, 1024, 64), (48, 1024, 1024, 64), (160, 1024, 1024, 64)])
+    (32, 1024, 1024, 64), (48, 1024, 1024, 64), (160, 1024, 1024, 64),
+    (40, 1024, 1024, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     """K1 (and K2 at D=64) against their plain versions, one launch each,
@@ -145,7 +146,7 @@ def _tol(ref, dtype):
     (3, 1000, 1000, 2), (3, 1000, 700, 2), (3, 700, 1000, 2), (1, 50, 700, 2),
     (4, 200, 130, 2), (3, 1000, 700, 3), (10, 4096, 4096, 2), (20, 1024, 1024, 2),
     (5, 4096, 4096, 1), (10, 1024, 1024, 1), (8, 1024, 1024, 2), (8, 1024, 1024, 10),
-    (10, 1024, 1024, 50)])
+    (10, 1024, 1024, 50), (8, 1024, 1024, 50)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
     """K2–K5 against their plain versions, one launch each, with the

@@ -1,8 +1,8 @@
 """The port CLI's SD flags of this slice on the CPU: their names and
 defaults equal the JAX CLI's, each reaches the driver's config, and each
 dispatches as the JAX main.py does, run end to end with the SD 2.1-base
-presets swapped for tiny ones; the uncond family refuses the SD-only
-runs. And the SD driver's run_DDIMforward from a seeded zT against the JAX
+presets swapped for tiny ones; the uncond family refuses the text-driven
+edit and runs the decoder pullbacks. And the SD driver's run_DDIMforward from a seeded zT against the JAX
 driver's DDIMforwardsteps and decode on the same zT (atol 1e-4)."""
 
 import dataclasses
@@ -122,17 +122,27 @@ def test_ddim_forward_dispatch(tiny_sd):
                                   "--run_edit_local_x0_decoder_pullback_zt",
                                   "--run_edit_text_driven_direction"])
 def test_uncond_refuses_the_sd_runs(monkeypatch, tmp_path, flag):
+    """The text-driven edit needs a prompt and the uncond family refuses it,
+    as the JAX CLI does; the decoder and x̂₀ pullbacks run there (the
+    DDPM-family UNet2D has no learned σ, so its x̂₀ map is defined)."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(tmodels, "model_for_name",
                         lambda name, dtype="float32", **kw: tmodels.UNet2D(tmodels.ddpm_tiny(8)))
     argv = ["--note", "x", "--device", "cpu", "--model_name", "CelebA_HQ_HF",
-            "--performance_boosting_t", "0.2", flag, "True"]
+            "--performance_boosting_t", "0.2", "--x_space_guidance_num_step", "2",
+            flag, "True"]
     if "text_driven" in flag:
         with pytest.raises(SystemExit, match="text-conditioned"):
             tmain.main(argv)
-    else:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tmain.main(argv)
+        return
+    edit = tmain.main(argv)
+    tag = "local_dec_x0" if "x0" in flag else "local_dec"
+    with open(edit.log.path) as f:
+        events = [json.loads(line) for line in f]
+    assert [e["x0_pullback"] for e in events if e["event"] == "local_decoder_pullback"
+            ] == ["x0" in flag]
+    pngs = os.listdir(edit.cfg.result_folder)
+    assert len(pngs) == 4 and all(n.startswith(f"Edit_{tag}-noise_0") for n in pngs)
 
 
 def test_run_ddim_forward_matches_jax(tmp_path):

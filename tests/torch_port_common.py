@@ -107,11 +107,11 @@ def sd_driver_pair(root, cfg: dict, size: int = 32):
     vp = flax_params(vae, jnp.zeros((1, px, px, 3)), seed=1)
     tp = flax_params(text, jnp.zeros((1, tcfg.max_length), jnp.int32), seed=2)
     folders = lambda tag: dict(result_folder=str(root / tag / "runs"),
-                               basis_folder=str(root / tag / "in"))
+                               basis_folder=str(root / tag / "in"),
+                               obs_folder=str(root / tag / "obs"))
     jdrv = jexp.EditStableDiffusion(
         unet, up, vae, vp, text, tp, JSchedule.scaled_linear(), JNoise(px, n=1),
-        jexp.SDExperimentConfig(**cfg, **folders("jax"),
-                                obs_folder=str(root / "jax" / "obs")),
+        jexp.SDExperimentConfig(**cfg, **folders("jax")),
         logger=JLogger(path=None, echo=False))
     load = tmodels.load_flax_params
     tdrv = texp.EditStableDiffusion(
@@ -163,12 +163,12 @@ def sdxl_driver_pair(root, cfg: dict, size: int = 64):
     tps = [flax_params(t, jnp.zeros((1, n), jnp.int32), seed=2 + i, return_pooled=i == 1)
            for i, t in enumerate(texts)]
     folders = lambda tag: dict(result_folder=str(root / tag / "runs"),
-                               basis_folder=str(root / tag / "in"))
+                               basis_folder=str(root / tag / "in"),
+                               obs_folder=str(root / tag / "obs"))
     jdrv = jexp.EditStableDiffusionXL(
         unet, up, vae, vp, texts[0], tps[0], texts[1], tps[1],
         JSchedule.scaled_linear(), JNoise(px, n=1),
-        jexp.SDExperimentConfig(**cfg, **folders("jax"),
-                                obs_folder=str(root / "jax" / "obs")),
+        jexp.SDExperimentConfig(**cfg, **folders("jax")),
         logger=JLogger(path=None, echo=False))
     load = tmodels.load_flax_params
     tdrv = texp.EditStableDiffusionXL(
@@ -218,11 +218,11 @@ def adm_driver_pair(root, cfg: dict, jax_attn: str = "xla", port_attn: str = "fl
     tm = tmodels.load_flax_params(
         tmodels.UNetADM(tmodels.ADMConfig(**net, attn_impl=port_attn)), params)
     folders = lambda tag: dict(result_folder=str(root / tag / "runs"),
-                               basis_folder=str(root / tag / "in"))
+                               basis_folder=str(root / tag / "in"),
+                               obs_folder=str(root / tag / "obs"))
     jdrv = jexp.EditUncondDiffusion(
         jm, params, JSchedule.linear(), JNoise(px, n=1),
-        jexp.UncondExperimentConfig(**cfg, **folders("jax"),
-                                    obs_folder=str(root / "jax" / "obs")),
+        jexp.UncondExperimentConfig(**cfg, **folders("jax")),
         logger=JLogger(path=None, echo=False))
     tdrv = texp.EditUncondDiffusion(
         tm, DiffusionSchedule.linear(), NoiseDataset(px, n=1),
@@ -297,11 +297,11 @@ def ddpm_driver_pair(root, cfg: dict, size: int = 16):
     params = flax_params(jm, jnp.zeros((1, size, size, 3)), jnp.float32(0.0), seed=6)
     tm = tmodels.load_flax_params(tmodels.UNet2D(tmodels.ddpm_tiny(size)), params)
     folders = lambda tag: dict(result_folder=str(root / tag / "runs"),
-                               basis_folder=str(root / tag / "in"))
+                               basis_folder=str(root / tag / "in"),
+                               obs_folder=str(root / tag / "obs"))
     jdrv = jexp.EditUncondDiffusion(
         jm, params, JSchedule.linear(), JNoise(size, n=4),
-        jexp.UncondExperimentConfig(**cfg, **folders("jax"),
-                                    obs_folder=str(root / "jax" / "obs")),
+        jexp.UncondExperimentConfig(**cfg, **folders("jax")),
         logger=JLogger(path=None, echo=False))
     tdrv = texp.EditUncondDiffusion(
         tm, DiffusionSchedule.linear(), NoiseDataset(size, n=4),
@@ -382,3 +382,27 @@ def inject_jax_draws(monkeypatch, module, rank: int, seed: int = 0, oversample: 
         return real(fn, x, _seed, draw=draw, **kw)
 
     monkeypatch.setattr(module, "local_pca", with_jax_draws)
+
+
+def copy_bases(jdrv, tdrv):
+    """Copy the JAX driver's basis files into the port driver's folder."""
+    import os
+    import shutil
+
+    os.makedirs(tdrv.cfg.basis_folder, exist_ok=True)
+    for f in os.listdir(jdrv.cfg.basis_folder):
+        shutil.copy(os.path.join(jdrv.cfg.basis_folder, f), tdrv.cfg.basis_folder)
+
+
+def same_pngs(jdrv, tdrv, names, size: int, frames: int = 3):
+    """Each named PNG of the two drivers' result folders: ``frames``
+    images of ``size`` px side by side, within one uint8 level."""
+    import os
+
+    from PIL import Image
+
+    for n in names:
+        a, b = (np.asarray(Image.open(os.path.join(d.cfg.result_folder, n + ".png")),
+                           np.int16) for d in (tdrv, jdrv))
+        assert a.shape == b.shape == (size, frames * size, 3)
+        assert np.abs(a - b).max() <= 1, n
