@@ -103,10 +103,22 @@ Phases (any failure exits non-zero before the last line is printed):
                with its launches by shape held to the count the code gives;
                then a checkpoint round trip at full width (CelebA-HQ-256's
                U-Net and adm_classifier(256) through torch.save,
-               --checkpoint_path and --classifier_path, bit for bit).
-Phases 1–2 hold every (kernel, shape) that phases 4 and 6–10 launch.
+               --checkpoint_path and --classifier_path, bit for bit);
+ 11. extras  — the post-edit regularizers on the SD 2.1-base edit through
+               the CLI (every frame at the walk start's norm after
+               preserve_norm); batched_local_pullback over 4 SD latents on
+               the pair (K2 at B·H 20 / 40, K3–K5 at 40 / 80) against 4
+               per-sample pullbacks in f32 and bf16; the ancestral sampler
+               (ddpm_forward, learned σ, respaced '10' grid) on ADM-256,
+               plain and classifier-guided; uncond DeepCache on
+               CelebA-HQ-256 at intervals 1 and 3 against the plain
+               forward; and SDXL's rank-8 pullback unchunked with remat off
+               and on (seconds, peak memory, the same basis); each with its
+               launches by shape held to the count the code gives. Phase 7
+               runs SDXL with remat on, as build_sdxl now sets it.
+Phases 1–2 hold every (kernel, shape) that phases 4 and 6–11 launch.
 Then a JSON line of the kernels (one entry per kernel and design over
-phases 4 and 6–10, at the shape that carries most of that design's device
+phases 4 and 6–11, at the shape that carries most of that design's device
 time there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
@@ -207,16 +219,25 @@ PAIR_CASES += [(8, 1024, 64, MEAN_RANK, (BF16,), ("K3", "K4", "K5")),
 # phase 10: parallel transport's two rank-50 pullbacks on ADM-256 (K3–K5 at
 # B·H 400 over 1024 tokens; the decoder pullback's are the rank-2 cases')
 PAIR_CASES += [(8, 1024, 64, HARVEST_RANK, (BF16,), ("K3", "K4", "K5"))]
+# phase 11: the batched pullback over BATCH SD latents at once (the primal
+# at B·H = BATCH·heads, K3–K5 at PCA_RANK·BATCH·heads), in the path's bf16
+# and in f32 (its check against per-sample pullbacks); and SDXL's rank-8
+# pullback unchunked (K3–K5 at B·H 80 over 4096 tokens and 160 over 1024;
+# its K1 in the remat'd forward and K2 are phase 7's batch-1 shapes)
+BATCH, SDXL_RANK = 4, 8
+PAIR_CASES += [(BATCH * bh, s, d, PCA_RANK, (F32, BF16), ("K2", "K3", "K4", "K5"))
+               for bh, s, d in PAIR_SHAPES]
+PAIR_CASES += [(*shape, SDXL_RANK, (BF16,), ("K3", "K4", "K5")) for shape in SDXL_PAIR[0]]
 # C symbol → (label, wrapper, source in ops/csrc by design, line of the
-# Pallas call it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
+# pl.pallas_call it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
 KERNELS = {
     "flash_fwd": ("K1", "flash_forward",
                   {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu",
-                   "tf32x3": "flash_fwd_tf32.cu"}, 179),
+                   "tf32x3": "flash_fwd_tf32.cu"}, 190),
     "flash_fwd_lse": ("K2", "flash_forward_lse",
-                      {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu"}, 253),
+                      {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu"}, 262),
     "flash_tangent": ("K3", "flash_tangent",
-                      {"simt": "flash_jvp.cu", "wgmma": "flash_jvp_tc.cu"}, 497),
+                      {"simt": "flash_jvp.cu", "wgmma": "flash_jvp_tc.cu"}, 505),
     "flash_dq": ("K4", "flash_dq",
                  {"simt": "flash_bwd.cu", "wgmma": "flash_bwd_tc.cu"}, 378),
     "flash_dkv": ("K5", "flash_dkv",
@@ -765,19 +786,26 @@ def unet_k1(expected, batch, calls, dtype, at_4096=5, at_1024=5, heads=(5, 10)):
 
 
 def pair_k2_k5(expected, dtype, iterations, layers, primal=1, shapes=PAIR_SHAPES,
-               rank=PCA_RANK):
-    """K2–K5 launches of a fused-pair pullback of ``rank`` probes over a map
+               rank=PCA_RANK, remat=False):
+    """K1–K5 launches of a fused-pair pullback of ``rank`` probes over a map
     that runs ``layers`` self-attentions at each of the primal ``shapes``
     (an int: that many at each; a tuple: one count per shape), at a primal
     batch ``primal``: one jvp per tangent pass (each iteration and the final
     u), each running K2 and K3; one vjp (K2) whose function runs K4 and K5
-    once per iteration; K3–K5 with the probes folded into B·H."""
+    once per iteration; K3–K5 with the probes folded into B·H. ``remat``
+    (SDXL's, from build_sdxl: pullback_remat and remat_transformer): each
+    cotangent pass takes its own vjp, whose forward runs each transformer
+    block under no_grad (K1) and whose backward recomputes it (K2) before
+    K4 and K5."""
     passes = iterations + 1
     counts = layers if isinstance(layers, tuple) else (layers,) * len(shapes)
     for (bh, s, d), layers in zip(shapes, counts):
         bhp = primal * bh
         folded = (rank * bhp, s, d)
-        expected[("flash_fwd_lse", (bhp, s, d), dtype)] += layers * (passes + 1)
+        if remat:
+            expected[("flash_fwd", (bhp, s, d), dtype)] += layers * iterations
+        expected[("flash_fwd_lse", (bhp, s, d), dtype)] += layers * (
+            passes + (iterations if remat else 1))
         expected[("flash_tangent", folded, dtype)] += layers * passes
         expected[("flash_dq", folded, dtype)] += layers * iterations
         expected[("flash_dkv", folded, dtype)] += layers * iterations
@@ -1347,7 +1375,7 @@ def phase_sdxl(fa):
     expected = collections.Counter()
     edit_k1(expected, edit, n_dir, frames, dtypes, unet=SDXL_UNET, vae_tokens=16384)
     pair_k2_k5(expected, dtypes[0], pullback["iterations"], SDXL_PAIR[1],
-               shapes=SDXL_PAIR[0])
+               shapes=SDXL_PAIR[0], remat=True)
     launches_by_shape = check_launches("sdxl", launches, path, expected)
     for (sym, dsg), (_, n, ms) in sorted(by_design(fa, [path]).items()):
         log(f"[sdxl] {KERNELS[sym][0]} on {dsg}: {n} launches, {ms:.2f} ms on the "
@@ -1368,6 +1396,8 @@ def phase_sdxl(fa):
             u.shape == (32 * 32 * 1280, PCA_RANK) and vT.shape == (PCA_RANK, 128 * 128 * 4)
             and all(np.isfinite(a).all() for a in (u, s, vT)) and (s > 0).all()),
         "pullback through the fused pair": pullback["encoder"] == "flashpair",
+        "remat on, as the JAX CLI's SDXL": cfg.pullback_remat and all(
+            m.remat for m in edit.unet.modules() if hasattr(m, "remat")),
         "every kernel launched": all(launches.values()),
         "launches by shape": launches_by_shape,
     }
@@ -2225,6 +2255,256 @@ def phase_uncond_runs(fa):
     return paths
 
 
+def phase_extras(fa):
+    """Phase 11: the post-edit regularizers, the ancestral sampler, uncond
+    DeepCache, the batched pullback and SDXL's remat, at full width.
+    (a) SD 2.1-base through build_sd and main.dispatch (U-Net bf16 drawn on
+    the card, 10/10 steps, edit t 0.5, one power iteration) with dynamic
+    thresholding, preserve_contrast and preserve_norm on: launches by
+    shape, finite PNGs, every finished frame at ‖z_start‖, the
+    regularizers' milliseconds; (d) on that driver, batched_local_pullback
+    over BATCH latents at the mid tap, pca_rank 2, one iteration, on the
+    pair (K2 at B·H 20 / 40, K3–K5 at 40 / 80), in bf16 and in f32, against
+    BATCH per-sample pullbacks from the same probes (in f32 σ rtol 1e-3,
+    |cos| ≥ 0.99 per σ-gap group), seconds of both; (b) ADM-256 through
+    build_uncond (bf16, --attn_impl flash, --classifier_scale 1):
+    ddpm_forward with the learned-range variance over the respaced '10'
+    grid, plain and guided by adm_classifier(256): K1 at (8,1024,64) per
+    step, finite, guided unlike plain; (c) CelebA-HQ-256 (build_uncond,
+    bf16) ddim_forward_deepcache at intervals 1 and 3 against ddim_forward
+    over its 20-step grid at batch 2: seconds, the distance, no launch;
+    (e) SDXL through build_sdxl, the rank-8 pullback unchunked with remat
+    off and on (pullback_remat and remat_transformer together): seconds,
+    peak memory, the same basis, launches by shape as derived. Returns the
+    path dicts of the bf16 runs."""
+    from diffusion_pullback_tpu_torch import main as port_main
+    from diffusion_pullback_tpu_torch.experiments import BasisCache
+    from diffusion_pullback_tpu_torch.experiments._common import to_nchw, to_nhwc
+    from diffusion_pullback_tpu_torch.geometry import (
+        batched_local_pullback, compare_bases, local_pullback, passes_acceptance)
+    from diffusion_pullback_tpu_torch.models import TapPoint
+    from diffusion_pullback_tpu_torch.ops.schedule import space_timesteps
+    from diffusion_pullback_tpu_torch.samplers.ddim_loop import ddim_forward, ddpm_forward
+    from diffusion_pullback_tpu_torch.samplers.deepcache import ddim_forward_deepcache
+
+    out = os.path.join(OUT, "extras")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    paths, checks = [], {}
+    cuda_gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    host = lambda r: (r.vT.float().cpu().numpy(), r.s.float().cpu().numpy())
+
+    # (a) the regularized SD edit through the CLI
+    flags = ["--note", "chip_smoke", "--result_folder", os.path.join(out, "sd"),
+             "--for_steps", "10", "--inv_steps", "10", "--edit_t", "0.5",
+             "--x_space_guidance_num_step", "2", "--run_edit_local_encoder_pullback_zt",
+             "True", "--use_dynamic_thresholding", "True", "--use_preserve_contrast",
+             "True", "--use_preserve_norm", "True"]
+    args = port_main.parse_args(flags)
+    t0 = time.perf_counter()
+    with torch.device("cuda"):      # weights drawn on the card
+        edit = port_main.build_sd(args)
+    torch.cuda.synchronize()
+    cfg = edit.cfg
+    cfg.pullback_max_iter = 1
+    cfg.basis_folder = os.path.join(out, "sd", "inputs")
+    edit.cache = BasisCache(cfg.basis_folder)
+    dtypes = (next(edit.unet.parameters()).dtype, next(edit.vae.parameters()).dtype)
+    log(f"[extras] built the SD 2.1-base driver in {time.perf_counter() - t0:.1f} s; "
+        f"regularizers: dynamic thresholding q {cfg.dynamic_thresholding_q}, contrast "
+        f"{cfg.use_preserve_contrast}, norm {cfg.use_preserve_norm}")
+    seen, regularize = [], edit._regularize
+
+    def timed_regularize(sel, z_start):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg = regularize(sel, z_start)
+        torch.cuda.synchronize()
+        seen.append((time.perf_counter() - t0, sel, z_start, reg))
+        return reg
+
+    def exp_a(expected, events):
+        edit_k1(expected, edit, 4, 3, dtypes)
+        for e in named(events, "sd_local_pullback"):
+            pair_k2_k5(expected, dtypes[0], e["iterations"], layers=2)
+
+    edit._regularize = timed_regularize
+    _, events, _, _ = checked_run(fa, "extras", "a", edit,
+                                  lambda: port_main.dispatch(edit, args), exp_a, checks,
+                                  paths)
+    del edit._regularize
+    (reg_s, sel, z_start, reg), = seen
+    warm_s = cuda_ms(lambda: regularize(sel, z_start), 5) / 1e3
+    ref_norm = torch.linalg.norm(z_start.float())
+    norm_err = ((torch.linalg.norm(reg.reshape(reg.shape[0], -1).float(), dim=1)
+                 - ref_norm).abs().max() / ref_norm).item()
+    moved = (reg.float() - sel.float()).abs().max().item()
+    log(f"[extras] (a) the regularizers on {reg.shape[0]} frames of "
+        f"{tuple(reg.shape[1:])}: {1e3 * reg_s:.3f} ms in the run (the first call), "
+        f"{1e3 * warm_s:.3f} ms warm; each frame's norm against "
+        f"‖z_start‖ {ref_norm:.4f}: max rel err {norm_err:.3g} (tol 1e-4); max |moved| "
+        f"{moved:.4g}")
+    names = [n for n in os.listdir(cfg.result_folder) if n.startswith("Edit_zt-")]
+    checks["(a) preserve_norm: every frame at ‖z_start‖, frames moved"] = (
+        norm_err <= 1e-4 and moved > 1e-3)
+    checks["(a) 4 PNGs, finite"] = len(names) == 4 and all(
+        e["finite"] for e in named(events, "sd_decode_and_save"))
+
+    # (d) the batched pullback: BATCH latents as one batch against BATCH
+    # per-sample pullbacks from the same probes, one power iteration each
+    tap, t_edit = TapPoint("mid", 0), edit.fwd_grid.timesteps[edit.edit_t_idx]
+    zs = torch.randn(BATCH, 64, 64, 4, device="cuda", generator=cuda_gen(12))
+    v0 = torch.linalg.qr(torch.randn(BATCH, zs[0].numel(), PCA_RANK, device="cuda",
+                                     generator=cuda_gen(13)))[0].mT.contiguous()
+    kw = dict(pca_rank=PCA_RANK, min_iter=0, max_iter=1, atol=0.0)
+    for dtype in (BF16, F32):
+        edit.unet.to(dtype)         # the same weights, bf16-valued
+        enc, enc_vjp, tag = edit._pullback_tap_encoders(t_edit, tap)
+        runs = {}
+        for what, batch, fn in (
+                ("batched", BATCH, lambda: batched_local_pullback(
+                    enc, zs, v_init=v0, fn_vjp=enc_vjp, **kw)),
+                ("per-sample", 1, lambda: [local_pullback(
+                    enc, zs[b:b + 1], v_init=v0[b], fn_vjp=enc_vjp, **kw)
+                    for b in range(BATCH)])):
+            res, seconds, peak, launches, path = drive(fa, fn)
+            expected = collections.Counter()
+            for _ in range(BATCH // batch):
+                pair_k2_k5(expected, dtype, 1, layers=2, primal=batch)
+            tag_d = f"(d) {what} {str(dtype)[6:]}"
+            checks[f"{tag_d} launches by shape"] = check_launches(
+                f"extras {tag_d}", launches, path, expected)
+            if dtype == BF16:
+                paths.append(path)
+            log(f"[extras] {tag_d} pullback of {BATCH} latents ({tag}): {seconds:.3f} s, "
+                f"peak memory {peak:.2f} GB")
+            runs[what] = res
+        batched = runs["batched"]
+        cmps = [compare_bases(*host(single), batched.vT[b].float().cpu().numpy(),
+                              batched.s[b].float().cpu().numpy())
+                for b, single in enumerate(runs["per-sample"])]
+        log(f"[extras] (d) {str(dtype)[6:]} batched vs per-sample: sigma max rel err "
+            f"{max(c.sigma_rel_err.max() for c in cmps):.3g}, min |cos| per σ-gap group "
+            f"{min(c.per_direction_cos.min() for c in cmps):.6f}")
+        finite = bool(torch.isfinite(batched.s).all() and torch.isfinite(batched.vT).all())
+        checks[f"(d) {str(dtype)[6:]} batched basis finite, (B, r, dim) shapes"] = (
+            finite and tuple(batched.vT.shape) == (BATCH, PCA_RANK, zs[0].numel()))
+        if dtype == F32:
+            checks["(d) f32 batched vs per-sample: σ rtol 1e-3, |cos| ≥ 0.99"] = all(
+                passes_acceptance(c, cos_min=0.99, sigma_rtol=1e-3) for c in cmps)
+    del edit, runs, batched
+    torch.cuda.empty_cache()
+
+    # (b) the ancestral sampler on ADM-256, plain and classifier-guided
+    adm = port_main.build_uncond(port_main.parse_args(
+        ["--note", "chip_smoke", "--model_name", "ImageNet256Uncond", "--result_folder",
+         os.path.join(out, "adm"), "--performance_boosting_t", "0.2",
+         "--classifier_scale", "1"]))
+    model, adm_dtype = adm.model, next(adm.model.parameters()).dtype
+    steps = torch.tensor(sorted(space_timesteps(1000, "10"), reverse=True),
+                         dtype=torch.float32)
+    x = torch.randn(1, 256, 256, 3, generator=torch.Generator().manual_seed(14)).cuda()
+    eps = lambda z, t: to_nhwc(model(to_nchw(z), t))     # [ε, v] on the channel axis
+    samples = {}
+    for what, cond_fn in (("plain", None), ("guided", adm.cond_fn)):
+        with torch.no_grad():
+            samples[what], seconds, peak, launches, path = drive(fa, lambda: ddpm_forward(
+                eps, x, adm.schedule, torch.Generator().manual_seed(15), timesteps=steps,
+                learn_sigma=True, cond_fn=cond_fn))
+        expected = collections.Counter()
+        unet_k1(expected, 1, len(steps), adm_dtype, **ADM_UNET)
+        checks[f"(b) {what} launches by shape"] = check_launches(
+            f"extras (b) {what}", launches, path, expected)
+        paths.append(path)
+        log(f"[extras] (b) ddpm_forward {what}, learned σ, {len(steps)} respaced steps "
+            f"from {steps[0].item():.0f}: {seconds:.3f} s, peak memory {peak:.2f} GB")
+    diff = (samples["guided"] - samples["plain"]).abs().max().item()
+    log(f"[extras] (b) max |guided − plain| {diff:.4g} (classifier scale "
+        f"{adm.cfg.classifier_scale}); max |x| plain "
+        f"{samples['plain'].abs().max().item():.4g}, guided "
+        f"{samples['guided'].abs().max().item():.4g}")
+    checks["(b) samples finite, (1, 256, 256, 3), guided unlike plain"] = all(
+        bool(torch.isfinite(s).all()) and s.shape == x.shape
+        for s in samples.values()) and diff > 1e-3
+    del adm, model, samples
+    torch.cuda.empty_cache()
+
+    # (c) DeepCache on the CelebA-HQ-256 U-Net (no custom kernel)
+    celeba = port_main.build_uncond(port_main.parse_args(
+        ["--note", "chip_smoke", "--model_name", "CelebA_HQ_HF", "--result_folder",
+         os.path.join(out, "celeba"), "--for_steps", "20", "--inv_steps", "20",
+         "--performance_boosting_t", "0.2"]))
+    unet2d, grid = celeba.model, celeba.fwd_grid
+    xc = torch.randn(2, 3, 256, 256, device="cuda", generator=cuda_gen(16))
+    outs = {}
+    for what, fn in (
+            ("plain", lambda: ddim_forward(unet2d, xc, celeba.schedule, grid)),
+            ("interval 1", lambda: ddim_forward_deepcache(unet2d, xc, celeba.schedule,
+                                                          grid, interval=1)),
+            ("interval 3", lambda: ddim_forward_deepcache(unet2d, xc, celeba.schedule,
+                                                          grid, interval=3))):
+        with torch.no_grad():
+            outs[what], seconds, _, launches, _ = drive(fa, fn)
+        checks[f"(c) {what}: no K1–K5 launch"] = not any(launches.values())
+        log(f"[extras] (c) CelebA-HQ-256 {what}, {grid.num_steps} steps at batch 2: "
+            f"{seconds:.3f} s")
+    top = outs["plain"].abs().max().item()
+    d1 = (outs["interval 1"] - outs["plain"]).abs().max().item()
+    rel3 = (torch.linalg.norm(outs["interval 3"] - outs["plain"])
+            / torch.linalg.norm(outs["plain"])).item()
+    log(f"[extras] (c) max |interval 1 − plain| {d1:.3g} (tol 1e-3 of max |x| {top:.3g}); "
+        f"interval 3 relative distance {rel3:.4g}")
+    checks["(c) interval 1 is the plain forward, interval 3 finite and near it"] = (
+        d1 <= 1e-3 * top and bool(torch.isfinite(outs["interval 3"]).all())
+        and 0 < rel3 < 1)
+    del celeba, unet2d, outs
+    torch.cuda.empty_cache()
+
+    # (e) SDXL's rank-8 pullback, unchunked, with remat off and on
+    xl = port_main.build_sdxl(port_main.parse_args(
+        ["--note", "chip_smoke", "--model_name", port_main.SDXL_MODEL, "--result_folder",
+         os.path.join(out, "sdxl"), "--for_steps", "10", "--inv_steps", "10",
+         "--edit_t", "0.5", "--edit_prompt", "a photo of a tree"]))
+    xl.cfg.pullback_chunk_size, xl.cfg.pullback_max_iter = None, 1
+    xl_dtype = next(xl.unet.parameters()).dtype
+    blocks = [m for m in xl.unet.modules() if hasattr(m, "remat")]
+    zt = torch.randn(1, 128, 128, 4, device="cuda", generator=cuda_gen(8))
+    t_xl = xl.fwd_grid.timesteps[xl.edit_t_idx]
+    remat_runs = {}
+    for remat in (False, True):
+        xl.cfg.pullback_remat = remat
+        for m in blocks:
+            m.remat = remat
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() / 1e9
+        res, seconds, peak, launches, path = drive(fa, lambda: xl.compute_local_basis(
+            zt, t_xl, TapPoint("mid", 0), SDXL_RANK))
+        expected = collections.Counter()
+        pair_k2_k5(expected, xl_dtype, res.iterations, SDXL_PAIR[1], shapes=SDXL_PAIR[0],
+                   rank=SDXL_RANK, remat=remat)
+        checks[f"(e) remat {remat} launches by shape"] = check_launches(
+            f"extras (e) remat {remat}", launches, path, expected)
+        paths.append(path)
+        remat_runs[remat] = res
+        log(f"[extras] (e) SDXL rank-{SDXL_RANK} pullback unchunked, remat {remat} "
+            f"({len(blocks)} transformers): {seconds:.3f} s, peak memory {peak:.2f} GB "
+            f"({peak - base:.2f} GB above the {base:.2f} GB before it), "
+            f"{res.iterations} iteration, sigma {res.s.tolist()}")
+    cmp = compare_bases(*host(remat_runs[True]), *host(remat_runs[False]))
+    log(f"[extras] (e) remat on vs off: sigma max rel err {cmp.sigma_rel_err.max():.3g}, "
+        f"min |cos| per σ-gap group {cmp.per_direction_cos.min():.6f}")
+    checks["(e) remat changes no number: σ rtol 1e-3, |cos| ≥ 0.99"] = passes_acceptance(
+        cmp, cos_min=0.99, sigma_rtol=1e-3)
+    del xl, remat_runs
+    torch.cuda.empty_cache()
+
+    for what, ok in checks.items():
+        log(f"[extras] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("phase 11 checks failed")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -2280,6 +2560,8 @@ def main():
     lap("phase 9")
     paths += phase_uncond_runs(fa)
     lap("phase 10")
+    paths += phase_extras(fa)
+    lap("phase 11")
 
     # every (kernel, shape, dtype) the main paths launched was held against
     # its plain version in phases 1–2
@@ -2291,7 +2573,7 @@ def main():
                              f"did not hold against their plain versions: {missing}")
 
     # launches and summed device time of each (kernel, shape) over the main
-    # paths of phases 4 and 6–10
+    # paths of phases 4 and 6–11
     merged = collections.defaultdict(lambda: [0, 0.0])
     for path in paths:
         for key, (n, ms) in path.items():
@@ -2299,10 +2581,10 @@ def main():
             merged[key][1] += ms
     for (sym, shape, dtype), (n, ms) in sorted(merged.items(), key=lambda kv: -kv[1][1]):
         log(f"[paths] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches, "
-            f"{ms:.3f} ms on the device over phases 4 and 6–10")
-    log(f"[smoke] phases 1–10 in {time.perf_counter() - t_start:.1f} s")
+            f"{ms:.3f} ms on the device over phases 4 and 6–11")
+    log(f"[smoke] phases 1–11 in {time.perf_counter() - t_start:.1f} s")
 
-    # one entry per kernel and design on the main paths (phases 4, 6–10):
+    # one entry per kernel and design on the main paths (phases 4, 6–11):
     # their launches and summed device time there (path_ms), and the
     # per-launch numbers of phases 1–2 at the shape that carries most of
     # that device time

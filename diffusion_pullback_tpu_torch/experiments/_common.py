@@ -1,7 +1,8 @@
 """What the experiment drivers share (counterpart of
 diffusion_pullback_tpu/experiments/_common.py): the NHWC ↔ NCHW boundary,
 the synchronised stage timer, the tap construction, the grid index of a
-t, the seeded sample draw, the basis write and its analysis artifacts."""
+t, the seeded sample draw, the basis write and its analysis artifacts, and
+the post-edit regularizers."""
 
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from typing import Optional
 import torch
 
 from ..models.unet2d import TapPoint
+from ..samplers.regularizers import (dynamic_thresholding, preserve_contrast,
+                                     preserve_norm)
 
 to_nchw = lambda z: z.permute(0, 3, 1, 2)
 to_nhwc = lambda z: z.permute(0, 2, 3, 1)
@@ -69,6 +72,20 @@ class DriverCommonMixin:
             visualize_vT_rgb(vT, shape, os.path.join(obs, f"vT-{name}.png"))
         except Exception as e:
             self.log.log("vis_failed", error=str(e))
+
+    def _regularize(self, sel: torch.Tensor, z_start: torch.Tensor) -> torch.Tensor:
+        """The post-edit regularizers that cfg turns on, in the reference's
+        order (thresholding, contrast, norm), on the walk frames ``sel``
+        (one sample per row) against the walk's start ``z_start`` (batch
+        1, broadcast)."""
+        cfg = self.cfg
+        if cfg.use_dynamic_thresholding:
+            sel = dynamic_thresholding(sel, cfg.dynamic_thresholding_q)
+        if cfg.use_preserve_contrast:
+            sel = preserve_contrast(sel, z_start)
+        if cfg.use_preserve_norm:
+            sel = preserve_norm(sel, z_start)
+        return sel
 
     def _make_tap(self, op, block_idx, after_res=False, after_sa=False) -> TapPoint:
         """``after_res`` / ``after_sa`` move the tap after the block's last

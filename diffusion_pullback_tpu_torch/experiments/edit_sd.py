@@ -1,15 +1,16 @@
 """Stable-Diffusion editing along pullback directions.
 
 Counterpart of EditStableDiffusion in
-diffusion_pullback_tpu/experiments/edit_sd.py (without the regularizers;
-the harvests are in sd_harvest.py, the PCA runs in sd_pca.py):
+diffusion_pullback_tpu/experiments/edit_sd.py (the harvests are in
+sd_harvest.py, the PCA runs in sd_pca.py):
 
     VAE encode → DDIM inversion → DDIM forward to the edit t → a direction
     (the encoder pullback at a U-Net tap, edit-prompt conditioned, with CFG
     inside the JVP when pullback_guidance_scale > 0; the decoder or x̂₀
     pullback pulled back through the encoder's Jᵀ; or the text-driven
-    JᵀΔh) → x-space-guidance walk along ±v_k → DDIM finish (both with
-    optional DeepCache reuse) → VAE decode → PNG grids.
+    JᵀΔh) → x-space-guidance walk along ±v_k → the post-edit regularizers
+    the config turns on → DDIM finish (walk and finish with optional
+    DeepCache reuse) → VAE decode → PNG grids.
 
 Latents, ``vT`` and the basis cache are NHWC at this boundary, as in the JAX
 package, so ``vT`` rows flatten in the same order and a basis from either
@@ -81,6 +82,9 @@ class SDExperimentConfig:
     pullback_max_iter: int = 50
     pullback_atol: float = 1e-4
     pullback_chunk_size: Optional[int] = None
+    # each cotangent pass of the pullback runs its own vjp, so the map's
+    # activations live only during the pass (SDXL)
+    pullback_remat: bool = False
     # attention inside the differentiated encoder ('' = the model's own;
     # 'flash' = the fused JVP/VJP kernel pair)
     pullback_attn_impl: str = ""
@@ -96,6 +100,12 @@ class SDExperimentConfig:
     # run_edit_text_driven_direction: 0 = one JᵀΔh direction; k > 0 = Δh
     # decomposed in the top-k pullback basis, each PC walked separately
     text_driven_num_pc: int = 0
+    # post-edit regularizers of the walk frames before the finish
+    # (samplers/regularizers.py), in this order
+    use_dynamic_thresholding: bool = False
+    dynamic_thresholding_q: float = 0.8
+    use_preserve_contrast: bool = False
+    use_preserve_norm: bool = False
     # decode at most this many latents per VAE call (None = all at once):
     # bounds the VAE's activations at 1024 px
     decode_chunk: Optional[int] = None
@@ -339,7 +349,7 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
                 pca_rank=pca_rank, min_iter=self.cfg.pullback_min_iter,
                 max_iter=self.cfg.pullback_max_iter,
                 atol=self.cfg.pullback_atol, fn_vjp=enc_vjp,
-                chunk_size=self.cfg.pullback_chunk_size)
+                chunk_size=self.cfg.pullback_chunk_size, remat=self.cfg.pullback_remat)
             log.update(iterations=res.iterations,
                        top_s=res.s[:3].float().cpu().numpy().round(4))
         return res
@@ -510,7 +520,7 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
                 min_iter=cfg.pullback_min_iter, max_iter=cfg.pullback_max_iter,
                 atol=cfg.pullback_atol,
                 fn_vjp=decode_with(impl_vjp) if impl_vjp else None,
-                chunk_size=cfg.pullback_chunk_size)
+                chunk_size=cfg.pullback_chunk_size, remat=cfg.pullback_remat)
             log.update(iterations=res.iterations,
                        top_s=res.s[:3].float().cpu().numpy().round(4))
         return res
@@ -604,8 +614,9 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
             guidance_scale=cfg.guidance_scale if cfg_on else 0.0))
 
     def _edit_along_directions(self, zt, vks, names, vis_num):
-        """Walks for every direction whose PNG is missing, the finish
-        sampling of the selected frames, VAE decode, one PNG grid each."""
+        """Walks for every direction whose PNG is missing, the regularizers
+        and the finish sampling of the selected frames, VAE decode, one PNG
+        grid each."""
         cfg = self.cfg
         t_edit = self.fwd_grid.timesteps[self.edit_t_idx]
         todo = [i for i, n in enumerate(names) if not os.path.exists(
@@ -623,7 +634,8 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
         d, f = sel.shape[:2]
         with self._stage("sd_finish_forward", batch=d * f,  # edit_t → 0
                          deepcache=cfg.edit_deepcache_interval):
-            z0s = self._finish_forward(sel.reshape(d * f, *sel.shape[2:]))
+            z0s = self._finish_forward(
+                self._regularize(sel.reshape(d * f, *sel.shape[2:]), zt))
             z0s = z0s.reshape(d, f, *z0s.shape[1:])
         with self._stage("sd_decode_and_save", directions=d) as log:
             finite = bool(torch.isfinite(z0s).all())

@@ -4,8 +4,9 @@ Counterpart of EditUncondDiffusion in
 diffusion_pullback_tpu/experiments/edit_uncond.py. The main path:
 
     image → DDIM inversion → DDIM forward to the edit t → encoder pullback
-    at a U-Net tap → x-space-guidance walk along ±v_k → DDIM finish with
-    performance boosting (η = 1 below performance_boosting_t·T) → PNG grids.
+    at a U-Net tap → x-space-guidance walk along ±v_k → the post-edit
+    regularizers the config turns on → DDIM finish with performance
+    boosting (η = 1 below performance_boosting_t·T) → PNG grids.
 
 A freshly computed basis also leaves its eigenvalue spectrum and the RGB
 map of its directions in ``obs_folder`` (experiments/vis.py).
@@ -60,6 +61,7 @@ from ..ops.schedule import (DiffusionSchedule, alpha_bar, ddim_timestep_grid,
                             respaced_timestep_grid)
 from ..samplers.ddim_loop import ddim_forward, ddim_invert, ddim_scan
 from ..samplers.guidance import guided_eps_fn, x_space_guidance_scan
+from ..samplers.regularizers import sega_sparsify
 from ..utils.device import resolve_device, strict_f32
 from ..utils.images import save_image_grid
 from ..utils.logging import JSONLLogger
@@ -82,11 +84,17 @@ class UncondExperimentConfig:
     # (ε_null, ε_edit) evaluation of the walk: 'batch' | 'split' (the same
     # numbers; the JAX driver always batches)
     xsg_pair_impl: str = "batch"
-    # not ported: each raises when set (ROADMAP queue 1 items 12 and 16)
+    # post-edit regularizers of the walk frames before the finish
+    # (samplers/regularizers.py), in this order; SEGA sparsifies the
+    # directions that h-space bases map to x (PCA, mean-basis and
+    # decoder-pullback edits)
     use_dynamic_thresholding: bool = False
+    dynamic_thresholding_q: float = 0.8
     use_preserve_contrast: bool = False
     use_preserve_norm: bool = False
     use_sega_reg: bool = False
+    sega_reg_sigma: float = 1.0
+    # not ported: raises when set (ROADMAP queue 1 item 16)
     mesh: Optional[object] = None
     # OpenAI respacing grid ('ddim25', '250', '25,25,25'; '' = the linspace
     # grid of for_steps / inv_steps)
@@ -117,13 +125,7 @@ class UncondExperimentConfig:
 
 
 def _refuse_unported(cfg: UncondExperimentConfig) -> None:
-    unported = [
-        ("the post-edit regularizers (use_dynamic_thresholding, "
-         "use_preserve_contrast, use_preserve_norm, use_sega_reg)",
-         cfg.use_dynamic_thresholding or cfg.use_preserve_contrast
-         or cfg.use_preserve_norm or cfg.use_sega_reg, 12),
-        ("a device mesh", cfg.mesh is not None, 16),
-    ]
+    unported = [("a device mesh", cfg.mesh is not None, 16)]
     for what, asked, item in unported:
         if asked:
             raise NotImplementedError(
@@ -355,7 +357,8 @@ class EditUncondDiffusion(DriverCommonMixin):
     @torch.no_grad()
     def _edit_along_directions(self, xt, vks, names, vis_num):
         """The walks of every direction whose PNG is missing (one batch),
-        the boosted finish of the selected frames, one PNG grid each."""
+        the regularizers and the boosted finish of the selected frames, one
+        PNG grid each."""
         cfg = self.cfg
         t_edit = self.fwd_grid.timesteps[self.edit_t_idx]
         todo = [i for i, n in enumerate(names) if not os.path.exists(
@@ -378,8 +381,9 @@ class EditUncondDiffusion(DriverCommonMixin):
         d, f = sel.shape[:2]
         with self._stage("finish_and_save", batch=d * f) as log:
             x0s = ddim_forward(
-                eps, sel.reshape(d * f, *sel.shape[2:]), self.schedule,
-                self.fwd_grid, start_idx=self.edit_t_idx, boost_start_idx=boost,
+                eps, self._regularize(sel.reshape(d * f, *sel.shape[2:]), xt),
+                self.schedule, self.fwd_grid, start_idx=self.edit_t_idx,
+                boost_start_idx=boost,
                 generator=torch.Generator().manual_seed(cfg.seed + 1))
             imgs = x0s.reshape(d, f, *x0s.shape[1:]).float().cpu().numpy()
             log.update(finite=bool(np.isfinite(imgs).all()))
@@ -626,6 +630,8 @@ class EditUncondDiffusion(DriverCommonMixin):
             for pc in range(vis_num_pc):
                 v = pullback_covector(enc, xt, u_mean[:, pc])
                 v = v / torch.linalg.norm(v)
+                if cfg.use_sega_reg:
+                    v = sega_sparsify(v, cfg.sega_reg_sigma)
                 for sign, stag in ((1.0, "pos"), (-1.0, "neg")):
                     vks.append(sign * v.reshape(shape))
                     names.append(f"Edit_{tag}-{cfg.dataset_name}_{idx}-edit_{cfg.edit_t}T"

@@ -13,7 +13,9 @@ shape of the JAX package's ``fn_vjp`` branch: one `torch.func.vjp` of the
 map (of ``fn_vjp`` when given), whose function is vmapped over the probes.
 The tangent half runs `torch.func.jvp` per pass, which evaluates the
 primal again each time (`linearize` traces with make_fx, which cannot trace
-the port's ctypes kernels).
+the port's ctypes kernels). ``batched_local_pullback`` runs B independent
+pullbacks of a per-sample map as one, the probes of every sample sharing
+each pass.
 """
 
 from __future__ import annotations
@@ -45,22 +47,79 @@ def _orthonormal_probes(generator: torch.Generator, dim: int, rank: int
     return q.T
 
 
-def _short_fat_svd(m: torch.Tensor):
-    """SVD of a short-fat (r, d) matrix through the tall QR of mᵀ and the SVD
-    of the r×r R factor. Returns (s descending, vT with unit rows)."""
-    qtall, rfac = torch.linalg.qr(m.T)      # mᵀ = Q (d×r) · R (r×r)
-    _, s, wT = torch.linalg.svd(rfac.T)     # m = Rᵀ Qᵀ = U S (Wᵀ Qᵀ)
-    return s, wT @ qtall.T
+def _short_fat_svd(m: torch.Tensor, eps: float = 1e-12, method: str = "qr"):
+    """SVD of a short-fat (…, r, d) matrix without a d-sized SVD. Returns
+    (s descending, vT with unit rows); leading axes are a batch.
+
+      'qr'   (default): the tall QR of mᵀ, then the SVD of the r×r R
+             factor; conditioning ∝ σ, accurate down the spectrum's tail.
+      'gram': eigh of m mᵀ; one matmul cheaper, conditioning ∝ σ², so
+             directions with σ_k/σ_1 ≲ √eps_f32 are lost.
+    """
+    if method == "gram":
+        w, q = torch.linalg.eigh(m @ m.mT)   # ascending, as jnp.linalg.eigh
+        w, q = w.flip(-1), q.flip(-1)
+        s = torch.sqrt(torch.clamp(w, min=0.0))
+        vT = (q.mT @ m) / torch.clamp(s, min=eps)[..., None]
+        # a numerically rank-deficient Gram (σ_k/σ_1 ≲ eps_f32^(1/4)) blows
+        # rows up at the eps division and the iteration diverges to NaN:
+        # re-unitise, so it merely loses accuracy
+        return s, vT / torch.clamp(torch.linalg.norm(vT, dim=-1, keepdim=True), min=eps)
+    if method == "qr":
+        qtall, rfac = torch.linalg.qr(m.mT)     # mᵀ = Q (d×r) · R (r×r)
+        _, s, wT = torch.linalg.svd(rfac.mT)    # m = Rᵀ Qᵀ = U S (Wᵀ Qᵀ)
+        return s, wT @ qtall.mT
+    raise ValueError(f"unknown svd method: {method!r}")
 
 
-def _batched(fn: Callable, chunk_size: Optional[int], rank: int):
-    """vmap ``fn`` over the probe axis; with ``chunk_size`` a loop of vmaps
-    over chunks of that many probes, to bound peak memory."""
+def _batched(fn: Callable, chunk_size: Optional[int], rank: int, axis: int = 0):
+    """vmap ``fn`` over the probe axis ``axis``; with ``chunk_size`` a loop
+    of vmaps over chunks of that many probes, to bound peak memory."""
+    f = vmap(fn, in_dims=axis, out_dims=axis)
     if chunk_size is None or chunk_size >= rank:
-        return vmap(fn)
+        return f
     if rank % chunk_size != 0:
         raise ValueError(f"pca_rank {rank} must be divisible by chunk_size {chunk_size}")
-    return lambda batch: torch.cat([vmap(fn)(c) for c in batch.split(chunk_size)])
+    return lambda batch: torch.cat([f(c) for c in batch.split(chunk_size, dim=axis)],
+                                   dim=axis)
+
+
+def _cotangent_pass(fn: Callable, x: torch.Tensor, remat: bool, out_shape):
+    """u ↦ Jᵀu of ``fn`` at ``x`` (reshaped to ``out_shape``), to be vmapped
+    over the probes. By default one vjp of ``fn`` at ``x`` serves every
+    pass, holding its activations for the whole iteration; with ``remat``
+    each call takes its own vjp (the forward again), so they live only
+    during that pass."""
+    def pull(h, vjp_fn, u):
+        return vjp_fn(u.reshape(h.shape).to(h.dtype))[0].reshape(out_shape)
+
+    if remat:
+        return lambda u: pull(*vjp(fn, x), u)
+    h, vjp_fn = vjp(fn, x)
+    return lambda u: pull(h, vjp_fn, u)
+
+
+def _power_iteration(fwd, bwd, v, min_iter, max_iter, atol, svd_method
+                     ) -> PullbackResult:
+    """The subspace power iteration from the probes ``v`` (…, r, dim_x),
+    any leading axes a batch sharing the iteration count and δ (the max
+    over it)."""
+    s = torch.zeros(v.shape[:-1], device=v.device)
+    delta, it = math.inf, 0
+    while it < max_iter and (it <= min_iter + 1 or delta > atol):
+        s, v_new = _short_fat_svd(bwd(fwd(v)).float(), method=svd_method)
+        # sign-align rows to the previous iterate: no ± flapping in the
+        # convergence test or the result
+        signs = torch.sign((v_new * v).sum(dim=-1))
+        signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+        v_new = v_new * signs[..., None]
+        delta = (v_new - v).abs().max().item()
+        v, it = v_new, it + 1
+
+    # final tangent pass so u belongs to the converged v
+    u = fwd(v)
+    return PullbackResult(u=u.mT, s=torch.sqrt(s), vT=v, iterations=it,
+                          final_delta=delta)
 
 
 def local_pullback(
@@ -74,6 +133,8 @@ def local_pullback(
     v_init: Optional[torch.Tensor] = None,
     fn_vjp: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     chunk_size: Optional[int] = None,
+    remat: bool = False,
+    svd_method: str = "qr",
 ) -> PullbackResult:
     """Top-``pca_rank`` singular triplets of ∂fn/∂x at ``x``.
 
@@ -87,14 +148,18 @@ def local_pullback(
     ``fn_vjp``: a second implementation of the same map for the cotangent
     half, as in the JAX package, for an ``fn`` whose kernels have only a
     forward-mode rule (attn_impl 'flash_jvp'): the tangent passes run
-    ``fn``, the one vjp runs ``fn_vjp`` ('flash').
+    ``fn``, the vjp runs ``fn_vjp`` ('flash').
+
+    ``remat``: each cotangent pass runs its own vjp, so the map's saved
+    activations live only during that pass, not across the iteration (the
+    tangent passes hold none); the numbers do not change. ``svd_method``:
+    'qr' or 'gram' (``_short_fat_svd``).
     """
     x = x.to(torch.float32)
     dim_x = math.prod(x.shape)
-    h, vjp_fn = vjp(fn if fn_vjp is None else fn_vjp, x)
     fwd = _batched(lambda vi: jvp(fn, (x,), (vi.reshape(x.shape),))[1].reshape(-1),
                    chunk_size, pca_rank)
-    bwd = _batched(lambda ui: vjp_fn(ui.reshape(h.shape).to(h.dtype))[0].reshape(-1),
+    bwd = _batched(_cotangent_pass(fn if fn_vjp is None else fn_vjp, x, remat, (-1,)),
                    chunk_size, pca_rank)
 
     if v_init is not None:
@@ -106,23 +171,55 @@ def local_pullback(
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         v = _orthonormal_probes(generator, dim_x, pca_rank).to(x.device)
+    return _power_iteration(fwd, bwd, v, min_iter, max_iter, atol, svd_method)
 
-    s = torch.zeros(pca_rank, device=x.device)
-    delta, it = math.inf, 0
-    while it < max_iter and (it <= min_iter + 1 or delta > atol):
-        s, v_new = _short_fat_svd(bwd(fwd(v)).float())
-        # sign-align rows to the previous iterate: no ± flapping in the
-        # convergence test or the result
-        signs = torch.sign((v_new * v).sum(dim=1))
-        signs = torch.where(signs == 0, torch.ones_like(signs), signs)
-        v_new = v_new * signs[:, None]
-        delta = (v_new - v).abs().max().item()
-        v, it = v_new, it + 1
 
-    # final tangent pass so u belongs to the converged v
-    u = fwd(v)
-    return PullbackResult(u=u.T, s=torch.sqrt(s), vT=v, iterations=it,
-                          final_delta=delta)
+def batched_local_pullback(
+    fn: Callable[[torch.Tensor], torch.Tensor],
+    xs: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    pca_rank: int = 50,
+    min_iter: int = 10,
+    max_iter: int = 50,
+    atol: float = 1e-3,
+    chunk_size: Optional[int] = None,
+    remat: bool = False,
+    svd_method: str = "qr",
+    fn_vjp: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    v_init: Optional[torch.Tensor] = None,
+) -> PullbackResult:
+    """B independent pullbacks in one: ``fn`` maps a (B, …) batch to
+    (B, …) and must be per-sample independent (sample b's output depends
+    only on sample b's input), so the Jacobian is block-diagonal and probe
+    i of every sample shares one tangent pass at batch B.
+
+    The iterates are (B, r, dim), the probe axis vmapped at axis 1;
+    ``chunk_size``, ``remat``, ``svd_method`` and ``fn_vjp`` as in
+    ``local_pullback``, the cotangent half one vjp of the batch map. The
+    result has a leading B axis: u (B, dim_h, r), s (B, r), vT (B, r,
+    dim_x); ``iterations`` and ``final_delta`` are shared (δ the max over
+    the batch), so with atol > 0 the loop runs until every sample has
+    converged. ``v_init`` (B, r, dim_x) replaces the default, one
+    orthonormal block per sample drawn in turn from ``generator``."""
+    xs = xs.to(torch.float32)
+    batch, dim_x = xs.shape[0], math.prod(xs.shape[1:])
+    fwd = _batched(
+        lambda vi: jvp(fn, (xs,), (vi.reshape(xs.shape),))[1].reshape(batch, -1),
+        chunk_size, pca_rank, axis=1)
+    bwd = _batched(_cotangent_pass(fn if fn_vjp is None else fn_vjp, xs, remat,
+                                   (batch, -1)), chunk_size, pca_rank, axis=1)
+
+    if v_init is not None:
+        if tuple(v_init.shape) != (batch, pca_rank, dim_x):
+            raise ValueError(f"v_init shape {tuple(v_init.shape)} != "
+                             f"({batch}, {pca_rank}, {dim_x})")
+        v = torch.as_tensor(v_init, dtype=torch.float32).to(xs.device)
+    else:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        v = torch.stack([_orthonormal_probes(generator, dim_x, pca_rank)
+                         for _ in range(batch)]).to(xs.device)
+    return _power_iteration(fwd, bwd, v, min_iter, max_iter, atol, svd_method)
 
 
 def local_encoder_pullback(encode_fn: Callable[[torch.Tensor], torch.Tensor],

@@ -153,6 +153,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run_edit_text_driven_direction: 0 = one J^T dh "
                         "direction; k>0 = dh decomposed in the top-k pullback "
                         "basis, each PC walked separately, signed toward dh")
+    p.add_argument("--use_dynamic_thresholding", type=str2bool, default=False,
+                   help="clamp each walk frame at the q-quantile of its |x| "
+                        "before the finish")
+    p.add_argument("--dynamic_thresholding_q", type=float, default=0.8)
+    p.add_argument("--use_preserve_contrast", type=str2bool, default=False,
+                   help="match each walk frame's mean and std to the walk's start")
+    p.add_argument("--use_preserve_norm", type=str2bool, default=False,
+                   help="rescale each walk frame to the walk start's norm")
+    p.add_argument("--use_sega_reg", type=str2bool, default=False,
+                   help="uncond: zero the components of an h-basis edit "
+                        "direction below sega_reg_sigma · its std")
+    p.add_argument("--sega_reg_sigma", type=float, default=1.0)
     p.add_argument("--op", type=str, default="mid", choices=["down", "mid", "up"])
     p.add_argument("--block_idx", type=int, default=0)
     p.add_argument("--after_res", type=str2bool, default=False)
@@ -346,6 +358,12 @@ def build_uncond(args):
         sampling_timesteps=args.sampling_timesteps,
         classifier_scale=args.classifier_scale,
         classifier_label=args.classifier_label,
+        use_dynamic_thresholding=args.use_dynamic_thresholding,
+        dynamic_thresholding_q=args.dynamic_thresholding_q,
+        use_preserve_contrast=args.use_preserve_contrast,
+        use_preserve_norm=args.use_preserve_norm,
+        use_sega_reg=args.use_sega_reg,
+        sega_reg_sigma=args.sega_reg_sigma,
         result_folder=os.path.join(exp_folder, "results"),
         obs_folder=os.path.join(exp_folder, "obs"),
         basis_folder=basis_folder,
@@ -416,6 +434,10 @@ def _sd_config(args, device, **over):
         edit_deepcache_interval=args.edit_deepcache_interval,
         guidance_deepcache_interval=args.guidance_deepcache_interval,
         text_driven_num_pc=args.text_driven_num_pc,
+        use_dynamic_thresholding=args.use_dynamic_thresholding,
+        dynamic_thresholding_q=args.dynamic_thresholding_q,
+        use_preserve_contrast=args.use_preserve_contrast,
+        use_preserve_norm=args.use_preserve_norm,
         result_folder=os.path.join(exp_folder, "results"),
         obs_folder=os.path.join(exp_folder, "obs"),
         basis_folder=basis_folder,
@@ -483,7 +505,9 @@ def build_sdxl(args):
     and OpenCLIP bigG towers, with the weights of --checkpoint_path or
     seeded random ones (seeds seed … +3), drawn or loaded on the device the
     models are built on; the JAX CLI's pullback chunking (all probes at
-    once up to pca_rank 2, else one at a time) and one latent per VAE
+    once up to pca_rank 2, else one at a time), its remat (each transformer
+    block recomputed in the backward when the U-Net runs bf16, every
+    pullback's vjp taken per cotangent pass) and one latent per VAE
     decode."""
     import torch
 
@@ -503,11 +527,12 @@ def build_sdxl(args):
     device, dtype, attn = _sd_setup(args)
     with torch.device(device):
         unet, vae, text1, text2 = _sd_weights(args, (
-            UNet2DCondition(sdxl_base_unet(attn_impl=attn, dtype=dtype)),
+            UNet2DCondition(sdxl_base_unet(attn_impl=attn, dtype=dtype,
+                                           remat_transformer=dtype == "bfloat16")),
             AutoencoderKL(sd_vae(attn_impl=attn, scaling_factor=0.13025)),
             CLIPTextModel(sdxl_text_encoder_1()),
             CLIPTextModel(sdxl_text_encoder_2(), projection=True)))
-    cfg, log_path = _sd_config(args, device, decode_chunk=1,
+    cfg, log_path = _sd_config(args, device, decode_chunk=1, pullback_remat=True,
                                pullback_chunk_size=sdxl_pullback_chunk(args))
     return EditStableDiffusionXL(
         unet, vae, text1, text2, DiffusionSchedule.from_name("scaled_linear"),

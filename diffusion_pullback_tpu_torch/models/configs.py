@@ -121,6 +121,9 @@ class UNet2DConditionConfig:
     num_time_ids: int = 6
     dtype: str = "float32"
     attn_impl: str = "xla"
+    # recompute each transformer block in its backward instead of saving
+    # its activations (SDXL's deep stacks under the pullback's vjp)
+    remat_transformer: bool = False
 
 
 def sd21_base_unet(**over) -> UNet2DConditionConfig:

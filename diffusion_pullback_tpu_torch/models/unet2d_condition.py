@@ -160,7 +160,8 @@ class UNet2DCondition(nn.Module):
                 c, cfg.attention_heads[i], head_dims[i],
                 cfg.cross_attention_dim, depth=cfg.transformer_depth[i],
                 use_linear_projection=cfg.use_linear_projection,
-                norm_num_groups=cfg.norm_num_groups, attn_impl=cfg.attn_impl)
+                norm_num_groups=cfg.norm_num_groups, attn_impl=cfg.attn_impl,
+                remat=cfg.remat_transformer)
 
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedMLP(ch[0], temb_ch)

@@ -4,6 +4,8 @@
     σ_t     = sqrt((1 - ᾱ_t/ᾱ_next)(1 - ᾱ_next)/(1 - ᾱ_t))
     D_xt    = sqrt(1 - ᾱ_next - η σ_t²) ε        # η·σ², not (ησ)²
     x_next  = sqrt(ᾱ_next) P_xt + D_xt + η σ_t z
+
+and the learned-σ ancestral DDPM step.
 """
 
 from __future__ import annotations
@@ -35,6 +37,15 @@ def ddim_step(et, xt, at, at_next, eta: float = 0.0,
     d = torch.sqrt(torch.clamp(1.0 - at_next - eta * sigma**2, min=0.0)) * et
     prev = torch.sqrt(at_next) * p_x0 + d + eta * sigma * noise
     return DDIMStepOutput(prev, p_x0)
+
+
+def ddpm_step_learned_sigma(et, logvar, xt, at, bt, noise) -> DDIMStepOutput:
+    """Ancestral DDPM step with the model's log-variance (ε and logvar
+    already split): x_prev = (x_t − β_t/√(1−ᾱ_t)·ε)/√(1−β_t) +
+    exp(logvar/2)·z."""
+    mean = (xt - bt / torch.sqrt(1.0 - at) * et) / torch.sqrt(1.0 - bt)
+    prev = mean + torch.exp(0.5 * logvar) * noise
+    return DDIMStepOutput(prev, predict_x0(et, xt, at))
 
 
 def split_learned_sigma(model_out: torch.Tensor, axis: int = -1):

@@ -27,6 +27,11 @@ class DiffusionSchedule(NamedTuple):
     def num_train_timesteps(self) -> int:
         return self.betas.shape[0]
 
+    @property
+    def t_max(self) -> int:
+        """The last timestep, T − 1 (the reference fixes 999)."""
+        return self.betas.shape[0] - 1
+
     def to(self, device) -> "DiffusionSchedule":
         return DiffusionSchedule(self.betas.to(device),
                                  self.alphas_cumprod.to(device))

@@ -1,6 +1,6 @@
-"""DDIM sampling / inversion loops (counterpart of
-diffusion_pullback_tpu/samplers/ddim_loop.py; JAX's lax.scan is a Python
-loop here). Partial traversals slice the grid by index, the
+"""DDIM sampling / inversion loops and the ancestral DDPM loop (counterpart
+of diffusion_pullback_tpu/samplers/ddim_loop.py; JAX's lax.scan is a
+Python loop here). Partial traversals slice the grid by index, the
 t_start_idx / t_end_idx semantics of the reference's DDIMforwardsteps.
 
 Performance boosting (η = 1 from a timestep on) is a per-step η array. The
@@ -17,8 +17,9 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.ddim import ddim_step
+from ..ops.ddim import ddim_step, predict_x0, split_learned_sigma
 from ..ops.schedule import DiffusionSchedule, TimestepGrid, alpha_bar
+from .guidance import condition_mean
 
 # eps_fn(x, t) -> ε ; already closed over weights / prompt conditioning / CFG
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -127,4 +128,63 @@ def ddim_loop_host(step_fn, x: torch.Tensor, timesteps, timesteps_next
     """Host-driven traversal: ``step_fn(x, t, t_next)`` once per pair."""
     for t, tn in zip(timesteps, timesteps_next):
         x = step_fn(x, t, tn)
+    return x
+
+
+def ddpm_forward(model_fn: EpsFn, x: torch.Tensor, schedule: DiffusionSchedule,
+                 generator: Optional[torch.Generator] = None,
+                 timesteps=None, learn_sigma: bool = False, cond_fn=None,
+                 noises: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Ancestral DDPM sampling (guided-diffusion's p_sample_loop) over
+    ``timesteps`` (descending ints; default T−1 … 0, or the retained steps
+    of a respacing, whose β is then the respaced 1 − ᾱ_t/ᾱ_prev).
+
+    - Without ``learn_sigma`` the variance is the posterior β̃ (fixed
+      small); with it ``model_fn`` returns [ε, v] on its trailing channel
+      axis (an NHWC model output; a model run in NCHW must be wrapped) and
+      the log-variance is the learned-range frac·log β_t + (1−frac)·log β̃_t,
+      frac = (v + 1)/2.
+    - ``cond_fn(x, t)`` = ∇ₓ log p(y | x) shifts the mean by Σ·∇
+      (``condition_mean``).
+    - The final transition (no earlier retained step) adds no noise.
+
+    Noise comes from ``noises`` (steps, *x.shape), or is drawn on the CPU
+    from ``generator``."""
+    if timesteps is None:
+        timesteps = torch.arange(schedule.num_train_timesteps - 1, -1, -1)
+    timesteps = torch.as_tensor(timesteps, dtype=torch.float32)
+    t_prev = torch.cat([timesteps[1:], torch.full((1,), -1.0)])
+    if noises is None and generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if noises is not None and len(noises) != len(timesteps):
+        raise ValueError(f"{len(noises)} noise tensors for {len(timesteps)} steps")
+    for i, (t, tp) in enumerate(zip(timesteps, t_prev)):
+        ab_t = alpha_bar(schedule, t)
+        ab_prev = torch.ones_like(ab_t) if tp < 0 else alpha_bar(schedule, tp)
+        beta_t = 1.0 - ab_t / ab_prev
+        out = model_fn(x, t).float()
+        tilde = (1.0 - ab_prev) / (1.0 - ab_t) * beta_t
+        # the 1e-20 floor stands in for posterior_log_variance_clipped; it
+        # differs only at the final transition, which adds no noise
+        min_log = torch.log(torch.clamp(tilde, min=1e-20))
+        if learn_sigma:
+            et, v = split_learned_sigma(out)
+            frac = (v + 1.0) / 2.0
+            logvar = frac * torch.log(beta_t) + (1.0 - frac) * min_log
+            variance = torch.exp(logvar)
+        else:
+            et, logvar = out, min_log.expand(x.shape)
+            variance = torch.exp(logvar)
+        x0 = torch.clamp(predict_x0(et, x, ab_t), -1.0, 1.0)
+        coef1 = beta_t * torch.sqrt(ab_prev) / (1.0 - ab_t)
+        coef2 = (1.0 - ab_prev) * torch.sqrt(1.0 - beta_t) / (1.0 - ab_t)
+        mean = coef1 * x0 + coef2 * x
+        if cond_fn is not None:
+            mean = condition_mean(mean, variance, cond_fn(x, t))
+        if tp < 0:
+            x = mean
+            continue
+        z = noises[i] if noises is not None else torch.randn(
+            x.shape, generator=generator, dtype=torch.float32)
+        x = mean + torch.exp(0.5 * logvar) * z.to(device=x.device, dtype=mean.dtype)
     return x

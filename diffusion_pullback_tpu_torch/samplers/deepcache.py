@@ -1,7 +1,7 @@
-"""Encoder-reuse (DeepCache-style) DDIM sampling on the SD U-Net
-(counterpart of ``ddim_forward_deepcache_cond`` in
-diffusion_pullback_tpu/samplers/deepcache.py; its lax.scan and lax.cond are
-a Python loop and an ``if`` here).
+"""Encoder-reuse (DeepCache-style) DDIM sampling on the DDPM U-Net
+(``ddim_forward_deepcache``) and the SD U-Net (``ddim_forward_deepcache_cond``);
+counterparts of diffusion_pullback_tpu/samplers/deepcache.py, whose
+lax.scan and lax.cond are a Python loop and an ``if`` here.
 
 Deep U-Net features change slowly across adjacent timesteps, so the deep
 path (down blocks 1…, mid, up blocks …n-2) runs only every ``interval``
@@ -20,6 +20,36 @@ import torch
 from ..models.unet2d import TapPoint
 from ..ops.ddim import ddim_step
 from ..ops.schedule import DiffusionSchedule, TimestepGrid, alpha_bar
+
+
+def ddim_forward_deepcache(
+    model,
+    x: torch.Tensor,
+    schedule: DiffusionSchedule,
+    grid: TimestepGrid,
+    interval: int = 3,
+    start_idx: int = 0,
+    end_idx: Optional[int] = None,
+) -> torch.Tensor:
+    """Denoise x (NCHW, the model's layout) with a UNet2D from grid index
+    ``start_idx`` to ``end_idx`` (None: to x0), refreshing the deep path
+    every ``interval`` steps; interval 1 is the full model every step."""
+    n_up = len(model.up_blocks)
+    if n_up < 2:
+        raise ValueError("deepcache needs at least 2 up blocks")
+    tap = TapPoint("up", n_up - 2)
+    end = grid.num_steps if end_idx is None else end_idx
+    h = None
+    for i, (t, tn) in enumerate(zip(grid.timesteps[start_idx:end],
+                                    grid.timesteps_next[start_idx:end])):
+        if i % interval == 0:
+            h, state = model.encode_with_state(x, t, tap)
+        else:
+            state = model.shallow_encode(x, t)
+        eps = model.decode_with_state(h, state, tap)
+        x = ddim_step(eps, x, alpha_bar(schedule, t),
+                      alpha_bar(schedule, tn)).prev_sample
+    return x
 
 
 def ddim_forward_deepcache_cond(

@@ -171,12 +171,16 @@ def test_adm_refusals(tmp_path, monkeypatch):
         texp.UncondExperimentConfig(basis_folder=str(tmp_path)), device="cpu")
     with pytest.raises(ValueError, match="intra-block taps"):
         edit._make_tap("mid", 0, after_res=True)
-    for field, item in (("use_sega_reg", 12), ("mesh", 16)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            texp.EditUncondDiffusion(
-                tmodels.UNetADM(tmodels.adm_tiny(16)), None, None,
-                texp.UncondExperimentConfig(**{field: True if field != "mesh" else object()},
-                                            basis_folder=str(tmp_path)), device="cpu")
+    # the regularizers are ported (SEGA among them); the mesh is refused
+    assert texp.EditUncondDiffusion(
+        tmodels.UNetADM(tmodels.adm_tiny(16)), DiffusionSchedule.linear(), None,
+        texp.UncondExperimentConfig(use_sega_reg=True, basis_folder=str(tmp_path)),
+        device="cpu").cfg.use_sega_reg
+    with pytest.raises(NotImplementedError, match="item 16"):
+        texp.EditUncondDiffusion(
+            tmodels.UNetADM(tmodels.adm_tiny(16)), None, None,
+            texp.UncondExperimentConfig(mesh=object(), basis_folder=str(tmp_path)),
+            device="cpu")
 
 
 @pytest.mark.parametrize("spec", ["ddim25", "ddim50", "250", "25,25,25", "10"])

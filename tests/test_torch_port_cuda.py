@@ -54,7 +54,8 @@ def _one_tf32_forward(q, k, v, scale):
 # U-Net's self-attentions at batch 1 (10 heads at 4096 tokens, 20 at 1024);
 # the ADM-256 U-Net's 8 heads at 1024 tokens at batch 1, 2 (guided
 # run_ddim_forward), 4 (walk) and 6 (finish); and the SD U-Net's 10 heads
-# at 1024 tokens over global PCA's 16 latents
+# at 1024 tokens over global PCA's 16 latents; the batched pullback's
+# primal over 4 SD latents (20 heads at 4096 tokens, 40 at 1024)
 @pytest.mark.parametrize("shape", [
     (3, 1000, 1000, 64), (2, 700, 700, 512), (10, 1024, 1024, 64),
     (3, 1000, 700, 64), (2, 700, 1000, 64), (1, 50, 700, 64),
@@ -64,7 +65,7 @@ def _one_tf32_forward(q, k, v, scale):
     (50, 1024, 1024, 64), (5, 4096, 4096, 512), (10, 4096, 4096, 64),
     (20, 1024, 1024, 64), (8, 1024, 1024, 64), (16, 1024, 1024, 64),
     (32, 1024, 1024, 64), (48, 1024, 1024, 64), (160, 1024, 1024, 64),
-    (40, 1024, 1024, 64)])
+    (40, 1024, 1024, 64), (20, 4096, 4096, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     """K1 (and K2 at D=64) against their plain versions, one launch each,
@@ -141,12 +142,14 @@ def _tol(ref, dtype):
 # pullback's 2·B primal with two probes, the covector VJPs' one cotangent
 # (r = 1) at the U-Net's shapes, the ADM-256 encoder's 8 heads at 1024
 # tokens with two probes and with the mean-basis harvest's ten, and the SD
-# harvest's rank-50 pullback at 1024 tokens (B·H 500)
+# harvest's rank-50 pullback at 1024 tokens (B·H 500), and the batched
+# pullback over 4 SD latents (primal B·H 20 at 4096 tokens, 40 at 1024)
 @pytest.mark.parametrize("shape", [
     (3, 1000, 1000, 2), (3, 1000, 700, 2), (3, 700, 1000, 2), (1, 50, 700, 2),
     (4, 200, 130, 2), (3, 1000, 700, 3), (10, 4096, 4096, 2), (20, 1024, 1024, 2),
     (5, 4096, 4096, 1), (10, 1024, 1024, 1), (8, 1024, 1024, 2), (8, 1024, 1024, 10),
-    (10, 1024, 1024, 50), (8, 1024, 1024, 50)])
+    (10, 1024, 1024, 50), (8, 1024, 1024, 50), (20, 4096, 4096, 2),
+    (40, 1024, 1024, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
     """K2–K5 against their plain versions, one launch each, with the
@@ -238,3 +241,42 @@ def test_cfg_pair_under_torch_func_matches_math_path(cuda, dtype):
     for mine, math_path in ((tan["flash_jvp"], tan["xla"]), (cot["flash"], cot["xla"])):
         assert (mine.float() - math_path.float()).abs().max().item() <= 4 * (
             1 + 2 * s) * _tol(math_path, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_block_on_the_pair_matches_the_plain_block(cuda, dtype):
+    """An SDXL-width transformer block (10 heads of 64 at 1024 tokens, a
+    77-token context) through remat_block on the fused pair: the vjp over
+    two vmapped probes and the jvp equal the block's own on the card, and
+    the recomputed backward launches K2, K4 and K5 once for both probes,
+    at the folded B·H."""
+    from torch.func import jvp, vjp, vmap
+
+    from diffusion_pullback_tpu_torch.models.layers import attn_impl_as
+    from diffusion_pullback_tpu_torch.models.transformer2d import (
+        BasicTransformerBlock, remat_block)
+
+    torch.manual_seed(5)
+    block = BasicTransformerBlock(640, 10, 64, 2048).to(cuda, dtype).requires_grad_(False)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    rnd = lambda *shape: torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    x, ctx, us = rnd(1, 1024, 640), rnd(1, 77, 2048), rnd(2, 1, 1024, 640)
+
+    def run(f, impl):
+        with attn_impl_as(block, impl):
+            return vmap(vjp(lambda a: f(block, a, ctx), x)[1])(us)[0]
+
+    plain = run(lambda b, a, c: b(a, c), "flash")
+    n0 = {f: getattr(fa, f).launches for f in ("flash_forward", "flash_forward_lse",
+                                               "flash_dq", "flash_dkv")}
+    remat = run(remat_block, "flash")
+    torch.cuda.synchronize()
+    got = {f: getattr(fa, f).launches - n for f, n in n0.items()}
+    assert got == dict.fromkeys(n0, 1), got
+    assert (remat.float() - plain.float()).abs().max().item() <= 4 * _tol(plain, dtype)
+    xr = x.clone().requires_grad_()
+    with attn_impl_as(block, "flash_jvp"):
+        _, t_remat = jvp(lambda a: remat_block(block, a, ctx), (xr,), (us[0],))
+        _, t_plain = jvp(lambda a: block(a, ctx), (x,), (us[0],))
+    assert (t_remat.detach().float() - t_plain.float()).abs().max().item() <= 4 * _tol(
+        t_plain, dtype)

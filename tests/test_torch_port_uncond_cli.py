@@ -24,6 +24,7 @@ from diffusion_pullback_tpu_torch import experiments as texp
 from diffusion_pullback_tpu_torch import main as tmain
 from diffusion_pullback_tpu_torch import models as tmodels
 from diffusion_pullback_tpu_torch.experiments.cache import BasisCache
+from diffusion_pullback_tpu_torch.ops.schedule import DiffusionSchedule
 from diffusion_pullback_tpu_torch.utils.datasets import (
     ImgDataset, NoiseDataset, get_dataset)
 
@@ -165,10 +166,17 @@ def test_preset_checks():
     ("use_dynamic_thresholding", True, 12), ("use_preserve_norm", True, 12),
     ("mesh", object(), 16)])
 def test_unported_options_raise(tmp_path, field, value, item):
+    """Options once refused naming their ROADMAP queue 1 item: the
+    regularizers (item 12) are ported and build, the mesh (16) raises."""
     cfg = texp.UncondExperimentConfig(**{field: value}, basis_folder=str(tmp_path))
+    build = lambda: texp.EditUncondDiffusion(
+        tmodels.UNet2D(tmodels.ddpm_tiny(8)), DiffusionSchedule.linear(), None, cfg,
+        device="cpu")
+    if item == 12:
+        assert getattr(build().cfg, field) is value
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        texp.EditUncondDiffusion(tmodels.UNet2D(tmodels.ddpm_tiny(8)), None, None,
-                                 cfg, device="cpu")
+        build()
 
 
 def test_uncond_cli_needs_cuda_unless_cpu(monkeypatch):

@@ -406,3 +406,31 @@ def same_pngs(jdrv, tdrv, names, size: int, frames: int = 3):
                            np.int16) for d in (tdrv, jdrv))
         assert a.shape == b.shape == (size, frames * size, 3)
         assert np.abs(a - b).max() <= 1, n
+
+
+# every post-edit regularizer of the walk frames on, q off its default
+REGULARIZERS = dict(use_dynamic_thresholding=True, dynamic_thresholding_q=0.7,
+                    use_preserve_contrast=True, use_preserve_norm=True)
+
+
+def spy_regularize(monkeypatch, tdrv):
+    """The frames and walk start of each of a port driver's _regularize
+    calls, and its output."""
+    seen, real = [], tdrv._regularize
+
+    def spy(sel, z_start):
+        out = real(sel, z_start)
+        seen.append((sel, z_start, out))
+        return out
+    monkeypatch.setattr(tdrv, "_regularize", spy)
+    return seen
+
+
+def norms_kept(seen):
+    """One _regularize call, preserve_norm last: every frame at the walk
+    start's norm, and the frames moved."""
+    (sel, z_start, out), = seen
+    flat = out.reshape(out.shape[0], -1)
+    np.testing.assert_allclose(torch.linalg.norm(flat, dim=1).numpy(),
+                               float(torch.linalg.norm(z_start)), rtol=1e-5)
+    assert (out - sel).abs().max() > 1e-4   # the regularizers moved the frames
