@@ -7,7 +7,8 @@ Phases (any failure exits non-zero before the last line is printed):
                the main path gives it, float32 (TF32 off) and bfloat16, with
                the design that served it as the C library's one rule
                reports it ('wgmma': K1–K5 in bf16 at D=64; 'tf32x3': K1 in
-               f32 at D=512; 'simt': the CUDA-core kernels), the kernel's,
+               f32 at D=512; 'simt': the CUDA-core kernels, among them both
+               dtypes at D=40, 80, 128 and 160), the kernel's,
                the plain version's and a PyTorch yardstick's times
                (F.scaled_dot_product_attention for K1; for K2 and K4+K5 the
                flash SDPA forward / backward ops in bf16 and the
@@ -115,11 +116,24 @@ Phases (any failure exits non-zero before the last line is printed):
                forward; and SDXL's rank-8 pullback unchunked with remat off
                and on (seconds, peak memory, the same basis); each with its
                launches by shape held to the count the code gives. Phase 7
-               runs SDXL with remat on, as build_sdxl now sets it.
-Phases 1–2 hold every (kernel, shape) that phases 4 and 6–11 launch.
-Then a JSON line of the kernels (one entry per kernel and design over
-phases 4 and 6–11, at the shape that carries most of that design's device
-time there), the card's name and power limit, and
+               runs SDXL with remat on, as build_sdxl now sets it;
+ 12. simt    — the model configs whose head dims run on the CUDA-core
+     models    kernels, built through the library (no CLI of either
+               package builds them): SD 1.5 at full width (the 859.5 M
+               U-Net in bf16, the CLIP ViT-L tower and the SD VAE in f32,
+               seeded random weights drawn on the card) through
+               EditStableDiffusion's run_edit_local_encoder_pullback_zt at
+               phase 4's settings (K1 at 8 heads of 40 over 4096 tokens and
+               of 80 over 1024, K2–K5 at those heads in the pullback), its
+               launches by shape, stage seconds and peak memory, and its
+               mid-tap pullback on the pair against the math path in f32;
+               ImageNet128Cond at full width with labels (K1–K5 at 4 heads
+               of 128 over 1024 tokens): ε and the mid-tap rank-2 pullback
+               on the pair against the math path in f32 and bf16.
+Phases 1–2 hold every (kernel, shape) that phases 4 and 6–12 launch.
+Then a JSON line of the kernels (one entry per kernel, design and head dim
+over phases 4 and 6–12, at the shape that carries most of that entry's
+device time there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
 
@@ -228,6 +242,26 @@ BATCH, SDXL_RANK = 4, 8
 PAIR_CASES += [(BATCH * bh, s, d, PCA_RANK, (F32, BF16), ("K2", "K3", "K4", "K5"))
                for bh, s, d in PAIR_SHAPES]
 PAIR_CASES += [(*shape, SDXL_RANK, (BF16,), ("K3", "K4", "K5")) for shape in SDXL_PAIR[0]]
+# phase 12: SD 1.5 (8 heads per block: 40 at 4096 tokens, 80 at 1024, 160
+# at 256 and 64 tokens, which take the math path) and ImageNet128Cond (4
+# heads of 128 at 1024 tokens; 192 at 256 and 256 at 64, math path), on the
+# CUDA-core kernels in both dtypes. K1: the SD 1.5 edit's U-Net at batch 1,
+# 4 (walk) and 6 (finish) in bf16; SD 1.5's self-attentions at batch 1 and
+# 2, ImageNet128Cond's at batch 1 and 8 heads of 160 at 1024 tokens (SD
+# 1.5's third block at 1024 px) in both dtypes. K2–K5: the mid-tap
+# pullbacks at rank 2 (SD 1.5:
+# 2 layers at each of (8, 4096, 40) and (8, 1024, 80); ImageNet128Cond: 2
+# at (4, 1024, 128)) and 8 heads of 160, in both dtypes
+SD15_UNET = dict(at_4096=5, at_1024=5, heads=(8, 8), dims=(40, 80))
+SD15_PAIR = [(8, 4096, 40), (8, 1024, 80)]
+ADM128_UNET = dict(at_4096=0, at_1024=5, heads=(4, 4), dims=(128, 128))
+ADM128_PAIR = [(4, 1024, 128)]
+SIMT_K1 = [(8, 4096, 40), (16, 4096, 40), (8, 1024, 80), (16, 1024, 80),
+           (4, 1024, 128), (8, 1024, 160)]
+K1_CASES += [(s, dt) for s in SIMT_K1 for dt in (F32, BF16)] + [
+    ((8 * b, s, d), BF16) for b in (4, 6) for _, s, d in SD15_PAIR]
+PAIR_CASES += [(*shape, PCA_RANK, (F32, BF16), ("K2", "K3", "K4", "K5"))
+               for shape in SD15_PAIR + ADM128_PAIR + [(8, 1024, 160)]]
 # C symbol → (label, wrapper, source in ops/csrc by design, line of the
 # pl.pallas_call it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
 KERNELS = {
@@ -775,14 +809,16 @@ def drive(fa, fn):
     return out, seconds, torch.cuda.max_memory_allocated() / 1e9, launches, path
 
 
-def unet_k1(expected, batch, calls, dtype, at_4096=5, at_1024=5, heads=(5, 10)):
+def unet_k1(expected, batch, calls, dtype, at_4096=5, at_1024=5, heads=(5, 10),
+            dims=(64, 64)):
     """K1 launches of ``calls`` U-Net passes at ``batch``: a whole SD
-    2.1-base pass runs five 4096-token self-attentions of 5 heads (down
-    block 0, up block 3) and five 1024-token ones of 10 heads (down block
-    1, up block 2); SDXL_UNET gives SDXL's; a partial pass gives its own
-    counts."""
-    expected[("flash_fwd", (heads[0] * batch, 4096, 64), dtype)] += at_4096 * calls
-    expected[("flash_fwd", (heads[1] * batch, 1024, 64), dtype)] += at_1024 * calls
+    2.1-base pass runs five 4096-token self-attentions of 5 heads of 64
+    (down block 0, up block 3) and five 1024-token ones of 10 heads (down
+    block 1, up block 2); SDXL_UNET, SD15_UNET, ADM_UNET and ADM128_UNET
+    give the others' heads, head dims and counts; a partial pass gives its
+    own counts."""
+    expected[("flash_fwd", (heads[0] * batch, 4096, dims[0]), dtype)] += at_4096 * calls
+    expected[("flash_fwd", (heads[1] * batch, 1024, dims[1]), dtype)] += at_1024 * calls
 
 
 def pair_k2_k5(expected, dtype, iterations, layers, primal=1, shapes=PAIR_SHAPES,
@@ -866,9 +902,10 @@ def log_stages(tag, events):
             log(f"[{tag}] stage {e['event']}: {e['seconds']:.3f} s {extra}")
 
 
-def by_design(fa, paths):
+def by_design(fa, paths, head_dim=False):
     """(symbol, design) → (its heaviest (symbol, shape, dtype), launches,
-    summed device ms) over the runs' path dicts."""
+    summed device ms) over the runs' path dicts; with ``head_dim`` keyed
+    (symbol, design, head dim)."""
     total = collections.defaultdict(lambda: [0, 0.0])
     for path in paths:
         for key, (n, ms) in path.items():
@@ -877,7 +914,8 @@ def by_design(fa, paths):
     out = {}
     for key, (n, ms) in total.items():
         sym, shape, dtype = key
-        kd = (sym, fa.design(KERNELS[sym][0], shape[-1], dtype))
+        kd = (sym, fa.design(KERNELS[sym][0], shape[-1], dtype)) + (
+            (shape[-1],) if head_dim else ())
         heaviest, n0, ms0 = out.get(kd, (key, 0, 0.0))
         if ms > total[heaviest][1]:
             heaviest = key
@@ -2505,6 +2543,202 @@ def phase_extras(fa):
     return paths
 
 
+def phase_simt_models(fa):
+    """Phase 12: the two model configs whose head dims run on the CUDA-core
+    kernels. (b) SD 1.5 at full width, built directly into
+    EditStableDiffusion as a user of the library builds it (no CLI of
+    either package builds SD 1.5): the 859.5 M-parameter U-Net in bf16 with
+    attn 'flash' (K1 at 8 heads of 40 over 4096 tokens and of 80 over
+    1024), the SD VAE and the CLIP ViT-L tower in f32, seeded random
+    weights drawn on the card, the bundled example images at 512 px,
+    run_edit_local_encoder_pullback_zt at phase 4's settings with the
+    fused pair in the pullback; its launches by shape held to the count the
+    code gives, each stage's seconds and peak memory; then its mid-tap
+    pullback on the pair against the math path in f32. (c) ImageNet128Cond
+    (421.5 M parameters, labels y) at full width: ε with K1 (4 heads of 128
+    over 1024 tokens) against the math path in f32 and bf16, and the
+    mid-tap rank-2 pullback on the pair against the math path in f32 and
+    bf16; the bf16 ε and pair pullback with their launches by shape.
+    Returns the path dicts of the SD 1.5 edit and of ImageNet128Cond's bf16
+    ε and pair pullback."""
+    import numpy as np
+    from PIL import Image
+
+    from diffusion_pullback_tpu_torch.experiments import (
+        EditStableDiffusion, SDExperimentConfig)
+    from diffusion_pullback_tpu_torch.geometry import local_pullback
+    from diffusion_pullback_tpu_torch.models import (
+        AutoencoderKL, CLIPTextModel, TapPoint, UNet2DCondition, model_for_name,
+        random_init_, sd15_text_encoder, sd15_unet, sd_vae)
+    from diffusion_pullback_tpu_torch.models.layers import attn_impl_as
+    from diffusion_pullback_tpu_torch.ops.schedule import DiffusionSchedule
+    from diffusion_pullback_tpu_torch.utils.datasets import get_dataset
+    from diffusion_pullback_tpu_torch.utils.logging import JSONLLogger
+
+    out = os.path.join(OUT, "sd15")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        unet = random_init_(UNet2DCondition(sd15_unet(attn_impl="flash",
+                                                      dtype="bfloat16")), 0)
+        vae = random_init_(AutoencoderKL(sd_vae(attn_impl="flash")), 1)
+        text = random_init_(CLIPTextModel(sd15_text_encoder()), 2)
+    cfg = SDExperimentConfig(
+        dataset_name="Examples", for_steps=10, inv_steps=10, edit_t=0.5,
+        edit_prompt="a photo of a smiling face", pca_rank=PCA_RANK,
+        x_space_guidance_num_step=2, pullback_min_iter=1, pullback_max_iter=3,
+        pullback_attn_impl="flash", result_folder=out,
+        obs_folder=os.path.join(out, "obs"), basis_folder=os.path.join(out, "inputs"))
+    edit = EditStableDiffusion(
+        unet, vae, text, DiffusionSchedule.from_name("scaled_linear"),
+        get_dataset("Examples", 512), cfg,
+        logger=JSONLLogger(os.path.join(out, "log.jsonl")), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in unet.parameters())
+    log(f"[sd15] built the SD 1.5 driver in {time.perf_counter() - t0:.1f} s (weights "
+        f"drawn on the card), peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB; U-Net {n_params} parameters {next(unet.parameters()).dtype}, head dims "
+        f"{unet.config.attention_head_dim}, attn {unet.config.attn_impl}; CLIP ViT-L "
+        f"{sum(p.numel() for p in text.parameters())} parameters; dataset of "
+        f"{len(edit.dataset)}")
+
+    vis_num, vis_num_pc = 2, 1
+    n_dir = 2 * vis_num_pc
+    stride = max(1, (cfg.x_space_guidance_num_step + 1) // vis_num)
+    frames = len(range(0, cfg.x_space_guidance_num_step + 1, stride))
+    paths, checks = [], {}
+
+    def expected_edit(expected, events):
+        edit_k1(expected, edit, n_dir, frames, (torch.bfloat16, torch.float32),
+                unet=SD15_UNET)
+        # the pullback: two self-attentions at each primal shape (mid tap)
+        pair_k2_k5(expected, torch.bfloat16, named(events, "sd_local_pullback")[-1][
+            "iterations"], layers=2, shapes=SD15_PAIR)
+
+    names, events, _, seconds = checked_run(
+        fa, "sd15", "edit", edit, lambda: edit.run_edit_local_encoder_pullback_zt(
+            idx=0, pca_rank=PCA_RANK, vis_num=vis_num, vis_num_pc=vis_num_pc),
+        expected_edit, checks, paths)
+    for (sym, dsg), (_, n, ms) in sorted(by_design(fa, paths).items()):
+        log(f"[sd15] {KERNELS[sym][0]} on {dsg}: {n} launches, {ms:.2f} ms on the "
+            f"device ({100 * ms / 1e3 / seconds:.2f} % of the path)")
+    pullback = named(events, "sd_local_pullback")[-1]
+    with np.load(os.path.join(cfg.basis_folder, os.listdir(cfg.basis_folder)[0])) as z:
+        u, s, vT = z["u"], z["s"], z["vT"]
+    log(f"[sd15] sigma {s.tolist()}, pullback {pullback['seconds']:.3f} s (encoder "
+        f"{pullback['encoder']}, {pullback['iterations']} iterations)")
+    finite = named(events, "sd_decode_and_save")
+    checks.update({
+        "(sd15) 859 520 964 parameters in bf16, attn flash": (
+            n_params == 859_520_964 and next(unet.parameters()).dtype == torch.bfloat16
+            and unet.config.attn_impl == "flash"),
+        "(sd15) two PNGs of 3 frames at 512 px": len(names) == n_dir and all(
+            Image.open(os.path.join(cfg.result_folder, n + ".png")).size
+            == (512 * frames, 512) for n in names),
+        "(sd15) edited latents and images finite": bool(finite and finite[-1]["finite"]),
+        "(sd15) basis finite, expected shapes": (
+            u.shape == (8 * 8 * 1280, PCA_RANK) and vT.shape == (PCA_RANK, 64 * 64 * 4)
+            and all(np.isfinite(a).all() for a in (u, s, vT)) and (s > 0).all()),
+        "(sd15) pullback through the fused pair": pullback["encoder"] == "flashpair",
+        "(sd15) every kernel launched": {sym for sym, _, _ in paths[0]} == set(KERNELS),
+    })
+
+    # the mid-tap pullback on the pair and on the math path from the same
+    # probes (the driver's seeded ones), 3 iterations, in f32 (the same
+    # bf16-valued weights)
+    unet.to(torch.float32)
+    cfg.pullback_min_iter = cfg.pullback_max_iter = 3
+    cfg.pullback_atol = 0.0
+    zt = torch.randn(1, 64, 64, 4, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(13))
+    res = {}
+    for impl in ("flash", "xla"):
+        cfg.pullback_attn_impl = impl
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res[impl] = edit.compute_local_basis(
+            zt, edit.fwd_grid.timesteps[edit.edit_t_idx], TapPoint("mid", 0), PCA_RANK)
+        torch.cuda.synchronize()
+        log(f"[sd15] mid-tap pullback f32 {impl}: {time.perf_counter() - t0:.3f} s, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    pair_vs_math("mid-tap f32", res, phase="sd15")
+    del edit, unet, vae, text, res
+    torch.cuda.empty_cache()
+
+    # ImageNet128Cond: ε and the mid-tap pullback with labels y, on the
+    # same bf16-valued weights in f32 and in bf16
+    with torch.device("cuda"):
+        adm = random_init_(model_for_name("ImageNet128Cond", dtype="bfloat16",
+                                          attn_impl="flash"), 0)
+    adm = adm.eval().requires_grad_(False)
+    n_params = sum(p.numel() for p in adm.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn(1, 3, 128, 128, device="cuda", generator=gen)
+    y = torch.tensor([207], device="cuda")
+    v0 = torch.linalg.qr(torch.randn(x.numel(), PCA_RANK, device="cuda",
+                                     generator=gen))[0].T
+    checks["(adm128) 421 529 606 parameters, 1000 classes, attn flash"] = (
+        n_params == 421_529_606 and adm.config.num_classes == 1000
+        and adm.config.attn_impl == "flash")
+
+    def eps(impl):
+        with torch.no_grad(), attn_impl_as(adm, impl):
+            return adm(x, 500.0, y=y).float()
+
+    def enc(impl):
+        def f(z):
+            with attn_impl_as(adm, impl):
+                return adm.encode(z, 500.0, TapPoint("mid"), y=y)
+        return f
+
+    kw = dict(pca_rank=PCA_RANK, min_iter=3, max_iter=3, atol=0.0, v_init=v0)
+    pair_pullback = lambda: local_pullback(enc("flash_jvp"), x, fn_vjp=enc("flash"), **kw)
+    math_pullback = lambda: local_pullback(enc("xla"), x, **kw)
+
+    adm.to(torch.float32)
+    eps_math = eps("xla")
+    eps_flash = eps("flash")
+    err, top = (eps_flash - eps_math).abs().max().item(), eps_math.abs().max().item()
+    log(f"[adm128] full-width eps f32 (labels {y.tolist()}), flash vs math: "
+        f"max_abs_err {err:.3g} (max |eps| {top:.3g}, tol 1e-4 relative)")
+    checks["(adm128) eps f32 flash vs math"] = bool(
+        torch.isfinite(eps_flash).all() and eps_flash.shape == (1, 6, 128, 128)
+        and err <= 1e-4 * top)
+    ref = pair_vs_math("mid-tap f32", {"flash": pair_pullback(), "xla": math_pullback()},
+                       phase="adm128")
+
+    adm.to(torch.bfloat16)
+    (eps_bf16, pair), seconds, peak_gb, launches, path = drive(
+        fa, lambda: (eps("flash"), pair_pullback()))
+    expected = collections.Counter()
+    unet_k1(expected, 1, 1, torch.bfloat16, **ADM128_UNET)
+    pair_k2_k5(expected, torch.bfloat16, pair.iterations, layers=2, shapes=ADM128_PAIR)
+    checks["(adm128) launches by shape"] = check_launches("adm128", launches, path,
+                                                          expected)
+    log(f"[adm128] bf16 eps + pair pullback: {seconds:.3f} s, peak memory "
+        f"{peak_gb:.2f} GB, sigma {pair.s.tolist()}")
+    paths.append(path)
+    rel = lambda e: (torch.linalg.norm(e - eps_math) / torch.linalg.norm(eps_math)).item()
+    err_flash, err_math = rel(eps_bf16), rel(eps("xla"))
+    log(f"[adm128] full-width eps bf16: relative RMS error against f32 math, flash "
+        f"{err_flash:.4g}, math {err_math:.4g} (tol 1.5 × math = {1.5 * err_math:.4g})")
+    checks["(adm128) eps bf16 within 1.5x the bf16 math path"] = bool(
+        torch.isfinite(eps_bf16).all() and err_flash <= 1.5 * err_math)
+    pair_vs_math("mid-tap bf16", {"flash": pair, "xla": math_pullback()}, ref,
+                 phase="adm128")
+    del adm
+    torch.cuda.empty_cache()
+    for what, ok in checks.items():
+        log(f"[simt] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("phase 12 checks failed")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -2562,6 +2796,8 @@ def main():
     lap("phase 10")
     paths += phase_extras(fa)
     lap("phase 11")
+    paths += phase_simt_models(fa)
+    lap("phase 12")
 
     # every (kernel, shape, dtype) the main paths launched was held against
     # its plain version in phases 1–2
@@ -2573,7 +2809,7 @@ def main():
                              f"did not hold against their plain versions: {missing}")
 
     # launches and summed device time of each (kernel, shape) over the main
-    # paths of phases 4 and 6–11
+    # paths of phases 4 and 6–12
     merged = collections.defaultdict(lambda: [0, 0.0])
     for path in paths:
         for key, (n, ms) in path.items():
@@ -2581,21 +2817,21 @@ def main():
             merged[key][1] += ms
     for (sym, shape, dtype), (n, ms) in sorted(merged.items(), key=lambda kv: -kv[1][1]):
         log(f"[paths] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches, "
-            f"{ms:.3f} ms on the device over phases 4 and 6–11")
-    log(f"[smoke] phases 1–11 in {time.perf_counter() - t_start:.1f} s")
+            f"{ms:.3f} ms on the device over phases 4 and 6–12")
+    log(f"[smoke] phases 1–12 in {time.perf_counter() - t_start:.1f} s")
 
-    # one entry per kernel and design on the main paths (phases 4, 6–11):
-    # their launches and summed device time there (path_ms), and the
-    # per-launch numbers of phases 1–2 at the shape that carries most of
-    # that device time
+    # one entry per kernel, design and head dim on the main paths (phases
+    # 4, 6–12): their launches and summed device time there (path_ms), and
+    # the per-launch numbers of phases 1–2 at the shape that carries most
+    # of that device time
     kernels = []
-    for (sym, dsg), ((_, shape, dtype), n, ms) in sorted(
-            by_design(fa, paths).items(),
-            key=lambda kv: (list(KERNELS).index(kv[0][0]), kv[0][1])):
+    for (sym, dsg, d), ((_, shape, dtype), n, ms) in sorted(
+            by_design(fa, paths, head_dim=True).items(),
+            key=lambda kv: (list(KERNELS).index(kv[0][0]), kv[0][1], kv[0][2])):
         label, _, sources, line = KERNELS[sym]
         row = k1_rows[(shape, dtype)] if label == "K1" else pair_rows[(label, shape, dtype)]
         kernels.append(dict(
-            name=f"{sym} ({label}, {dsg})", route="cuda",
+            name=f"{sym} ({label}, {dsg}, D={d})", route="cuda",
             source=f"diffusion_pullback_tpu_torch/ops/csrc/{sources[dsg]}",
             replaces=f"diffusion_pullback_tpu/ops/pallas/flash_attention.py:{line}",
             launches=n, shape=list(shape), dtype=str(dtype)[6:], path_ms=ms, **row))

@@ -1,4 +1,4 @@
-"""Models of the ported paths: the SD 2.1-base and SDXL U-Nets, the VAE,
+"""Models of the ported paths: the SD 1.5, SD 2.1-base and SDXL U-Nets, the VAE,
 the CLIP text towers, the DDPM-family UNet2D and the ADM family (UNetADM,
 its classifier EncoderUNetADM, SuperResUNetADM)."""
 
@@ -46,6 +46,8 @@ from .configs import (
     sd21_text_encoder,
     sd_tiny_unet,
     sd_vae,
+    sd15_text_encoder,
+    sd15_unet,
     sdedit_celeba_256,
     sdxl_base_unet,
     sdxl_text_encoder_1,
@@ -140,7 +142,8 @@ __all__ = [
     "HashTokenizer", "TapPoint", "TapState", "UNet2D", "UNet2DCondition",
     "UNet2DConditionConfig", "UNet2DConfig", "VAEConfig", "clip_text_tiny",
     "ddpm_celebahq_256", "ddpm_tiny", "load_flax_params", "load_tokenizer",
-    "model_for_name", "random_init_", "sd21_base_unet", "sd21_text_encoder",
+    "model_for_name", "random_init_", "sd15_text_encoder", "sd15_unet",
+    "sd21_base_unet", "sd21_text_encoder",
     "sd_tiny_unet", "sd_vae", "sdedit_celeba_256", "sdxl_base_unet",
     "sdxl_text_encoder_1", "sdxl_text_encoder_2", "sdxl_tiny_unet", "vae_tiny",
 ]

@@ -1,6 +1,6 @@
 """Model architecture configs and presets of the ported paths.
 
-The SD 2.1, SDXL, DDPM (UNet2D) and ADM subsets of the dataclasses and fields of
+The SD 1.5, SD 2.1, SDXL, DDPM (UNet2D) and ADM subsets of the dataclasses and fields of
 diffusion_pullback_tpu/models/configs.py, under the same names, so one set of
 kwargs builds both packages. ``dtype`` is the parameter and compute dtype of
 the module ('float32' | 'bfloat16'). The JAX ``precision`` field is not
@@ -104,7 +104,8 @@ class UNet2DConditionConfig:
     up_block_types: Tuple[str, ...] = ("up", "cross", "cross", "cross")
     layers_per_block: int = 2
     attention_heads: Tuple[int, ...] = (5, 10, 20, 20)
-    # per-block head dim; an int applies to every block
+    # per-block head dim; an int applies to every block (SD 2.x / SDXL: 64;
+    # SD 1.5 fixes 8 heads, so its head dim grows with the block channels)
     attention_head_dim: Any = 64
     transformer_depth: Tuple[int, ...] = (1, 1, 1, 1)
     cross_attention_dim: int = 1024
@@ -129,6 +130,18 @@ class UNet2DConditionConfig:
 def sd21_base_unet(**over) -> UNet2DConditionConfig:
     """stabilityai/stable-diffusion-2-1-base U-Net."""
     return UNet2DConditionConfig(**over)
+
+
+def sd15_unet(**over) -> UNet2DConditionConfig:
+    """runwayml/stable-diffusion-v1-5 U-Net: 8 heads per block (head dims
+    40 / 80 / 160 / 160), 1×1-conv projections, CLIP-L's 768-d context."""
+    return UNet2DConditionConfig(
+        attention_heads=(8, 8, 8, 8),
+        attention_head_dim=(40, 80, 160, 160),
+        cross_attention_dim=768,
+        use_linear_projection=False,
+        **over,
+    )
 
 
 def sdxl_base_unet(**over) -> UNet2DConditionConfig:
@@ -232,6 +245,14 @@ class CLIPTextConfig:
 def sd21_text_encoder() -> CLIPTextConfig:
     """OpenCLIP ViT-H/14 text tower as shipped with SD2.1 (23 layers)."""
     return CLIPTextConfig()
+
+
+def sd15_text_encoder() -> CLIPTextConfig:
+    """SD 1.5's tower: CLIP ViT-L/14, read at its final LayerNorm."""
+    return CLIPTextConfig(
+        hidden_size=768, intermediate_size=3072, num_layers=12, num_heads=12,
+        hidden_act="quick_gelu",
+    )
 
 
 def sdxl_text_encoder_1() -> CLIPTextConfig:

@@ -17,6 +17,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace flash {
 
@@ -73,21 +74,58 @@ struct Io<__nv_bfloat16> {
 };
 
 // Tile shape. TR rows per thread (4: one float4 of a d-major row tile); G
-// lanes per row group; each thread holds TC = BK/G logits and DC = D/G
-// outputs of each of its rows.
+// lanes per row group; each thread holds TC = BK/G logits of each of its
+// rows. The D/4 float4 chunks of an output row are dealt round-robin over
+// the G lanes (chunk g·G + c to lane c): DCH chunks, DC = 4·DCH columns per
+// lane; where G does not divide D/4 (D = 40 or 80 at G = 8) the last round
+// is held by some lanes only (has_chunk).
 template <int D_, int BQ_, int BK_, int G_>
 struct Tile {
     static constexpr int D = D_, BQ = BQ_, BK = BK_, G = G_, TR = 4;
     static constexpr int NT = (BQ / TR) * G;  // threads per block
     static constexpr int TC = BK / G;
-    static constexpr int DC = D / G;
+    static constexpr int D4 = D / 4;
+    static constexpr int DCH = (D4 + G - 1) / G;
+    static constexpr int DC = 4 * DCH;
     static constexpr int VW = (TC % 4 == 0) ? 4 : 1;  // S-column vector width
     static constexpr int QS = BQ + 4;  // row stride (floats) of row-side d-major tiles
     static constexpr int KS = BK + 4;  // row stride of column-side d-major tiles
     static_assert(32 % G == 0, "a row group lies inside one warp");
-    static_assert(BK % G == 0 && D % (4 * G) == 0 && BQ % TR == 0, "tiling");
+    static_assert(BK % G == 0 && D % 4 == 0 && BQ % TR == 0, "tiling");
     static_assert(NT % 32 == 0 && NT <= 1024, "whole warps");
 };
+
+// Whether lane c of a row group holds output chunk g·G + c.
+template <class C>
+__device__ __forceinline__ bool has_chunk(int g, int c) {
+    return C::D4 % C::G == 0 || g * C::G + c < C::D4;
+}
+
+// The CUDA-core tile of the head dims that only "simt" serves, in f32 and
+// bf16 for K1–K5: SD 1.5's 8 heads of 40 and 80 (160 at 1024 px) and
+// ImageNet128Cond's 4 of 128. 64 rows × 32 columns, G = 8 (128 threads,
+// 4 rows × 4 logits each), so K3's and K5's six tiles fit in shared memory
+// at D = 160 (191.7 KB; 64 × 64 tiles would need 291 KB).
+template <int D>
+using TileN = Tile<D, 64, 32, 8>;
+
+// The head dims K2–K5 take (K1 also takes 512).
+__host__ __device__ constexpr bool pair_head_dim(int d) {
+    return d == 40 || d == 64 || d == 80 || d == 128 || d == 160;
+}
+
+// f(std::integral_constant<int, D>{}) for a head dim D that runs on TileN;
+// cudaErrorInvalidValue for any other.
+template <class F>
+int on_tile_n(int d, F&& f) {
+    switch (d) {
+        case 40: return f(std::integral_constant<int, 40>{});
+        case 80: return f(std::integral_constant<int, 80>{});
+        case 128: return f(std::integral_constant<int, 128>{});
+        case 160: return f(std::integral_constant<int, 160>{});
+    }
+    return int(cudaErrorInvalidValue);
+}
 
 // Column of the S tile held in a thread's slot j (lane c of its group):
 // vector chunks interleaved over the group so that the lanes of a group

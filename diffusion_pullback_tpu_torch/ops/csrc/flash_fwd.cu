@@ -11,9 +11,10 @@
 // writes L in f32 as (B·H, Sq); Pallas broadcasts it to 128 lanes, a TPU
 // layout choice.
 //
-// Layout (B·H, S, D), contiguous; f32 or bf16 inputs. K1 takes head dims 64
-// (the SD U-Net self-attention) and 512 (the single-head VAE mid-block); K2,
-// the forward of the differentiated U-Net encoder, takes 64.
+// Layout (B·H, S, D), contiguous; f32 or bf16 inputs. K1 and K2 take head
+// dims 40, 64, 80, 128 and 160 (the U-Net self-attentions: SD 2.1 / SDXL /
+// ADM-256 at 64, SD 1.5 at 40 / 80 / 160, ImageNet128Cond at 128), and K1
+// also 512 (the single-head VAE mid-block).
 //
 // Three designs. bf16 at D = 64 goes to the tensor-core design "wgmma"
 // (flash_fwd_tc.cu: TMA loads, wgmma products, bound by the bf16
@@ -21,9 +22,9 @@
 // "tf32x3" (flash_fwd_tf32.cu: each f32 product as three TF32 mma.sync
 // products, which holds it within 2.5e-5 of the plain version at the
 // path's shapes, a gate that one TF32 product misses; chip_smoke.py
-// measures both). The rest, f32 at D = 64 and bf16 at
-// D = 512, runs the CUDA-core design "simt" below: wgmma has no f32
-// operand.
+// measures both). The rest, f32 at D = 64, bf16 at D = 512 and both dtypes
+// at D = 40, 80, 128 and 160, runs the CUDA-core design "simt" below:
+// wgmma has no f32 operand, and its bf16 kernels are written for D = 64.
 //
 // "simt": the Pallas grid carries the softmax state across a sequential
 // K-block axis. Here one thread block owns a Q tile and loops over all K/V
@@ -32,8 +33,9 @@
 // its rows/columns of S with vector loads), V row-major, and the
 // probability tile Pᵀ. A group of G consecutive lanes shares TR query rows;
 // the row max and row sum are reduced with warp shuffles inside the group,
-// and the same group splits the D output columns of those rows. One kernel
-// template serves K1 and K2 (LSE = false / true).
+// and the same group splits the D output columns of those rows (unevenly
+// where G does not divide D/4: flash::has_chunk). One kernel template
+// serves K1 and K2 (LSE = false / true).
 //
 // What bounds it: the work is 4·BH·Sq·Sk·D operations on
 // 2·(BH·Sq·D + BH·Sk·D) elements (K2: plus BH·Sq f32), so at the path's
@@ -66,6 +68,8 @@ using TileD64 = Tile<64, 64, 64, 8>;
 // D=512 (bf16; f32 runs "tf32x3"): 32×32 tiles, 256 threads, 217.6 KB
 // shared memory (1 block per SM).
 using TileD512 = Tile<512, 32, 32, 32>;
+// D = 40, 80, 128, 160 in f32 and bf16: flash::TileN, 64×32 tiles, 128
+// threads, 30.5–95.7 KB shared memory.
 
 template <typename T, class C, bool LSE>
 __global__ void __launch_bounds__(C::NT)
@@ -196,6 +200,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
             for (int g = 0; g < DC / 4; ++g) {
+                if (!flash::has_chunk<C>(g, c)) continue;
                 const float4 vv = *reinterpret_cast<const float4*>(
                     Vs + j * D + (g * G + c) * 4);
                 const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
@@ -215,6 +220,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         T* orow = o + (bh * sq + row) * D;
 #pragma unroll
         for (int g = 0; g < DC / 4; ++g) {
+            if (!flash::has_chunk<C>(g, c)) continue;
             float out[4];
 #pragma unroll
             for (int t = 0; t < 4; ++t) out[t] = acc[i][4 * g + t] / l[i];
@@ -241,13 +247,26 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     return int(cudaGetLastError());
 }
 
+// K1 (LSE false) or K2 at a head dim of flash::TileN, in f32 or bf16.
+template <bool LSE>
+int launch_n(const void* q, const void* k, const void* v, void* o, float* lse,
+             int bh, int sq, int sk, int d, int is_bf16, float scale,
+             cudaStream_t stream) {
+    return flash::on_tile_n(d, [&](auto dim) {
+        using C = flash::TileN<decltype(dim)::value>;
+        return is_bf16 ? launch<__nv_bfloat16, C, LSE>(q, k, v, o, lse, bh, sq, sk, scale, stream)
+                       : launch<float, C, LSE>(q, k, v, o, lse, bh, sq, sk, scale, stream);
+    });
+}
+
 }  // namespace
 
 extern "C" {
 
 // The one design rule (declared in flash_common.cuh): bf16 at D = 64 runs
 // the wgmma kernels of K1–K5, K1 in f32 at D = 512 the tf32x3 kernel, and
-// every other call the CUDA cores.
+// every other call the CUDA cores (among them both dtypes at D = 40, 80,
+// 128 and 160).
 int flash_design(int kernel, int d, int is_bf16) {
     if (d == 64 && is_bf16) return flash::kWgmma;
     if (kernel == 1 && d == 512 && !is_bf16) return flash::kTf32x3;
@@ -268,20 +287,21 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, int bh,
     }
     if (d == 64) return launch<float, TileD64, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
     if (d == 512) return launch<__nv_bfloat16, TileD512, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
-    return int(cudaErrorInvalidValue);
+    return launch_n<false>(q, k, v, o, nullptr, bh, sq, sk, d, is_bf16, scale, s);
 }
 
 // K2: as flash_fwd, plus lse (bh, sq) float32, the row logsumexp of the
-// scaled logits. Head dim 64 only.
+// scaled logits. Head dims 40, 64, 80, 128, 160 (flash::pair_head_dim).
 int flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
                   void* lse, int bh, int sq, int sk, int d, int is_bf16,
                   float scale, void* stream) {
-    if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || d != 64)
+    if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || !flash::pair_head_dim(d))
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* l = static_cast<float*>(lse);
     if (flash_design(2, d, is_bf16)) return flash::fwd_wgmma(q, k, v, o, l, bh, sq, sk, scale, s);
-    return launch<float, TileD64, true>(q, k, v, o, l, bh, sq, sk, scale, s);
+    if (d == 64) return launch<float, TileD64, true>(q, k, v, o, l, bh, sq, sk, scale, s);
+    return launch_n<true>(q, k, v, o, l, bh, sq, sk, d, is_bf16, scale, s);
 }
 
 }  // extern "C"

@@ -11,7 +11,8 @@
 // accumulator stay f32, and Ȯ is written in O's dtype (the Pallas kernel
 // writes f32 that its caller casts to O's dtype).
 //
-// Layout (B·H, S, D), contiguous; f32 or bf16; head dim 64. The tangents
+// Layout (B·H, S, D), contiguous; f32 or bf16; head dims 40, 64, 80, 128,
+// 160. The tangents
 // may carry more slices than the primal: a vmap over probes folds the probe
 // axis into B·H of Q̇, K̇, V̇ and Ȯ only, and tangent slice b reads primal
 // slice b % bh_primal, so the probes share one copy of Q, K, V, O and L.
@@ -23,12 +24,14 @@
 // tiles × B·H). Per K tile it stages Kᵀ, K̇ᵀ (d-major), V and V̇ in shared
 // memory, computes S and Ṡ in one pass over d, and writes the rounded Pᵀ
 // and (P∘Ṡ)ᵀ tiles to shared memory for the two products with V and V̇.
-// 137 KB of dynamic shared memory (opted in), 256 threads, 1 block per SM.
+// D = 64 (f32): 64×64 tiles, 137 KB of dynamic shared memory (opted in),
+// 256 threads, 1 block per SM. D = 40, 80, 128, 160 (f32 and bf16):
+// flash::TileN, 64 Q rows × 32 keys, 128 threads, 60.9–191.5 KB.
 //
 // What bounds it: 10·BH·Sq·Sk·D operations (five products of the tile
 // size) against 8·BH·S·D elements read or written, so it is bound by
-// operations. bf16 calls go to the tensor-core design "wgmma"
-// (flash_jvp_tc.cu), by flash_design; f32 calls run the CUDA-core design
+// operations. bf16 calls at D = 64 go to the tensor-core design "wgmma"
+// (flash_jvp_tc.cu), by flash_design; the rest run the CUDA-core design
 // "simt" below, in f32 FMAs (67 TFLOP/s peak on an H100 SXM).
 
 #include "flash_common.cuh"
@@ -56,6 +59,7 @@ flash_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      float scale) {
     constexpr int D = C::D, BQ = C::BQ, BK = C::BK, G = C::G, TR = C::TR;
     constexpr int TC = C::TC, DC = C::DC, QS = C::QS, KS = C::KS, NT = C::NT;
+    static_assert(TC == 4 && C::VW == 4, "one float4 of columns per lane");
 
     extern __shared__ __align__(16) float smem[];
     float* Qt = smem;            // [D][QS]  Qᵀ
@@ -144,6 +148,7 @@ flash_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const float psr[4] = {psv.x, psv.y, psv.z, psv.w};
 #pragma unroll
             for (int g = 0; g < DC / 4; ++g) {
+                if (!flash::has_chunk<C>(g, c)) continue;
                 const float4 vv = *reinterpret_cast<const float4*>(
                     Vs + j * D + (g * G + c) * 4);
                 const float4 dvv = *reinterpret_cast<const float4*>(
@@ -170,6 +175,7 @@ flash_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
         T* drow = dout + (bt * sq + row) * D;
 #pragma unroll
         for (int g = 0; g < DC / 4; ++g) {
+            if (!flash::has_chunk<C>(g, c)) continue;
             float ov[4], out[4];
             Io<T>::load4(orow + (g * G + c) * 4, ov);
 #pragma unroll
@@ -204,20 +210,29 @@ extern "C" {
 // q, o (bh_primal, sq, d), k/v (bh_primal, sk, d), lse (bh_primal, sq) f32;
 // dq, dout (bh, sq, d), dk/dv (bh, sk, d), bh a multiple of bh_primal.
 // Contiguous device arrays of one dtype (is_bf16 = 0: float32, 1: bfloat16)
-// apart from lse, 16-byte aligned; head dim 64. Returns a cudaError_t code.
+// apart from lse, 16-byte aligned; head dims 40, 64, 80, 128, 160.
+// Returns a cudaError_t code.
 int flash_tangent(const void* q, const void* k, const void* v, const void* dq,
                   const void* dk, const void* dv, const void* o,
                   const void* lse, void* dout, int bh, int bh_primal, int sq,
                   int sk, int d, int is_bf16, float scale, void* stream) {
     if (bh <= 0 || bh > 65535 || bh_primal <= 0 || bh % bh_primal || sq <= 0 ||
-        sk <= 0 || d != 64)
+        sk <= 0 || !flash::pair_head_dim(d))
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (flash_design(3, d, is_bf16))
         return flash::tangent_wgmma(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal, sq,
                                     sk, scale, s);
-    return launch<float, TileJ>(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal, sq, sk,
-                                scale, s);
+    if (d == 64)
+        return launch<float, TileJ>(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal, sq,
+                                    sk, scale, s);
+    return flash::on_tile_n(d, [&](auto dim) {
+        using C = flash::TileN<decltype(dim)::value>;
+        return is_bf16 ? launch<__nv_bfloat16, C>(q, k, v, dq, dk, dv, o, lse, dout, bh,
+                                                  bh_primal, sq, sk, scale, s)
+                       : launch<float, C>(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal,
+                                          sq, sk, scale, s);
+    });
 }
 
 }  // extern "C"

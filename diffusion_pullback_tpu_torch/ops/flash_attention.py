@@ -13,13 +13,16 @@ diffusion_pullback_tpu/ops/pallas/flash_attention.py:
 Three designs, chosen by the C library's one rule (``design`` says which
 served a call):
 
-* 'wgmma': K1–K5 in bf16 at head dim 64 (every U-Net self-attention and
-  every pullback call), TMA loads and wgmma products on the tensor cores
-  (csrc/flash_fwd_tc.cu, flash_jvp_tc.cu, flash_bwd_tc.cu);
+* 'wgmma': K1–K5 in bf16 at head dim 64 (the SD 2.1, SDXL and ADM-256
+  U-Nets' self-attentions and their pullbacks), TMA loads and wgmma
+  products on the tensor cores (csrc/flash_fwd_tc.cu, flash_jvp_tc.cu,
+  flash_bwd_tc.cu);
 * 'tf32x3': K1 in f32 at head dim 512 (the VAE's single head), each f32
   product as three TF32 mma.sync products (csrc/flash_fwd_tf32.cu);
-* 'simt': every other call, CUDA-core kernels in f32 (csrc/flash_fwd.cu,
-  flash_jvp.cu, flash_bwd.cu).
+* 'simt': every other call, CUDA-core kernels that compute in f32
+  (csrc/flash_fwd.cu, flash_jvp.cu, flash_bwd.cu): f32 at head dim 64, K1
+  in bf16 at 512, and K1–K5 in both dtypes at 40, 80, 128 and 160 (SD
+  1.5's 8 heads per block, ImageNet128Cond's 4 heads of 128).
 
 The sources are csrc/*.cu; they are compiled with nvcc for sm_90a at first
 use into one shared library under ``.build/`` next to this package (keyed on
@@ -61,8 +64,8 @@ import threading
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 512)  # head dims K1 is built for
-PAIR_HEAD_DIMS = (64,)  # head dims K2–K5 are built for
+PAIR_HEAD_DIMS = (40, 64, 80, 128, 160)  # head dims K2–K5 are built for
+HEAD_DIMS = PAIR_HEAD_DIMS + (512,)  # head dims K1 is built for
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_HERE, "csrc", "*.cu"))))

@@ -1,7 +1,8 @@
 """K1–K5 on the card: each CUDA kernel against its plain version, with the
 design the C library's rule reports ('wgmma' for K1–K5 in bf16 at D=64,
-'tf32x3' for K1 in f32 at D=512, 'simt' otherwise), and the fused pair
-under torch.func against the math path. Marked ``cuda``: these
+'tf32x3' for K1 in f32 at D=512, 'simt' otherwise, among them both dtypes
+at SD 1.5's and ImageNet128Cond's head dims 40, 80, 128 and 160), and the
+fused pair under torch.func against the math path. Marked ``cuda``: these
 skip without a GPU and run on one with
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -43,6 +44,16 @@ def _one_tf32_forward(q, k, v, scale):
     return tf32(p) @ tf32(v)
 
 
+def _design(kernel, d, dtype):
+    """The design the C rule gives: 'wgmma' for bf16 at D=64, 'tf32x3' for
+    K1 in f32 at D=512, 'simt' for the rest."""
+    if d == 64 and dtype == torch.bfloat16:
+        return "wgmma"
+    if kernel == "K1" and d == 512 and dtype == torch.float32:
+        return "tf32x3"
+    return "simt"
+
+
 # (B·H, Sq, Sk, D). At D=64 in bf16 the wgmma design serves K1 and K2 with
 # 64-row query tiles and 64-key tiles: Sq and Sk off those multiples (1000,
 # 700, 200, 130), Sq < 64, Sq ≠ Sk both ways, B·H = 1, and B·H > 1 with a
@@ -55,7 +66,12 @@ def _one_tf32_forward(q, k, v, scale):
 # the ADM-256 U-Net's 8 heads at 1024 tokens at batch 1, 2 (guided
 # run_ddim_forward), 4 (walk) and 6 (finish); and the SD U-Net's 10 heads
 # at 1024 tokens over global PCA's 16 latents; the batched pullback's
-# primal over 4 SD latents (20 heads at 4096 tokens, 40 at 1024)
+# primal over 4 SD latents (20 heads at 4096 tokens, 40 at 1024). At D =
+# 40, 80, 128 and 160 (simt, 64-row query tiles and 32-key tiles, the
+# output columns split unevenly over the lanes at 40 and 80): ragged Sq and
+# Sk both ways with B·H > 1, Sq < 64, and SD 1.5's and ImageNet128Cond's
+# self-attentions (8 heads of 40 at 4096 tokens at batch 1 and 2, 8 of 80
+# and 8 of 160 at 1024, 4 of 128 at 1024)
 @pytest.mark.parametrize("shape", [
     (3, 1000, 1000, 64), (2, 700, 700, 512), (10, 1024, 1024, 64),
     (3, 1000, 700, 64), (2, 700, 1000, 64), (1, 50, 700, 64),
@@ -65,17 +81,21 @@ def _one_tf32_forward(q, k, v, scale):
     (50, 1024, 1024, 64), (5, 4096, 4096, 512), (10, 4096, 4096, 64),
     (20, 1024, 1024, 64), (8, 1024, 1024, 64), (16, 1024, 1024, 64),
     (32, 1024, 1024, 64), (48, 1024, 1024, 64), (160, 1024, 1024, 64),
-    (40, 1024, 1024, 64), (20, 4096, 4096, 64)])
+    (40, 1024, 1024, 64), (20, 4096, 4096, 64),
+    (3, 1000, 700, 40), (2, 700, 1000, 80), (3, 700, 1000, 128), (2, 1000, 700, 160),
+    (1, 50, 300, 40), (1, 20, 130, 160), (8, 4096, 4096, 40), (16, 4096, 4096, 40),
+    (8, 1024, 1024, 80), (16, 1024, 1024, 80), (4, 1024, 1024, 128),
+    (8, 1024, 1024, 160)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
-    """K1 (and K2 at D=64) against their plain versions, one launch each,
-    on the wgmma design in bf16 at D=64, tf32x3 in f32 at D=512 and the
-    CUDA-core one otherwise; on tf32x3 the gate rejects one TF32 product."""
+    """K1 (and K2 at the pair's head dims) against their plain versions,
+    one launch each, on the wgmma design in bf16 at D=64, tf32x3 in f32 at
+    D=512 and the CUDA-core one otherwise; on tf32x3 the gate rejects one
+    TF32 product."""
     bh, sq, sk, d = shape
-    want = ("wgmma" if dtype == torch.bfloat16 else "simt") if d == 64 else (
-        "tf32x3" if dtype == torch.float32 else "simt")
+    want = _design("K1", d, dtype)
     assert fa.design("K1", d, dtype) == want
-    if d == 64:
+    if d in fa.PAIR_HEAD_DIMS:
         assert fa.design("K2", d, dtype) == want
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(n, s, d, device=cuda, generator=gen).to(dtype)
@@ -156,11 +176,30 @@ def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
     tangents and the cotangent batched over r probes against one primal
     (the pullback's batching), on the design the rule reports, in the
     input dtype."""
+    _check_pair(cuda, *shape, 64, dtype)
+
+
+# (B·H, Sq, Sk, probes, D) on simt at D = 40, 80, 128, 160: ragged Sq and
+# Sk both ways, Sq < 64, three probes; SD 1.5's mid-tap pullback at rank 2
+# (8 heads of 40 at 4096 tokens, 8 of 80 at 1024), ImageNet128Cond's (4
+# heads of 128 at 1024) and 8 heads of 160 at 1024 tokens
+@pytest.mark.parametrize("shape", [
+    (3, 1000, 700, 2, 40), (3, 700, 1000, 3, 80), (1, 50, 300, 2, 128),
+    (2, 300, 130, 2, 160), (8, 4096, 4096, 2, 40), (8, 1024, 1024, 2, 80),
+    (4, 1024, 1024, 2, 128), (8, 1024, 1024, 2, 160)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_kernels_at_the_simt_head_dims(cuda, shape, dtype):
+    """K2–K5 against their plain versions at the head dims that only the
+    CUDA-core design serves, as test_pair_kernels_match_plain_versions."""
+    _check_pair(cuda, *shape, dtype)
+
+
+def _check_pair(cuda, bh, sq, sk, r, d, dtype):
     gen = torch.Generator(device=cuda).manual_seed(1)
     rnd = lambda *shape: torch.randn(shape, device=cuda, generator=gen).to(dtype)
-    (bh, sq, sk, r), d, scale = shape, 64, 0.125
-    wgmma = "wgmma" if dtype == torch.bfloat16 else "simt"
-    assert [fa.design(f"K{i}", d, dtype) for i in range(2, 6)] == [wgmma] * 4
+    scale = d ** -0.5
+    assert [fa.design(f"K{i}", d, dtype) for i in range(2, 6)] == [
+        _design(f"K{i}", d, dtype) for i in range(2, 6)]
     q, k, v = rnd(bh, sq, d), rnd(bh, sk, d), rnd(bh, sk, d)
     dq, do = rnd(r * bh, sq, d), rnd(r * bh, sq, d)
     dk, dv = rnd(r * bh, sk, d), rnd(r * bh, sk, d)
@@ -210,6 +249,34 @@ def test_pair_under_torch_func_matches_math_path(cuda, dtype):
     with pytest.raises(ValueError, match="head dims"):
         y = torch.randn(1, 1024, 32, device=cuda)
         fa.flash_forward_lse(y, y, y, 0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_under_torch_func_at_head_dim_40(cuda, dtype):
+    """The pair under torch.func (two probes vmapped) at SD 1.5's 8 heads of
+    40 over 1024 tokens, on the CUDA-core kernels, against the math path;
+    each of K2–K5 launches, and head dim 32 still raises."""
+    from torch.func import jvp, vjp, vmap
+
+    from diffusion_pullback_tpu_torch.ops.attention import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    rnd = lambda *shape: torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    x, ts = rnd(1, 1024, 8, 40), rnd(2, 1, 1024, 8, 40)
+    f = lambda impl: (lambda y: attention(y, y * 0.5, torch.tanh(y), impl=impl))
+    n0 = {w: getattr(fa, w).launches
+          for w in ("flash_forward_lse", "flash_tangent", "flash_dq", "flash_dkv")}
+    tan = {impl: vmap(lambda t: jvp(f(impl), (x,), (t,))[1])(ts)
+           for impl in ("flash_jvp", "xla")}
+    cot = {impl: vmap(vjp(f(impl), x)[1])(ts)[0] for impl in ("flash", "xla")}
+    torch.cuda.synchronize()
+    assert all(getattr(fa, w).launches > n for w, n in n0.items())
+    for mine, math_path in ((tan["flash_jvp"], tan["xla"]), (cot["flash"], cot["xla"])):
+        assert (mine.float() - math_path.float()).abs().max().item() <= 4 * _tol(
+            math_path, dtype)
+    with pytest.raises(ValueError, match="head dims"):
+        y = torch.randn(8, 1024, 32, device=cuda, dtype=dtype)
+        fa.flash_forward(y, y, y, 32 ** -0.5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

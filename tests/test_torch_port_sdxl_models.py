@@ -15,7 +15,6 @@ rtol 1e-5 for the taps, whose f32 roundoff grows with |h|, as in
 tests/test_torch_port_sd_state.py)."""
 
 import dataclasses
-import re
 
 import jax
 import jax.numpy as jnp
@@ -24,16 +23,17 @@ import pytest
 import torch
 from torch_port_common import (  # noqa: F401
     flax_params,
+    jax_layout,
     nchw,
     nhwc,
     one_torch_thread,
     plain_shapes,
+    port_layout,
 )
 
 from diffusion_pullback_tpu.models import configs as jcfg
 from diffusion_pullback_tpu.models.clip_text import CLIPTextModel as JCLIP
 from diffusion_pullback_tpu.models.clip_text import HashTokenizer
-from diffusion_pullback_tpu.models.convert import flax_params_to_torch_state_dict
 from diffusion_pullback_tpu.models.unet2d import TapPoint as JTap
 from diffusion_pullback_tpu.models.unet2d_condition import UNet2DCondition as JUNet
 from diffusion_pullback_tpu_torch.models import (
@@ -185,45 +185,12 @@ def test_tower_outputs_match_jax(act, projection):
             assert pooled.shape == (3, 8)
 
 
-def _diffusers_name(name: str, clip: bool) -> str:
-    """The JAX package's torch export name → diffusers / transformers: the
-    samplers keep their inner ``conv``, attention outputs are ``to_out.0``,
-    a CLIP tower sits under ``text_model`` (embeddings, encoder.layers.i
-    with its MLP under ``mlp``) except its ``text_projection``."""
-    name = re.sub(r"(downsamplers|upsamplers)\.0\.(weight|bias)$", r"\1.0.conv.\2", name)
-    name = re.sub(r"to_out\.(weight|bias)$", r"to_out.0.\1", name)
-    if not clip or name.startswith("text_projection"):
-        return name
-    name = re.sub(r"\.(fc[12])\.", r".mlp.\1.", name)
-    if name.startswith("layers."):
-        return "text_model.encoder." + name
-    if name.startswith(("token_embedding", "position_embedding")):
-        return "text_model.embeddings." + name
-    return "text_model." + name
-
-
-def _jax_layout(module, clip, *args, **kw):
-    """{diffusers name: shape} of the JAX module's torch export, from its
-    jax.eval_shape tree with zero-stride numpy leaves."""
-    tree = jax.eval_shape(lambda k: module.init(k, *args, **kw), jax.random.key(0))
-    zeros = jax.tree.map(lambda s: np.broadcast_to(np.zeros((), np.float32), s.shape),
-                         tree)
-    return {_diffusers_name(k, clip): tuple(v.shape)
-            for k, v in flax_params_to_torch_state_dict(zeros).items()}
-
-
-def _port_layout(build):
-    with torch.device("meta"):
-        m = build()
-    return {k: tuple(v.shape) for k, v in m.state_dict().items()}
-
-
 def test_sdxl_base_unet_layout_matches_jax():
     cfg = jcfg.sdxl_base_unet()
-    theirs = _jax_layout(JUNet(cfg), False, jnp.zeros((1, 8, 8, 4)), jnp.float32(0.0),
+    theirs = jax_layout(JUNet(cfg), False, jnp.zeros((1, 8, 8, 4)), jnp.float32(0.0),
                          jnp.zeros((1, 77, 2048)),
                          added_cond=(jnp.zeros((1, 1280)), jnp.zeros((1, 6))))
-    mine = _port_layout(lambda: UNet2DCondition(sdxl_base_unet()))
+    mine = port_layout(lambda: UNet2DCondition(sdxl_base_unet()))
     assert mine == theirs
     assert mine["add_embedding.linear_1.weight"] == (1280, 2816)
     n = sum(int(np.prod(s)) for s in mine.values())
@@ -235,9 +202,9 @@ def test_sdxl_base_unet_layout_matches_jax():
     ids=["clip-L", "bigG"])
 def test_sdxl_tower_layout_matches_jax(tower, projection, hidden):
     jtower = {768: jcfg.sdxl_text_encoder_1, 1280: jcfg.sdxl_text_encoder_2}[hidden]()
-    theirs = _jax_layout(JCLIP(jtower), True, jnp.zeros((1, 77), jnp.int32),
+    theirs = jax_layout(JCLIP(jtower), True, jnp.zeros((1, 77), jnp.int32),
                          return_pooled=projection)
-    mine = _port_layout(lambda: CLIPTextModel(tower(), projection=projection))
+    mine = port_layout(lambda: CLIPTextModel(tower(), projection=projection))
     assert mine == theirs
     assert ("text_projection.weight" in mine) == projection
     assert mine["text_model.final_layer_norm.weight"] == (hidden,)

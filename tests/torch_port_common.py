@@ -1,6 +1,7 @@
 """Shared helpers of the tests/test_torch_port_*.py files."""
 
 import functools
+import re
 
 import jax
 import numpy as np
@@ -75,15 +76,41 @@ def plain_shapes(monkeypatch):
     return calls
 
 
-def sd_driver_pair(root, cfg: dict, size: int = 32):
-    """(JAX EditStableDiffusion, the port's) on shared f32 weights, carried
-    by load_flax_params: the tiny SD U-Net at ``size``² latents (at 32 its
-    first block self-attends over 1024 tokens and so reaches the fused
-    kernels), a tiny VAE at 2·``size`` px, a 16-wide text tower, the
-    scaled-linear schedule, seeded noise images, ``cfg`` as both drivers'
-    SDExperimentConfig fields, and folders under ``root``."""
+def sd_tiny_arch(m, size: int):
+    """(U-Net config, text-tower config) of sd_driver_pair's tiny SD models,
+    from either package's models module ``m``."""
     import dataclasses
 
+    return m.sd_tiny_unet(size), dataclasses.replace(m.clip_text_tiny(), hidden_size=16)
+
+
+def sd15_tiny_arch(m, size: int):
+    """A tiny SD 1.5-shaped pair of configs from either package's models
+    module ``m``: sd15_unet's 1×1-conv projections, per-block head counts
+    and dims that differ (2 heads of 8 at 16 channels in the first block,
+    4 of 12 at 48 in the mid block), one cross block down and up around a
+    plain one, and a 16-wide quick-GELU tower read at its final LayerNorm."""
+    import dataclasses
+
+    unet = dataclasses.replace(
+        m.sd15_unet(), sample_size=size, block_out_channels=(16, 48),
+        down_block_types=("cross", "down"), up_block_types=("up", "cross"),
+        layers_per_block=1, attention_heads=(2, 4), attention_head_dim=(8, 12),
+        transformer_depth=(1, 1), cross_attention_dim=16, norm_num_groups=4)
+    text = dataclasses.replace(m.sd15_text_encoder(), vocab_size=128, hidden_size=16,
+                               intermediate_size=32, num_layers=2, num_heads=2,
+                               max_length=8, eos_token_id=1)
+    return unet, text
+
+
+def sd_driver_pair(root, cfg: dict, size: int = 32, arch=sd_tiny_arch):
+    """(JAX EditStableDiffusion, the port's) on shared f32 weights, carried
+    by load_flax_params: the tiny U-Net and text tower of ``arch`` (default
+    sd_tiny_arch: the tiny SD U-Net, a 16-wide tower) with the U-Net at
+    ``size``² latents (at 32 its first block self-attends over 1024 tokens
+    and so reaches the fused kernels), a tiny VAE at 2·``size`` px, the
+    scaled-linear schedule, seeded noise images, ``cfg`` as both drivers'
+    SDExperimentConfig fields, and folders under ``root``."""
     import jax.numpy as jnp
 
     from diffusion_pullback_tpu import experiments as jexp
@@ -98,12 +125,12 @@ def sd_driver_pair(root, cfg: dict, size: int = 32):
     from diffusion_pullback_tpu_torch.utils.logging import JSONLLogger
 
     px = 2 * size
-    unet = jmodels.UNet2DCondition(jmodels.sd_tiny_unet(size))
+    ucfg, tcfg = arch(jmodels, size)
+    unet = jmodels.UNet2DCondition(ucfg)
     vae = jmodels.AutoencoderKL(jmodels.vae_tiny(px))
-    tcfg = dataclasses.replace(jmodels.clip_text_tiny(), hidden_size=16)
     text = jmodels.CLIPTextModel(tcfg)
     up = flax_params(unet, jnp.zeros((1, size, size, 4)), jnp.float32(0.0),
-                     jnp.zeros((1, tcfg.max_length, 16)), seed=0)
+                     jnp.zeros((1, tcfg.max_length, tcfg.hidden_size)), seed=0)
     vp = flax_params(vae, jnp.zeros((1, px, px, 3)), seed=1)
     tp = flax_params(text, jnp.zeros((1, tcfg.max_length), jnp.int32), seed=2)
     folders = lambda tag: dict(result_folder=str(root / tag / "runs"),
@@ -114,11 +141,11 @@ def sd_driver_pair(root, cfg: dict, size: int = 32):
         jexp.SDExperimentConfig(**cfg, **folders("jax")),
         logger=JLogger(path=None, echo=False))
     load = tmodels.load_flax_params
+    tucfg, ttcfg = arch(tmodels, size)
     tdrv = texp.EditStableDiffusion(
-        load(tmodels.UNet2DCondition(tmodels.sd_tiny_unet(size)), up),
+        load(tmodels.UNet2DCondition(tucfg), up),
         load(tmodels.AutoencoderKL(tmodels.vae_tiny(px)), vp),
-        load(tmodels.CLIPTextModel(dataclasses.replace(
-            tmodels.clip_text_tiny(), hidden_size=16)), tp),
+        load(tmodels.CLIPTextModel(ttcfg), tp),
         DiffusionSchedule.scaled_linear(), NoiseDataset(px, n=1),
         texp.SDExperimentConfig(**cfg, **folders("port")),
         logger=JSONLLogger(path=None, echo=False), device="cpu")
@@ -434,3 +461,41 @@ def norms_kept(seen):
     np.testing.assert_allclose(torch.linalg.norm(flat, dim=1).numpy(),
                                float(torch.linalg.norm(z_start)), rtol=1e-5)
     assert (out - sel).abs().max() > 1e-4   # the regularizers moved the frames
+
+
+def _diffusers_name(name: str, clip: bool) -> str:
+    """The JAX package's torch export name → diffusers / transformers: the
+    samplers keep their inner ``conv``, attention outputs are ``to_out.0``,
+    a CLIP tower sits under ``text_model`` (embeddings, encoder.layers.i
+    with its MLP under ``mlp``) except its ``text_projection``."""
+    name = re.sub(r"(downsamplers|upsamplers)\.0\.(weight|bias)$", r"\1.0.conv.\2", name)
+    name = re.sub(r"to_out\.(weight|bias)$", r"to_out.0.\1", name)
+    if not clip or name.startswith("text_projection"):
+        return name
+    name = re.sub(r"\.(fc[12])\.", r".mlp.\1.", name)
+    if name.startswith("layers."):
+        return "text_model.encoder." + name
+    if name.startswith(("token_embedding", "position_embedding")):
+        return "text_model.embeddings." + name
+    return "text_model." + name
+
+
+def jax_layout(module, clip, *args, **kw):
+    """{diffusers name: shape} of the JAX module's torch export, from its
+    jax.eval_shape tree with zero-stride numpy leaves (no array is
+    allocated)."""
+    from diffusion_pullback_tpu.models.convert import flax_params_to_torch_state_dict
+
+    tree = jax.eval_shape(lambda k: module.init(k, *args, **kw), jax.random.key(0))
+    zeros = jax.tree.map(lambda s: np.broadcast_to(np.zeros((), np.float32), s.shape),
+                         tree)
+    return {_diffusers_name(k, clip): tuple(v.shape)
+            for k, v in flax_params_to_torch_state_dict(zeros).items()}
+
+
+def port_layout(build):
+    """{name: shape} of the port module ``build()`` makes on the meta
+    device."""
+    with torch.device("meta"):
+        m = build()
+    return {k: tuple(v.shape) for k, v in m.state_dict().items()}
