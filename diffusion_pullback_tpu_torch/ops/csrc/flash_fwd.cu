@@ -16,15 +16,16 @@
 // ADM-256 at 64, SD 1.5 at 40 / 80 / 160, ImageNet128Cond at 128), and K1
 // also 512 (the single-head VAE mid-block).
 //
-// Three designs. bf16 at D = 64 goes to the tensor-core design "wgmma"
-// (flash_fwd_tc.cu: TMA loads, wgmma products, bound by the bf16
-// tensor-core rate); K1 in f32 at D = 512 to the tensor-core design
-// "tf32x3" (flash_fwd_tf32.cu: each f32 product as three TF32 mma.sync
-// products, which holds it within 2.5e-5 of the plain version at the
-// path's shapes, a gate that one TF32 product misses; chip_smoke.py
-// measures both). The rest, f32 at D = 64, bf16 at D = 512 and both dtypes
-// at D = 40, 80, 128 and 160, runs the CUDA-core design "simt" below:
-// wgmma has no f32 operand, and its bf16 kernels are written for D = 64.
+// Three designs. bf16 at D = 40, 64, 80, 128 and 160 goes to the
+// tensor-core design "wgmma" (flash_fwd_tc.cu: TMA loads of 64-column
+// panels, wgmma products, bound by the bf16 tensor-core rate); K1 in f32 at
+// D = 512 to the tensor-core design "tf32x3" (flash_fwd_tf32.cu: each f32
+// product as three TF32 mma.sync products, which holds it within 2.5e-5 of
+// the plain version at the path's shapes, a gate that one TF32 product
+// misses; chip_smoke.py measures both). The rest, f32 at D = 40, 64, 80,
+// 128 and 160 and K1 in bf16 at D = 512, runs the CUDA-core design "simt"
+// below: wgmma has no f32 operand, and its bf16 kernel holds at most three
+// panels (D ≤ 192).
 //
 // "simt": the Pallas grid carries the softmax state across a sequential
 // K-block axis. Here one thread block owns a Q tile and loops over all K/V
@@ -68,8 +69,8 @@ using TileD64 = Tile<64, 64, 64, 8>;
 // D=512 (bf16; f32 runs "tf32x3"): 32×32 tiles, 256 threads, 217.6 KB
 // shared memory (1 block per SM).
 using TileD512 = Tile<512, 32, 32, 32>;
-// D = 40, 80, 128, 160 in f32 and bf16: flash::TileN, 64×32 tiles, 128
-// threads, 30.5–95.7 KB shared memory.
+// D = 40, 80, 128, 160 in f32 (bf16 runs "wgmma"): flash::TileN, 64×32
+// tiles, 128 threads, 30.5–95.7 KB shared memory.
 
 template <typename T, class C, bool LSE>
 __global__ void __launch_bounds__(C::NT)
@@ -247,15 +248,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     return int(cudaGetLastError());
 }
 
-// K1 (LSE false) or K2 at a head dim of flash::TileN, in f32 or bf16.
+// K1 (LSE false) or K2 in f32 at a head dim of flash::TileN.
 template <bool LSE>
 int launch_n(const void* q, const void* k, const void* v, void* o, float* lse,
-             int bh, int sq, int sk, int d, int is_bf16, float scale,
-             cudaStream_t stream) {
+             int bh, int sq, int sk, int d, float scale, cudaStream_t stream) {
     return flash::on_tile_n(d, [&](auto dim) {
         using C = flash::TileN<decltype(dim)::value>;
-        return is_bf16 ? launch<__nv_bfloat16, C, LSE>(q, k, v, o, lse, bh, sq, sk, scale, stream)
-                       : launch<float, C, LSE>(q, k, v, o, lse, bh, sq, sk, scale, stream);
+        return launch<float, C, LSE>(q, k, v, o, lse, bh, sq, sk, scale, stream);
     });
 }
 
@@ -264,11 +263,13 @@ int launch_n(const void* q, const void* k, const void* v, void* o, float* lse,
 extern "C" {
 
 // The one design rule (declared in flash_common.cuh): bf16 at D = 64 runs
-// the wgmma kernels of K1–K5, K1 in f32 at D = 512 the tf32x3 kernel, and
-// every other call the CUDA cores (among them both dtypes at D = 40, 80,
-// 128 and 160).
+// the wgmma kernels of K1–K5, and K1 and K2 in bf16 also at D = 40, 80,
+// 128 and 160; K1 in f32 at D = 512 runs the tf32x3 kernel; every other
+// call runs on the CUDA cores (f32 at every head dim but K1's 512, K1 in
+// bf16 at 512, K3–K5 in bf16 at 40, 80, 128 and 160).
 int flash_design(int kernel, int d, int is_bf16) {
-    if (d == 64 && is_bf16) return flash::kWgmma;
+    if (is_bf16 && (d == 64 || (kernel <= 2 && flash::pair_head_dim(d))))
+        return flash::kWgmma;
     if (kernel == 1 && d == 512 && !is_bf16) return flash::kTf32x3;
     return flash::kSimt;
 }
@@ -282,12 +283,12 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, int bh,
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (flash_design(1, d, is_bf16)) {
-        case flash::kWgmma: return flash::fwd_wgmma(q, k, v, o, nullptr, bh, sq, sk, scale, s);
+        case flash::kWgmma: return flash::fwd_wgmma(q, k, v, o, nullptr, bh, sq, sk, d, scale, s);
         case flash::kTf32x3: return flash::fwd_tf32x3(q, k, v, o, bh, sq, sk, scale, s);
     }
     if (d == 64) return launch<float, TileD64, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
     if (d == 512) return launch<__nv_bfloat16, TileD512, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
-    return launch_n<false>(q, k, v, o, nullptr, bh, sq, sk, d, is_bf16, scale, s);
+    return launch_n<false>(q, k, v, o, nullptr, bh, sq, sk, d, scale, s);
 }
 
 // K2: as flash_fwd, plus lse (bh, sq) float32, the row logsumexp of the
@@ -299,9 +300,9 @@ int flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* l = static_cast<float*>(lse);
-    if (flash_design(2, d, is_bf16)) return flash::fwd_wgmma(q, k, v, o, l, bh, sq, sk, scale, s);
+    if (flash_design(2, d, is_bf16)) return flash::fwd_wgmma(q, k, v, o, l, bh, sq, sk, d, scale, s);
     if (d == 64) return launch<float, TileD64, true>(q, k, v, o, l, bh, sq, sk, scale, s);
-    return launch_n<true>(q, k, v, o, l, bh, sq, sk, d, is_bf16, scale, s);
+    return launch_n<true>(q, k, v, o, l, bh, sq, sk, d, scale, s);
 }
 
 }  // extern "C"

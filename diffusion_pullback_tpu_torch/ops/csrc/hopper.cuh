@@ -1,14 +1,25 @@
 // Hopper primitives of the tensor-core kernels: the wgmma kernels
-// (flash_fwd_tc.cu, K1/K2; flash_jvp_tc.cu, K3; flash_bwd_tc.cu, K4/K5),
-// bf16 at head dim 64, and the tf32x3 kernel (flash_fwd_tf32.cu, K1 in f32
-// at head dim 512: mbarriers and bulk copies only). Inline PTX for shared
-// memory addresses, mbarriers, TMA and bulk loads and wgmma, and the host's
-// encoding of a TMA tensor map over (B·H, S, 64) bf16.
+// (flash_fwd_tc.cu, K1/K2 in bf16 at head dims 40, 64, 80, 128 and 160;
+// flash_jvp_tc.cu, K3, and flash_bwd_tc.cu, K4/K5, bf16 at head dim 64),
+// and the tf32x3 kernel (flash_fwd_tf32.cu, K1 in f32 at head dim 512:
+// mbarriers and bulk copies only). Inline PTX for shared memory addresses,
+// mbarriers, TMA and bulk loads and wgmma, and the host's encoding of a TMA
+// tensor map over (B·H, S, D) bf16.
 //
 // Layout: a D = 64 bf16 row is 128 bytes, so TMA's 128-byte swizzle is the
 // layout the wgmma descriptors read. A 64-row tile is 8 KB; a K-major
 // operand advances its descriptor 32 bytes per k16 step inside the swizzle
 // span, an MN-major one (the transpose bit) 16 rows (2048 bytes) per step.
+// A row of another head dim (80, 160, 256 or 320 bytes at D = 40, 80, 128,
+// 160) is held as ⌈D/64⌉ column panels of 64 columns, each such a tile:
+// one TMA box per panel, the last one D % 64 columns wide where 64 does
+// not divide D, so that no box reads past a row (TMA zero-fills a box
+// that reaches past the row's end, but K1 then ran far slower on an H100:
+// PERF.md §6). With the panels the forward (K1 and K2, the Pallas
+// `_flash_forward` and `_flash_forward_lse`) stays bound by its
+// 4·BH·Sq·Sk·D operations at the bf16 rate, 989 TFLOP/s; they cost it 48/40
+// of Q·Kᵀ's work at D = 40 (a k16 step over the zeroed columns 40–47) and
+// nothing at the other head dims (flash_fwd_tc.cu).
 //
 // cuTensorMapEncodeTiled is reached through the runtime's
 // cudaGetDriverEntryPoint, so the library does not link libcuda.
@@ -23,7 +34,7 @@
 
 namespace hopper {
 
-constexpr int D = 64;
+constexpr int D = 64;          // the head dim of K3–K5, and the width of a panel
 constexpr int ROW = D * 2;     // bytes of a bf16 row: one 128-byte swizzle span
 constexpr int TILE_ROWS = 64;  // rows of every TMA box and wgmma tile
 constexpr int TILE = TILE_ROWS * ROW;
@@ -69,13 +80,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     } while (!done);
 }
 
-// The box of `map` at (d 0, row, head) into shared memory at dst.
+// The box of `map` at (col, row, head) into shared memory at dst.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int head) {
+                                         uint32_t bar, int row, int head, int col = 0) {
     asm volatile(
         "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
         "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(head)
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head)
         : "memory");
 }
 
@@ -112,11 +123,13 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma (they are its operands from issue to wait).
+// the asynchronous wgmma (they are its operands from issue to wait): the
+// first n of r (n a constant once unrolled).
 template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+__device__ __forceinline__ void reg_fence(float (&r)[N], int n = N) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+    for (int i = 0; i < N; ++i)
+        if (i < n) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // d (64×N, f32) = A·Bᵀ (+ d if acc), A and B K-major from shared memory
@@ -158,6 +171,61 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a, uin
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The same with N = 16, 32 or 40 columns of B (the last panel of a
+// forward tile at D = 80, 160 or 40): d holds N / 2 accumulators in the
+// layout of the first N columns of the N = 64 product.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t* a, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<64>(float* d, const uint32_t* a, uint64_t db) {
+    wgmma_rs_n64_tb(d, a, db);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<40>(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19"
+        "}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<32>(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<16>(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&v);
@@ -196,15 +264,23 @@ inline EncodeTiled encode_tiled() {
     return fn;
 }
 
-// Tensor map of a contiguous (heads, s, 64) bf16 array, innermost dimension
-// first, with boxes of (64, TILE_ROWS, 1) in the 128-byte swizzle; rows past
-// s read as zeros, so a ragged tile never reads the next head's rows.
-inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int heads, int s) {
+// Tensor map of a contiguous (heads, s, d) bf16 array, innermost dimension
+// first, with boxes of (cols, TILE_ROWS, 1) in the 128-byte swizzle: a box
+// of 64 columns is one panel (the whole row at d = 64); a narrower box (the
+// last panel's cols = d % 64 at d = 40, 80, 160) lands in shared memory in
+// the same layout, 128-byte rows swizzled alike, and leaves the panel's
+// other columns untouched. Rows past s read as zeros, so a ragged tile
+// never reads the next head's rows; the box counts its whole 2·cols·64
+// bytes toward the mbarrier, those zeros too. Rows are 2·d bytes apart, a
+// multiple of 16 at d = 40, 64, 80, 128 and 160, as TMA requires.
+inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int heads, int s,
+                            int d = D, int cols = D) {
     const EncodeTiled encode = encode_tiled();
     if (encode == nullptr) return cudaErrorNotSupported;
-    const cuuint64_t dims[3] = {D, cuuint64_t(s), cuuint64_t(heads)};
-    const cuuint64_t strides[2] = {ROW, cuuint64_t(s) * ROW};
-    const cuuint32_t box[3] = {D, TILE_ROWS, 1};
+    const cuuint64_t row = cuuint64_t(d) * 2;
+    const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(s), cuuint64_t(heads)};
+    const cuuint64_t strides[2] = {row, cuuint64_t(s) * row};
+    const cuuint32_t box[3] = {cuuint32_t(cols), TILE_ROWS, 1};
     const cuuint32_t unit[3] = {1, 1, 1};
     const CUresult res = encode(
         map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,

@@ -1,7 +1,8 @@
 """K1–K5 on the card: each CUDA kernel against its plain version, with the
-design the C library's rule reports ('wgmma' for K1–K5 in bf16 at D=64,
-'tf32x3' for K1 in f32 at D=512, 'simt' otherwise, among them both dtypes
-at SD 1.5's and ImageNet128Cond's head dims 40, 80, 128 and 160), and the
+design the C library's rule reports ('wgmma' for K1–K5 in bf16 at D=64 and
+for K1 and K2 in bf16 also at SD 1.5's and ImageNet128Cond's head dims 40,
+80, 128 and 160, 'tf32x3' for K1 in f32 at D=512, 'simt' otherwise, among
+them K3–K5 in bf16 and every kernel in f32 at those head dims), and the
 fused pair under torch.func against the math path. Marked ``cuda``: these
 skip without a GPU and run on one with
 
@@ -45,9 +46,11 @@ def _one_tf32_forward(q, k, v, scale):
 
 
 def _design(kernel, d, dtype):
-    """The design the C rule gives: 'wgmma' for bf16 at D=64, 'tf32x3' for
-    K1 in f32 at D=512, 'simt' for the rest."""
-    if d == 64 and dtype == torch.bfloat16:
+    """The design the C rule gives: 'wgmma' for bf16 at D=64 and for K1 and
+    K2 in bf16 at D = 40, 80, 128 and 160, 'tf32x3' for K1 in f32 at
+    D=512, 'simt' for the rest."""
+    if dtype == torch.bfloat16 and (
+            d == 64 or (kernel in ("K1", "K2") and d in (40, 80, 128, 160))):
         return "wgmma"
     if kernel == "K1" and d == 512 and dtype == torch.float32:
         return "tf32x3"
@@ -67,11 +70,13 @@ def _design(kernel, d, dtype):
 # run_ddim_forward), 4 (walk) and 6 (finish); and the SD U-Net's 10 heads
 # at 1024 tokens over global PCA's 16 latents; the batched pullback's
 # primal over 4 SD latents (20 heads at 4096 tokens, 40 at 1024). At D =
-# 40, 80, 128 and 160 (simt, 64-row query tiles and 32-key tiles, the
-# output columns split unevenly over the lanes at 40 and 80): ragged Sq and
-# Sk both ways with B·H > 1, Sq < 64, and SD 1.5's and ImageNet128Cond's
-# self-attentions (8 heads of 40 at 4096 tokens at batch 1 and 2, 8 of 80
-# and 8 of 160 at 1024, 4 of 128 at 1024)
+# 40, 80, 128 and 160 (f32 on simt, 64-row query tiles and 32-key tiles,
+# the output columns split unevenly over the lanes at 40 and 80; bf16 on
+# wgmma, a row as 1, 2, 2 or 3 panels of 64 columns, the columns past D
+# zero-filled): ragged Sq and Sk both ways with B·H > 1 at every D, Sq < 64
+# at 40, 128 and 160, Sk off the 64-key tiles at every D, and SD 1.5's and
+# ImageNet128Cond's self-attentions (8 heads of 40 at 4096 tokens at batch
+# 1 and 2, 8 of 80 and 8 of 160 at 1024, 4 of 128 at 1024)
 @pytest.mark.parametrize("shape", [
     (3, 1000, 1000, 64), (2, 700, 700, 512), (10, 1024, 1024, 64),
     (3, 1000, 700, 64), (2, 700, 1000, 64), (1, 50, 700, 64),
@@ -85,13 +90,14 @@ def _design(kernel, d, dtype):
     (3, 1000, 700, 40), (2, 700, 1000, 80), (3, 700, 1000, 128), (2, 1000, 700, 160),
     (1, 50, 300, 40), (1, 20, 130, 160), (8, 4096, 4096, 40), (16, 4096, 4096, 40),
     (8, 1024, 1024, 80), (16, 1024, 1024, 80), (4, 1024, 1024, 128),
-    (8, 1024, 1024, 160)])
+    (8, 1024, 1024, 160), (1, 50, 300, 128), (2, 40, 100, 160), (2, 130, 300, 160),
+    (4, 200, 130, 40), (4, 200, 130, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     """K1 (and K2 at the pair's head dims) against their plain versions,
-    one launch each, on the wgmma design in bf16 at D=64, tf32x3 in f32 at
-    D=512 and the CUDA-core one otherwise; on tf32x3 the gate rejects one
-    TF32 product."""
+    one launch each, on the wgmma design in bf16 at D = 40, 64, 80, 128 and
+    160, tf32x3 in f32 at D=512 and the CUDA-core one otherwise; on tf32x3
+    the gate rejects one TF32 product."""
     bh, sq, sk, d = shape
     want = _design("K1", d, dtype)
     assert fa.design("K1", d, dtype) == want
@@ -179,8 +185,9 @@ def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
     _check_pair(cuda, *shape, 64, dtype)
 
 
-# (B·H, Sq, Sk, probes, D) on simt at D = 40, 80, 128, 160: ragged Sq and
-# Sk both ways, Sq < 64, three probes; SD 1.5's mid-tap pullback at rank 2
+# (B·H, Sq, Sk, probes, D) at D = 40, 80, 128, 160, where K3–K5 run simt
+# in both dtypes and K2 wgmma in bf16: ragged Sq and Sk both ways, Sq < 64,
+# three probes; SD 1.5's mid-tap pullback at rank 2
 # (8 heads of 40 at 4096 tokens, 8 of 80 at 1024), ImageNet128Cond's (4
 # heads of 128 at 1024) and 8 heads of 160 at 1024 tokens
 @pytest.mark.parametrize("shape", [
@@ -189,8 +196,9 @@ def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
     (4, 1024, 1024, 2, 128), (8, 1024, 1024, 2, 160)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_kernels_at_the_simt_head_dims(cuda, shape, dtype):
-    """K2–K5 against their plain versions at the head dims that only the
-    CUDA-core design serves, as test_pair_kernels_match_plain_versions."""
+    """K2–K5 against their plain versions at the head dims where K3–K5 run
+    the CUDA-core design (K2 'wgmma' in bf16, every kernel 'simt' in f32),
+    as test_pair_kernels_match_plain_versions."""
     _check_pair(cuda, *shape, dtype)
 
 
@@ -254,8 +262,9 @@ def test_pair_under_torch_func_matches_math_path(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_under_torch_func_at_head_dim_40(cuda, dtype):
     """The pair under torch.func (two probes vmapped) at SD 1.5's 8 heads of
-    40 over 1024 tokens, on the CUDA-core kernels, against the math path;
-    each of K2–K5 launches, and head dim 32 still raises."""
+    40 over 1024 tokens (K2 on 'wgmma' in bf16 feeding K3–K5 on 'simt', all
+    on 'simt' in f32) against the math path; each of K2–K5 launches, and
+    head dim 32 still raises."""
     from torch.func import jvp, vjp, vmap
 
     from diffusion_pullback_tpu_torch.ops.attention import attention
