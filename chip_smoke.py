@@ -6,11 +6,11 @@ Phases (any failure exits non-zero before the last line is printed):
   2. kernels — each kernel against its plain PyTorch version at every shape
                the main path gives it, float32 (TF32 off) and bfloat16, with
                the design that served it as the C library's one rule
-               reports it ('wgmma': K1–K5 in bf16 at D=64, K1 and K2 in
-               bf16 also at D=40, 80, 128 and 160; 'tf32x3': K1 in f32 at
-               D=512; 'simt': the CUDA-core kernels, among them every
-               kernel in f32 and K3–K5 in bf16 at D=40, 80, 128 and 160),
-               the kernel's,
+               reports it ('wgmma': K1–K5 in bf16 at D=64, K1, K2, K4 and
+               K5 in bf16 also at D=40, 80, 128 and 160; 'tf32x3': K1 in
+               f32 at D=512; 'simt': the CUDA-core kernels, among them
+               every kernel in f32 and K3 in bf16 at D=40, 80, 128 and
+               160), the kernel's,
                the plain version's and a PyTorch yardstick's times
                (F.scaled_dot_product_attention for K1; for K2 and K4+K5 the
                flash SDPA forward / backward ops in bf16 and the
@@ -119,8 +119,8 @@ Phases (any failure exits non-zero before the last line is printed):
                and on (seconds, peak memory, the same basis); each with its
                launches by shape held to the count the code gives. Phase 7
                runs SDXL with remat on, as build_sdxl now sets it;
- 12. head    — the model configs at head dims 40, 80 and 128 (K1 and K2
-     dims      on 'wgmma' in bf16, K3–K5 on the CUDA-core 'simt'), built
+ 12. head    — the model configs at head dims 40, 80 and 128 (K1, K2, K4
+     dims      and K5 on 'wgmma' in bf16, K3 on the CUDA-core 'simt'), built
                through the library (no CLI of either package builds
                them): SD 1.5 at full width (the 859.5 M
                U-Net in bf16, the CLIP ViT-L tower and the SD VAE in f32,
@@ -133,8 +133,8 @@ Phases (any failure exits non-zero before the last line is printed):
                ImageNet128Cond at full width with labels (K1–K5 at 4 heads
                of 128 over 1024 tokens): ε and the mid-tap rank-2 pullback
                on the pair against the math path in f32 and bf16; every
-               bf16 K1/K2 launch of both served by 'wgmma', every K3–K5
-               launch by 'simt'.
+               bf16 K1, K2, K4 and K5 launch of both served by 'wgmma',
+               every K3 launch by 'simt'.
 Phases 1–2 hold every (kernel, shape) that phases 4 and 6–12 launch.
 Then a JSON line of the kernels (one entry per kernel, design and head dim
 over phases 4 and 6–12, at the shape that carries most of that entry's
@@ -249,11 +249,12 @@ PAIR_CASES += [(BATCH * bh, s, d, PCA_RANK, (F32, BF16), ("K2", "K3", "K4", "K5"
 PAIR_CASES += [(*shape, SDXL_RANK, (BF16,), ("K3", "K4", "K5")) for shape in SDXL_PAIR[0]]
 # phase 12: SD 1.5 (8 heads per block: 40 at 4096 tokens, 80 at 1024, 160
 # at 256 and 64 tokens, which take the math path) and ImageNet128Cond (4
-# heads of 128 at 1024 tokens; 192 at 256 and 256 at 64, math path): K1 and
-# K2 on 'wgmma' in bf16, the rest on 'simt'. K1: the SD 1.5 edit's U-Net at
-# batch 1, 4 (walk) and 6 (finish) in bf16; SD 1.5's self-attentions at
-# batch 1 and 2, ImageNet128Cond's at batch 1 and 8 heads of 160 at 1024
-# tokens (SD 1.5's third block at 1024 px) in both dtypes. K2–K5: the
+# heads of 128 at 1024 tokens; 192 at 256 and 256 at 64, math path): K1,
+# K2, K4 and K5 on 'wgmma' in bf16, the rest on 'simt'. K1: the SD 1.5
+# edit's U-Net at batch 1, 4 (walk) and 6 (finish) in bf16; SD 1.5's
+# self-attentions at batch 1 and 2, ImageNet128Cond's at batch 1 and 8
+# heads of 160 at 1024 tokens (SD 1.5's third block at 1024 px) in both
+# dtypes. K2–K5: the
 # mid-tap pullbacks at rank 2 (SD 1.5: 2 layers at each of (8, 4096, 40)
 # and (8, 1024, 80); ImageNet128Cond: 2 at (4, 1024, 128)) and 8 heads of
 # 160, in both dtypes
@@ -2550,7 +2551,8 @@ def phase_extras(fa):
 
 def phase_head_dim_models(fa):
     """Phase 12: the two model configs at head dims other than 64 and 512,
-    where K1 and K2 run 'wgmma' in bf16 and K3–K5 the CUDA-core 'simt'.
+    where K1, K2, K4 and K5 run 'wgmma' in bf16 and K3 the CUDA-core
+    'simt'.
     (b) SD 1.5 at full width, built directly into
     EditStableDiffusion as a user of the library builds it (no CLI of
     either package builds SD 1.5): the 859.5 M-parameter U-Net in bf16 with
@@ -2566,7 +2568,8 @@ def phase_head_dim_models(fa):
     mid-tap rank-2 pullback on the pair against the math path in f32 and
     bf16; the bf16 ε and pair pullback with their launches by shape. Every
     launch of both runs at the head dims 40, 80 and 128 (all bf16) must
-    have been served by 'wgmma' for K1 and K2 and by 'simt' for K3–K5.
+    have been served by 'wgmma' for K1, K2, K4 and K5 and by 'simt' for
+    K3.
     Returns the path dicts of the SD 1.5 edit and of ImageNet128Cond's bf16
     ε and pair pullback."""
     import numpy as np
@@ -2747,10 +2750,9 @@ def phase_head_dim_models(fa):
                 label = KERNELS[sym][0]
                 served[(label, fa.design(label, shape[-1], dtype))] += n
     log(f"[dims] launches by kernel and design: {dict(served)}")
-    checks["(sd15, adm128) K1, K2 on wgmma and K3–K5 on simt"] = (
+    checks["(sd15, adm128) K1, K2, K4, K5 on wgmma and K3 on simt"] = (
         {label for label, _ in served} == set(KERNELS_BY_LABEL) and all(
-            dsg == ("wgmma" if label in ("K1", "K2") else "simt")
-            for label, dsg in served))
+            dsg == ("simt" if label == "K3" else "wgmma") for label, dsg in served))
     for what, ok in checks.items():
         log(f"[dims] check {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):

@@ -7,15 +7,16 @@
 //
 // Replace the Pallas TPU kernels `_flash_dq_kernel` and `_flash_dkv_kernel`
 // (the two pallas_calls of `_flash_backward`) in
-// diffusion_pullback_tpu/ops/pallas/flash_attention.py. Sums in f32, with
-// the Pallas kernels' roundings: dS to K's dtype before dS·K (K4), P to
-// dO's and dS to Q's before Pᵀ·dO and dSᵀ·Q (K5); exact in f32.
+// diffusion_pullback_tpu/ops/pallas/flash_attention.py. The Pallas kernels
+// round dS to K's dtype before dS·K (K4), P to dO's and dS to Q's before
+// Pᵀ·dO and dSᵀ·Q (K5): in f32, the dtype of the kernels below, that
+// rounds nothing.
 //
-// Two designs, chosen by flash_design (flash_common.cuh): bf16 at D = 64
-// goes to the tensor-core design "wgmma" (flash_bwd_tc.cu); the rest (f32,
-// and bf16 at D = 40, 80, 128, 160) run the CUDA-core design "simt" below,
-// since wgmma has no f32 operand and TF32 would lose the 1e-4 agreement
-// with the plain versions.
+// Two designs, chosen by flash_design (flash_common.cuh): bf16 at every
+// head dim (40, 64, 80, 128, 160) goes to the tensor-core design "wgmma"
+// (flash_bwd_tc.cu); f32 runs the CUDA-core design "simt" below, since
+// wgmma has no f32 operand and TF32 would lose the 1e-4 agreement with the
+// plain versions.
 //
 // Layout (B·H, S, D), contiguous; head dims 40, 64, 80, 128, 160. The cotangent
 // (dO, δ) and the outputs may carry more slices than the primal: a vmap over
@@ -28,11 +29,11 @@
 // and loops over the K tiles; a K5 block owns a 64-row K tile and loops over
 // the Q tiles (Q innermost, as the Pallas dkv grid). The logits S and dO Vᵀ
 // are computed in one pass over d from d-major tiles; dS (and P)
-// go through shared memory for the products that follow. At D = 64 (f32):
+// go through shared memory for the products that follow. At D = 64:
 // 64×64 tiles, 256 threads, K4 103 KB of dynamic shared memory (2 blocks
-// per SM), K5 138 KB (1 block per SM). At D = 40, 80, 128, 160 (f32 and
-// bf16): flash::TileN, 64 rows × 32 columns, 128 threads, K4 47.1–162.3
-// KB, K5 61.2–191.7 KB.
+// per SM), K5 138 KB (1 block per SM). At D = 40, 80, 128, 160:
+// flash::TileN, 64 rows × 32 columns, 128 threads, K4 47.1–162.3 KB, K5
+// 61.2–191.7 KB.
 //
 // What bounds them: K4 does 6·BH·Sq·Sk·D operations (three products of the
 // tile size), K5 8·BH·Sq·Sk·D (four), against a few B·H·S·D elements, so
@@ -95,12 +96,12 @@ __device__ __forceinline__ void two_logits(const float* At, const float* A2t,
     }
 }
 
-template <typename T, class C>
+template <class C>
 __global__ void __launch_bounds__(C::NT)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, int bh_primal, int sq, int sk,
+                float* __restrict__ dq, int bh_primal, int sq, int sk,
                 float scale) {
     constexpr int D = C::D, BQ = C::BQ, BK = C::BK, G = C::G, TR = C::TR;
     constexpr int TC = C::TC, DC = C::DC, QS = C::QS, KS = C::KS, NT = C::NT;
@@ -120,8 +121,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t bt = blockIdx.y;              // cotangent slice
     const size_t bp = blockIdx.y % bh_primal;  // primal slice
 
-    flash::load_tile<T, BQ, D, NT>(q + bp * sq * D, q0, sq, Qt, QS, nullptr);
-    flash::load_tile<T, BQ, D, NT>(dout + bt * sq * D, q0, sq, dOt, QS, nullptr);
+    flash::load_tile<float, BQ, D, NT>(q + bp * sq * D, q0, sq, Qt, QS, nullptr);
+    flash::load_tile<float, BQ, D, NT>(dout + bt * sq * D, q0, sq, dOt, QS, nullptr);
 
     float lrow[TR], drow[TR], acc[TR][DC];
 #pragma unroll
@@ -135,8 +136,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int k0 = 0; k0 < sk; k0 += BK) {
         __syncthreads();
-        flash::load_tile<T, BK, D, NT>(k + bp * sk * D, k0, sk, Kt, KS, Ks);
-        flash::load_tile<T, BK, D, NT>(v + bp * sk * D, k0, sk, Vt, KS, nullptr);
+        flash::load_tile<float, BK, D, NT>(k + bp * sk * D, k0, sk, Kt, KS, Ks);
+        flash::load_tile<float, BK, D, NT>(v + bp * sk * D, k0, sk, Vt, KS, nullptr);
         __syncthreads();
 
         float s[TR][TC], dp[TR][TC];
@@ -148,7 +149,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int col = s_col<C>(j, c);
                 const float p =
                     k0 + col < sk ? expf(s[i][j] * scale - lrow[i]) : 0.f;
-                DSt[col * QS + r0 + i] = flash::Io<T>::round(p * (dp[i][j] - drow[i]));
+                DSt[col * QS + r0 + i] = p * (dp[i][j] - drow[i]);
             }
         __syncthreads();
 
@@ -175,25 +176,25 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < TR; ++i) {
         const int row = q0 + r0 + i;
         if (row >= sq) continue;
-        T* out = dq + (bt * sq + row) * D;
+        float* out = dq + (bt * sq + row) * D;
 #pragma unroll
         for (int g = 0; g < DC / 4; ++g) {
             if (!flash::has_chunk<C>(g, c)) continue;
             float x[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e) x[e] = acc[i][4 * g + e] * scale;
-            flash::Io<T>::store4(out + (g * G + c) * 4, x);
+            flash::Io<float>::store4(out + (g * G + c) * 4, x);
         }
     }
 }
 
 // Rows are keys, columns are queries: the block owns keys [k0, k0 + 64).
-template <typename T, class C>
+template <class C>
 __global__ void __launch_bounds__(C::NT)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dk, T* __restrict__ dv, int bh_primal, int sq,
+                 float* __restrict__ dk, float* __restrict__ dv, int bh_primal, int sq,
                  int sk, float scale) {
     constexpr int D = C::D, BR = C::BQ, BC = C::BK, G = C::G, TR = C::TR;
     constexpr int TC = C::TC, DC = C::DC, RS = C::QS, CS = C::KS, NT = C::NT;
@@ -217,8 +218,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t bt = blockIdx.y;              // cotangent slice
     const size_t bp = blockIdx.y % bh_primal;  // primal slice
 
-    flash::load_tile<T, BR, D, NT>(k + bp * sk * D, k0, sk, Kt, RS, nullptr);
-    flash::load_tile<T, BR, D, NT>(v + bp * sk * D, k0, sk, Vt, RS, nullptr);
+    flash::load_tile<float, BR, D, NT>(k + bp * sk * D, k0, sk, Kt, RS, nullptr);
+    flash::load_tile<float, BR, D, NT>(v + bp * sk * D, k0, sk, Vt, RS, nullptr);
 
     float acck[TR][DC], accv[TR][DC];
 #pragma unroll
@@ -228,8 +229,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int q0 = 0; q0 < sq; q0 += BC) {
         __syncthreads();
-        flash::load_tile<T, BC, D, NT>(q + bp * sq * D, q0, sq, Qt, CS, Qs);
-        flash::load_tile<T, BC, D, NT>(dout + bt * sq * D, q0, sq, dOt, CS, dOs);
+        flash::load_tile<float, BC, D, NT>(q + bp * sq * D, q0, sq, Qt, CS, Qs);
+        flash::load_tile<float, BC, D, NT>(dout + bt * sq * D, q0, sq, dOt, CS, dOs);
         for (int e = tid; e < BC; e += NT) {
             const bool in = q0 + e < sq;
             Ls[e] = in ? lse[bp * sq + q0 + e] : 0.f;
@@ -247,8 +248,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int col = s_col<C>(j, c);
                 const float p =
                     q0 + col < sq ? expf(s[i][j] * scale - Ls[col]) : 0.f;
-                Pq[col * RS + r0 + i] = flash::Io<T>::round(p);
-                DSq[col * RS + r0 + i] = flash::Io<T>::round(p * (dp[i][j] - Dl[col]));
+                Pq[col * RS + r0 + i] = p;
+                DSq[col * RS + r0 + i] = p * (dp[i][j] - Dl[col]);
             }
         __syncthreads();
 
@@ -283,8 +284,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < TR; ++i) {
         const int row = k0 + r0 + i;
         if (row >= sk) continue;
-        T* krow = dk + (bt * sk + row) * D;
-        T* vrow = dv + (bt * sk + row) * D;
+        float* krow = dk + (bt * sk + row) * D;
+        float* vrow = dv + (bt * sk + row) * D;
 #pragma unroll
         for (int g = 0; g < DC / 4; ++g) {
             if (!flash::has_chunk<C>(g, c)) continue;
@@ -294,44 +295,42 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 xk[e] = acck[i][4 * g + e] * scale;
                 xv[e] = accv[i][4 * g + e];
             }
-            flash::Io<T>::store4(krow + (g * G + c) * 4, xk);
-            flash::Io<T>::store4(vrow + (g * G + c) * 4, xv);
+            flash::Io<float>::store4(krow + (g * G + c) * 4, xk);
+            flash::Io<float>::store4(vrow + (g * G + c) * 4, xv);
         }
     }
 }
 
-template <typename T, class C>
+template <class C>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh,
               int bh_primal, int sq, int sk, float scale, cudaStream_t stream) {
     const int smem = kDqSmemFloats<C> * int(sizeof(float));
-    auto kernel = flash_dq_kernel<T, C>;
+    auto kernel = flash_dq_kernel<C>;
     cudaError_t err = flash::allow_smem(kernel, smem);
     if (err != cudaSuccess) return int(err);
     const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
-    auto in = [](const void* p) { return static_cast<const T*>(p); };
     auto f32 = [](const void* p) { return static_cast<const float*>(p); };
     kernel<<<grid, C::NT, smem, stream>>>(
-        in(q), in(k), in(v), in(dout), f32(lse), f32(delta), static_cast<T*>(dq),
+        f32(q), f32(k), f32(v), f32(dout), f32(lse), f32(delta), static_cast<float*>(dq),
         bh_primal, sq, sk, scale);
     return int(cudaGetLastError());
 }
 
-template <typename T, class C>
+template <class C>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh,
                int bh_primal, int sq, int sk, float scale,
                cudaStream_t stream) {
     const int smem = kDkvSmemFloats<C> * int(sizeof(float));
-    auto kernel = flash_dkv_kernel<T, C>;
+    auto kernel = flash_dkv_kernel<C>;
     cudaError_t err = flash::allow_smem(kernel, smem);
     if (err != cudaSuccess) return int(err);
     const dim3 grid((sk + C::BQ - 1) / C::BQ, bh);
-    auto in = [](const void* p) { return static_cast<const T*>(p); };
     auto f32 = [](const void* p) { return static_cast<const float*>(p); };
     kernel<<<grid, C::NT, smem, stream>>>(
-        in(q), in(k), in(v), in(dout), f32(lse), f32(delta), static_cast<T*>(dk),
-        static_cast<T*>(dv), bh_primal, sq, sk, scale);
+        f32(q), f32(k), f32(v), f32(dout), f32(lse), f32(delta), static_cast<float*>(dk),
+        static_cast<float*>(dv), bh_primal, sq, sk, scale);
     return int(cudaGetLastError());
 }
 
@@ -348,8 +347,9 @@ extern "C" {
 // f32; dout (bh, sq, d), delta (bh, sq) f32, bh a multiple of bh_primal.
 // Contiguous device arrays of one dtype (is_bf16 = 0: float32, 1: bfloat16)
 // apart from lse and delta, 16-byte aligned; head dims 40, 64, 80, 128,
-// 160. Return a
-// cudaError_t code: 0 on a launch that was accepted.
+// 160. Return a cudaError_t code: 0 on a launch that was accepted,
+// cudaErrorInvalidValue for bf16 that flash_design does not send to wgmma
+// (simt is f32 only).
 
 // K4: dq (bh, sq, d).
 int flash_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -359,16 +359,15 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
     if (bad_shape(bh, bh_primal, sq, sk, d)) return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (flash_design(4, d, is_bf16))
-        return flash::dq_wgmma(q, k, v, dout, lse, delta, dq, bh, bh_primal, sq, sk, scale, s);
+        return flash::dq_wgmma(q, k, v, dout, lse, delta, dq, bh, bh_primal, sq, sk, d, scale,
+                               s);
+    if (is_bf16) return int(cudaErrorInvalidValue);  // simt below is f32 only
     if (d == 64)
-        return launch_dq<float, TileB>(q, k, v, dout, lse, delta, dq, bh, bh_primal, sq, sk,
+        return launch_dq<TileB>(q, k, v, dout, lse, delta, dq, bh, bh_primal, sq, sk,
                                        scale, s);
     return flash::on_tile_n(d, [&](auto dim) {
-        using C = flash::TileN<decltype(dim)::value>;
-        return is_bf16 ? launch_dq<__nv_bfloat16, C>(q, k, v, dout, lse, delta, dq, bh,
-                                                     bh_primal, sq, sk, scale, s)
-                       : launch_dq<float, C>(q, k, v, dout, lse, delta, dq, bh, bh_primal,
-                                             sq, sk, scale, s);
+        return launch_dq<flash::TileN<decltype(dim)::value>>(
+            q, k, v, dout, lse, delta, dq, bh, bh_primal, sq, sk, scale, s);
     });
 }
 
@@ -380,17 +379,15 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
     if (bad_shape(bh, bh_primal, sq, sk, d)) return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (flash_design(5, d, is_bf16))
-        return flash::dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, bh, bh_primal, sq, sk,
+        return flash::dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, bh, bh_primal, sq, sk, d,
                                 scale, s);
+    if (is_bf16) return int(cudaErrorInvalidValue);
     if (d == 64)
-        return launch_dkv<float, TileB>(q, k, v, dout, lse, delta, dk, dv, bh, bh_primal, sq,
+        return launch_dkv<TileB>(q, k, v, dout, lse, delta, dk, dv, bh, bh_primal, sq,
                                         sk, scale, s);
     return flash::on_tile_n(d, [&](auto dim) {
-        using C = flash::TileN<decltype(dim)::value>;
-        return is_bf16 ? launch_dkv<__nv_bfloat16, C>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                                      bh_primal, sq, sk, scale, s)
-                       : launch_dkv<float, C>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                              bh_primal, sq, sk, scale, s);
+        return launch_dkv<flash::TileN<decltype(dim)::value>>(
+            q, k, v, dout, lse, delta, dk, dv, bh, bh_primal, sq, sk, scale, s);
     });
 }
 

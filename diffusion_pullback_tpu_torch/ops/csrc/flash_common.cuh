@@ -102,7 +102,7 @@ __device__ __forceinline__ bool has_chunk(int g, int c) {
 }
 
 // The CUDA-core tile of the head dims that only "simt" serves, in f32 for
-// K1–K5 and in bf16 for K3–K5 (K1 and K2 in bf16 run "wgmma" there): SD
+// K1–K5 and in bf16 for K3 (K1, K2, K4 and K5 in bf16 run "wgmma" there): SD
 // 1.5's 8 heads of 40 and 80 (160 at 1024 px) and
 // ImageNet128Cond's 4 of 128. 64 rows × 32 columns, G = 8 (128 threads,
 // 4 rows × 4 logits each), so K3's and K5's six tiles fit in shared memory
@@ -126,6 +126,13 @@ int on_tile_n(int d, F&& f) {
         case 160: return f(std::integral_constant<int, 160>{});
     }
     return int(cudaErrorInvalidValue);
+}
+
+// The same over every head dim of pair_head_dim: 64 too.
+template <class F>
+int on_pair_head_dim(int d, F&& f) {
+    if (d == 64) return f(std::integral_constant<int, 64>{});
+    return on_tile_n(d, f);
 }
 
 // Column of the S tile held in a thread's slot j (lane c of its group):
@@ -174,18 +181,18 @@ inline cudaError_t allow_smem(K kernel, int smem) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// The tensor-core designs. "wgmma", bf16: K1 / K2 at D = 40, 64, 80, 128
-// and 160 (flash_fwd_tc.cu), K3 (flash_jvp_tc.cu), K4 and K5
-// (flash_bwd_tc.cu) at D = 64. "tf32x3", f32 at D = 512: K1
+// The tensor-core designs. "wgmma", bf16: K1 / K2 (flash_fwd_tc.cu) and K4
+// / K5 (flash_bwd_tc.cu) at D = 40, 64, 80, 128 and 160, K3
+// (flash_jvp_tc.cu) at D = 64. "tf32x3", f32 at D = 512: K1
 // (flash_fwd_tf32.cu).
 int fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
               int bh, int sq, int sk, int d, float scale, cudaStream_t stream);
 int dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dq, int bh, int bh_primal,
-             int sq, int sk, float scale, cudaStream_t stream);
+             int sq, int sk, int d, float scale, cudaStream_t stream);
 int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dk, void* dv, int bh,
-              int bh_primal, int sq, int sk, float scale, cudaStream_t stream);
+              int bh_primal, int sq, int sk, int d, float scale, cudaStream_t stream);
 int tangent_wgmma(const void* q, const void* k, const void* v, const void* dq,
                   const void* dk, const void* dv, const void* o, const void* lse,
                   void* dout, int bh, int bh_primal, int sq, int sk, float scale,

@@ -81,29 +81,11 @@ using namespace hopper;
 constexpr int BQ = TILE_ROWS, BK = TILE_ROWS, STAGES = 2;
 constexpr int NT = 128 + 32;  // the consumer warpgroup, the producer warp
 
-// The panels of head dim DIM: P of them per 64-row tile (TB bytes), FULL
-// of 64 columns and a last one of TAIL = DIM % 64 columns where that is not
-// 0, TX bytes loaded per tile, KSTEPS k16 steps of Q·Kᵀ, SMEM bytes of Q,
-// STAGES × (K, V) and the mbarriers, plus 1024 bytes to align the tiles as
-// the 128-byte swizzle requires.
+// Shared memory of head dim DIM: Q and STAGES × (K, V) as Panels<DIM>
+// tiles, the mbarriers, plus 1024 bytes to align the tiles as the 128-byte
+// swizzle requires.
 template <int DIM>
-struct Panels {
-    static constexpr int P = (DIM + D - 1) / D;
-    static constexpr int FULL = DIM / D, TAIL = DIM % D;
-    static constexpr int TB = P * TILE;
-    static constexpr int TX = TILE_ROWS * DIM * 2;
-    // columns of panel p, the N of its P·V product
-    __host__ __device__ static constexpr int width(int p) { return p < FULL ? D : TAIL; }
-    static constexpr int KSTEPS = (DIM + 15) / 16;
-    static constexpr int SMEM = TB + 2 * STAGES * TB + 64 + 1024;
-    static_assert(DIM % 8 == 0 && P <= 3, "8-column output chunks, acc[P][32] in registers");
-};
-
-// Descriptor step to k16 step kk of a K-major tile: panel kk / 4, 32 bytes
-// per step inside its swizzled rows.
-__device__ __forceinline__ uint64_t k_step(int kk) {
-    return uint64_t(kk / 4) * (TILE >> 4) + 2 * (kk % 4);
-}
+constexpr int SMEM = Panels<DIM>::TB * (1 + 2 * STAGES) + 64 + 1024;
 
 // One key tile of the online softmax, on S in wgmma's accumulator layout
 // (element 4c + 2i + j of this thread is row r + 8i, column 8c + 2q + j),
@@ -153,18 +135,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2],
 
 // ---- the kernel -------------------------------------------------------------
 
-// The loads of one 64-row tile at `row` of head bh into the panels at dst:
-// FULL boxes of 64 columns through `map`, then the TAIL columns through
-// `tail`.
-template <int DIM>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
-                                          const CUtensorMap* tail, uint32_t bar,
-                                          int row, int bh) {
-    using Pn = Panels<DIM>;
-    for (int p = 0; p < Pn::FULL; ++p) tma_load(dst + p * TILE, map, bar, row, bh, D * p);
-    if (Pn::TAIL) tma_load(dst + Pn::FULL * TILE, tail, bar, row, bh, D * Pn::FULL);
-}
-
 // tq, tk, tv: boxes of 64 columns; tq_t, tk_t, tv_t: of the TAIL columns
 // (unused where TAIL is 0).
 template <int DIM, bool LSE>
@@ -193,17 +163,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int nk = (sk + BK - 1) / BK;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-    if constexpr (DIM % 16 != 0) {
-        // Q·Kᵀ's last k-step reads the columns past DIM of the last panel of
-        // Q and of every K stage, which TMA never writes: zeros
-        for (int t = 0; t < 1 + STAGES; ++t)
-            for (int e = threadIdx.x; e < TILE / 16; e += NT)
-                asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};" ::"r"(
-                                 sQ + t * TB + (P - 1) * TILE + 16 * e),
-                             "r"(0)
-                             : "memory");
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for wgmma
-    }
+    zero_tail_panels<DIM, NT>(sQ, 1 + STAGES);  // Q and every K stage, for Q·Kᵀ
     if (threadIdx.x == 0) {
         for (int s = 0; s < STAGES; ++s) {
             mbar_init(full(s), 1);
@@ -288,11 +248,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int p = 0; p < P; ++p)
 #pragma unroll
             for (int kk = 0; kk < BK / 16; ++kk)
-                if (p < Pn::FULL)
-                    wgmma_rs_n64_tb(acc[p], pa[kk], dv + p * (TILE >> 4) + kk * MN_STEP);
-                else
-                    wgmma_rs_tb<Pn::TAIL ? Pn::TAIL : D>(
-                        acc[p], pa[kk], dv + p * (TILE >> 4) + kk * MN_STEP);
+                wgmma_rs_panel<DIM>(acc[p], pa[kk], dv + kk * MN_STEP, p);
         wgmma_commit();
         wgmma_wait();
 #pragma unroll
@@ -333,7 +289,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
     if (err != cudaSuccess) return int(err);
     const int t = tail ? 3 : 0;
     auto kernel = flash_fwd_wgmma_kernel<DIM, LSE>;
-    constexpr int smem = Panels<DIM>::SMEM;
+    constexpr int smem = SMEM<DIM>;
     err = flash::allow_smem(kernel, smem);
     if (err != cudaSuccess) return int(err);
     const dim3 grid((sq + BQ - 1) / BQ, bh);

@@ -1,25 +1,27 @@
-// Hopper primitives of the tensor-core kernels: the wgmma kernels
-// (flash_fwd_tc.cu, K1/K2 in bf16 at head dims 40, 64, 80, 128 and 160;
-// flash_jvp_tc.cu, K3, and flash_bwd_tc.cu, K4/K5, bf16 at head dim 64),
-// and the tf32x3 kernel (flash_fwd_tf32.cu, K1 in f32 at head dim 512:
-// mbarriers and bulk copies only). Inline PTX for shared memory addresses,
-// mbarriers, TMA and bulk loads and wgmma, and the host's encoding of a TMA
-// tensor map over (B·H, S, D) bf16.
+// Hopper primitives of the tensor-core kernels: the wgmma kernels, bf16
+// at head dims 40, 64, 80, 128 and 160 (flash_fwd_tc.cu, K1/K2, and
+// flash_bwd_tc.cu, K4/K5, at all five; flash_jvp_tc.cu, K3, at 64), and the
+// tf32x3 kernel (flash_fwd_tf32.cu, K1 in f32 at head dim 512: mbarriers
+// and bulk copies only). Inline PTX for shared memory addresses,
+// mbarriers, TMA and bulk loads and wgmma, the column panels of a row, and
+// the host's encoding of a TMA tensor map over (B·H, S, D) bf16.
 //
 // Layout: a D = 64 bf16 row is 128 bytes, so TMA's 128-byte swizzle is the
 // layout the wgmma descriptors read. A 64-row tile is 8 KB; a K-major
 // operand advances its descriptor 32 bytes per k16 step inside the swizzle
 // span, an MN-major one (the transpose bit) 16 rows (2048 bytes) per step.
 // A row of another head dim (80, 160, 256 or 320 bytes at D = 40, 80, 128,
-// 160) is held as ⌈D/64⌉ column panels of 64 columns, each such a tile:
-// one TMA box per panel, the last one D % 64 columns wide where 64 does
-// not divide D, so that no box reads past a row (TMA zero-fills a box
-// that reaches past the row's end, but K1 then ran far slower on an H100:
-// PERF.md §6). With the panels the forward (K1 and K2, the Pallas
-// `_flash_forward` and `_flash_forward_lse`) stays bound by its
-// 4·BH·Sq·Sk·D operations at the bf16 rate, 989 TFLOP/s; they cost it 48/40
-// of Q·Kᵀ's work at D = 40 (a k16 step over the zeroed columns 40–47) and
-// nothing at the other head dims (flash_fwd_tc.cu).
+// 160) is held as ⌈D/64⌉ column panels of 64 columns, each such a tile
+// (Panels): one TMA box per panel, the last one D % 64 columns wide where
+// 64 does not divide D, so that no box reads past a row (TMA zero-fills a
+// box that reaches past the row's end, but K1 then ran far slower on an
+// H100: PERF.md §6). The panels cost a product with the head dim as its
+// depth (Q·Kᵀ in the forward; S and dP in K4, Sᵀ and dPᵀ in K5) 48/40 of
+// its work at D = 40 (a k16 step over the zeroed columns 40–47) and nothing
+// at the other head dims; the products with the head dim as their width
+// run exactly D columns. So the forward (4·BH·Sq·Sk·D operations at the
+// bf16 rate, 989 TFLOP/s) does 1.1× the bound's operations at D = 40, K4
+// (6·BH·Sq·Sk·D) 1.13× and K5 (8·BH·Sq·Sk·D) 1.10×.
 //
 // cuTensorMapEncodeTiled is reached through the runtime's
 // cudaGetDriverEntryPoint, so the library does not link libcuda.
@@ -34,7 +36,7 @@
 
 namespace hopper {
 
-constexpr int D = 64;          // the head dim of K3–K5, and the width of a panel
+constexpr int D = 64;          // the width of a panel, and K3's head dim
 constexpr int ROW = D * 2;     // bytes of a bf16 row: one 128-byte swizzle span
 constexpr int TILE_ROWS = 64;  // rows of every TMA box and wgmma tile
 constexpr int TILE = TILE_ROWS * ROW;
@@ -241,6 +243,73 @@ __device__ __forceinline__ void acc_to_a(const float (&s)[32], uint32_t (&a)[4][
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int t = 0; t < 4; ++t) a[kk][t] = pack_bf16(s[8 * kk + 2 * t], s[8 * kk + 2 * t + 1]);
+}
+
+// ---- column panels ----------------------------------------------------------
+
+// The panels of head dim DIM: P of them per 64-row tile (TB bytes), FULL
+// of 64 columns and a last one of TAIL = DIM % 64 columns where that is not
+// 0, TX bytes loaded per tile (TMA counts a narrow box's 128·TAIL bytes),
+// KSTEPS k16 steps of a product whose depth is the head dim.
+template <int DIM>
+struct Panels {
+    static constexpr int P = (DIM + D - 1) / D;
+    static constexpr int FULL = DIM / D, TAIL = DIM % D;
+    static constexpr int TB = P * TILE;
+    static constexpr int TX = TILE_ROWS * DIM * 2;
+    // columns of panel p, the N of a product whose width is the head dim
+    __host__ __device__ static constexpr int width(int p) { return p < FULL ? D : TAIL; }
+    static constexpr int KSTEPS = (DIM + 15) / 16;
+    static_assert(DIM % 8 == 0 && P <= 3, "8-column output chunks, acc[P][32] in registers");
+};
+
+// Descriptor step to k16 step kk of a K-major tile: panel kk / 4, 32 bytes
+// per step inside its swizzled rows.
+__device__ __forceinline__ uint64_t k_step(int kk) {
+    return uint64_t(kk / 4) * (TILE >> 4) + 2 * (kk % 4);
+}
+
+// The loads of one 64-row tile at `row` of head bh into the panels at dst:
+// FULL boxes of 64 columns through `map`, then the TAIL columns through
+// `tail`.
+template <int DIM>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          const CUtensorMap* tail, uint32_t bar,
+                                          int row, int bh) {
+    using Pn = Panels<DIM>;
+    for (int p = 0; p < Pn::FULL; ++p) tma_load(dst + p * TILE, map, bar, row, bh, D * p);
+    if (Pn::TAIL) tma_load(dst + Pn::FULL * TILE, tail, bar, row, bh, D * Pn::FULL);
+}
+
+// Where 16 does not divide DIM (D = 40), the last k16 step of a K-major
+// product reads the columns past DIM of the last panel, which TMA never
+// writes: the block's NT threads zero that panel in the n tiles TB bytes
+// apart from `first` (before any load into them), and fence the stores
+// for the async proxy (wgmma, TMA). A NaN there would poison the product
+// even against a zero in the other operand.
+template <int DIM, int NT>
+__device__ __forceinline__ void zero_tail_panels(uint32_t first, int n) {
+    using Pn = Panels<DIM>;
+    if constexpr (DIM % 16 != 0) {
+        for (int t = 0; t < n; ++t)
+            for (int e = threadIdx.x; e < TILE / 16; e += NT)
+                asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};" ::"r"(
+                                 first + t * Pn::TB + (Pn::P - 1) * TILE + 16 * e),
+                             "r"(0)
+                             : "memory");
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+}
+
+// d (panel p of a 64 × DIM accumulator, width(p) columns) += A·B, A (64×16
+// bf16) from registers, B's panel p MN-major at db + p panels.
+template <int DIM>
+__device__ __forceinline__ void wgmma_rs_panel(float* d, const uint32_t* a, uint64_t db, int p) {
+    using Pn = Panels<DIM>;
+    if (p < Pn::FULL)
+        wgmma_rs_n64_tb(d, a, db + p * (TILE >> 4));
+    else
+        wgmma_rs_tb<Pn::TAIL ? Pn::TAIL : D>(d, a, db + p * (TILE >> 4));
 }
 
 // ---- host side ------------------------------------------------------------------

@@ -9,7 +9,7 @@ Variants, each one edit of the sources as they stand:
 * ``as built``: the sources unchanged;
 * ``box past row``: the last panel loaded with a box of 64 columns that
   reaches past the row's end (TMA zero-fills it) instead of one of the
-  D % 64 columns the row has;
+  D % 64 columns the row has (the panels are csrc/hopper.cuh's);
 * ``P·V at N=64``: the last panel's P·V product over all 64 columns of its
   panel instead of its D % 64;
 * ``3 stages``: three K/V stages in place of two.
@@ -34,21 +34,21 @@ import torch
 from diffusion_pullback_tpu_torch.ops import flash_attention as fa
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-OUT = os.path.join(fa.BUILD_DIR, "variants")
+OUT = os.path.join(fa.BUILD_DIR, "variants", "fwd")
 # the sources the forward's C entry needs
 UNITS = ("flash_fwd_tc.cu", "flash_fwd.cu", "flash_fwd_tf32.cu")
 # variant → [(file, text in it, replacement)]
 VARIANTS = {
     "as built": [],
     "box past row": [
-        ("flash_fwd_tc.cu", "static constexpr int TX = TILE_ROWS * DIM * 2;",
+        ("hopper.cuh", "static constexpr int TX = TILE_ROWS * DIM * 2;",
          "static constexpr int TX = P * TILE;"),
         ("flash_fwd_tc.cu", "i < 3 ? D : tail);", "D);"),
     ],
     "P·V at N=64": [
-        ("flash_fwd_tc.cu", "static constexpr int width(int p) { return p < FULL ? D : TAIL; }",
+        ("hopper.cuh", "static constexpr int width(int p) { return p < FULL ? D : TAIL; }",
          "static constexpr int width(int) { return D; }"),
-        ("flash_fwd_tc.cu", "wgmma_rs_tb<Pn::TAIL ? Pn::TAIL : D>(", "wgmma_rs_tb<D>("),
+        ("hopper.cuh", "wgmma_rs_tb<Pn::TAIL ? Pn::TAIL : D>(", "wgmma_rs_tb<D>("),
     ],
     "3 stages": [("flash_fwd_tc.cu", "STAGES = 2;", "STAGES = 3;")],
 }
@@ -56,11 +56,12 @@ SHAPES = [(48, 4096, 40), (8, 4096, 40), (48, 1024, 80), (8, 1024, 80),
           (4, 1024, 128), (8, 1024, 160), (16, 4096, 160), (30, 4096, 64)]
 
 
-def build(name, edits):
-    """The forward's sources with ``edits`` applied, as one library."""
-    path = os.path.join(OUT, name.replace(" ", "_").replace("·", ""))
+def build(name, edits, units=UNITS, out=OUT, src=CSRC):
+    """The sources in ``src`` with ``edits`` applied, ``units`` of them built
+    into one library under ``out``: (the library, nvcc's output)."""
+    path = os.path.join(out, name.replace(" ", "_").replace("·", ""))
     shutil.rmtree(path, ignore_errors=True)
-    shutil.copytree(CSRC, path)
+    shutil.copytree(src, path)
     for file, old, new in edits:
         with open(os.path.join(path, file)) as f:
             text = f.read()
@@ -69,21 +70,17 @@ def build(name, edits):
         with open(os.path.join(path, file), "w") as f:
             f.write(text.replace(old, new))
     nvcc = fa._nvcc()
-    objs = [os.path.join(path, u + ".o") for u in UNITS]
+    objs = [os.path.join(path, u + ".o") for u in units]
     procs = [subprocess.Popen([nvcc, *fa.NVCC_FLAGS, "-c", "-o", o, os.path.join(path, u)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for u, o in zip(UNITS, objs)]
+             for u, o in zip(units, objs)]
     logs = [proc.communicate(timeout=600)[0] for proc in procs]
     for proc, out in zip(procs, logs):
         if proc.returncode:
             raise RuntimeError(f"variant {name!r} does not build:\n{out}")
     lib_path = os.path.join(path, "flash.so")
     subprocess.run([nvcc, "-shared", "-o", lib_path, *objs], check=True, timeout=600)
-    lib = ctypes.CDLL(lib_path)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.flash_fwd.argtypes = [vp] * 4 + [ci] * 5 + [ctypes.c_float, vp]
-    lib.flash_fwd.restype = ci
-    return lib
+    return ctypes.CDLL(lib_path), "".join(logs)
 
 
 def cuda_ms(fn, iters=20):
@@ -102,7 +99,12 @@ def main():
     if not torch.cuda.is_available():
         print("fwd_tc_variants: needs a CUDA card", file=sys.stderr)
         return 1
-    libs = {name: build(name, edits) for name, edits in VARIANTS.items()}
+    libs = {}
+    for name, edits in VARIANTS.items():
+        lib = libs[name] = build(name, edits)[0]
+        lib.flash_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_void_p]
+        lib.flash_fwd.restype = ctypes.c_int
     gen = torch.Generator(device="cuda").manual_seed(0)
     for bh, s, d in SHAPES:
         q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).to(torch.bfloat16)

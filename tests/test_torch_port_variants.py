@@ -1,0 +1,53 @@
+"""ops/fwd_tc_variants.py builds each design variant of the bf16 forward
+by replacing a text of the kernel sources. Each such text must stand in
+its file exactly once, so that a variant still builds the one change it
+names after the sources move on. ops/bwd_tc_variants.py (the backward as
+built against an earlier tree's csrc/) reads registers and spills per
+K4/K5 instance from nvcc's -Xptxas -v output (an earlier tree's D =
+64-only kernels too, for its --parent build). Runs on the CPU: nothing is
+compiled."""
+
+import os
+
+import pytest
+
+from diffusion_pullback_tpu_torch.ops import bwd_tc_variants, fwd_tc_variants
+
+EDITS = [(name, file, old) for name, edits in fwd_tc_variants.VARIANTS.items()
+         for file, old, _ in edits]
+
+
+@pytest.mark.parametrize("variant, file, old", EDITS,
+                         ids=[f"fwd_tc_variants:{v}:{f}" for v, f, _ in EDITS])
+def test_variant_edit_stands_once_in_its_source(variant, file, old):
+    with open(os.path.join(fwd_tc_variants.CSRC, file)) as f:
+        assert f.read().count(old) == 1, (variant, file, old)
+
+
+@pytest.mark.parametrize("file", ["hopper.cuh", "flash_fwd_tc.cu"])
+def test_variant_whose_text_is_gone_is_refused_before_nvcc(file, tmp_path):
+    """A copy of the sources whose edit no longer finds its text is refused
+    by name, before any compile (so this runs without nvcc)."""
+    with pytest.raises(RuntimeError, match=f"'stale': 'no such text' is not in {file}"):
+        fwd_tc_variants.build("stale", [(file, "no such text", "")], out=str(tmp_path))
+    assert sorted(os.listdir(tmp_path / "stale")) == sorted(os.listdir(fwd_tc_variants.CSRC))
+
+
+def test_registers_are_read_per_kernel_and_head_dim():
+    log = """\
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__1_15_flash_bwd_tc_cu_222flash_dkv_wgmma_kernelILi160EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__1_15_flash_bwd_tc_cu_222flash_dkv_wgmma_kernelILi160EEEv14CUtensorMap_st
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__1_15_flash_fwd_tc_cu_222flash_fwd_wgmma_kernelILi40ELb1EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Used 95 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__1_15_flash_bwd_tc_cu_221flash_dq_wgmma_kernelILi40EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__1_15_flash_bwd_tc_cu_221flash_dq_wgmma_kernelILi40EEEv14CUtensorMap_st
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 110 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__1_15_flash_bwd_tc_cu_222flash_dkv_wgmma_kernelE14CUtensorMap_stS0_S0_S0_PKfS2_P13__nv_bfloat16S4_iiif' for 'sm_90a'
+ptxas info    : Used 166 registers, used 1 barriers
+"""
+    assert bwd_tc_variants.registers(log) == {("K5", 160): (255, 8, 12),
+                                              ("K4", 40): (110, 0, 0),
+                                              ("K5", 64): (166, 0, 0)}
