@@ -6,11 +6,10 @@ Phases (any failure exits non-zero before the last line is printed):
   2. kernels — each kernel against its plain PyTorch version at every shape
                the main path gives it, float32 (TF32 off) and bfloat16, with
                the design that served it as the C library's one rule
-               reports it ('wgmma': K1–K5 in bf16 at D=64, K1, K2, K4 and
-               K5 in bf16 also at D=40, 80, 128 and 160; 'tf32x3': K1 in
-               f32 at D=512; 'simt': the CUDA-core kernels, among them
-               every kernel in f32 and K3 in bf16 at D=40, 80, 128 and
-               160), the kernel's,
+               reports it ('wgmma': K1–K5 in bf16 at D=40, 64, 80, 128
+               and 160; 'tf32x3': K1 in f32 at D=512; 'simt': the
+               CUDA-core kernels, every kernel in f32 at those head
+               dims), the kernel's,
                the plain version's and a PyTorch yardstick's times
                (F.scaled_dot_product_attention for K1; for K2 and K4+K5 the
                flash SDPA forward / backward ops in bf16 and the
@@ -119,9 +118,8 @@ Phases (any failure exits non-zero before the last line is printed):
                and on (seconds, peak memory, the same basis); each with its
                launches by shape held to the count the code gives. Phase 7
                runs SDXL with remat on, as build_sdxl now sets it;
- 12. head    — the model configs at head dims 40, 80 and 128 (K1, K2, K4
-     dims      and K5 on 'wgmma' in bf16, K3 on the CUDA-core 'simt'), built
-               through the library (no CLI of either package builds
+ 12. head    — the model configs at head dims 40, 80 and 128 (K1–K5 on
+     dims      'wgmma' in bf16), built through the library (no CLI of either package builds
                them): SD 1.5 at full width (the 859.5 M
                U-Net in bf16, the CLIP ViT-L tower and the SD VAE in f32,
                seeded random weights drawn on the card) through
@@ -133,8 +131,7 @@ Phases (any failure exits non-zero before the last line is printed):
                ImageNet128Cond at full width with labels (K1–K5 at 4 heads
                of 128 over 1024 tokens): ε and the mid-tap rank-2 pullback
                on the pair against the math path in f32 and bf16; every
-               bf16 K1, K2, K4 and K5 launch of both served by 'wgmma',
-               every K3 launch by 'simt'.
+               bf16 K1–K5 launch of both served by 'wgmma'.
 Phases 1–2 hold every (kernel, shape) that phases 4 and 6–12 launch.
 Then a JSON line of the kernels (one entry per kernel, design and head dim
 over phases 4 and 6–12, at the shape that carries most of that entry's
@@ -191,14 +188,16 @@ SDXL_UNET = dict(at_4096=10, at_1024=60, heads=(10, 20))
 K1_CASES += [((10 * b, 4096, 64), BF16) for b in (1, 4, 6)] + [
     ((20 * b, 1024, 64), BF16) for b in (1, 4, 6)] + [((1, 16384, 512), F32)]
 # phase 8's K1 shapes: the ADM-256 U-Net's 8 heads of 64 at 1024 tokens
-# (32²) at batch 1, 2 (the guided run_ddim_forward), 4 (walk) and 6
-# (finish); its 256- and 64-token layers take the math path
+# (32²) at batch 1, 2 (the guided run_ddim_forward; the walk of 2
+# directions, its (null, edit) pair split as the uncond family's
+# --xsg_pair_impl auto), 4 (the split walk of 4 directions in phases 9–10)
+# and 6 (finish); its 256- and 64-token layers take the math path
 K1_CASES += [((8 * b, 1024, 64), BF16) for b in (1, 2, 4, 6)]
 # phase 9's K1 shapes: the SD 2.1-base U-Net over 16 latents at once (local
 # PCA's chunk of 16 perturbations through the mid-tap encoder) and over 100
 # (the CLI's global PCA population, --num_local_basis), and the ADM-256
-# U-Net at batch 8 (walk: 4 directions × the (null, edit) pair) and 12
-# (finish: 4 directions × 3 frames)
+# U-Net at batch 8 (phase 10's h-space guidance decodes 8 rows from the
+# tap) and 12 (finish: 4 directions × 3 frames)
 K1_CASES += [((80, 4096, 64), BF16), ((160, 1024, 64), BF16),
              ((500, 4096, 64), BF16), ((1000, 1024, 64), BF16),
              ((64, 1024, 64), BF16), ((96, 1024, 64), BF16)]
@@ -249,8 +248,8 @@ PAIR_CASES += [(BATCH * bh, s, d, PCA_RANK, (F32, BF16), ("K2", "K3", "K4", "K5"
 PAIR_CASES += [(*shape, SDXL_RANK, (BF16,), ("K3", "K4", "K5")) for shape in SDXL_PAIR[0]]
 # phase 12: SD 1.5 (8 heads per block: 40 at 4096 tokens, 80 at 1024, 160
 # at 256 and 64 tokens, which take the math path) and ImageNet128Cond (4
-# heads of 128 at 1024 tokens; 192 at 256 and 256 at 64, math path): K1,
-# K2, K4 and K5 on 'wgmma' in bf16, the rest on 'simt'. K1: the SD 1.5
+# heads of 128 at 1024 tokens; 192 at 256 and 256 at 64, math path): K1–K5
+# on 'wgmma' in bf16, on 'simt' in f32. K1: the SD 1.5
 # edit's U-Net at batch 1, 4 (walk) and 6 (finish) in bf16; SD 1.5's
 # self-attentions at batch 1 and 2, ImageNet128Cond's at batch 1 and 8
 # heads of 160 at 1024 tokens (SD 1.5's third block at 1024 px) in both
@@ -827,6 +826,17 @@ def unet_k1(expected, batch, calls, dtype, at_4096=5, at_1024=5, heads=(5, 10),
     expected[("flash_fwd", (heads[1] * batch, 1024, dims[1]), dtype)] += at_1024 * calls
 
 
+def walk_k1(expected, cfg, n_dir, dtype, **unet):
+    """K1 launches of the x-space-guidance walk of ``n_dir`` directions
+    (``cfg`` the driver's config): per micro-step the (null, edit) pair as
+    one U-Net pass at batch 2·n_dir (xsg_pair_impl 'batch', the SD
+    family's 'auto') or two at n_dir ('split', the uncond family's)."""
+    if cfg.xsg_pair_impl == "split":
+        unet_k1(expected, n_dir, 2 * cfg.x_space_guidance_num_step, dtype, **unet)
+    else:
+        unet_k1(expected, 2 * n_dir, cfg.x_space_guidance_num_step, dtype, **unet)
+
+
 def pair_k2_k5(expected, dtype, iterations, layers, primal=1, shapes=PAIR_SHAPES,
                rank=PCA_RANK, remat=False):
     """K1–K5 launches of a fused-pair pullback of ``rank`` probes over a map
@@ -865,7 +875,7 @@ def covector_k2_k5(expected, dtype, vjps, layers=2, shapes=PAIR_SHAPES):
 def edit_k1(expected, edit, n_dir, frames, dtypes, unet=SD_UNET, vae_tokens=4096):
     """K1 launches of an SD-family edit run outside its direction: VAE
     encode, inversion and forward to the edit t at batch 1; the walk's
-    (null, edit) pair of every direction as one batch; the finish of every
+    (null, edit) pairs of every direction (walk_k1); the finish of every
     direction's frames as one batch; per direction the VAE decodes of its
     frames, decode_chunk of them per call (all at once when it is None; no
     classifier-free guidance: guidance_scale is 0). ``unet`` is the U-Net's
@@ -873,7 +883,7 @@ def edit_k1(expected, edit, n_dir, frames, dtypes, unet=SD_UNET, vae_tokens=4096
     tokens (4096 at 512 px, 16 384 at 1024 px)."""
     cfg, (unet_dtype, vae_dtype) = edit.cfg, dtypes
     unet_k1(expected, 1, (cfg.inv_steps - 2) + edit.edit_t_idx, unet_dtype, **unet)
-    unet_k1(expected, 2 * n_dir, cfg.x_space_guidance_num_step, unet_dtype, **unet)
+    walk_k1(expected, cfg, n_dir, unet_dtype, **unet)
     unet_k1(expected, n_dir * frames, edit.fwd_grid.num_steps - edit.edit_t_idx,
             unet_dtype, **unet)
     expected[("flash_fwd", (1, vae_tokens, 512), vae_dtype)] += 1
@@ -1710,7 +1720,7 @@ def phase_adm(fa):
     # every direction's frames; the pullback's encoder on the pair
     expected = collections.Counter()
     unet_k1(expected, 1, (cfg.inv_steps - 2) + edit.edit_t_idx, dtype, **ADM_UNET)
-    unet_k1(expected, 2 * n_dir, cfg.x_space_guidance_num_step, dtype, **ADM_UNET)
+    walk_k1(expected, cfg, n_dir, dtype, **ADM_UNET)
     unet_k1(expected, n_dir * frames, edit.fwd_grid.num_steps - edit.edit_t_idx, dtype,
             **ADM_UNET)
     pair_k2_k5(expected, dtype, pullback["iterations"], layers=2, shapes=ADM_PAIR)
@@ -2034,7 +2044,7 @@ def phase_harvest(fa):
             pair_k2_k5(expected, adm_dtype, e["iterations"], layers=2, shapes=ADM_PAIR,
                        rank=MEAN_RANK)
         covector_k2_k5(expected, adm_dtype, 2, shapes=ADM_PAIR)
-        unet_k1(expected, 2 * 4, adm.cfg.x_space_guidance_num_step, adm_dtype, **ADM_UNET)
+        walk_k1(expected, adm.cfg, 4, adm_dtype, **ADM_UNET)
         unet_k1(expected, 4 * 3, adm.fwd_grid.num_steps - adm.edit_t_idx, adm_dtype,
                 **ADM_UNET)
 
@@ -2121,7 +2131,7 @@ def phase_uncond_runs(fa):
         at_4096=0, at_1024=3, heads=(8, 8))
 
     def walk_and_finish(expected, n_dir=4, frames=3):
-        unet_k1(expected, 2 * n_dir, cfg.x_space_guidance_num_step, dtype, **ADM_UNET)
+        walk_k1(expected, cfg, n_dir, dtype, **ADM_UNET)
         unet_k1(expected, n_dir * frames, finish, dtype, **ADM_UNET)
 
     def pngs(prefix, n=4):
@@ -2551,8 +2561,7 @@ def phase_extras(fa):
 
 def phase_head_dim_models(fa):
     """Phase 12: the two model configs at head dims other than 64 and 512,
-    where K1, K2, K4 and K5 run 'wgmma' in bf16 and K3 the CUDA-core
-    'simt'.
+    where K1–K5 run 'wgmma' in bf16.
     (b) SD 1.5 at full width, built directly into
     EditStableDiffusion as a user of the library builds it (no CLI of
     either package builds SD 1.5): the 859.5 M-parameter U-Net in bf16 with
@@ -2568,8 +2577,7 @@ def phase_head_dim_models(fa):
     mid-tap rank-2 pullback on the pair against the math path in f32 and
     bf16; the bf16 ε and pair pullback with their launches by shape. Every
     launch of both runs at the head dims 40, 80 and 128 (all bf16) must
-    have been served by 'wgmma' for K1, K2, K4 and K5 and by 'simt' for
-    K3.
+    have been served by 'wgmma', for each of K1–K5.
     Returns the path dicts of the SD 1.5 edit and of ImageNet128Cond's bf16
     ε and pair pullback."""
     import numpy as np
@@ -2750,9 +2758,9 @@ def phase_head_dim_models(fa):
                 label = KERNELS[sym][0]
                 served[(label, fa.design(label, shape[-1], dtype))] += n
     log(f"[dims] launches by kernel and design: {dict(served)}")
-    checks["(sd15, adm128) K1, K2, K4, K5 on wgmma and K3 on simt"] = (
+    checks["(sd15, adm128) K1–K5 on wgmma"] = (
         {label for label, _ in served} == set(KERNELS_BY_LABEL) and all(
-            dsg == ("simt" if label == "K3" else "wgmma") for label, dsg in served))
+            dsg == "wgmma" for _, dsg in served))
     for what, ok in checks.items():
         log(f"[dims] check {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):

@@ -44,7 +44,9 @@ build_uncond says so when it builds one of them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import shutil
 import sys
 
 SD_MODEL = "stabilityai/stable-diffusion-2-1-base"
@@ -130,8 +132,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'h_space_guidance' runs run_edit_h_space_guidance")
     p.add_argument("--h_space_guidance_scale", type=float, default=0.0,
                    help="h-space guidance's scale; 0 = --x_space_guidance_scale")
-    p.add_argument("--xsg_pair_impl", type=str, default="batch",
-                   choices=["batch", "split"])
+    p.add_argument("--xsg_pair_impl", type=str, default="auto",
+                   choices=["auto", "batch", "split"],
+                   help="the walk's (null, edit) pair: 'batch' = one 2·B U-Net "
+                        "call, 'split' = two B-row calls; 'auto' = batch for the "
+                        "SD family, split for the pixel-space nets (the JAX "
+                        "CLI's mapping)")
     p.add_argument("--pca_rank", type=int, default=2)
     p.add_argument("--pullback_chunk_size", type=int, default=0,
                    help="probes per tangent/cotangent batch; 0 = all (SDXL: "
@@ -170,10 +176,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--after_res", type=str2bool, default=False)
     p.add_argument("--after_sa", type=str2bool, default=False)
     p.add_argument("--attn_impl", type=str, default="auto",
-                   choices=["auto", "xla", "blockwise", "flash"],
+                   choices=["auto", "xla", "blockwise", "flash", "ring"],
                    help="sampling attention of the SD and ADM nets: 'auto' = "
                         "flash on cuda, xla on cpu (the DDPM U-Net's "
-                        "≤256-token attention is always the math path)")
+                        "≤256-token attention is always the math path); "
+                        "'ring' is not ported (ROADMAP queue 1, item 16)")
     p.add_argument("--pullback_attn_impl", type=str, default="",
                    choices=["", "xla", "blockwise", "flash"],
                    help="attention inside the differentiated encoder: "
@@ -238,7 +245,50 @@ def build_parser() -> argparse.ArgumentParser:
                    default=False,
                    help="uncond: as the Frechet run, with the Hungarian-matched "
                         "mean")
+    # the rest of the JAX CLI's flags, with its types and defaults
+    p.add_argument("--sh_file_name", type=str, default="",
+                   help="a script under ./scripts, copied into the experiment "
+                        "folder")
+    p.add_argument("--use_yh_custom_scheduler", type=str2bool, default=True,
+                   help="the linspace DDIM grid; False is refused, as the JAX "
+                        "CLI asserts")
+    p.add_argument("--matmul_precision", type=str, default="",
+                   choices=["", "highest"],
+                   help="f32 products on the card are always full f32 "
+                        "(TF32 off), the JAX CLI's 'highest'")
+    p.add_argument("--debug_nans", type=str2bool, default=False,
+                   help="raise at the first backward op that makes a NaN "
+                        "(torch.autograd.detect_anomaly; the forward and the "
+                        "tangent passes are not checked)")
+    for flag, item, kw in UNPORTED_FLAGS:
+        p.add_argument(f"--{flag}", help=f"not ported (ROADMAP queue 1, item {item})",
+                       **kw)
+    for flag, kind, default in INERT_FLAGS:
+        p.add_argument(f"--{flag}", type=kind, default=default,
+                       help="accepted and unused, as in the JAX CLI")
     return p
+
+
+# flags of open ROADMAP items: refused when set to anything but the default
+UNPORTED_FLAGS = (
+    ("mesh_axes", 16, dict(type=str, default="")),
+    ("aot_export", 17, dict(type=str, default="auto", choices=["auto", "on", "off"])),
+    ("profile_dir", 17, dict(type=str, default="")),
+)
+# flags the JAX CLI accepts and never reads (or overwrites in its preset:
+# image_size and c_in), with its types and defaults
+INERT_FLAGS = (
+    ("num_imgs", int, 100), ("image_size", int, 256), ("c_in", int, 3),
+    ("edit_xt", str, "default"), ("x_space_guidance_use_edit_prompt", str2bool, True),
+    ("no_edit_t", float, 0.5), ("h_edit_step_size", float, 0),
+    ("x_edit_step_size", float, 0), ("pca_device", str, "cpu"),
+    ("buffer_device", str, "cpu"), ("save_result_as", str, "image"),
+    ("various_prompt_type", str, ""), ("frechet_mean_space", str, ""),
+    ("hungarian_mean_space", str, ""),
+    *((flag, str2bool, False) for flag in (
+        "run_cfg_forward", "run_mcg_forward", "run_pfg_forward", "local_projection",
+        "debug_mode", "sampling_mode")),
+)
 
 
 def parse_args(argv=None):
@@ -269,6 +319,14 @@ def experiment_folders(args):
         "./inputs", f"local_encoder_pullback_{family}-dataset_{args.dataset_name}"
                     f"-num_steps_{args.for_steps}-pca_rank_{args.pca_rank}")
     return os.path.join(args.result_folder, exp), basis
+
+
+def xsg_pair_impl(args) -> str:
+    """--xsg_pair_impl with 'auto' resolved as the JAX CLI's preset does:
+    batch for the SD family's latents, split for the pixel-space nets."""
+    if args.xsg_pair_impl != "auto":
+        return args.xsg_pair_impl
+    return "batch" if is_stable_diffusion(args) else "split"
 
 
 def _guidance_scale(args, default: float) -> float:
@@ -347,7 +405,7 @@ def build_uncond(args):
         x_space_guidance_scale=_guidance_scale(args, 0.1),
         x_space_guidance_num_step=args.x_space_guidance_num_step or 16,
         h_space_guidance_scale=args.h_space_guidance_scale,
-        xsg_pair_impl=args.xsg_pair_impl,
+        xsg_pair_impl=xsg_pair_impl(args),
         performance_boosting_t=args.performance_boosting_t,
         use_performance_boosting=args.performance_boosting_t > 0,
         pca_rank=args.pca_rank,
@@ -423,7 +481,7 @@ def _sd_config(args, device, **over):
         x_space_guidance_edit_step=args.x_space_guidance_edit_step,
         x_space_guidance_scale=_guidance_scale(args, 1.0),
         x_space_guidance_num_step=args.x_space_guidance_num_step or 16,
-        xsg_pair_impl=args.xsg_pair_impl,
+        xsg_pair_impl=xsg_pair_impl(args),
         pca_rank=args.pca_rank,
         # the fused pair by default on the card, as the JAX CLI on an
         # accelerator; --pullback_attn_impl xla opts out
@@ -541,8 +599,19 @@ def build_sdxl(args):
 
 
 def check_preset(args) -> None:
-    """The JAX CLI's preset asserts: an uncond run takes 100 forward steps
-    and boosting at 0.2·T; an SD run takes no boosting."""
+    """The JAX CLI's preset: its asserts (the custom scheduler; an uncond
+    run takes 100 forward steps and boosting at 0.2·T, an SD run no
+    boosting) and the copy of --sh_file_name's script into the experiment
+    folder; and the flags of open ROADMAP items refused when set."""
+    for flag, item, kw in UNPORTED_FLAGS:
+        if getattr(args, flag) != kw["default"]:
+            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP queue 1, "
+                                      f"item {item})")
+    if args.attn_impl == "ring":
+        raise NotImplementedError("--attn_impl ring (sequence parallel over a device "
+                                  "mesh) is not ported yet (ROADMAP queue 1, item 16)")
+    if not args.use_yh_custom_scheduler:
+        raise ValueError("--use_yh_custom_scheduler False: the JAX CLI asserts it True")
     if is_stable_diffusion(args):
         if args.performance_boosting_t > 0:
             raise ValueError("Stable Diffusion runs take no performance "
@@ -550,15 +619,24 @@ def check_preset(args) -> None:
     elif args.for_steps != 100 or args.performance_boosting_t != 0.2:
         raise ValueError("uncond runs take --for_steps 100 and "
                          "--performance_boosting_t 0.2")
+    script = os.path.join("scripts", args.sh_file_name)
+    if args.sh_file_name and os.path.exists(script):
+        exp_folder = experiment_folders(args)[0]
+        os.makedirs(exp_folder, exist_ok=True)
+        shutil.copy(script, os.path.join(exp_folder, args.sh_file_name))
 
 
 def main(argv=None):
+    import torch
+
     args = parse_args(argv)
     check_preset(args)
     build = build_sdxl if is_sdxl(args) else (
         build_sd if is_stable_diffusion(args) else build_uncond)
-    edit = build(args)
-    dispatch(edit, args)
+    with (torch.autograd.detect_anomaly(check_nan=True) if args.debug_nans
+          else contextlib.nullcontext()):
+        edit = build(args)
+        dispatch(edit, args)
     return edit
 
 

@@ -166,28 +166,6 @@ __device__ __forceinline__ void two_products(float (&a)[32], float (&b)[32], uin
     reg_fence(b);
 }
 
-// The accumulators of a 64 × DIM output: panel p in the first width(p) / 2
-// of acc[p].
-template <int DIM>
-using Acc = float[Panels<DIM>::P][32];
-
-template <int DIM>
-__device__ __forceinline__ void fence_panels(Acc<DIM>& acc) {
-#pragma unroll
-    for (int p = 0; p < Panels<DIM>::P; ++p) reg_fence(acc[p], Panels<DIM>::width(p) / 2);
-}
-
-// acc += A·Y for A in the A fragments of 64 columns and Y MN-major at y,
-// panel by panel.
-template <int DIM>
-__device__ __forceinline__ void product_rs(Acc<DIM>& acc, const uint32_t (&a)[4][4],
-                                           uint64_t y) {
-#pragma unroll
-    for (int p = 0; p < Panels<DIM>::P; ++p)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs_panel<DIM>(acc[p], a[kk], y + kk * MN_STEP, p);
-}
-
 // The bf16 outputs of a 64-row tile in accumulator layout, times mul, rows
 // below n and columns below DIM: row r + 8i of out (its first row at out).
 template <int DIM>
@@ -206,14 +184,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, const Acc<DIM>& a
                     acc[p][4 * c + 2 * i] * mul, acc[p][4 * c + 2 * i + 1] * mul);
             }
     }
-}
-
-template <int DIM>
-__device__ __forceinline__ void zero(Acc<DIM>& acc) {
-#pragma unroll
-    for (int p = 0; p < Panels<DIM>::P; ++p)
-#pragma unroll
-        for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
 }
 
 // ---- K4: dQ -------------------------------------------------------------------

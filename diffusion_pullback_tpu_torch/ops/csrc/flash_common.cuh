@@ -101,10 +101,9 @@ __device__ __forceinline__ bool has_chunk(int g, int c) {
     return C::D4 % C::G == 0 || g * C::G + c < C::D4;
 }
 
-// The CUDA-core tile of the head dims that only "simt" serves, in f32 for
-// K1–K5 and in bf16 for K3 (K1, K2, K4 and K5 in bf16 run "wgmma" there): SD
-// 1.5's 8 heads of 40 and 80 (160 at 1024 px) and
-// ImageNet128Cond's 4 of 128. 64 rows × 32 columns, G = 8 (128 threads,
+// The CUDA-core tile of the head dims other than 64 and 512, in f32 for
+// K1–K5 (bf16 runs "wgmma" there): SD 1.5's 8 heads of 40 and 80 (160 at
+// 1024 px) and ImageNet128Cond's 4 of 128. 64 rows × 32 columns, G = 8 (128 threads,
 // 4 rows × 4 logits each), so K3's and K5's six tiles fit in shared memory
 // at D = 160 (191.7 KB; 64 × 64 tiles would need 291 KB).
 template <int D>
@@ -181,10 +180,9 @@ inline cudaError_t allow_smem(K kernel, int smem) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// The tensor-core designs. "wgmma", bf16: K1 / K2 (flash_fwd_tc.cu) and K4
-// / K5 (flash_bwd_tc.cu) at D = 40, 64, 80, 128 and 160, K3
-// (flash_jvp_tc.cu) at D = 64. "tf32x3", f32 at D = 512: K1
-// (flash_fwd_tf32.cu).
+// The tensor-core designs. "wgmma", bf16 at D = 40, 64, 80, 128 and 160:
+// K1 / K2 (flash_fwd_tc.cu), K3 (flash_jvp_tc.cu) and K4 / K5
+// (flash_bwd_tc.cu). "tf32x3", f32 at D = 512: K1 (flash_fwd_tf32.cu).
 int fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
               int bh, int sq, int sk, int d, float scale, cudaStream_t stream);
 int dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
@@ -195,7 +193,7 @@ int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
               int bh_primal, int sq, int sk, int d, float scale, cudaStream_t stream);
 int tangent_wgmma(const void* q, const void* k, const void* v, const void* dq,
                   const void* dk, const void* dv, const void* o, const void* lse,
-                  void* dout, int bh, int bh_primal, int sq, int sk, float scale,
+                  void* dout, int bh, int bh_primal, int sq, int sk, int d, float scale,
                   cudaStream_t stream);
 int fwd_tf32x3(const void* q, const void* k, const void* v, void* o, int bh, int sq,
                int sk, float scale, cudaStream_t stream);

@@ -262,14 +262,12 @@ int launch_n(const void* q, const void* k, const void* v, void* o, float* lse,
 
 extern "C" {
 
-// The one design rule (declared in flash_common.cuh): bf16 at D = 64 runs
-// the wgmma kernels of K1–K5, and K1, K2, K4 and K5 in bf16 also at D =
-// 40, 80, 128 and 160; K1 in f32 at D = 512 runs the tf32x3 kernel; every
-// other call runs on the CUDA cores (f32 at every head dim but K1's 512,
-// K1 in bf16 at 512, K3 in bf16 at 40, 80, 128 and 160).
+// The one design rule (declared in flash_common.cuh): bf16 at D = 40, 64,
+// 80, 128 and 160 runs the wgmma kernels of K1–K5; K1 in f32 at D = 512
+// runs the tf32x3 kernel; every other call runs on the CUDA cores (f32 at
+// every head dim but K1's 512, and K1 in bf16 at 512).
 int flash_design(int kernel, int d, int is_bf16) {
-    if (is_bf16 && (d == 64 || (kernel != 3 && flash::pair_head_dim(d))))
-        return flash::kWgmma;
+    if (is_bf16 && flash::pair_head_dim(d)) return flash::kWgmma;
     if (kernel == 1 && d == 512 && !is_bf16) return flash::kTf32x3;
     return flash::kSimt;
 }

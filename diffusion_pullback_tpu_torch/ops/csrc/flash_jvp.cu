@@ -5,14 +5,19 @@
 //     Ȯ = Σ_k (P∘Ṡ) V + P V̇ − rowsum(P∘Ṡ) ∘ O.
 //
 // Replaces the Pallas TPU kernel `_flash_tangent_kernel` / `_flash_tangent`
-// in diffusion_pullback_tpu/ops/pallas/flash_attention.py. Same rounding:
-// P∘Ṡ and P are rounded to the input dtype before their products with V and
-// V̇ (`pds.astype(v.dtype)`, `p.astype(dv.dtype)`), rowsum(P∘Ṡ) and the
-// accumulator stay f32, and Ȯ is written in O's dtype (the Pallas kernel
-// writes f32 that its caller casts to O's dtype).
+// in diffusion_pullback_tpu/ops/pallas/flash_attention.py. The Pallas
+// kernel rounds P∘Ṡ and P to the input dtype before their products with V
+// and V̇ (`pds.astype(v.dtype)`, `p.astype(dv.dtype)`): in f32, the dtype of
+// the kernel below, that rounds nothing; rowsum(P∘Ṡ) and the accumulator
+// are f32.
 //
-// Layout (B·H, S, D), contiguous; f32 or bf16; head dims 40, 64, 80, 128,
-// 160. The tangents
+// Two designs, chosen by flash_design (flash_common.cuh): bf16 at every
+// head dim (40, 64, 80, 128, 160) goes to the tensor-core design "wgmma"
+// (flash_jvp_tc.cu); f32 runs the CUDA-core design "simt" below, since
+// wgmma has no f32 operand and TF32 would lose the 1e-4 agreement with the
+// plain version.
+//
+// Layout (B·H, S, D), contiguous; head dims 40, 64, 80, 128, 160. The tangents
 // may carry more slices than the primal: a vmap over probes folds the probe
 // axis into B·H of Q̇, K̇, V̇ and Ȯ only, and tangent slice b reads primal
 // slice b % bh_primal, so the probes share one copy of Q, K, V, O and L.
@@ -22,23 +27,20 @@
 // tile and loops over the K/V tiles itself, keeping the Ȯ accumulator and
 // its share of rowsum(P∘Ṡ) in registers; blocks are independent (grid = Q
 // tiles × B·H). Per K tile it stages Kᵀ, K̇ᵀ (d-major), V and V̇ in shared
-// memory, computes S and Ṡ in one pass over d, and writes the rounded Pᵀ
-// and (P∘Ṡ)ᵀ tiles to shared memory for the two products with V and V̇.
-// D = 64 (f32): 64×64 tiles, 137 KB of dynamic shared memory (opted in),
-// 256 threads, 1 block per SM. D = 40, 80, 128, 160 (f32 and bf16):
-// flash::TileN, 64 Q rows × 32 keys, 128 threads, 60.9–191.5 KB.
+// memory, computes S and Ṡ in one pass over d, and writes the Pᵀ and
+// (P∘Ṡ)ᵀ tiles to shared memory for the two products with V and V̇. D =
+// 64: 64×64 tiles, 137 KB of dynamic shared memory (opted in), 256
+// threads, 1 block per SM. D = 40, 80, 128, 160: flash::TileN, 64 Q rows
+// × 32 keys, 128 threads, 60.9–191.5 KB.
 //
 // What bounds it: 10·BH·Sq·Sk·D operations (five products of the tile
 // size) against 8·BH·S·D elements read or written, so it is bound by
-// operations. bf16 calls at D = 64 go to the tensor-core design "wgmma"
-// (flash_jvp_tc.cu), by flash_design; the rest run the CUDA-core design
-// "simt" below, in f32 FMAs (67 TFLOP/s peak on an H100 SXM).
+// operations: in f32 on the CUDA cores, 67 TFLOP/s peak on an H100 SXM.
 
 #include "flash_common.cuh"
 
 namespace {
 
-using flash::Io;
 using flash::s_col;
 
 // 64 Q rows × 64 keys, G = 16 lanes per row group: 256 threads, each with
@@ -49,13 +51,13 @@ template <class C>
 constexpr int kSmemFloats =
     2 * C::D * C::QS + 2 * C::D * C::KS + 2 * C::BK * C::D + 2 * C::BK * C::QS;
 
-template <typename T, class C>
+template <class C>
 __global__ void __launch_bounds__(C::NT)
-flash_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dq,
-                     const T* __restrict__ dk, const T* __restrict__ dv,
-                     const T* __restrict__ o, const float* __restrict__ lse,
-                     T* __restrict__ dout, int bh_primal, int sq, int sk,
+flash_tangent_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dq,
+                     const float* __restrict__ dk, const float* __restrict__ dv,
+                     const float* __restrict__ o, const float* __restrict__ lse,
+                     float* __restrict__ dout, int bh_primal, int sq, int sk,
                      float scale) {
     constexpr int D = C::D, BQ = C::BQ, BK = C::BK, G = C::G, TR = C::TR;
     constexpr int TC = C::TC, DC = C::DC, QS = C::QS, KS = C::KS, NT = C::NT;
@@ -78,8 +80,8 @@ flash_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t bt = blockIdx.y;              // tangent slice
     const size_t bp = blockIdx.y % bh_primal;  // primal slice
 
-    flash::load_tile<T, BQ, D, NT>(q + bp * sq * D, q0, sq, Qt, QS, nullptr);
-    flash::load_tile<T, BQ, D, NT>(dq + bt * sq * D, q0, sq, dQt, QS, nullptr);
+    flash::load_tile<float, BQ, D, NT>(q + bp * sq * D, q0, sq, Qt, QS, nullptr);
+    flash::load_tile<float, BQ, D, NT>(dq + bt * sq * D, q0, sq, dQt, QS, nullptr);
 
     float lrow[TR], acc[TR][DC], rs[TR];
 #pragma unroll
@@ -93,10 +95,10 @@ flash_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int k0 = 0; k0 < sk; k0 += BK) {
         __syncthreads();  // the previous tile's products are done with smem
-        flash::load_tile<T, BK, D, NT>(k + bp * sk * D, k0, sk, Kt, KS, nullptr);
-        flash::load_tile<T, BK, D, NT>(dk + bt * sk * D, k0, sk, dKt, KS, nullptr);
-        flash::load_tile<T, BK, D, NT>(v + bp * sk * D, k0, sk, nullptr, 0, Vs);
-        flash::load_tile<T, BK, D, NT>(dv + bt * sk * D, k0, sk, nullptr, 0, dVs);
+        flash::load_tile<float, BK, D, NT>(k + bp * sk * D, k0, sk, Kt, KS, nullptr);
+        flash::load_tile<float, BK, D, NT>(dk + bt * sk * D, k0, sk, dKt, KS, nullptr);
+        flash::load_tile<float, BK, D, NT>(v + bp * sk * D, k0, sk, nullptr, 0, Vs);
+        flash::load_tile<float, BK, D, NT>(dv + bt * sk * D, k0, sk, nullptr, 0, dVs);
         __syncthreads();
 
         // S = Q Kᵀ and Ṡ/scale = Q̇ Kᵀ + Q K̇ᵀ for this thread's TR×TC slots
@@ -124,7 +126,7 @@ flash_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 }
         }
 
-        // P = exp(S·scale − L) (0 past sk), P∘Ṡ; both rounded into smem
+        // P = exp(S·scale − L) (0 past sk), P∘Ṡ; both into smem
 #pragma unroll
         for (int i = 0; i < TR; ++i)
 #pragma unroll
@@ -134,8 +136,8 @@ flash_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     k0 + col < sk ? expf(s[i][j] * scale - lrow[i]) : 0.f;
                 const float pds = p * (t[i][j] * scale);
                 rs[i] += pds;
-                Pt[col * QS + r0 + i] = Io<T>::round(p);
-                PSt[col * QS + r0 + i] = Io<T>::round(pds);
+                Pt[col * QS + r0 + i] = p;
+                PSt[col * QS + r0 + i] = pds;
             }
         __syncthreads();
 
@@ -171,34 +173,34 @@ flash_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float rsum = flash::group_sum<G>(rs[i]);
         const int row = q0 + r0 + i;
         if (row >= sq) continue;
-        const T* orow = o + (bp * sq + row) * D;
-        T* drow = dout + (bt * sq + row) * D;
+        const float* orow = o + (bp * sq + row) * D;
+        float* drow = dout + (bt * sq + row) * D;
 #pragma unroll
         for (int g = 0; g < DC / 4; ++g) {
             if (!flash::has_chunk<C>(g, c)) continue;
             float ov[4], out[4];
-            Io<T>::load4(orow + (g * G + c) * 4, ov);
+            flash::Io<float>::load4(orow + (g * G + c) * 4, ov);
 #pragma unroll
             for (int e = 0; e < 4; ++e) out[e] = acc[i][4 * g + e] - rsum * ov[e];
-            Io<T>::store4(drow + (g * G + c) * 4, out);
+            flash::Io<float>::store4(drow + (g * G + c) * 4, out);
         }
     }
 }
 
-template <typename T, class C>
+template <class C>
 int launch(const void* q, const void* k, const void* v, const void* dq,
            const void* dk, const void* dv, const void* o, const void* lse,
            void* dout, int bh, int bh_primal, int sq, int sk, float scale,
            cudaStream_t stream) {
     const int smem = kSmemFloats<C> * int(sizeof(float));
-    auto kernel = flash_tangent_kernel<T, C>;
+    auto kernel = flash_tangent_kernel<C>;
     cudaError_t err = flash::allow_smem(kernel, smem);
     if (err != cudaSuccess) return int(err);
     const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
-    auto in = [](const void* p) { return static_cast<const T*>(p); };
+    auto in = [](const void* p) { return static_cast<const float*>(p); };
     kernel<<<grid, C::NT, smem, stream>>>(
         in(q), in(k), in(v), in(dq), in(dk), in(dv), in(o),
-        static_cast<const float*>(lse), static_cast<T*>(dout), bh_primal, sq,
+        static_cast<const float*>(lse), static_cast<float*>(dout), bh_primal, sq,
         sk, scale);
     return int(cudaGetLastError());
 }
@@ -211,7 +213,8 @@ extern "C" {
 // dq, dout (bh, sq, d), dk/dv (bh, sk, d), bh a multiple of bh_primal.
 // Contiguous device arrays of one dtype (is_bf16 = 0: float32, 1: bfloat16)
 // apart from lse, 16-byte aligned; head dims 40, 64, 80, 128, 160.
-// Returns a cudaError_t code.
+// Returns a cudaError_t code: cudaErrorInvalidValue for bf16 that
+// flash_design does not send to wgmma (simt is f32 only).
 int flash_tangent(const void* q, const void* k, const void* v, const void* dq,
                   const void* dk, const void* dv, const void* o,
                   const void* lse, void* dout, int bh, int bh_primal, int sq,
@@ -222,16 +225,14 @@ int flash_tangent(const void* q, const void* k, const void* v, const void* dq,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (flash_design(3, d, is_bf16))
         return flash::tangent_wgmma(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal, sq,
-                                    sk, scale, s);
+                                    sk, d, scale, s);
+    if (is_bf16) return int(cudaErrorInvalidValue);  // simt below is f32 only
     if (d == 64)
-        return launch<float, TileJ>(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal, sq,
-                                    sk, scale, s);
+        return launch<TileJ>(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal, sq, sk,
+                             scale, s);
     return flash::on_tile_n(d, [&](auto dim) {
-        using C = flash::TileN<decltype(dim)::value>;
-        return is_bf16 ? launch<__nv_bfloat16, C>(q, k, v, dq, dk, dv, o, lse, dout, bh,
-                                                  bh_primal, sq, sk, scale, s)
-                       : launch<float, C>(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal,
-                                          sq, sk, scale, s);
+        return launch<flash::TileN<decltype(dim)::value>>(q, k, v, dq, dk, dv, o, lse, dout,
+                                                         bh, bh_primal, sq, sk, scale, s);
     });
 }
 

@@ -1,8 +1,8 @@
 // Hopper primitives of the tensor-core kernels: the wgmma kernels, bf16
-// at head dims 40, 64, 80, 128 and 160 (flash_fwd_tc.cu, K1/K2, and
-// flash_bwd_tc.cu, K4/K5, at all five; flash_jvp_tc.cu, K3, at 64), and the
-// tf32x3 kernel (flash_fwd_tf32.cu, K1 in f32 at head dim 512: mbarriers
-// and bulk copies only). Inline PTX for shared memory addresses,
+// at head dims 40, 64, 80, 128 and 160 (flash_fwd_tc.cu, K1/K2;
+// flash_jvp_tc.cu, K3; flash_bwd_tc.cu, K4/K5), and the tf32x3 kernel
+// (flash_fwd_tf32.cu, K1 in f32 at head dim 512: mbarriers and bulk copies
+// only). Inline PTX for shared memory addresses,
 // mbarriers, TMA and bulk loads and wgmma, the column panels of a row, and
 // the host's encoding of a TMA tensor map over (B·H, S, D) bf16.
 //
@@ -16,11 +16,12 @@
 // 64 does not divide D, so that no box reads past a row (TMA zero-fills a
 // box that reaches past the row's end, but K1 then ran far slower on an
 // H100: PERF.md §6). The panels cost a product with the head dim as its
-// depth (Q·Kᵀ in the forward; S and dP in K4, Sᵀ and dPᵀ in K5) 48/40 of
-// its work at D = 40 (a k16 step over the zeroed columns 40–47) and nothing
-// at the other head dims; the products with the head dim as their width
-// run exactly D columns. So the forward (4·BH·Sq·Sk·D operations at the
-// bf16 rate, 989 TFLOP/s) does 1.1× the bound's operations at D = 40, K4
+// depth (Q·Kᵀ in the forward; S and the two products into Ṡ in K3; S and
+// dP in K4, Sᵀ and dPᵀ in K5) 48/40 of its work at D = 40 (a k16 step over
+// the zeroed columns 40–47) and nothing at the other head dims; the
+// products with the head dim as their width run exactly D columns. So the
+// forward (4·BH·Sq·Sk·D operations at the bf16 rate, 989 TFLOP/s) does
+// 1.1× the bound's operations at D = 40, K3 (10·BH·Sq·Sk·D) 1.12×, K4
 // (6·BH·Sq·Sk·D) 1.13× and K5 (8·BH·Sq·Sk·D) 1.10×.
 //
 // cuTensorMapEncodeTiled is reached through the runtime's
@@ -36,7 +37,7 @@
 
 namespace hopper {
 
-constexpr int D = 64;          // the width of a panel, and K3's head dim
+constexpr int D = 64;          // the width of a panel
 constexpr int ROW = D * 2;     // bytes of a bf16 row: one 128-byte swizzle span
 constexpr int TILE_ROWS = 64;  // rows of every TMA box and wgmma tile
 constexpr int TILE = TILE_ROWS * ROW;
@@ -310,6 +311,37 @@ __device__ __forceinline__ void wgmma_rs_panel(float* d, const uint32_t* a, uint
         wgmma_rs_n64_tb(d, a, db + p * (TILE >> 4));
     else
         wgmma_rs_tb<Pn::TAIL ? Pn::TAIL : D>(d, a, db + p * (TILE >> 4));
+}
+
+// The accumulators of a 64 × DIM output: panel p in the first width(p) / 2
+// of acc[p].
+template <int DIM>
+using Acc = float[Panels<DIM>::P][32];
+
+template <int DIM>
+__device__ __forceinline__ void fence_panels(Acc<DIM>& acc) {
+#pragma unroll
+    for (int p = 0; p < Panels<DIM>::P; ++p) reg_fence(acc[p], Panels<DIM>::width(p) / 2);
+}
+
+// acc += A·Y for A in the A fragments of 64 columns and Y MN-major at y,
+// panel by panel.
+template <int DIM>
+__device__ __forceinline__ void product_rs(Acc<DIM>& acc, const uint32_t (&a)[4][4],
+                                           uint64_t y) {
+#pragma unroll
+    for (int p = 0; p < Panels<DIM>::P; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_panel<DIM>(acc[p], a[kk], y + kk * MN_STEP, p);
+}
+
+// acc = 0
+template <int DIM>
+__device__ __forceinline__ void zero(Acc<DIM>& acc) {
+#pragma unroll
+    for (int p = 0; p < Panels<DIM>::P; ++p)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
 }
 
 // ---- host side ------------------------------------------------------------------

@@ -13,17 +13,16 @@ diffusion_pullback_tpu/ops/pallas/flash_attention.py:
 Three designs, chosen by the C library's one rule (``design`` says which
 served a call):
 
-* 'wgmma': K1–K5 in bf16 at head dim 64 (the SD 2.1, SDXL and ADM-256
-  U-Nets' self-attentions and their pullbacks), and K1, K2, K4 and K5 in
-  bf16 also at 40, 80, 128 and 160 (SD 1.5's 8 heads per block,
-  ImageNet128Cond's 4 heads of 128; rows as 64-column panels), TMA loads
-  and wgmma products on the tensor cores (csrc/flash_fwd_tc.cu,
-  flash_jvp_tc.cu, flash_bwd_tc.cu);
+* 'wgmma': K1–K5 in bf16 at head dims 40, 64, 80, 128 and 160 (the SD
+  2.1, SDXL and ADM-256 U-Nets' self-attentions and their pullbacks at 64,
+  SD 1.5's 8 heads per block, ImageNet128Cond's 4 heads of 128; rows as
+  64-column panels), TMA loads and wgmma products on the tensor cores
+  (csrc/flash_fwd_tc.cu, flash_jvp_tc.cu, flash_bwd_tc.cu);
 * 'tf32x3': K1 in f32 at head dim 512 (the VAE's single head), each f32
   product as three TF32 mma.sync products (csrc/flash_fwd_tf32.cu);
 * 'simt': every other call, CUDA-core kernels that compute in f32
   (csrc/flash_fwd.cu, flash_jvp.cu, flash_bwd.cu): f32 at every head dim
-  but K1's 512, K1 in bf16 at 512, and K3 in bf16 at 40, 80, 128 and 160.
+  but K1's 512, and K1 in bf16 at 512.
 
 The sources are csrc/*.cu; they are compiled with nvcc for sm_90a at first
 use into one shared library under ``.build/`` next to this package (keyed on

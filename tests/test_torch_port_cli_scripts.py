@@ -1,0 +1,142 @@
+"""The port's CLI takes every command line of the JAX CLI. Its parser has
+the JAX parser's dests with their defaults, apart from the documented
+departures (no --loop_impl, --loop_chunk or --weights_dtype; --model_name
+defaults to SD 2.1-base); every command line of the three edit scripts in
+scripts/, its loop variables filled in by bash, parses in both packages;
+the port's preset copies --sh_file_name's script where the JAX preset
+copies it, refuses --use_yh_custom_scheduler False as the JAX preset's
+assert does, maps --xsg_pair_impl auto as it does, and refuses the flags
+of open ROADMAP items, naming the item. Runs on the CPU; nothing is
+built."""
+
+import os
+import shutil
+import subprocess
+
+import pytest
+from torch_port_common import one_torch_thread  # noqa: F401
+
+from diffusion_pullback_tpu.utils.config import build_parser as jbuild_parser
+from diffusion_pullback_tpu.utils.config import parse_args as jparse_args
+from diffusion_pullback_tpu.utils.config import preset as jpreset
+from diffusion_pullback_tpu_torch import main as tmain
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPTS = ("main_celeba_hf_local_encoder_pullback.sh",
+           "main_various_local_encoder_pullback_with_edit_prompt.sh",
+           "main_various_local_encoder_pullback_without_edit_prompt.sh")
+DEPARTURES = {"loop_impl", "loop_chunk", "weights_dtype"}
+
+
+def script_argvs(name):
+    """The argument lists each ``python main.py …`` of scripts/<name> runs,
+    its loops expanded by bash with ``python`` a function that prints its
+    arguments."""
+    out = subprocess.run(
+        ["bash", "-c", 'python() { shift; printf "%s\\0" "$@"; printf "\\n\\0"; }; '
+                       f'source "scripts/{name}"'],
+        cwd=REPO, capture_output=True, text=True, check=True).stdout
+    argvs, argv = [], []
+    for arg in out.split("\0")[:-1]:
+        if arg == "\n":
+            argvs.append(argv)
+            argv = []
+        else:
+            argv.append(arg)
+    return argvs
+
+
+def test_parsers_have_the_same_dests_and_defaults():
+    theirs = {a.dest: a for a in jbuild_parser()._actions}
+    mine = {a.dest: a for a in tmain.build_parser()._actions}
+    assert set(mine) == set(theirs) - DEPARTURES
+    differ = {d for d in mine if mine[d].default != theirs[d].default}
+    assert differ == {"model_name"}
+    assert mine["model_name"].default == tmain.SD_MODEL
+    for d in mine:
+        assert getattr(mine[d].type, "__name__", None) == getattr(
+            theirs[d].type, "__name__", None), d
+
+
+@pytest.mark.parametrize("name", SCRIPTS)
+def test_every_command_line_of_the_scripts_parses_in_both(name):
+    argvs = script_argvs(name)
+    assert len(argvs) == {SCRIPTS[0]: 15, SCRIPTS[1]: 4, SCRIPTS[2]: 8}[name]
+    for argv in argvs:
+        mine, theirs = tmain.parse_args(argv), jparse_args(argv)
+        assert mine.sh_file_name == name
+        for dest, value in vars(mine).items():
+            assert value == getattr(theirs, dest), (argv, dest)
+
+
+def _presets_copy(argv, folder, preset, parse):
+    """Run ``preset`` on argv in ``folder`` (which holds scripts/ and
+    nothing else) and return the files under it that hold the script."""
+    os.makedirs(folder / "scripts")
+    for name in SCRIPTS:
+        shutil.copy(os.path.join(REPO, "scripts", name), folder / "scripts")
+    os.chdir(folder)
+    preset(parse(argv))
+    return sorted(os.path.relpath(os.path.join(d, f), folder)
+                  for d, _, files in os.walk(folder / "runs") for f in files
+                  if f.endswith(".sh"))
+
+
+@pytest.mark.parametrize("name", [SCRIPTS[0], SCRIPTS[2]])
+def test_sh_file_name_is_copied_where_the_jax_preset_copies_it(name, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    argv = script_argvs(name)[0]
+    mine = _presets_copy(argv, tmp_path / "port", tmain.check_preset, tmain.parse_args)
+    theirs = _presets_copy(argv, tmp_path / "jax", jpreset, jparse_args)
+    assert mine == theirs == [os.path.join(
+        "runs", os.path.basename(tmain.experiment_folders(tmain.parse_args(argv))[0]),
+        name)]
+    with open(tmp_path / "port" / mine[0]) as f, open(os.path.join(REPO, "scripts", name)) as g:
+        assert f.read() == g.read()
+
+
+def test_custom_scheduler_off_fails_in_both(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    argv = script_argvs(SCRIPTS[0])[0] + ["--use_yh_custom_scheduler", "False"]
+    with pytest.raises(ValueError, match="use_yh_custom_scheduler"):
+        tmain.check_preset(tmain.parse_args(argv))
+    with pytest.raises(AssertionError):
+        jpreset(jparse_args(argv))
+
+
+@pytest.mark.parametrize("model", [tmain.SD_MODEL, tmain.SDXL_MODEL, "CelebA_HQ_HF",
+                                   "ImageNet256Uncond"])
+def test_xsg_pair_impl_auto_maps_as_the_jax_preset(model, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    boost = [] if "stable-diffusion" in model else ["--performance_boosting_t", "0.2"]
+    argv = ["--note", "x", "--model_name", model] + boost
+    assert tmain.xsg_pair_impl(tmain.parse_args(argv)) == jpreset(
+        jparse_args(argv)).xsg_pair_impl
+    for impl in ("batch", "split"):
+        assert tmain.xsg_pair_impl(tmain.parse_args(argv + ["--xsg_pair_impl", impl])) == impl
+
+
+@pytest.mark.parametrize("flag, value, item", [
+    ("mesh_axes", "dp:2,probe:4", 16), ("attn_impl", "ring", 16),
+    ("aot_export", "on", 17), ("aot_export", "off", 17), ("profile_dir", "trace", 17)])
+def test_flags_of_open_items_raise_naming_the_item(flag, value, item, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    args = tmain.parse_args(["--note", "x", f"--{flag}", value])
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
+        tmain.check_preset(args)
+    assert not os.path.exists(tmp_path / "runs")
+
+
+def test_debug_nans_runs_build_and_dispatch_under_anomaly_detection(monkeypatch):
+    """--debug_nans True wraps the run in torch.autograd.detect_anomaly with
+    its NaN check (the backward ops raise at the first NaN they make)."""
+    import torch
+
+    seen = []
+    monkeypatch.setattr(tmain, "build_sd", lambda args: torch.is_anomaly_enabled())
+    monkeypatch.setattr(tmain, "dispatch", lambda edit, args: seen.append(
+        (edit, torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())))
+    for flag in ("False", "True"):
+        tmain.main(["--note", "x", "--debug_nans", flag])
+    assert seen == [(False, False, True), (True, True, True)]
+    assert not torch.is_anomaly_enabled()

@@ -1,9 +1,9 @@
 """K1–K5 on the card: each CUDA kernel against its plain version, with the
 design the C library's rule reports ('wgmma' for K1–K5 in bf16 at D=64 and
-for K1, K2, K4 and K5 in bf16 also at SD 1.5's and ImageNet128Cond's head
-dims 40, 80, 128 and 160, 'tf32x3' for K1 in f32 at D=512, 'simt'
-otherwise, among them K3 in bf16 and every kernel in f32 at those head
-dims), and the fused pair under torch.func against the math path. Marked ``cuda``: these
+at SD 1.5's and ImageNet128Cond's head dims 40, 80, 128 and 160, 'tf32x3'
+for K1 in f32 at D=512, 'simt' otherwise: every kernel in f32 at those head
+dims and K1 in bf16 at 512), and the fused pair under torch.func against
+the math path. Marked ``cuda``: these
 skip without a GPU and run on one with
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -46,11 +46,9 @@ def _one_tf32_forward(q, k, v, scale):
 
 
 def _design(kernel, d, dtype):
-    """The design the C rule gives: 'wgmma' for bf16 at D=64 and for K1,
-    K2, K4 and K5 in bf16 at D = 40, 80, 128 and 160, 'tf32x3' for K1 in
-    f32 at D=512, 'simt' for the rest."""
-    if dtype == torch.bfloat16 and (
-            d == 64 or (kernel != "K3" and d in (40, 80, 128, 160))):
+    """The design the C rule gives: 'wgmma' for bf16 at D = 40, 64, 80, 128
+    and 160, 'tf32x3' for K1 in f32 at D=512, 'simt' for the rest."""
+    if dtype == torch.bfloat16 and d in (40, 64, 80, 128, 160):
         return "wgmma"
     if kernel == "K1" and d == 512 and dtype == torch.float32:
         return "tf32x3"
@@ -185,25 +183,27 @@ def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
     _check_pair(cuda, *shape, 64, dtype)
 
 
-# (B·H, Sq, Sk, probes, D) at D = 40, 80, 128, 160, where K3 runs simt in
-# both dtypes and K2, K4 and K5 wgmma in bf16 (a row as 1, 2, 2 or 3 panels
-# of 64 columns): ragged Sq and Sk both ways, Sk off the 64-row tiles at
-# every D, Sq < 64 at 128 and 160, a last query tile of 36 rows at 160,
-# B·H > 1 with a ragged last tile in each head at every D, three probes; SD 1.5's mid-tap pullback at rank 2 (8
-# heads of 40 at 4096 tokens, 8 of 80 at 1024), ImageNet128Cond's (4 heads
-# of 128 at 1024) and 8 heads of 160 at 1024 tokens
+# (B·H, Sq, Sk, probes, D) at D = 40, 80, 128, 160, where K2–K5 run wgmma
+# in bf16 (a row as 1, 2, 2 or 3 panels of 64 columns; K3 with one stage of
+# its ring at 160) and simt in f32: ragged Sq and Sk both ways, Sk off the
+# 64-row tiles at every D, Sq < 64 at every D, a last query tile of 36 rows
+# at 160, B·H > 1 with a ragged last tile in each head at every D, three
+# probes; SD 1.5's mid-tap pullback at rank 2 (8 heads of 40 at 4096
+# tokens, 8 of 80 at 1024), ImageNet128Cond's (4 heads of 128 at 1024) and
+# 8 heads of 160 at 1024 tokens
 @pytest.mark.parametrize("shape", [
     (3, 1000, 700, 2, 40), (3, 700, 1000, 3, 80), (1, 50, 300, 2, 128),
     (2, 300, 130, 2, 160), (8, 4096, 4096, 2, 40), (8, 1024, 1024, 2, 80),
     (4, 1024, 1024, 2, 128), (8, 1024, 1024, 2, 160),
     (2, 700, 1000, 3, 40), (3, 1000, 700, 2, 80), (2, 1000, 700, 2, 128),
     (2, 700, 1000, 3, 160), (1, 20, 130, 2, 160), (2, 100, 300, 2, 160),
-    (3, 200, 130, 2, 40), (3, 130, 200, 2, 128)])
+    (3, 200, 130, 2, 40), (3, 130, 200, 2, 128), (2, 40, 300, 3, 40),
+    (1, 30, 200, 2, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_kernels_at_head_dims_40_to_160(cuda, shape, dtype):
     """K2–K5 against their plain versions at the head dims other than 64
-    (K2, K4 and K5 on 'wgmma' and K3 on the CUDA-core design in bf16, every
-    kernel 'simt' in f32), as test_pair_kernels_match_plain_versions."""
+    (every kernel on 'wgmma' in bf16 and on 'simt' in f32), as
+    test_pair_kernels_match_plain_versions."""
     _check_pair(cuda, *shape, dtype)
 
 
@@ -267,8 +267,8 @@ def test_pair_under_torch_func_matches_math_path(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_under_torch_func_at_head_dim_40(cuda, dtype):
     """The pair under torch.func (two probes vmapped) at SD 1.5's 8 heads of
-    40 over 1024 tokens (K2, K4 and K5 on 'wgmma' and K3 on 'simt' in bf16,
-    all on 'simt' in f32) against the math path; each of K2–K5 launches,
+    40 over 1024 tokens (K2–K5 on 'wgmma' in bf16, on 'simt' in f32)
+    against the math path; each of K2–K5 launches,
     and head dim 32 still raises."""
     from torch.func import jvp, vjp, vmap
 

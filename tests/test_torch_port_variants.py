@@ -1,11 +1,12 @@
-"""ops/fwd_tc_variants.py builds each design variant of the bf16 forward
-by replacing a text of the kernel sources. Each such text must stand in
-its file exactly once, so that a variant still builds the one change it
-names after the sources move on. ops/bwd_tc_variants.py (the backward as
-built against an earlier tree's csrc/) reads registers and spills per
-K4/K5 instance from nvcc's -Xptxas -v output (an earlier tree's D =
-64-only kernels too, for its --parent build). Runs on the CPU: nothing is
-compiled."""
+"""ops/fwd_tc_variants.py builds each design variant of the bf16 forward,
+and ops/bwd_tc_variants.py each variant of the bf16 tangent, by replacing
+a text of the kernel sources. Each such text must stand in its file
+exactly once, so that a variant still builds the one change it names
+after the sources move on. ops/bwd_tc_variants.py (the tangent and the
+backward as built against an earlier tree's csrc/) reads registers and
+spills per K3/K4/K5 instance from nvcc's -Xptxas -v output (an earlier
+tree's D = 64-only kernels too, for its --parent build). Runs on the CPU:
+nothing is compiled."""
 
 import os
 
@@ -13,15 +14,16 @@ import pytest
 
 from diffusion_pullback_tpu_torch.ops import bwd_tc_variants, fwd_tc_variants
 
-EDITS = [(name, file, old) for name, edits in fwd_tc_variants.VARIANTS.items()
-         for file, old, _ in edits]
+EDITS = [(tool.__name__.rsplit(".", 1)[1], name, file, old)
+         for tool in (fwd_tc_variants, bwd_tc_variants)
+         for name, edits in tool.VARIANTS.items() for file, old, _ in edits]
 
 
-@pytest.mark.parametrize("variant, file, old", EDITS,
-                         ids=[f"fwd_tc_variants:{v}:{f}" for v, f, _ in EDITS])
-def test_variant_edit_stands_once_in_its_source(variant, file, old):
+@pytest.mark.parametrize("tool, variant, file, old", EDITS,
+                         ids=[f"{t}:{v}:{f}" for t, v, f, _ in EDITS])
+def test_variant_edit_stands_once_in_its_source(tool, variant, file, old):
     with open(os.path.join(fwd_tc_variants.CSRC, file)) as f:
-        assert f.read().count(old) == 1, (variant, file, old)
+        assert f.read().count(old) == 1, (tool, variant, file, old)
 
 
 @pytest.mark.parametrize("file", ["hopper.cuh", "flash_fwd_tc.cu"])
@@ -47,7 +49,17 @@ ptxas info    : Function properties for _ZN48_GLOBAL__N__1_15_flash_bwd_tc_cu_22
 ptxas info    : Used 110 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__1_15_flash_bwd_tc_cu_222flash_dkv_wgmma_kernelE14CUtensorMap_stS0_S0_S0_PKfS2_P13__nv_bfloat16S4_iiif' for 'sm_90a'
 ptxas info    : Used 166 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__1_15_flash_jvp_tc_cu_5b1f2a2c26flash_tangent_wgmma_kernelILi80EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__1_15_flash_jvp_tc_cu_5b1f2a2c26flash_tangent_wgmma_kernelILi80EEEv14CUtensorMap_st
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__1_15_flash_jvp_tc_cu_5b1f2a2c26flash_tangent_wgmma_kernelE14CUtensorMap_stS0_S0_S0_S0_S0_PK13__nv_bfloat16PKfPS1_iiif' for 'sm_90a'
+ptxas info    : Used 151 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__1_11_flash_jvp_cu_5b1f2a2c20flash_tangent_kernelIN5flash4TileILi64ELi64ELi64ELi16EEEEvPKfS5_S5_S5_S5_S5_S5_S5_Pfiiif' for 'sm_90a'
+ptxas info    : Used 128 registers, used 1 barriers
 """
     assert bwd_tc_variants.registers(log) == {("K5", 160): (255, 8, 12),
                                               ("K4", 40): (110, 0, 0),
-                                              ("K5", 64): (166, 0, 0)}
+                                              ("K5", 64): (166, 0, 0),
+                                              ("K3", 80): (168, 0, 0),
+                                              ("K3", 64): (151, 0, 0)}
