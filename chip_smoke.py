@@ -131,10 +131,20 @@ Phases (any failure exits non-zero before the last line is printed):
                ImageNet128Cond at full width with labels (K1–K5 at 4 heads
                of 128 over 1024 tokens): ε and the mid-tap rank-2 pullback
                on the pair against the math path in f32 and bf16; every
-               bf16 K1–K5 launch of both served by 'wgmma'.
-Phases 1–2 hold every (kernel, shape) that phases 4 and 6–12 launch.
+               bf16 K1–K5 launch of both served by 'wgmma';
+ 13. train   — training through the library API: ImageNet256Uncond at full
+               width in bf16 (attn 'flash', weights drawn on the card) on
+               f32 master params with AdamW and two EMA rates, the bundled
+               images at 256 px, 3 steps of the hybrid objective with
+               loss-aware t and 2 with accum_steps=2 (K2 forward, K4 + K5
+               backward at 8 heads of 64 over 1024 tokens, on 'wgmma'),
+               each step's seconds, peak memory and launches by shape; one
+               step's gradients on the pair against the math path; a
+               checkpoint round trip and one more step from both copies,
+               bit for bit; calc_bpd_loop on the EMA params (K1).
+Phases 1–2 hold every (kernel, shape) that phases 4 and 6–13 launch.
 Then a JSON line of the kernels (one entry per kernel, design and head dim
-over phases 4 and 6–12, at the shape that carries most of that entry's
+over phases 4 and 6–13, at the shape that carries most of that entry's
 device time there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
@@ -267,6 +277,14 @@ K1_CASES += [(s, dt) for s in HEAD_DIM_K1 for dt in (F32, BF16)] + [
     ((8 * b, s, d), BF16) for b in (4, 6) for _, s, d in SD15_PAIR]
 PAIR_CASES += [(*shape, PCA_RANK, (F32, BF16), ("K2", "K3", "K4", "K5"))
                for shape in SD15_PAIR + ADM128_PAIR + [(8, 1024, 160)]]
+# phase 13: training ImageNet256Uncond in bf16, K2 in each forward and K4 +
+# K5 in each backward (one cotangent) at its 8 heads of 64 over 1024 tokens,
+# at the batch TRAIN_BATCH and at accum_steps=2's microbatch of half of it
+# (at a smaller batch that does not fit 4, B·H 8 is the rank-2 and covector
+# cases'); calc_bpd_loop's K1 at batch 1 is phase 8's (8, 1024, 64)
+TRAIN_BATCH = 4
+PAIR_CASES += [(8 * b, 1024, 64, 1, (BF16,), ("K2", "K4", "K5"))
+               for b in (TRAIN_BATCH, TRAIN_BATCH // 2)]
 # C symbol → (label, wrapper, source in ops/csrc by design, line of the
 # pl.pallas_call it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
 KERNELS = {
@@ -2768,6 +2786,241 @@ def phase_head_dim_models(fa):
     return paths
 
 
+def phase_train(fa):
+    """Phase 13: training through the library API (the JAX package has no
+    training CLI): ImageNet256Uncond at full width in bf16 with attn
+    'flash', seeded random weights drawn on the card, f32 master params in
+    create_train_state with AdamW (lr 1e-4, no weight decay) and EMA rates
+    (0.9999, 0.99995); a batch of the bundled images at 256 px (TRAIN_BATCH,
+    or the largest of 2 and 1 that fits); 3 steps of the hybrid objective
+    (λ 0.001) with loss-aware t, then 2 with accum_steps=2. Each step: the
+    loss and grad_norm finite, the counter advancing, each EMA copy closer
+    to the params by its own rate, its seconds and peak memory, and its
+    K2/K4/K5 launches by shape (5 layers × one each per microbatch), all on
+    'wgmma'. Then one step's gradients on the fused pair against the math
+    path from the same params, batch and draws in bf16 (the losses held to
+    f32 math as phase 8's bf16 gates, the per-tensor gradient cosine ≥ 0.99
+    on every tensor whose norm is above 1e-3 of the largest); a
+    CheckpointManager round trip, bit for bit, and one more step from the
+    state and from its restored copy, bit for bit; and calc_bpd_loop on the
+    first EMA copy over a 50-step linear schedule at batch 1 (K1), finite.
+    Returns the path dicts of the steps and of calc_bpd_loop."""
+    import functools
+
+    from diffusion_pullback_tpu_torch.models import model_for_name, random_init_
+    from diffusion_pullback_tpu_torch.models.layers import attn_impl_as
+    from diffusion_pullback_tpu_torch.ops.schedule import DiffusionSchedule
+    from diffusion_pullback_tpu_torch.training import (
+        create_train_state, init_loss_aware, make_train_step)
+    from diffusion_pullback_tpu_torch.training.checkpoint import CheckpointManager
+    from diffusion_pullback_tpu_torch.training.losses import calc_bpd_loop
+    from diffusion_pullback_tpu_torch.training.train import draws_of
+    from diffusion_pullback_tpu_torch.utils.datasets import get_dataset
+
+    out = os.path.join(OUT, "train")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        model = random_init_(model_for_name("ImageNet256Uncond", dtype="bfloat16",
+                                            attn_impl="flash"), 0)
+    adamw = functools.partial(torch.optim.AdamW, lr=1e-4, weight_decay=0.0)
+    rates = (0.9999, 0.99995)
+    state = create_train_state(model.state_dict(), adamw, n_ema=len(rates))
+    sched = DiffusionSchedule.linear()
+    ds = get_dataset("Examples", 256)
+    images = torch.cat([torch.from_numpy(ds[i]) for i in range(len(ds))]).permute(
+        0, 3, 1, 2).contiguous().cuda()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    log(f"[train] built ImageNet256Uncond ({n_params} parameters, module "
+        f"{next(model.parameters()).dtype}, attn {model.config.attn_impl}) and its "
+        f"train state (f32 masters, EMA {rates}, AdamW) in "
+        f"{time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {len(ds)} bundled images "
+        f"at 256 px in [{images.min().item():.3f}, {images.max().item():.3f}]")
+    checks = {
+        "552 814 086 parameters, f32 masters of a bf16 module, attn flash": (
+            n_params == 552_814_086 and next(model.parameters()).dtype == BF16
+            and model.config.attn_impl == "flash"
+            and all(v.dtype == F32 for v in state.params.values())),
+    }
+    hybrid = dict(learn_sigma_vb_weight=0.001, loss_aware=True)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    sampler = init_loss_aware(sched.num_train_timesteps, device="cuda")
+    paths, steps = [], []
+
+    def train_step(step_fn, x0, accum, tag):
+        """One driven step: its launches by shape, the step checks."""
+        nonlocal state, sampler
+        # every 8th tensor of each EMA copy as it was (all of them would add
+        # 4.4 GB to the step's peak)
+        names = list(state.params)[::8]
+        old = [{k: ema[k].clone() for k in names} for ema in state.ema_params]
+        before = state.step
+        (state, metrics, sampler), seconds, peak, launches, path = drive(
+            fa, lambda: step_fn(state, x0, gen, sampler))
+        bh = 8 * x0.shape[0] // accum
+        expected = collections.Counter({
+            (sym, (bh, 1024, 64), BF16): ADM_UNET["at_1024"] * accum
+            for sym in ("flash_fwd_lse", "flash_dq", "flash_dkv")})
+        ok = check_launches(f"train {tag}", launches, path, expected)
+        ok &= all(fa.design(KERNELS[sym][0], shape[-1], dt) == "wgmma"
+                  for sym, shape, dt in path)
+        ratios = []
+        with torch.no_grad():
+            for ema, prev in zip(state.ema_params, old):
+                sq = lambda tree: sum(((tree[k] - state.params[k]).double() ** 2).sum()
+                                      for k in names)
+                ratios.append(math.sqrt(sq(ema).item() / sq(prev).item()))
+        del old
+        loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+        kernel_ms = sum(ms for _, ms in path.values())
+        log(f"[train] step {state.step} ({tag}, batch {x0.shape[0]}, accum_steps "
+            f"{accum}): {seconds:.3f} s, peak memory {peak:.2f} GB, loss {loss:.5f}, "
+            f"grad_norm {gnorm:.5f}, |EMA − p| ratios {ratios} (rates {rates}), "
+            f"K2/K4/K5 {kernel_ms:.2f} ms on the device "
+            f"({100 * kernel_ms / 1e3 / seconds:.2f} % of the step)")
+        checks[f"(step {state.step}) loss and grad_norm finite, counter advanced, "
+               "EMA by its rates, launches by shape on wgmma"] = bool(
+            math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0
+            and state.step == metrics["step"] == before + 1 and ok
+            and all(abs(r - rate) <= 1e-5 for r, rate in zip(ratios, rates)))
+        paths.append(path)
+        steps.append((seconds, peak))
+
+    step = make_train_step(model, sched, adamw, ema_rate=rates, **hybrid)
+    for batch in (TRAIN_BATCH, TRAIN_BATCH // 2, 1):
+        try:
+            train_step(step, images[:batch], 1, "hybrid, loss-aware")
+            break
+        except torch.OutOfMemoryError:
+            for p in state.params.values():
+                p.grad = None
+            torch.cuda.empty_cache()
+            log(f"[train] batch {batch} does not fit in the card's memory")
+    else:
+        raise AssertionError("no batch of 4, 2 or 1 fits for training")
+    x0 = images[:batch]
+    log(f"[train] batch {batch}")
+    for _ in range(2):
+        train_step(step, x0, 1, "hybrid, loss-aware")
+    accum = min(2, batch)
+    step2 = make_train_step(model, sched, adamw, ema_rate=rates, accum_steps=accum,
+                            **hybrid)
+    for _ in range(2):
+        train_step(step2, x0, accum, "hybrid, loss-aware")
+    checks["sampler history recorded"] = int(sampler.counts.sum()) == 5 * batch
+    seconds = [s for s, _ in steps]
+    log(f"[train] step seconds {seconds}, peak memory {max(p for _, p in steps):.2f} GB")
+
+    # one step's gradients on the fused pair and on the math path from the
+    # same params, batch and draws (SGD at lr 0 leaves the params), in bf16
+    # and, as the reference, in f32 on the math path
+    t = torch.randint(0, sched.num_train_timesteps, (batch,), device="cuda",
+                      generator=gen)
+    noise = torch.randn(x0.shape, device="cuda", generator=gen)
+    draw = draws_of(t, torch.ones(batch, device="cuda"), noise)
+    still = functools.partial(torch.optim.SGD, lr=0.0)
+    probe = create_train_state(state.params, still)
+    loss, grads = {}, {}
+    for name, dtype, impl in (("pair", BF16, "flash"), ("math", BF16, "xla"),
+                              ("f32 math", F32, "xla")):
+        model.to(dtype)
+        with attn_impl_as(model, impl):
+            probe, metrics = make_train_step(model, sched, still, ema_rate=0.0,
+                                             learn_sigma_vb_weight=0.001)(
+                probe, x0, draw=draw)
+        loss[name] = metrics["loss"].item()
+        if name != "f32 math":
+            grads[name] = {k: p.grad.clone() for k, p in probe.params.items()}
+    model.to(BF16)
+    norms = {k: g.norm().item() for k, g in grads["math"].items()}
+    top = max(norms.values())
+    cos = {k: (torch.dot(grads["pair"][k].flatten(), g.flatten())
+               / (grads["pair"][k].norm() * g.norm())).item()
+           for k, g in grads["math"].items() if norms[k] > 1e-3 * top}
+    d_pair, d_math = (abs(loss[n] - loss["f32 math"]) for n in ("pair", "math"))
+    worst = min(cos, key=cos.get)
+    log(f"[train] one step's loss: pair {loss['pair']:.6f}, math {loss['math']:.6f} "
+        f"(bf16), f32 math {loss['f32 math']:.6f}; distance from f32 math: pair "
+        f"{d_pair:.4g}, math {d_math:.4g} (tol 1.5 × math = {1.5 * d_math:.4g}); "
+        f"gradient cosine pair vs math over {len(cos)} of {len(norms)} tensors "
+        f"(norm > 1e-3 of the largest): min {cos[worst]:.6f} at {worst}, mean "
+        f"{sum(cos.values()) / len(cos):.6f}")
+    checks["(pair vs math) losses within phase 8's bf16 gate"] = d_pair <= 1.5 * d_math
+    checks["(pair vs math) gradient cosine >= 0.99"] = min(cos.values()) >= 0.99
+    del probe, grads
+
+    # checkpoint round trip, then one more step from both copies
+    mgr = CheckpointManager(os.path.join(out, "ckpt"), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = mgr.save(state)
+    save_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e9
+    t0 = time.perf_counter()
+    restored = mgr.restore(create_train_state(state.params, adamw, n_ema=len(rates)))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+
+    def same(a, b):
+        trees = lambda s: (s.params, *s.ema_params)
+        oa, ob = a.opt_state.state_dict(), b.opt_state.state_dict()
+        return (a.step == b.step and all(
+            torch.equal(ta[k], tb[k]) for ta, tb in zip(trees(a), trees(b)) for k in ta)
+            and oa["param_groups"] == ob["param_groups"] and all(
+                torch.equal(v, ob["state"][i][n]) for i, st in oa["state"].items()
+                for n, v in st.items()))
+
+    checks["(checkpoint) restored bit for bit"] = same(state, restored)
+    plain_step = make_train_step(model, sched, adamw, ema_rate=rates,
+                                 learn_sigma_vb_weight=0.001)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        state, _ = plain_step(state, x0, draw=draw)
+        restored, _ = plain_step(restored, x0, draw=draw)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    checks["(checkpoint) one more step from both copies bit for bit"] = same(state, restored)
+    log(f"[train] checkpoint step {mgr.latest_step()}: {size:.2f} GB written in "
+        f"{save_s:.1f} s, restored in {restore_s:.1f} s")
+    del restored
+    shutil.rmtree(out, ignore_errors=True)
+
+    # the bound on the first EMA copy, 50-step linear schedule, batch 1
+    cast = {k: v.to(BF16) for k, v in state.ema_params[0].items()}
+
+    def model_fn(xt, tb):
+        eps = torch.func.functional_call(model, cast, (xt, tb)).float()
+        return eps[:, :3], eps[:, 3:]
+
+    sched50 = DiffusionSchedule.linear(num_train_timesteps=50)
+    noise = torch.randn((50, 1, 3, 256, 256), device="cuda", generator=gen)
+    bpd, seconds, peak, launches, path = drive(
+        fa, lambda: calc_bpd_loop(sched50, model_fn, x0[:1], noise=noise))
+    expected = collections.Counter({("flash_fwd", (8, 1024, 64), BF16): 5 * 50})
+    checks["(calc_bpd_loop) launches by shape"] = check_launches(
+        "train bpd", launches, path, expected)
+    paths.append(path)
+    log(f"[train] calc_bpd_loop (T = 50, batch 1, EMA 0.9999): {seconds:.3f} s, peak "
+        f"memory {peak:.2f} GB, total_bpd {bpd['total_bpd'].tolist()}, prior_bpd "
+        f"{bpd['prior_bpd'].tolist()}")
+    checks["(calc_bpd_loop) finite, (50, 1) per step"] = all(
+        torch.isfinite(v).all().item() for v in bpd.values()) and all(
+        bpd[k].shape == (50, 1) for k in ("vb", "xstart_mse", "mse"))
+    del model, state, cast
+    torch.cuda.empty_cache()
+    for what, ok in checks.items():
+        log(f"[train] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("phase 13 checks failed")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -2827,6 +3080,8 @@ def main():
     lap("phase 11")
     paths += phase_head_dim_models(fa)
     lap("phase 12")
+    paths += phase_train(fa)
+    lap("phase 13")
 
     # every (kernel, shape, dtype) the main paths launched was held against
     # its plain version in phases 1–2
@@ -2838,7 +3093,7 @@ def main():
                              f"did not hold against their plain versions: {missing}")
 
     # launches and summed device time of each (kernel, shape) over the main
-    # paths of phases 4 and 6–12
+    # paths of phases 4 and 6–13
     merged = collections.defaultdict(lambda: [0, 0.0])
     for path in paths:
         for key, (n, ms) in path.items():
@@ -2846,11 +3101,11 @@ def main():
             merged[key][1] += ms
     for (sym, shape, dtype), (n, ms) in sorted(merged.items(), key=lambda kv: -kv[1][1]):
         log(f"[paths] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches, "
-            f"{ms:.3f} ms on the device over phases 4 and 6–12")
-    log(f"[smoke] phases 1–12 in {time.perf_counter() - t_start:.1f} s")
+            f"{ms:.3f} ms on the device over phases 4 and 6–13")
+    log(f"[smoke] phases 1–13 in {time.perf_counter() - t_start:.1f} s")
 
     # one entry per kernel, design and head dim on the main paths (phases
-    # 4, 6–12): their launches and summed device time there (path_ms), and
+    # 4, 6–13): their launches and summed device time there (path_ms), and
     # the per-launch numbers of phases 1–2 at the shape that carries most
     # of that device time
     kernels = []

@@ -361,3 +361,52 @@ def test_remat_block_on_the_pair_matches_the_plain_block(cuda, dtype):
         _, t_plain = jvp(lambda a: block(a, ctx), (x,), (us[0],))
     assert (t_remat.detach().float() - t_plain.float()).abs().max().item() <= 4 * _tol(
         t_plain, dtype)
+
+
+def test_train_step_on_the_pair_matches_plain_versions(cuda, monkeypatch):
+    """One train step (the hybrid objective) of a small ADM net in bf16 with
+    attn 'flash' at 1024 tokens (one head of 64, two levels, attention at
+    32² and in the mid block): K2 in the forward and K4 + K5 in the plain
+    backward, one launch per attention layer each, and the loss and every
+    master gradient against the same step on the kernels' plain versions,
+    within the pair gates (4 × two bf16 ulps of max |ref|)."""
+    import functools
+
+    from diffusion_pullback_tpu_torch.models import ADMConfig, UNetADM, random_init_
+    from diffusion_pullback_tpu_torch.ops.schedule import DiffusionSchedule
+    from diffusion_pullback_tpu_torch.training import create_train_state, make_train_step
+    from diffusion_pullback_tpu_torch.training.train import draws_of
+
+    cfg = ADMConfig(image_size=64, model_channels=32, channel_mult=(1, 2),
+                    num_res_blocks=1, attention_resolutions=(2,), num_head_channels=64,
+                    norm_num_groups=8, attn_impl="flash", dtype="bfloat16")
+    with torch.device(cuda):
+        model = random_init_(UNetADM(cfg), 0)
+    layers = sum(hasattr(m, "attn_impl") for m in model.modules())
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x0 = 0.5 * torch.randn(2, 3, 64, 64, device=cuda, generator=gen)
+    draw = draws_of(torch.randint(0, 1000, (2,), device=cuda, generator=gen),
+                    torch.ones(2, device=cuda),
+                    torch.randn(x0.shape, device=cuda, generator=gen))
+    still = functools.partial(torch.optim.SGD, lr=0.0)
+
+    def step():
+        state = create_train_state(model.state_dict(), still)
+        state, metrics = make_train_step(model, DiffusionSchedule.linear(), still,
+                                         learn_sigma_vb_weight=0.001)(state, x0, draw=draw)
+        return metrics["loss"], {k: p.grad for k, p in state.params.items()}
+
+    wrappers = ("flash_forward", "flash_forward_lse", "flash_dq", "flash_dkv")
+    n0 = {w: getattr(fa, w).launches for w in wrappers}
+    loss, grads = step()
+    torch.cuda.synchronize()
+    assert {w: getattr(fa, w).launches - n for w, n in n0.items()} == {
+        "flash_forward": 0, "flash_forward_lse": layers, "flash_dq": layers,
+        "flash_dkv": layers}
+    for w in ("flash_forward_lse", "flash_dq", "flash_dkv"):
+        monkeypatch.setattr(fa, w, getattr(fa, w + "_plain"))
+    ref_loss, ref = step()
+    assert abs(loss.item() - ref_loss.item()) <= 4 * _tol(ref_loss, torch.bfloat16)
+    for k, g in grads.items():
+        err = (g - ref[k]).abs().max().item()
+        assert g.dtype == torch.float32 and err <= 4 * _tol(ref[k], torch.bfloat16), (k, err)

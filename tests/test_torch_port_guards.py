@@ -1,7 +1,7 @@
-"""Guards of the port: it imports neither JAX nor the JAX package, its entry
-points refuse to run without CUDA unless given the CPU, the CLI's pullback
-defaults to the fused kernel pair on CUDA and to the math path on the CPU,
-and chip_smoke.py fails without a card."""
+"""Guards of the port: it imports neither JAX (nor flax, optax or orbax) nor
+the JAX package, its entry points refuse to run without CUDA unless given
+the CPU, the CLI's pullback defaults to the fused kernel pair on CUDA and to
+the math path on the CPU, and chip_smoke.py fails without a card."""
 
 import ast
 import dataclasses
@@ -22,7 +22,7 @@ from diffusion_pullback_tpu_torch.utils.device import resolve_device
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "diffusion_pullback_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "flax", "diffusion_pullback_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "diffusion_pullback_tpu"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
