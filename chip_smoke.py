@@ -141,10 +141,25 @@ Phases (any failure exits non-zero before the last line is printed):
                each step's seconds, peak memory and launches by shape; one
                step's gradients on the pair against the math path; a
                checkpoint round trip and one more step from both copies,
-               bit for bit; calc_bpd_loop on the EMA params (K1).
-Phases 1–2 hold every (kernel, shape) that phases 4 and 6–13 launch.
+               bit for bit; calc_bpd_loop on the EMA params (K1);
+ 14. tooling — the SD 2.1-base edit at phase 4's settings through the CLI
+               (main.main) on the bundled example images, with
+               --profile_dir and --aot_export on in a temporary folder
+               (removed after): the profiler's trace holds K1–K5's device
+               kernels as often as the wrappers launched them, the
+               device's idle share over the traced window and its top five
+               ops; the per-step ε and the VAE encode and decode exported;
+               the run again in a fresh process's state with export
+               refused, every program loaded, its PNGs and σ within the
+               repo's gates of the first run's (PSNR ≥ 35 dB, rtol 1e-3);
+               the mid-tap pullback's FLOPs (pullback_flops at pca_rank 2,
+               the pair and the math path) and its stage's TFLOP/s and MFU;
+               ε at full width counting the same FLOPs with 'flash' as with
+               'xla'; load_batch of the bundled images within one level of
+               __getitem__, a .dpb basis bit for bit, the codecs reported.
+Phases 1–2 hold every (kernel, shape) that phases 4 and 6–14 launch.
 Then a JSON line of the kernels (one entry per kernel, design and head dim
-over phases 4 and 6–13, at the shape that carries most of that entry's
+over phases 4 and 6–14, at the shape that carries most of that entry's
 device time there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
@@ -157,6 +172,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -316,6 +332,13 @@ TF32X3_TOL = 2.5e-5
 
 def log(msg):
     print(msg, flush=True)
+
+
+def load_basis(path):
+    """(u, s, vT) of a basis file, .dpb or .npz, by the port's reader."""
+    from diffusion_pullback_tpu_torch.experiments.cache import load_basis as read
+
+    return read(path)
 
 
 def cuda_ms(fn, iters):
@@ -1025,8 +1048,7 @@ def phase_edit(fa):
                       for sym in KERNELS}
 
     basis_files = os.listdir(cfg.basis_folder)
-    with np.load(os.path.join(cfg.basis_folder, basis_files[0])) as z:
-        u, s, vT = z["u"], z["s"], z["vT"]
+    u, s, vT = load_basis(os.path.join(cfg.basis_folder, basis_files[0]))
     log(f"[edit] main path {seconds:.2f} s, sigma {s.tolist()}, peak memory "
         f"{peak_gb:.2f} GB, pullback {pullback['seconds']:.3f} s (encoder "
         f"{pullback['encoder']}, {iterations} iterations)")
@@ -1177,12 +1199,12 @@ def phase_sd_rest(fa):
     checks["(a) encoder flashpair_cfg7.5"] = (
         last(events, "sd_local_pullback")["encoder"] == "flashpair_cfg7.5")
     checks["(a) basis name ends -cfg7.5"] = (
-        len(basis) == 1 and basis[0].endswith("-cfg7.5.npz"))
-    with np.load(os.path.join(cfg.basis_folder, basis[0])) as z:
-        checks["(a) basis finite, expected shapes"] = (
-            z["u"].shape == (8 * 8 * 1280, PCA_RANK)
-            and z["vT"].shape == (PCA_RANK, 64 * 64 * 4)
-            and all(np.isfinite(z[k]).all() for k in ("u", "s", "vT")))
+        len(basis) == 1 and os.path.splitext(basis[0])[0].endswith("-cfg7.5"))
+    z = dict(zip(("u", "s", "vT"), load_basis(os.path.join(cfg.basis_folder, basis[0]))))
+    checks["(a) basis finite, expected shapes"] = (
+        z["u"].shape == (8 * 8 * 1280, PCA_RANK)
+        and z["vT"].shape == (PCA_RANK, 64 * 64 * 4)
+        and all(np.isfinite(z[k]).all() for k in ("u", "s", "vT")))
 
     # (c) the decoder and x̂₀ pullbacks: the state from one forward to the
     # mid tap (K1), the pair through the decode (three self-attentions at
@@ -1453,8 +1475,7 @@ def phase_sdxl(fa):
         log(f"[sdxl] {KERNELS[sym][0]} on {dsg}: {n} launches, {ms:.2f} ms on the "
             f"device ({100 * ms / 1e3 / seconds:.2f} % of the path)")
     basis = os.listdir(cfg.basis_folder)
-    with np.load(os.path.join(cfg.basis_folder, basis[0])) as z:
-        u, s, vT = z["u"], z["s"], z["vT"]
+    u, s, vT = load_basis(os.path.join(cfg.basis_folder, basis[0]))
     log(f"[sdxl] main path {seconds:.2f} s, peak memory {peak_gb:.2f} GB, sigma "
         f"{s.tolist()}, pullback {pullback['seconds']:.3f} s (encoder "
         f"{pullback['encoder']}, {pullback['iterations']} iterations)")
@@ -1598,8 +1619,7 @@ def phase_uncond(fa):
             extra = {k: v for k, v in e.items() if k not in ("ts", "event", "seconds")}
             log(f"[uncond] stage {e['event']}: {e['seconds']:.3f} s {extra}")
     pullback = [e for e in events if e["event"] == "local_pullback"][-1]
-    with np.load(os.path.join(cfg.basis_folder, os.listdir(cfg.basis_folder)[0])) as z:
-        u, s, vT = z["u"], z["s"], z["vT"]
+    u, s, vT = load_basis(os.path.join(cfg.basis_folder, os.listdir(cfg.basis_folder)[0]))
     frames = len(range(0, cfg.x_space_guidance_num_step + 1,
                        max(1, (cfg.x_space_guidance_num_step + 1) // vis_num)))
     log(f"[uncond] main path {seconds:.2f} s, peak memory {peak_gb:.2f} GB, "
@@ -1746,8 +1766,7 @@ def phase_adm(fa):
     for (sym, dsg), (_, n, ms) in sorted(by_design(fa, [path]).items()):
         log(f"[adm] {KERNELS[sym][0]} on {dsg}: {n} launches, {ms:.2f} ms on the "
             f"device ({100 * ms / 1e3 / seconds:.2f} % of the path)")
-    with np.load(os.path.join(cfg.basis_folder, os.listdir(cfg.basis_folder)[0])) as z:
-        u, s, vT = z["u"], z["s"], z["vT"]
+    u, s, vT = load_basis(os.path.join(cfg.basis_folder, os.listdir(cfg.basis_folder)[0]))
     log(f"[adm] main path {seconds:.2f} s, peak memory {peak_gb:.2f} GB, sigma "
         f"{s.tolist()}, pullback {pullback['seconds']:.3f} s (encoder "
         f"{pullback['encoder']}, {pullback['iterations']} iterations)")
@@ -2663,8 +2682,7 @@ def phase_head_dim_models(fa):
         log(f"[sd15] {KERNELS[sym][0]} on {dsg}: {n} launches, {ms:.2f} ms on the "
             f"device ({100 * ms / 1e3 / seconds:.2f} % of the path)")
     pullback = named(events, "sd_local_pullback")[-1]
-    with np.load(os.path.join(cfg.basis_folder, os.listdir(cfg.basis_folder)[0])) as z:
-        u, s, vT = z["u"], z["s"], z["vT"]
+    u, s, vT = load_basis(os.path.join(cfg.basis_folder, os.listdir(cfg.basis_folder)[0]))
     log(f"[sd15] sigma {s.tolist()}, pullback {pullback['seconds']:.3f} s (encoder "
         f"{pullback['encoder']}, {pullback['iterations']} iterations)")
     finite = named(events, "sd_decode_and_save")
@@ -3020,6 +3038,238 @@ def phase_train(fa):
         raise AssertionError("phase 13 checks failed")
     return paths
 
+def trace_label(name):
+    """K1–K5 of a device kernel's name in a profiler trace (K2 is the
+    forward kernel instantiated with its LSE output on), None for others
+    (PyTorch's own flash kernels, pytorch_flash::…, included)."""
+    if "pytorch" in name:
+        return None
+    for stem, label in (("flash_tangent", "K3"), ("flash_dkv", "K5"), ("flash_dq", "K4")):
+        if stem in name:
+            return label
+    if "flash_fwd" in name:
+        return "K2" if "true>(" in name else "K1"
+    return None
+
+
+def read_trace(folder):
+    """(K1–K5 device kernel counts, the device's idle share over the traced
+    window, the top five device ops by summed time as (name, ms, count),
+    the window's seconds) of the one Chrome trace in ``folder``. The window
+    runs from the first device event's start to the last one's end; idle is
+    1 − (union of kernel, memcpy and memset intervals) ÷ window."""
+    (name,) = os.listdir(folder)
+    with open(os.path.join(folder, name)) as f:
+        events = json.load(f)["traceEvents"]
+    dev = sorted(((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e)
+                  for e in events if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                 key=lambda x: x[0])
+    if not dev:
+        raise AssertionError(f"the trace {name} holds no device event")
+    busy, (cur0, cur1) = 0.0, dev[0][:2]
+    for t0, t1, _ in dev[1:]:
+        if t0 > cur1:
+            busy, cur0, cur1 = busy + cur1 - cur0, t0, t1
+        else:
+            cur1 = max(cur1, t1)
+    busy += cur1 - cur0
+    window = max(t1 for _, t1, _ in dev) - dev[0][0]
+    counts, by_name = collections.Counter(), collections.defaultdict(lambda: [0.0, 0])
+    for t0, t1, e in dev:
+        by_name[e["name"]][0] += (t1 - t0) / 1e3
+        by_name[e["name"]][1] += 1
+        if e["cat"] == "kernel" and trace_label(e["name"]):
+            counts[trace_label(e["name"])] += 1
+    top = sorted(((n, ms, c) for n, (ms, c) in by_name.items()), key=lambda x: -x[1])[:5]
+    return counts, 1.0 - busy / window, top, window / 1e6
+
+
+def psnr(a, b):
+    """PSNR in dB of two uint8 images scaled to [0, 1]."""
+    import numpy as np
+
+    mse = float(np.mean((a.astype(np.float64) / 255 - b.astype(np.float64) / 255) ** 2))
+    return 10.0 * math.log10(1.0 / max(mse, 1e-12))
+
+
+def phase_tooling(fa):
+    """Phase 14 (module docstring)."""
+    import numpy as np
+    from PIL import Image
+
+    from diffusion_pullback_tpu_torch import main as port_main
+    from diffusion_pullback_tpu_torch.experiments import BasisCache
+    from diffusion_pullback_tpu_torch.models import TapPoint
+    from diffusion_pullback_tpu_torch.models.layers import attn_impl_as
+    from diffusion_pullback_tpu_torch.utils import aot, flops, native
+    from diffusion_pullback_tpu_torch.utils.datasets import ImgDataset
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tooling_")
+    exports = os.path.join(root, "exports")
+    checks, paths, runs = {}, [], {}
+    real_dir, real_export, cwd = aot.default_export_dir, torch.export.export, os.getcwd()
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a program was exported again instead of loaded")
+
+    real_build = port_main.build_sd
+
+    def build_sd(args):
+        """build_sd with phase 4's settings: the weights drawn on the card
+        (as phase 9 draws them), 1–3 power iterations."""
+        with torch.device("cuda"):
+            edit = real_build(args)
+        edit.cfg.pullback_min_iter, edit.cfg.pullback_max_iter = 1, 3
+        return edit
+
+    aot.default_export_dir = lambda: exports
+    port_main.build_sd = build_sd
+    try:
+        for run in ("export", "load"):
+            folder = os.path.join(root, run)
+            os.makedirs(folder)
+            os.chdir(folder)   # the CLI's ./inputs basis cache, one per run
+            argv = ["--note", "chip_smoke_tooling", "--result_folder",
+                    os.path.join(folder, "runs"), "--dataset_name", "Examples",
+                    "--for_steps", "10", "--inv_steps", "10", "--edit_t", "0.5",
+                    "--pca_rank", str(PCA_RANK), "--x_space_guidance_num_step", "2",
+                    "--edit_prompt", "a photo of a smiling face",
+                    "--run_edit_local_encoder_pullback_zt", "True",
+                    "--profile_dir", os.path.join(folder, "trace"), "--aot_export", "on"]
+            torch.export.export = real_export if run == "export" else refused
+            edit, seconds, peak, launches, path = drive(fa, lambda: port_main.main(argv))
+            torch.export.export = real_export
+            os.chdir(cwd)
+            events = read_events(edit)
+            log_stages(f"tooling {run}", events)
+            cfg = edit.cfg
+            pullback = named(events, "sd_local_pullback")[-1]
+            n_dir, frames = 4, len(range(0, cfg.x_space_guidance_num_step + 1,
+                                         max(1, (cfg.x_space_guidance_num_step + 1) // 4)))
+            dtypes = (next(edit.unet.parameters()).dtype, next(edit.vae.parameters()).dtype)
+            expected = collections.Counter()
+            edit_k1(expected, edit, n_dir, frames, dtypes)
+            pair_k2_k5(expected, dtypes[0], pullback["iterations"], layers=2)
+            checks[f"({run}) launches by shape"] = check_launches(
+                f"tooling {run}", launches, path, expected)
+            counts, idle, top, window = read_trace(os.path.join(folder, "trace"))
+            by_label = {KERNELS[sym][0]: n for sym, n in launches.items()}
+            staged = sum(e["seconds"] for e in events if "seconds" in e
+                         and e["event"] != "aot_program")
+            log(f"[tooling {run}] main path {seconds:.3f} s under the profiler (its "
+                f"stages {staged:.3f} s), peak "
+                f"memory {peak:.2f} GB; trace window {window:.3f} s, device idle share "
+                f"{idle:.4f}; K1–K5 in the trace {dict(sorted(counts.items()))}, "
+                f"launched {by_label}")
+            for name, ms, n in top:
+                log(f"[tooling {run}] top device op {ms:.3f} ms over {n} calls: {name[:120]}")
+            checks[f"({run}) K1–K5 in the trace as often as launched"] = (
+                dict(counts) == {k: n for k, n in by_label.items() if n}
+                and all(by_label.values()))
+            programs = [(e["name"], e["status"], e.get("seconds", 0.0)) for e in events
+                        if e["event"] == "aot_program"]
+            log(f"[tooling {run}] programs " + ", ".join(
+                f"{n} {st} in {sec:.3f} s" for n, st, sec in programs))
+            want = "exported" if run == "export" else "loaded"
+            checks[f"({run}) every program {want}"] = sorted(
+                (n, st) for n, st, _ in programs) == sorted(
+                [("vae_encode", want), ("eps", want), ("eps", want), ("vae_decode", want)])
+            basis_folder = os.path.join(folder, cfg.basis_folder)   # ./inputs/…
+            basis = os.listdir(basis_folder)
+            pngs = sorted(n for n in os.listdir(cfg.result_folder) if n.endswith(".png"))
+            runs[run] = dict(
+                basis=load_basis(os.path.join(basis_folder, basis[0])),
+                pngs={n: np.asarray(Image.open(os.path.join(cfg.result_folder, n)))
+                      for n in pngs},
+                pullback=pullback, edit=edit if run == "load" else None,
+                format=os.path.splitext(basis[0])[1])
+            paths.append(path)
+            del edit
+    finally:
+        torch.export.export = real_export
+        aot.default_export_dir = real_dir
+        port_main.build_sd = real_build
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+
+    first, second = runs["export"], runs["load"]
+    worst = min(psnr(first["pngs"][n], second["pngs"][n]) for n in first["pngs"])
+    s0, s1 = first["basis"][1], second["basis"][1]
+    srel = float(np.max(np.abs(s1 - s0) / np.abs(s0)))
+    log(f"[tooling] loaded run against the exported one: {len(first['pngs'])} PNGs, "
+        f"worst PSNR {worst:.2f} dB, sigma {s0.tolist()} vs {s1.tolist()} (max rel "
+        f"err {srel:.3g}); basis files {first['format']}")
+    checks["(load) same PNGs, PSNR >= 35 dB"] = (
+        len(first["pngs"]) == 4 and first["pngs"].keys() == second["pngs"].keys()
+        and worst >= 35.0)
+    checks["(load) sigma within rtol 1e-3"] = srel <= 1e-3
+    checks["basis written as .dpb by the native library"] = (
+        native.get_lib() is not None and first["format"] == ".dpb")
+
+    # the mid-tap pullback's FLOPs at pca_rank 2 and its stage's MFU (the
+    # loaded run's stage: no export and no profiler in it)
+    edit = second["edit"]
+    t_edit = edit.fwd_grid.timesteps[edit.edit_t_idx]
+    zt = torch.randn(1, 64, 64, 4, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(14))
+    counted = {}
+    for impl in ("flash", "xla"):
+        edit.cfg.pullback_attn_impl = impl
+        enc, enc_vjp, tag = edit._pullback_tap_encoders(t_edit, TapPoint("mid", 0))
+        t0 = time.perf_counter()
+        counted[impl] = flops.pullback_flops(
+            lambda _, z: enc(z), None, zt, PCA_RANK, second["pullback"]["iterations"],
+            fn_vjp=enc_vjp and (lambda _, z: enc_vjp(z)))
+        log(f"[tooling] pullback FLOPs ({tag}, pca_rank {PCA_RANK}, "
+            f"{second['pullback']['iterations']} iterations): {counted[impl]:.6g}, "
+            f"counted in {time.perf_counter() - t0:.2f} s")
+    edit.cfg.pullback_attn_impl = "flash"
+    fields = flops.mfu_fields(counted["flash"], second["pullback"]["seconds"])
+    log(f"[tooling] pullback stage {second['pullback']['seconds']:.3f} s on the pair: "
+        f"{json.dumps(fields)} (peak {flops.peak_bf16_tflops()} TFLOP/s bf16)")
+    checks["pullback FLOPs counted, MFU reported"] = (
+        all(v and v > 0 for v in counted.values()) and "mfu_vs_bf16_peak" in fields)
+
+    # ε at full width: the same FLOPs with K1 as with the math path
+    emb = edit.for_prompt_emb
+    eps = {}
+    for impl in ("flash", "xla"):
+        with torch.no_grad(), attn_impl_as(edit.unet, impl):
+            eps[impl] = flops.compiled_flops(edit.eps_with(emb), zt, t_edit)
+    log(f"[tooling] full-width eps FLOPs: flash {eps['flash']:.6g}, xla {eps['xla']:.6g}")
+    checks["eps counts the same FLOPs with flash and xla"] = eps["flash"] == eps["xla"]
+
+    # native I/O: the bundled images through the threaded decoder, a basis
+    # through the .dpb store
+    ds = ImgDataset(os.path.join(HERE, "datasets", "examples"), 512)
+    t0 = time.perf_counter()
+    batch = ds.load_batch()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    items = np.concatenate([ds[i] for i in range(len(ds))])
+    item_s = time.perf_counter() - t0
+    levels = float(np.abs(batch - items).max() * 255 / 2)
+    log(f"[tooling] has_codecs() {native.has_codecs()}; load_batch of {len(ds)} images "
+        f"at 512 px {load_s:.3f} s against {item_s:.3f} s by __getitem__, max "
+        f"difference {levels:.3f} levels")
+    checks["load_batch within one level of __getitem__"] = (
+        batch.shape == items.shape and levels <= 1.0)
+    u, s, vT = (np.random.default_rng(14).standard_normal(shape).astype(np.float32)
+                for shape in ((8 * 8 * 1280, PCA_RANK), (PCA_RANK,), (PCA_RANK, 64 * 64 * 4)))
+    with tempfile.TemporaryDirectory() as tmp:
+        written = BasisCache(tmp).save("b", u, s, vT)
+        back = load_basis(written)
+    checks[".dpb basis bit for bit"] = written.endswith(".dpb") and all(
+        np.array_equal(np.asarray(a), b) for a, b in zip(back, (u, s, vT)))
+    del edit, runs, first, second
+    torch.cuda.empty_cache()
+    for what, ok in checks.items():
+        log(f"[tooling] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("phase 14 checks failed")
+    return paths
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3082,6 +3332,8 @@ def main():
     lap("phase 12")
     paths += phase_train(fa)
     lap("phase 13")
+    paths += phase_tooling(fa)
+    lap("phase 14")
 
     # every (kernel, shape, dtype) the main paths launched was held against
     # its plain version in phases 1–2
@@ -3093,7 +3345,7 @@ def main():
                              f"did not hold against their plain versions: {missing}")
 
     # launches and summed device time of each (kernel, shape) over the main
-    # paths of phases 4 and 6–13
+    # paths of phases 4 and 6–14
     merged = collections.defaultdict(lambda: [0, 0.0])
     for path in paths:
         for key, (n, ms) in path.items():
@@ -3101,11 +3353,11 @@ def main():
             merged[key][1] += ms
     for (sym, shape, dtype), (n, ms) in sorted(merged.items(), key=lambda kv: -kv[1][1]):
         log(f"[paths] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches, "
-            f"{ms:.3f} ms on the device over phases 4 and 6–13")
-    log(f"[smoke] phases 1–13 in {time.perf_counter() - t_start:.1f} s")
+            f"{ms:.3f} ms on the device over phases 4 and 6–14")
+    log(f"[smoke] phases 1–14 in {time.perf_counter() - t_start:.1f} s")
 
     # one entry per kernel, design and head dim on the main paths (phases
-    # 4, 6–13): their launches and summed device time there (path_ms), and
+    # 4, 6–14): their launches and summed device time there (path_ms), and
     # the per-launch numbers of phases 1–2 at the shape that carries most
     # of that device time
     kernels = []

@@ -1,8 +1,8 @@
 """What the experiment drivers share (counterpart of
 diffusion_pullback_tpu/experiments/_common.py): the NHWC ↔ NCHW boundary,
-the synchronised stage timer, the tap construction, the grid index of a
-t, the seeded sample draw, the basis write and its analysis artifacts, and
-the post-edit regularizers."""
+the synchronised stage timer, the exported programs, the tap construction,
+the grid index of a t, the seeded sample draw, the basis write and its
+analysis artifacts, and the post-edit regularizers."""
 
 from __future__ import annotations
 
@@ -21,10 +21,69 @@ to_nchw = lambda z: z.permute(0, 3, 1, 2)
 to_nhwc = lambda z: z.permute(0, 2, 3, 1)
 
 
+class _Holder(torch.nn.Module):
+    """``fn`` as the forward of a module that holds ``modules``, so
+    functional_call can run it on other weights."""
+
+    def __init__(self, fn, modules):
+        super().__init__()
+        self.held = torch.nn.ModuleList(modules)
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
 class DriverCommonMixin:
     """Requires ``self.device`` and ``self.log`` (a JSONLLogger);
     ``_make_tap`` also ``self._arch_config`` (the differentiated model's
-    config), ``_draw_latents`` ``self.cfg`` and ``self._sample_shape``."""
+    config), ``_draw_latents`` ``self.cfg`` and ``self._sample_shape``,
+    ``_program`` ``self.cfg.aot_export``."""
+
+    def _program(self, name: str, fn, *modules):
+        """``fn`` (a function of tensors that runs ``modules``) as program
+        ``name``: with cfg.aot_export 'on' through the export cache
+        (utils/aot.py), the modules' parameters and buffers passed to it as
+        an argument; else ``fn`` itself, run eagerly ('auto' and 'off': an
+        eager process has no trace to save). Either way the outcome is
+        logged once per program as an ``aot_program`` event."""
+        mode = self.cfg.aot_export
+        if mode != "on":
+            logged = self.__dict__.setdefault("_eager_programs", set())
+            if name not in logged:
+                logged.add(name)
+                self.log.log("aot_program", name=name, status="eager",
+                             reason=f"aot_export {mode}")
+            return fn
+        from torch.func import functional_call
+
+        from ..utils.aot import AOTProgramCache
+
+        if "_aot_programs" not in self.__dict__:
+            self._aot_programs = AOTProgramCache(logger=self.log)
+        holder = _Holder(fn, modules)
+        weights = {**dict(holder.named_parameters()), **dict(holder.named_buffers())}
+        prog = self._aot_programs.wrap(
+            name, lambda w, *args: functional_call(holder, w, args),
+            self._cfg_fingerprint())
+        return lambda *args: prog(weights, *args)
+
+    def _cfg_fingerprint(self) -> str:
+        """Digest of every primitive config field that a program can bake
+        in as a constant (guidance scales, step counts, dtypes, chunk
+        sizes); the folders and paths are left out, they reach no program.
+        Recomputed per call: runs change cfg fields (edit_prompt)."""
+        import dataclasses
+        import hashlib
+
+        parts = []
+        for f in dataclasses.fields(self.cfg):
+            if f.name == "mesh" or any(s in f.name for s in ("folder", "dir", "path")):
+                continue
+            v = getattr(self.cfg, f.name)
+            if isinstance(v, (int, float, bool, str, type(None), tuple, list)):
+                parts.append(f"{f.name}={v!r}")
+        return hashlib.sha256("|".join(parts).encode()).hexdigest()[:12]
 
     @contextlib.contextmanager
     def _stage(self, event: str, **fields):

@@ -8,7 +8,8 @@ magic, version, u rows, u cols, k, vT rows, vT cols, 0 — then u, s, vT as
 raw float32), then the .npz, skipping a file it cannot read, and widens the
 raw bfloat16 bytes of legacy .npz files to float32. So each package reads
 the other's bases, under the folder names both CLIs build for the same
-flags. It writes .npz.
+flags. It writes .dpb through the native library (utils/native.py) when
+that loads, else .npz.
 """
 
 from __future__ import annotations
@@ -45,6 +46,14 @@ def _read_dpb(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return u, s, data[u0 * u1 + k:].reshape(v0, v1)
 
 
+def load_basis(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(u, s, vT) of one basis file, .dpb or .npz by its extension."""
+    if path.endswith(".dpb"):
+        return _read_dpb(path)
+    with np.load(path) as z:
+        return tuple(_from_npz(z[k]) for k in ("u", "s", "vT"))
+
+
 def _from_npz(a: np.ndarray) -> np.ndarray:
     """float32 of an .npz array; raw bfloat16 bytes (a 2-byte void dtype)
     widen exactly: bf16 is the upper half of an f32's bits."""
@@ -64,42 +73,41 @@ class BasisCache:
         for ext in (".dpb", ".npz"):
             p = os.path.join(self.root, name + ext)
             if os.path.exists(p):
-                basis = self._load_file(p, ext)
-                if basis is not None:
-                    return basis
+                try:
+                    return load_basis(p)
+                except Exception:  # unreadable here: try the other format
+                    continue
         return None
-
-    @staticmethod
-    def _load_file(p: str, ext: str):
-        try:
-            if ext == ".dpb":
-                return _read_dpb(p)
-            with np.load(p) as z:
-                return tuple(_from_npz(z[k]) for k in ("u", "s", "vT"))
-        except Exception:
-            return None
 
     def path(self, name: str) -> str:
         """The basis file for ``name``: the first of .dpb and .npz that
         exists (the one load() reads once it has read ``name``), else the
-        .npz that save() writes. Checks existence only, reads nothing."""
+        one save() writes (.dpb with the native library, else .npz).
+        Checks existence only, reads nothing."""
+        from ..utils.native import get_lib
+
         for ext in (".dpb", ".npz"):
             p = os.path.join(self.root, name + ext)
             if os.path.exists(p):
                 return p
-        return os.path.join(self.root, name + ".npz")
+        return os.path.join(self.root, name + (".dpb" if get_lib() else ".npz"))
 
     def save(self, name: str, u, s, vT) -> str:
-        """Write the basis as float32 .npz (atomically: temp file + rename)."""
-        f32 = lambda a: np.asarray(a, dtype=np.float32)
-        p = os.path.join(self.root, name + ".npz")
+        """Write the basis as float32: .dpb through the native library
+        (temp file, fsync, rename), else .npz (temp file, rename)."""
+        from ..utils.native import basis_write
+
+        u, s, vT = (np.asarray(a, dtype=np.float32) for a in (u, s, vT))
         dpb = os.path.join(self.root, name + ".dpb")
+        if basis_write(dpb, u, s, vT):
+            return dpb
+        p = os.path.join(self.root, name + ".npz")
         if os.path.exists(dpb):  # it would shadow the new file in load()
             os.unlink(dpb)
         fd, tmp = tempfile.mkstemp(dir=self.root, suffix=".npz.tmp")
         try:
             with os.fdopen(fd, "wb") as f:
-                np.savez(f, u=f32(u), s=f32(s), vT=f32(vT))
+                np.savez(f, u=u, s=s, vT=vT)
             os.replace(tmp, p)
         finally:
             if os.path.exists(tmp):

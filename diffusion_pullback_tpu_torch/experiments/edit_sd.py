@@ -112,6 +112,9 @@ class SDExperimentConfig:
     # a device mesh (the JAX driver's sharded pullback and sweeps): not
     # ported, refused (ROADMAP queue 1, item 16)
     mesh: Optional[object] = None
+    # 'on': the per-step ε and the VAE encode / decode through the export
+    # cache (utils/aot.py); 'auto' and 'off' run them eagerly
+    aot_export: str = "off"
     result_folder: str = "./runs/sd"
     # the analysis artifacts of freshly computed bases
     obs_folder: str = "./runs/sd/obs"
@@ -209,12 +212,24 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
 
         return fn
 
+    def _eps_program(self, prompt_emb, cfg_neg_emb=None):
+        """``eps_with(prompt_emb, cfg_neg_emb)`` as the program 'eps' (or
+        'eps_cfg' with classifier-free guidance) of the U-Net's weights,
+        with the embeddings as arguments: the per-step ε of the DDIM
+        loops."""
+        cfg_on = cfg_neg_emb is not None and self.cfg.guidance_scale > 1.0
+        embs = (prompt_emb, cfg_neg_emb) if cfg_on else (prompt_emb,)
+        prog = self._program("eps_cfg" if cfg_on else "eps",
+                             lambda z, t, e: self.eps_with(*e)(z, t), self.unet)
+        return lambda z, t: prog(z, t, embs)
+
     # ---- pipelines --------------------------------------------------------
 
     @torch.no_grad()
     def encode_image(self, idx: int) -> torch.Tensor:
         x0 = torch.as_tensor(self.dataset[idx], device=self.device)
-        return to_nhwc(self.vae.encode(to_nchw(x0))).float()
+        enc = self._program("vae_encode", self.vae.encode, self.vae)
+        return to_nhwc(enc(to_nchw(x0))).float()
 
     @torch.no_grad()
     def run_DDIMinversion(self, idx: int) -> torch.Tensor:
@@ -222,14 +237,14 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
         with self._stage("sd_vae_encoded", idx=idx):
             z0 = self.encode_image(idx)
         with self._stage("sd_ddim_inversion", idx=idx):
-            zT = ddim_invert(self.eps_with(self.inv_prompt_emb), z0,
+            zT = ddim_invert(self._eps_program(self.inv_prompt_emb), z0,
                              self.schedule, self.inv_grid)
         return zT
 
     @torch.no_grad()
     def DDIMforwardsteps(self, zt, t_start_idx, t_end_idx=None):
         return ddim_forward(
-            self.eps_with(self.for_prompt_emb, self.neg_prompt_emb), zt,
+            self._eps_program(self.for_prompt_emb, self.neg_prompt_emb), zt,
             self.schedule, self.fwd_grid, start_idx=t_start_idx,
             end_idx=t_end_idx)
 
@@ -238,8 +253,9 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
         """NHWC latents → NHWC images in [-1, 1] on the host, at most
         ``decode_chunk`` latents per VAE call."""
         chunk = self.cfg.decode_chunk or z.shape[0]
+        dec = self._program("vae_decode", self.vae.decode, self.vae)
         return np.concatenate([
-            to_nhwc(self.vae.decode(to_nchw(z[i:i + chunk]))).float().cpu().numpy()
+            to_nhwc(dec(to_nchw(z[i:i + chunk]))).float().cpu().numpy()
             for i in range(0, z.shape[0], chunk)])
 
     @torch.no_grad()

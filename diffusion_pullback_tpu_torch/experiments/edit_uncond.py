@@ -96,6 +96,9 @@ class UncondExperimentConfig:
     sega_reg_sigma: float = 1.0
     # not ported: raises when set (ROADMAP queue 1 item 16)
     mesh: Optional[object] = None
+    # 'on': the unguided per-step ε of the DDIM loops through the export
+    # cache (utils/aot.py); 'auto' and 'off' run it eagerly
+    aot_export: str = "off"
     # OpenAI respacing grid ('ddim25', '250', '25,25,25'; '' = the linspace
     # grid of for_steps / inv_steps)
     sampling_timesteps: str = ""
@@ -195,6 +198,14 @@ class EditUncondDiffusion(DriverCommonMixin):
     def eps_fn(self, x, t):
         return self._eps_with()(x, t)
 
+    def _eps_program(self):
+        """``_eps_with()`` as the program 'eps' of the model's weights (the
+        per-step ε of the DDIM loops); classifier-guided ε, which takes a
+        gradient, runs eagerly."""
+        if self.cond_fn is not None:
+            return self._eps_with()
+        return self._program("eps", self._eps_with(), self.model)
+
     def _basis_name_extras(self, tap: Optional[TapPoint] = None) -> str:
         """Cache-key qualifiers: an intra-block tap, and classifier guidance
         (guided runs invert and sample to other latents), so their bases do
@@ -245,7 +256,7 @@ class EditUncondDiffusion(DriverCommonMixin):
         """x0 → xT, NHWC."""
         x0 = torch.as_tensor(self.dataset[idx], device=self.device)
         with self._stage("ddim_inversion", idx=idx):
-            return ddim_invert(self._eps_with(), x0, self.schedule, self.inv_grid)
+            return ddim_invert(self._eps_program(), x0, self.schedule, self.inv_grid)
 
     @torch.no_grad()
     def run_ddim_forward(self, num_samples: int = 4,
@@ -259,7 +270,7 @@ class EditUncondDiffusion(DriverCommonMixin):
         xT = self._draw_latents(num_samples, generator)
         grid = self.fwd_grid
         with self._stage("ddim_forward", num_samples=num_samples, vis_psd=vis_psd):
-            x0, trajs = ddim_scan(self._eps_with(), xT, self.schedule, grid.timesteps,
+            x0, trajs = ddim_scan(self._eps_program(), xT, self.schedule, grid.timesteps,
                                   grid.timesteps_next, collect_trajectory=vis_psd,
                                   collect_eps=vis_psd)
         if vis_psd:
@@ -281,7 +292,7 @@ class EditUncondDiffusion(DriverCommonMixin):
                        event: str = "ddim_forward_steps") -> torch.Tensor:
         """The forward grid's steps start … end − 1 from x (NHWC)."""
         with self._stage(event, steps=end - start):
-            return ddim_forward(self._eps_with(), x, self.schedule, self.fwd_grid,
+            return ddim_forward(self._eps_program(), x, self.schedule, self.fwd_grid,
                                 start_idx=start, end_idx=end)
 
     def _encode_nhwc(self, encode, t, tap: TapPoint):
@@ -381,7 +392,8 @@ class EditUncondDiffusion(DriverCommonMixin):
         d, f = sel.shape[:2]
         with self._stage("finish_and_save", batch=d * f) as log:
             x0s = ddim_forward(
-                eps, self._regularize(sel.reshape(d * f, *sel.shape[2:]), xt),
+                self._eps_program(),
+                self._regularize(sel.reshape(d * f, *sel.shape[2:]), xt),
                 self.schedule, self.fwd_grid, start_idx=self.edit_t_idx,
                 boost_start_idx=boost,
                 generator=torch.Generator().manual_seed(cfg.seed + 1))
@@ -507,7 +519,7 @@ class EditUncondDiffusion(DriverCommonMixin):
             sel = torch.stack(traj)[::stride].transpose(0, 1)   # (D, frames, H, W, C)
             f = sel.shape[1]
             x0s = ddim_forward(
-                self._eps_with(), sel.reshape(d * f, *sel.shape[2:]), self.schedule,
+                self._eps_program(), sel.reshape(d * f, *sel.shape[2:]), self.schedule,
                 self.fwd_grid, start_idx=self.edit_t_idx, boost_start_idx=boost,
                 generator=torch.Generator().manual_seed(cfg.seed + 2))
             imgs = x0s.reshape(d, f, *x0s.shape[1:]).float().cpu().numpy()

@@ -12,8 +12,8 @@ torch has no `linear_transpose`, so the cotangent half always takes the
 shape of the JAX package's ``fn_vjp`` branch: one `torch.func.vjp` of the
 map (of ``fn_vjp`` when given), whose function is vmapped over the probes.
 The tangent half runs `torch.func.jvp` per pass, which evaluates the
-primal again each time (`linearize` traces with make_fx, which cannot trace
-the port's ctypes kernels). ``batched_local_pullback`` runs B independent
+primal again each time (`linearize`, which traces the kernels through
+their custom ops, would run it once; ROADMAP item 10). ``batched_local_pullback`` runs B independent
 pullbacks of a per-sample map as one, the probes of every sample sharing
 each pass.
 """

@@ -49,19 +49,10 @@ import os
 import shutil
 import sys
 
+from .configs import X_SPACE_GUIDANCE_SCALE_DICT
+
 SD_MODEL = "stabilityai/stable-diffusion-2-1-base"
 SDXL_MODEL = "stabilityai/stable-diffusion-xl-base-1.0"
-
-# x-space guidance scale per h_t (--use_x_space_guidance): this package's
-# copy of the tables in the JAX package's configs/params.py
-X_SPACE_GUIDANCE_SCALE_DICT = {
-    "stable-diffusion": {
-        1.0: 0.5, 0.9: 0.5, 0.8: 1, 0.7: 1, 0.6: 2,
-        0.5: 2, 0.4: 2, 0.3: 2, 0.2: 2, 0.1: 2, 0.0: 0,
-    },
-    "uncond": {1.0: 0.5, 0.8: 1, 0.6: 4, 0.4: 16, 0.2: 16},
-}
-
 
 # the t grid of --run_sample_encoder_local_tangent_space_zt: 1.0, 0.95, …, 0.05
 HARVEST_T_GRID = tuple(reversed([round(0.05 * i, 2) for i in range(1, 21)]))
@@ -260,6 +251,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="raise at the first backward op that makes a NaN "
                         "(torch.autograd.detect_anomaly; the forward and the "
                         "tangent passes are not checked)")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="write a torch.profiler trace (host ops and, on the card, "
+                        "device kernels) of the whole run into this folder; '' = "
+                        "none")
+    p.add_argument("--aot_export", type=str, default="auto",
+                   choices=["auto", "on", "off"],
+                   help="'on': the per-step ε of the DDIM loops and the VAE "
+                        "encode / decode as torch.export programs stored under "
+                        ".torch_cache/exports and loaded by later runs; 'off' "
+                        "runs them eagerly; 'auto' is eager in the port (the "
+                        "JAX CLI's 'auto' exports on an accelerator, where a "
+                        "process re-traces its programs; an eager process has "
+                        "no trace to skip)")
     for flag, item, kw in UNPORTED_FLAGS:
         p.add_argument(f"--{flag}", help=f"not ported (ROADMAP queue 1, item {item})",
                        **kw)
@@ -272,8 +276,6 @@ def build_parser() -> argparse.ArgumentParser:
 # flags of open ROADMAP items: refused when set to anything but the default
 UNPORTED_FLAGS = (
     ("mesh_axes", 16, dict(type=str, default="")),
-    ("aot_export", 17, dict(type=str, default="auto", choices=["auto", "on", "off"])),
-    ("profile_dir", 17, dict(type=str, default="")),
 )
 # flags the JAX CLI accepts and never reads (or overwrites in its preset:
 # image_size and c_in), with its types and defaults
@@ -406,6 +408,7 @@ def build_uncond(args):
         x_space_guidance_num_step=args.x_space_guidance_num_step or 16,
         h_space_guidance_scale=args.h_space_guidance_scale,
         xsg_pair_impl=xsg_pair_impl(args),
+        aot_export=args.aot_export,
         performance_boosting_t=args.performance_boosting_t,
         use_performance_boosting=args.performance_boosting_t > 0,
         pca_rank=args.pca_rank,
@@ -482,6 +485,7 @@ def _sd_config(args, device, **over):
         x_space_guidance_scale=_guidance_scale(args, 1.0),
         x_space_guidance_num_step=args.x_space_guidance_num_step or 16,
         xsg_pair_impl=xsg_pair_impl(args),
+        aot_export=args.aot_export,
         pca_rank=args.pca_rank,
         # the fused pair by default on the card, as the JAX CLI on an
         # accelerator; --pullback_attn_impl xla opts out
@@ -629,12 +633,14 @@ def check_preset(args) -> None:
 def main(argv=None):
     import torch
 
+    from .utils.profiling import trace
+
     args = parse_args(argv)
     check_preset(args)
     build = build_sdxl if is_sdxl(args) else (
         build_sd if is_stable_diffusion(args) else build_uncond)
     with (torch.autograd.detect_anomaly(check_nan=True) if args.debug_nans
-          else contextlib.nullcontext()):
+          else contextlib.nullcontext()), trace(args.profile_dir):
         edit = build(args)
         dispatch(edit, args)
     return edit

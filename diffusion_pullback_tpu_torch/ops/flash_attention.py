@@ -27,9 +27,14 @@ served a call):
 The sources are csrc/*.cu; they are compiled with nvcc for sm_90a at first
 use into one shared library under ``.build/`` next to this package (keyed on
 the sources' hash) and loaded with ctypes. Each wrapper takes (B·H, S, D)
-tensors: a CPU tensor goes to the kernel's plain version (the same
-arithmetic and the same bf16 rounding in torch), a CUDA tensor launches the
-kernel or raises. ``<wrapper>.launches`` counts kernel launches.
+tensors, checks them and calls its kernel's custom op (dpx::flash_fwd,
+dpx::flash_fwd_lse, dpx::flash_tangent, dpx::flash_dq, dpx::flash_dkv): on
+a CPU tensor the op runs the kernel's plain version (the same arithmetic
+and the same bf16 rounding in torch), on a CUDA tensor it launches the
+kernel or raises. ``<wrapper>.launches`` counts kernel launches. The ops'
+fake implementations let torch.export (and make_fx) trace through them,
+their flop formulas let torch.utils.flop_counter count them, and the
+profiler records each call under the op's name.
 
 Two autograd Functions carry the kernels through torch.func, as the JAX
 package's custom_vjp / custom_jvp pair does:
@@ -46,9 +51,8 @@ tangents (K3) or the cotangent (K4, K5) are batched: the kernels then read
 primal slice ``b % B·H`` for batched slice ``b``, so the probes share one
 copy of Q, K, V, O and L.
 
-torch.func.linearize traces with make_fx, which cannot trace a ctypes
-launch, so the port's tangent passes use ``jvp``: each pass runs the primal
-forward (K2) again, where JAX linearises once.
+The port's tangent passes use ``jvp``: each pass runs the primal forward
+(K2) again, where JAX linearises once.
 """
 
 from __future__ import annotations
@@ -343,6 +347,142 @@ def design(kernel: str, d: int, dtype: torch.dtype) -> str:
                                         int(dtype == torch.bfloat16))]
 
 
+# ---- the kernels as custom ops -----------------------------------------------
+#
+# Each kernel is the custom op dpx::<symbol>: its CUDA implementation
+# launches the kernel (and counts the launch on its wrapper), its CPU one is
+# the plain version, its fake one gives the output's shape for tracing
+# (torch.export) and its flop formula the operations flash_ops counts. So the
+# profiler names the op, FlopCounterMode counts the same work whichever
+# device runs it, and an exported program calls the op. Any other device
+# has no implementation and raises.
+
+# operations per (B·H)·Sq·Sk·D of each kernel, B·H the tangents' or the
+# cotangent's, with the primal's QKᵀ (2 of them) recomputed for every probe
+PAIR_OPS = {"K1": 4, "K2": 4, "K3": 10, "K4": 6, "K5": 8}
+
+
+def flash_ops(label: str, bhp: int, bh: int, sq: int, sk: int, d: int) -> float:
+    """The operations kernel ``label`` must do with the primal at B·H =
+    bhp and its tangents or cotangent at bh = r·bhp (r probes): PAIR_OPS
+    less the primal's QKᵀ, which the probes share and which is counted once
+    per primal head, (PAIR_OPS − 2)·bh·Sq·Sk·D + 2·bhp·Sq·Sk·D. K1 and K2
+    (bh = bhp): the two products' 4·bhp·Sq·Sk·D."""
+    return float((PAIR_OPS[label] - 2) * bh + 2 * bhp) * sq * sk * d
+
+
+_LIB = torch.library.Library("dpx", "DEF")
+
+
+def _op(symbol, label, schema, plain, fake, batched_arg=0):
+    """Define the op dpx::<symbol> with ``schema`` and register its CUDA
+    implementation (the decorated function), its CPU implementation
+    ``plain``, its fake ``fake`` and the flop formula of kernel ``label``;
+    argument ``batched_arg`` carries the tangents' or cotangent's B·H. The
+    ops register directly with the dispatcher (torch.library.Library), not
+    through torch.library.custom_op, whose Python layer (an autograd
+    wrapper and argument checks on every call) adds to the host time that
+    already sets the 1024-token kernels' time (PERF.md)."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    def register(launch):
+        _LIB.define(symbol + schema)
+        _LIB.impl(symbol, launch, "CUDA")
+        _LIB.impl(symbol, plain, "CPU")
+        torch.library.register_fake(f"dpx::{symbol}", fake, lib=_LIB)
+
+        @register_flop_formula(getattr(torch.ops.dpx, symbol))
+        def _flops(q, k, *args, out_shape=None, **kwargs):
+            bh = (q, k, *args)[batched_arg][0]
+            return int(flash_ops(label, q[0], bh, q[1], k[1], q[2]))
+
+        return launch
+    return register
+
+
+_QKV = "(Tensor q, Tensor k, Tensor v, float scale)"
+_BWD = "(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, Tensor delta, float scale)"
+
+
+@_op("flash_fwd", "K1", _QKV + " -> Tensor",
+     lambda q, k, v, scale: flash_forward_plain(q, k, v, scale),
+     lambda q, k, v, scale: torch.empty_like(q))
+def _k1(q, k, v, scale):
+    bh, sq, d = q.shape
+    out = torch.empty_like(q)
+    _launch("flash_fwd", q, q, k, v, out, bh, sq, k.shape[1], d, _is_bf16(q), scale)
+    flash_forward.launches += 1
+    return out
+
+
+def _k2_fake(q, k, v, scale):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+@_op("flash_fwd_lse", "K2", _QKV + " -> (Tensor, Tensor)",
+     lambda q, k, v, scale: flash_forward_lse_plain(q, k, v, scale), _k2_fake)
+def _k2(q, k, v, scale):
+    out, lse = _k2_fake(q, k, v, scale)
+    bh, sq, d = q.shape
+    _launch("flash_fwd_lse", q, q, k, v, out, lse, bh, sq, k.shape[1], d,
+            _is_bf16(q), scale)
+    flash_forward_lse.launches += 1
+    return out, lse
+
+
+@_op("flash_tangent", "K3",
+     "(Tensor q, Tensor k, Tensor v, Tensor dq, Tensor dk, Tensor dv, Tensor o, "
+     "Tensor lse, float scale) -> Tensor",
+     lambda q, k, v, dq, dk, dv, o, lse, scale: flash_tangent_plain(
+         q, k, v, dq, dk, dv, o, lse, scale),
+     lambda q, k, v, dq, dk, dv, o, lse, scale: torch.empty_like(dq),
+     batched_arg=3)
+def _k3(q, k, v, dq, dk, dv, o, lse, scale):
+    out = torch.empty_like(dq)
+    bhp, sq, d = q.shape
+    _launch("flash_tangent", q, q, k, v, dq, dk, dv, o, lse, out, dq.shape[0], bhp,
+            sq, k.shape[1], d, _is_bf16(q), scale)
+    flash_tangent.launches += 1
+    return out
+
+
+def _bwd_dims(q, k, do):
+    bhp, sq, d = q.shape
+    return do.shape[0], bhp, sq, k.shape[1], d
+
+
+@_op("flash_dq", "K4", _BWD + " -> Tensor",
+     lambda q, k, v, do, lse, delta, scale: flash_dq_plain(
+         q, k, v, do, lse, delta, scale),
+     lambda q, k, v, do, lse, delta, scale: torch.empty_like(do),
+     batched_arg=3)
+def _k4(q, k, v, do, lse, delta, scale):
+    dq = torch.empty_like(do)
+    _launch("flash_dq", q, q, k, v, do, lse, delta, dq, *_bwd_dims(q, k, do),
+            _is_bf16(q), scale)
+    flash_dq.launches += 1
+    return dq
+
+
+def _k5_fake(q, k, v, do, lse, delta, scale):
+    dk = k.new_empty((do.shape[0], *k.shape[1:]))
+    return dk, torch.empty_like(dk, dtype=v.dtype)
+
+
+@_op("flash_dkv", "K5", _BWD + " -> (Tensor, Tensor)",
+     lambda q, k, v, do, lse, delta, scale: flash_dkv_plain(
+         q, k, v, do, lse, delta, scale), _k5_fake, batched_arg=3)
+def _k5(q, k, v, do, lse, delta, scale):
+    dk, dv = _k5_fake(q, k, v, do, lse, delta, scale)
+    _launch("flash_dkv", q, q, k, v, do, lse, delta, dk, dv, *_bwd_dims(q, k, do),
+            _is_bf16(q), scale)
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+# ---- wrappers: the checks, then the op (the kernel on CUDA, the plain
+# version on the CPU) ----------------------------------------------------------
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> torch.Tensor:
     """K1 on (B·H, S, D) tensors → (B·H, Sq, D) in q's dtype."""
@@ -350,13 +490,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk = k.shape[1]
     q, k, v = _operands(q, HEAD_DIMS, q=(q, (bh, sq, d), None),
                         k=(k, (bh, sk, d), None), v=(v, (bh, sk, d), None))
-    if not _device(q):
-        return flash_forward_plain(q, k, v, scale)
-    out = torch.empty_like(q)
-    _launch("flash_fwd", q, q, k, v, out, bh, sq, sk, d, _is_bf16(q),
-            float(scale))
-    flash_forward.launches += 1
-    return out
+    return torch.ops.dpx.flash_fwd(q, k, v, float(scale))
 
 
 def flash_forward_lse(q, k, v, scale: float):
@@ -365,14 +499,7 @@ def flash_forward_lse(q, k, v, scale: float):
     sk = k.shape[1]
     q, k, v = _operands(q, PAIR_HEAD_DIMS, q=(q, (bh, sq, d), None),
                         k=(k, (bh, sk, d), None), v=(v, (bh, sk, d), None))
-    if not _device(q):
-        return flash_forward_lse_plain(q, k, v, scale)
-    out = torch.empty_like(q)
-    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd_lse", q, q, k, v, out, lse, bh, sq, sk, d, _is_bf16(q),
-            float(scale))
-    flash_forward_lse.launches += 1
-    return out, lse
+    return torch.ops.dpx.flash_fwd_lse(q, k, v, float(scale))
 
 
 def _batched_bh(t, bh_primal, what):
@@ -389,57 +516,36 @@ def flash_tangent(q, k, v, dq, dk, dv, o, lse, scale: float) -> torch.Tensor:
     bhp, sq, d = q.shape
     sk = k.shape[1]
     bh = _batched_bh(dq, bhp, "the tangents'")
-    q, k, v, dq, dk, dv, o, lse = _operands(
+    ops = _operands(
         q, PAIR_HEAD_DIMS, q=(q, (bhp, sq, d), None), k=(k, (bhp, sk, d), None),
         v=(v, (bhp, sk, d), None), dq=(dq, (bh, sq, d), None),
         dk=(dk, (bh, sk, d), None), dv=(dv, (bh, sk, d), None),
         o=(o, (bhp, sq, d), None), lse=(lse, (bhp, sq), torch.float32))
-    if not _device(q):
-        return flash_tangent_plain(q, k, v, dq, dk, dv, o, lse, scale)
-    out = torch.empty_like(dq)
-    _launch("flash_tangent", q, q, k, v, dq, dk, dv, o, lse, out, bh, bhp, sq,
-            sk, d, _is_bf16(q), float(scale))
-    flash_tangent.launches += 1
-    return out
+    return torch.ops.dpx.flash_tangent(*ops, float(scale))
 
 
 def _bwd_operands(q, k, v, do, lse, delta):
     bhp, sq, d = q.shape
     sk = k.shape[1]
     bh = _batched_bh(do, bhp, "the cotangent's")
-    ops = _operands(
+    return _operands(
         q, PAIR_HEAD_DIMS, q=(q, (bhp, sq, d), None), k=(k, (bhp, sk, d), None),
         v=(v, (bhp, sk, d), None), do=(do, (bh, sq, d), None),
         lse=(lse, (bhp, sq), torch.float32),
         delta=(delta, (bh, sq), torch.float32))
-    return ops, (bh, bhp, sq, sk, d)
 
 
 def flash_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
     """K4: dQ (in q's dtype) from the cotangent do and δ = rowsum(do∘o); do
     and delta may carry r·B·H slices against the primal's B·H."""
-    (q, k, v, do, lse, delta), dims = _bwd_operands(q, k, v, do, lse, delta)
-    if not _device(q):
-        return flash_dq_plain(q, k, v, do, lse, delta, scale)
-    dq = torch.empty_like(do)
-    _launch("flash_dq", q, q, k, v, do, lse, delta, dq, *dims, _is_bf16(q),
-            float(scale))
-    flash_dq.launches += 1
-    return dq
+    return torch.ops.dpx.flash_dq(*_bwd_operands(q, k, v, do, lse, delta),
+                                  float(scale))
 
 
 def flash_dkv(q, k, v, do, lse, delta, scale: float):
     """K5: (dK, dV) in k's and v's dtype; batching as flash_dq."""
-    (q, k, v, do, lse, delta), dims = _bwd_operands(q, k, v, do, lse, delta)
-    if not _device(q):
-        return flash_dkv_plain(q, k, v, do, lse, delta, scale)
-    bh, _, _, sk, d = dims
-    dk = torch.empty((bh, sk, d), dtype=k.dtype, device=k.device)
-    dv = torch.empty_like(dk)
-    _launch("flash_dkv", q, q, k, v, do, lse, delta, dk, dv, *dims,
-            _is_bf16(q), float(scale))
-    flash_dkv.launches += 1
-    return dk, dv
+    return torch.ops.dpx.flash_dkv(*_bwd_operands(q, k, v, do, lse, delta),
+                                   float(scale))
 
 
 for _fn in (flash_forward, flash_forward_lse, flash_tangent, flash_dq, flash_dkv):

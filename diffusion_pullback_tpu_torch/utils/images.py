@@ -11,13 +11,13 @@ import torch.nn.functional as F
 from PIL import Image
 
 
-def load_image(path: str, image_size: int) -> np.ndarray:
-    """Center-crop to the largest square, resize bilinearly, scale to
-    [-1, 1] → (1, S, S, 3) float32. The resize samples at pixel centres
+def load_image(path, image_size: int) -> np.ndarray:
+    """An image file (or an open PIL image): center-crop to the largest
+    square, resize bilinearly, scale to [-1, 1] → (1, S, S, 3) float32. The resize samples at pixel centres
     (align_corners=False) without antialiasing, the convention of the JAX
     package's native loader (native/imageproc.cpp); PIL's antialiased
     BILINEAR filter would differ from it by several uint8 levels at 2×."""
-    img = Image.open(path).convert("RGB")
+    img = (path if isinstance(path, Image.Image) else Image.open(path)).convert("RGB")
     w, h = img.size
     side = min(w, h)
     left, top = (w - side) // 2, (h - side) // 2

@@ -19,7 +19,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_common import adm_driver_pair, flax_params, one_torch_thread  # noqa: F401
+from torch_port_common import (  # noqa: F401
+    adm_driver_pair,
+    basis_ext,
+    flax_params,
+    one_torch_thread,
+)
 
 from diffusion_pullback_tpu import experiments as jexp
 from diffusion_pullback_tpu import models as jmodels
@@ -154,7 +159,7 @@ def test_adm_cli_runs_on_cpu(tmp_path, monkeypatch):
     assert "DDIMforward.png" in results
     basis = os.listdir(edit.cfg.basis_folder)
     assert basis == ["local_basis-noise_0-0.5T-mid-block_0-seed_0-pca_rank_2"
-                     "-clsg2.0-y0.npz"]
+                     "-clsg2.0-y0" + basis_ext()]
     with open(edit.log.path) as f:
         events = [json.loads(line) for line in f]
     assert [e["encoder"] for e in events if e["event"] == "local_pullback"] == ["xla"]

@@ -5,8 +5,9 @@ defaults to SD 2.1-base); every command line of the three edit scripts in
 scripts/, its loop variables filled in by bash, parses in both packages;
 the port's preset copies --sh_file_name's script where the JAX preset
 copies it, refuses --use_yh_custom_scheduler False as the JAX preset's
-assert does, maps --xsg_pair_impl auto as it does, and refuses the flags
-of open ROADMAP items, naming the item. Runs on the CPU; nothing is
+assert does, maps --xsg_pair_impl auto as it does, refuses the flags of
+open ROADMAP items, naming the item, and takes the tooling flags
+--profile_dir and --aot_export into the run. Runs on the CPU; nothing is
 built."""
 
 import os
@@ -117,14 +118,50 @@ def test_xsg_pair_impl_auto_maps_as_the_jax_preset(model, tmp_path, monkeypatch)
 
 
 @pytest.mark.parametrize("flag, value, item", [
-    ("mesh_axes", "dp:2,probe:4", 16), ("attn_impl", "ring", 16),
-    ("aot_export", "on", 17), ("aot_export", "off", 17), ("profile_dir", "trace", 17)])
+    ("mesh_axes", "dp:2,probe:4", 16), ("attn_impl", "ring", 16)])
 def test_flags_of_open_items_raise_naming_the_item(flag, value, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     args = tmain.parse_args(["--note", "x", f"--{flag}", value])
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
         tmain.check_preset(args)
     assert not os.path.exists(tmp_path / "runs")
+
+
+@pytest.mark.parametrize("flag, value", [
+    ("profile_dir", "trace"), ("aot_export", "on"), ("aot_export", "off")])
+def test_tooling_flags_are_accepted_and_reach_the_run(flag, value, tmp_path, monkeypatch):
+    """--profile_dir and --aot_export (ROADMAP queue 1, item 17) on a tiny
+    CLI run (adm_tiny(16) in place of ImageNet256Uncond, run_ddim_forward):
+    the profiler's trace of the run lands in the folder; the driver takes
+    the export mode, and 'on' stores the per-step ε program (in a folder
+    of the test's), 'off' runs it eagerly."""
+    import json
+
+    from diffusion_pullback_tpu_torch import models as tmodels
+    from diffusion_pullback_tpu_torch.utils import aot
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tmodels, "model_for_name", lambda name, dtype="float32",
+                        attn_impl="": tmodels.UNetADM(tmodels.adm_tiny(16)))
+    monkeypatch.setattr(aot, "default_export_dir", lambda: str(tmp_path / "exports"))
+    argv = ["--note", "x", "--device", "cpu", "--model_name", "ImageNet256Uncond",
+            "--performance_boosting_t", "0.2", "--run_ddim_forward", "True",
+            f"--{flag}", value]
+    edit = tmain.main(argv)
+    assert "DDIMforward.png" in os.listdir(edit.cfg.result_folder)
+    with open(edit.log.path) as f:
+        programs = [(e["name"], e["status"]) for e in map(json.loads, f)
+                    if e["event"] == "aot_program"]
+    if flag == "profile_dir":
+        (trace,) = os.listdir(tmp_path / "trace")
+        with open(tmp_path / "trace" / trace) as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert "aten::convolution" in names
+        assert programs == [("eps", "eager")]   # --aot_export auto: eager
+        return
+    assert edit.cfg.aot_export == value
+    assert programs == [("eps", "exported" if value == "on" else "eager")]
+    assert os.path.isdir(tmp_path / "exports") == (value == "on")
 
 
 def test_debug_nans_runs_build_and_dispatch_under_anomaly_detection(monkeypatch):

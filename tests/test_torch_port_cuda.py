@@ -2,8 +2,9 @@
 design the C library's rule reports ('wgmma' for K1–K5 in bf16 at D=64 and
 at SD 1.5's and ImageNet128Cond's head dims 40, 80, 128 and 160, 'tf32x3'
 for K1 in f32 at D=512, 'simt' otherwise: every kernel in f32 at those head
-dims and K1 in bf16 at 512), and the fused pair under torch.func against
-the math path. Marked ``cuda``: these
+dims and K1 in bf16 at 512), the fused pair under torch.func against
+the math path, the kernels' custom ops counting the CPU's FLOPs, and a K1
+program exported and reloaded. Marked ``cuda``: these
 skip without a GPU and run on one with
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
@@ -410,3 +411,69 @@ def test_train_step_on_the_pair_matches_plain_versions(cuda, monkeypatch):
     for k, g in grads.items():
         err = (g - ref[k]).abs().max().item()
         assert g.dtype == torch.float32 and err <= 4 * _tol(ref[k], torch.bfloat16), (k, err)
+
+
+def _op_counts(fn, *args):
+    """{op name: FLOPs} that FlopCounterMode counts over fn(*args)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    return {str(op).split(".")[-1]: n for op, n in counter.get_flop_counts()["Global"].items()}
+
+
+@pytest.mark.parametrize("shape", [(2, 1024, 64), (10, 4096, 40)])
+def test_custom_op_counts_on_the_card_equal_the_cpu(cuda, shape):
+    """Each kernel's custom op counts the same FLOPs whether the card's
+    kernel or the CPU's plain version runs it (K3–K5 with 3 probes' slices),
+    and the card's count launches the kernel once."""
+    bh, s, d = shape
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(bh, s, d, generator=gen) for _ in range(3))
+    t = torch.randn(3 * bh, s, d, generator=gen)
+    o, lse = fa.flash_forward_lse_plain(q, k, v, d ** -0.5)
+    delta = torch.randn(3 * bh, s, generator=gen)
+    calls = {"flash_forward": lambda *a: fa.flash_forward(*a[:3], d ** -0.5),
+             "flash_forward_lse": lambda *a: fa.flash_forward_lse(*a[:3], d ** -0.5),
+             "flash_tangent": lambda q, k, v, t, o, lse, delta: fa.flash_tangent(
+                 q, k, v, t, t, t, o, lse, d ** -0.5),
+             "flash_dq": lambda q, k, v, t, o, lse, delta: fa.flash_dq(
+                 q, k, v, t, lse, delta, d ** -0.5),
+             "flash_dkv": lambda q, k, v, t, o, lse, delta: fa.flash_dkv(
+                 q, k, v, t, lse, delta, d ** -0.5)}
+    for name, call in calls.items():
+        # the operands in bf16, L and δ (two dims) in f32
+        args = [a.to(torch.bfloat16) if a.dim() == 3 else a
+                for a in (q, k, v, t, o, lse, delta)]
+        cpu = _op_counts(call, *args)
+        before = getattr(fa, name).launches
+        card = _op_counts(call, *(a.to(cuda) for a in args))
+        torch.cuda.synchronize()
+        assert card == cpu and len(card) == 1, name
+        assert getattr(fa, name).launches == before + 1, name
+
+
+def test_k1_program_exports_and_reloads_on_the_card(cuda, tmp_path, monkeypatch):
+    """An SD-shaped self-attention through K1 (the custom op) as a stored
+    program: exported on the card, reloaded by a fresh cache with export
+    refused, launching K1 with the eager output bit for bit."""
+    from diffusion_pullback_tpu_torch.utils.aot import AOTProgramCache
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn(1, 4096, 5, 64, device=cuda, generator=gen,
+                           dtype=torch.bfloat16) for _ in range(3))
+    attend = lambda q, k, v: fa.flash_attention(q, k, v) * 2.0
+    with torch.no_grad():
+        eager = attend(q, k, v)
+        out = AOTProgramCache(str(tmp_path)).wrap("attend", attend)(q, k, v)
+        (path,) = tmp_path.iterdir()
+        assert "dpx.flash_fwd" in str(torch.export.load(str(path)).graph)
+
+        def refuse(*a, **kw):
+            raise AssertionError("exported again instead of loading")
+        monkeypatch.setattr(torch.export, "export", refuse)
+        before = fa.flash_forward.launches
+        again = AOTProgramCache(str(tmp_path)).wrap("attend", attend)(q, k, v)
+        torch.cuda.synchronize()
+    assert fa.flash_forward.launches == before + 1
+    assert torch.equal(out, eager) and torch.equal(again, eager)

@@ -12,7 +12,7 @@ import json
 import os
 
 import pytest
-from torch_port_common import one_torch_thread  # noqa: F401
+from torch_port_common import basis_ext, one_torch_thread  # noqa: F401
 
 from diffusion_pullback_tpu.utils.config import parse_args as jparse_args
 from diffusion_pullback_tpu.utils.config import preset as jpreset
@@ -155,7 +155,8 @@ def test_mean_basis_edits_run_on_uncond(monkeypatch, tmp_path, flag, tag):
                        "--edit_t", "0.5", "--x_space_guidance_num_step", "2",
                        "--num_local_basis", "2", flag, "True"] + BOOST)
     assert sorted(os.listdir(edit.cfg.basis_folder)) == [
-        f"local_basis-noise_{i}-0.5T-mid-block_0-seed_0-pca_rank_10.npz" for i in (0, 1)]
+        f"local_basis-noise_{i}-0.5T-mid-block_0-seed_0-pca_rank_10{basis_ext()}"
+        for i in (0, 1)]
     pngs = os.listdir(edit.cfg.result_folder)
     assert len(pngs) == 4 and all(n.startswith(f"Edit_{tag}-noise_0-edit_0.5T-mid")
                                   for n in pngs)

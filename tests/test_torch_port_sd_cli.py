@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_common import one_torch_thread, sd_driver_pair  # noqa: F401
+from torch_port_common import basis_ext, one_torch_thread, sd_driver_pair  # noqa: F401
 
 from diffusion_pullback_tpu.utils.config import parse_args as jparse_args
 from diffusion_pullback_tpu_torch import main as tmain
@@ -82,7 +82,7 @@ def test_cfg_intra_block_tap_and_deepcache_dispatch(tiny_sd):
     assert [e["encoder"] for e in events if e["event"] == "sd_local_pullback"] == [
         "xla_cfg2.5"]
     basis = os.listdir(edit.cfg.basis_folder)
-    assert len(basis) == 1 and basis[0].endswith("-after_res0-cfg2.5.npz")
+    assert len(basis) == 1 and basis[0].endswith("-after_res0-cfg2.5" + basis_ext())
     stages = {e["event"]: e for e in events}
     assert stages["sd_x_space_guidance_walk"]["deepcache"] == 2
     assert stages["sd_finish_forward"]["deepcache"] == 2

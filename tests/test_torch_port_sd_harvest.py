@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 from torch_port_common import (  # noqa: F401
+    basis_ext,
     basis_stem,
     one_torch_thread,
     same_basis_files,
@@ -100,7 +101,7 @@ def test_t_grid_names_match_jax(fresh, monkeypatch, variant):
     mine = tdrv.run_sample_encoder_local_tangent_space_zt_batched(
         0, pca_rank=RANK, t_grid=T_GRID[:2], **variant)
     suffix = "-cfg2.5" if scale else f"-after_{'res' if 'after_res' in variant else 'attn'}0"
-    assert all(os.path.basename(p).endswith(suffix + ".npz") for p in mine.values())
+    assert all(os.path.basename(p).endswith(suffix + basis_ext()) for p in mine.values())
     for p in mine.values():
         shutil.copy(p, jdrv.cache.root)
     monkeypatch.setattr(jdrv, "_jitted", None)   # a cache miss would compile

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
-from torch_port_common import one_torch_thread  # noqa: F401
+from torch_port_common import basis_ext, one_torch_thread  # noqa: F401
 
 from diffusion_pullback_tpu import experiments as jexp
 from diffusion_pullback_tpu import models as jmodels
@@ -127,7 +127,7 @@ def test_cli_folders_match_jax(tmp_path, monkeypatch, model, flags):
 def test_basis_cache_reads_past_a_corrupt_dpb(tmp_path):
     u, s, vT = (np.arange(n, dtype=np.float32).reshape(shape) + 1 for n, shape in
                 ((6, (3, 2)), (2, (2,)), (8, (2, 4))))
-    BasisCache(str(tmp_path)).save("b", u, s, vT)
+    np.savez(tmp_path / "b.npz", u=u, s=s, vT=vT)
     (tmp_path / "b.dpb").write_bytes(b"\x00" * 40)   # unreadable, tried first
     for mine, want in zip(BasisCache(str(tmp_path)).load("b"), (u, s, vT)):
         np.testing.assert_array_equal(mine, want)
@@ -205,7 +205,7 @@ def test_uncond_cli_runs_on_cpu(tmp_path, monkeypatch):
     assert os.listdir(os.path.join(
         "inputs", "local_encoder_pullback_uncond-dataset_CelebA_HQ-num_steps_100"
                   "-pca_rank_2")) == [
-        "local_basis-CelebA_HQ_0-0.5T-mid-block_0-seed_0-pca_rank_2.npz"]
+        "local_basis-CelebA_HQ_0-0.5T-mid-block_0-seed_0-pca_rank_2" + basis_ext()]
     with open(edit.log.path) as f:
         events = [json.loads(line) for line in f]
     stages = [e["event"] for e in events if "seconds" in e]

@@ -15,7 +15,7 @@ import types
 
 import pytest
 import torch
-from torch_port_common import one_torch_thread  # noqa: F401
+from torch_port_common import basis_ext, one_torch_thread  # noqa: F401
 
 from diffusion_pullback_tpu import experiments as jexp
 from diffusion_pullback_tpu import models as jmodels
@@ -137,7 +137,7 @@ def test_uncond_runs_end_to_end(tmp_path, monkeypatch):
     assert edit.cfg.obs_folder == os.path.join(os.path.dirname(edit.cfg.result_folder),
                                                "obs")
     assert sorted(os.listdir(edit.cfg.basis_folder)) == [
-        f"local_basis-noise_{i}-0.5T-mid-block_0-seed_0-pca_rank_{r}.npz"
+        f"local_basis-noise_{i}-0.5T-mid-block_0-seed_0-pca_rank_{r}{basis_ext()}"
         for i, r in ((1, 50), (2, 50), (3, 2))]
     # transport 1 and 2, h-space 3, decoder 3, then --run_ddim_inversion 3
     assert inverted == [1, 2, 3, 3, 3]

@@ -52,6 +52,14 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def basis_ext() -> str:
+    """The extension the port's BasisCache writes here: .dpb through the
+    native library when it builds, else .npz."""
+    from diffusion_pullback_tpu_torch.utils import native
+
+    return ".dpb" if native.get_lib() is not None else ".npz"
+
+
 PLAIN = ("flash_forward_plain", "flash_forward_lse_plain", "flash_tangent_plain",
          "flash_dq_plain", "flash_dkv_plain")
 
@@ -289,7 +297,7 @@ def basis_stem(path: str) -> str:
 
 
 def same_basis_files(a: str, b: str, cos_min: float = 0.99, sigma_rtol: float = 1e-3):
-    """Two basis files (the port's .npz, the JAX package's .dpb or .npz)
+    """Two basis files (either package's .dpb or .npz)
     within σ rtol ``sigma_rtol`` and cosine ≥ ``cos_min`` per σ-gap group."""
     import os
 
