@@ -7,7 +7,7 @@ Phases (any failure exits non-zero before the last line is printed):
                the main path gives it, float32 (TF32 off) and bfloat16, with
                the design that served it as the C library's one rule
                reports it ('wgmma': K1–K5 in bf16 at D=40, 64, 80, 128
-               and 160; 'tf32x3': K1 in f32 at D=512; 'simt': the
+               and 160; 'tf32x3': K1 and K2 in f32 at D=512; 'simt': the
                CUDA-core kernels, every kernel in f32 at those head
                dims), the kernel's,
                the plain version's and a PyTorch yardstick's times
@@ -18,9 +18,9 @@ Phases (any failure exits non-zero before the last line is printed):
                never calls them), with the kernels the profiler saw serve
                the yardsticks of K1 at D=512 and of K3, the host's time per
                wrapper call, the bound, the achieved TFLOP/s and the bound's
-               share of the kernel's time; for K1 on 'tf32x3' also the error
-               of one TF32 product per f32 product, which its gate must
-               reject;
+               share of the kernel's time; for K1 and K2 on 'tf32x3' also
+               the error of one TF32 product per f32 product, which their
+               gate must reject;
                then the fused pair under torch.func (vmap of jvp, vmap of a
                vjp function) against the math path;
   3. U-Net   — one full-width SD 2.1-base U-Net: ε with attn_impl='flash'
@@ -156,16 +156,31 @@ Phases (any failure exits non-zero before the last line is printed):
                the pair and the math path) and its stage's TFLOP/s and MFU;
                ε at full width counting the same FLOPs with 'flash' as with
                'xla'; load_batch of the bundled images within one level of
-               __getitem__, a .dpb basis bit for bit, the codecs reported.
-Phases 1–2 hold every (kernel, shape) that phases 4 and 6–14 launch.
+               __getitem__, a .dpb basis bit for bit, the codecs reported;
+ 15. parallel — the device mesh (parallel/): ring attention's per-rank loop
+               over 2 and 4 virtual ranks in one process, K2 per ring step
+               at the shard shapes of SD 2.1-base's self-attentions (bf16,
+               'wgmma') and of the VAE's 512-wide head (f32, 'tf32x3'),
+               held to the same ring on K2's plain version and to dense
+               attention, each launch's design as the C entries counted it
+               where they launched; the CLI (main.main) with --mesh_axes
+               sp:4 at one rank: auto becomes ring, no mesh is built, and a
+               full-width U-Net pass launches K1 as 'flash' does; then NCCL
+               at world size 1: a ('dp', 'probe', 'sp', 'tp') mesh, the
+               probe-sharded pullback of the full-width SD 2.1-base mid tap
+               on the pair against local_pullback, dp_vmap over two
+               pullbacks, and the ring over the one-rank 'sp' group against
+               dense K1.
+Phases 1–2 hold every (kernel, shape) that phases 4 and 6–15 launch.
 Then a JSON line of the kernels (one entry per kernel, design and head dim
-over phases 4 and 6–14, at the shape that carries most of that entry's
+over phases 4 and 6–15, at the shape that carries most of that entry's
 device time there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
 
 import collections
 import contextlib
+import io
 import json
 import math
 import os
@@ -301,6 +316,14 @@ PAIR_CASES += [(*shape, PCA_RANK, (F32, BF16), ("K2", "K3", "K4", "K5"))
 TRAIN_BATCH = 4
 PAIR_CASES += [(8 * b, 1024, 64, 1, (BF16,), ("K2", "K4", "K5"))
                for b in (TRAIN_BATCH, TRAIN_BATCH // 2)]
+# phase 15: ring attention's K2 at its shard shapes, the ring over n = 2
+# and 4 virtual ranks: SD 2.1-base's self-attentions in bf16 (5 heads of
+# 64 over 4096 tokens, 10 over 1024) and the VAE's single 512-wide head
+# over 4096 tokens in f32 ('tf32x3'); each rank runs K2 at (B·H, S/n, D)
+RING_CASES = [((5, 4096, 64), BF16), ((10, 1024, 64), BF16), ((1, 4096, 512), F32)]
+RING_NS = (2, 4)
+PAIR_CASES += [(bh, s // n, d, 1, (dt,), ("K2",)) for (bh, s, d), dt in RING_CASES
+               for n in RING_NS]
 # C symbol → (label, wrapper, source in ops/csrc by design, line of the
 # pl.pallas_call it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
 KERNELS = {
@@ -308,7 +331,8 @@ KERNELS = {
                   {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu",
                    "tf32x3": "flash_fwd_tf32.cu"}, 190),
     "flash_fwd_lse": ("K2", "flash_forward_lse",
-                      {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu"}, 262),
+                      {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu",
+                       "tf32x3": "flash_fwd_tf32.cu"}, 262),
     "flash_tangent": ("K3", "flash_tangent",
                       {"simt": "flash_jvp.cu", "wgmma": "flash_jvp_tc.cu"}, 505),
     "flash_dq": ("K4", "flash_dq",
@@ -409,15 +433,16 @@ def one_tf32_forward(q, k, v, scale):
     return tf32(p) @ tf32(v)
 
 
-def pair_tol(ref):
+def pair_tol(ref, design="simt"):
     """K2–K5 against their plain versions: for a float32 output 1e-4 of
     max(1, max |ref|) (f32 sums in another order; the f32 outputs reach
-    |x| ≈ 10 for L), for a bfloat16 one two ulps of max |ref| (as K1).
-    Dropping one 64-key tile (K5: one 64-query tile) from the plain versions
-    at these shapes moves the outputs by far more than either."""
+    |x| ≈ 10 for L), TF32X3_TOL of it on 'tf32x3' (K2 at D = 512, K1's
+    gate), for a bfloat16 one two ulps of max |ref| (as K1). Dropping one
+    64-key tile (K5: one 64-query tile) from the plain versions at these
+    shapes moves the outputs by far more than either."""
     top = ref.float().abs().max().item()
     if ref.dtype == torch.float32:
-        return 1e-4 * max(1.0, top)
+        return (TF32X3_TOL if design == "tf32x3" else 1e-4) * max(1.0, top)
     return 2 * torch.finfo(ref.dtype).eps * 2.0 ** math.floor(math.log2(top))
 
 
@@ -594,30 +619,47 @@ def phase_pair(fa):
                     log(f"[k3] ({bh}, {s}, {d}) {str(dtype)[6:]}: "
                         f"torch.func.jvp of SDPA on the math backend {served} (on "
                         f"SDPA's own choice it {default})")
+            backward = {"K4", "K5"} & set(labels)
             if dtype == torch.bfloat16:  # the flash SDPA ops take bf16 only
-                fwd4 = sdpa(q4, k4, v4, 0.0, False, False, scale=scale)
-                bwd_args = (do[None], q4, k4, v4, *fwd4[:6], 0.0, False, *fwd4[6:8])
                 library["K2"] = cuda_ms(lambda: sdpa(
                     q[None], k[None], v[None], 0.0, False, False, scale=scale), 20)
-                library["K4"] = library["K5"] = cuda_ms(
-                    lambda: sdpa_bwd(*bwd_args, scale=scale), 20)
+                if backward:
+                    fwd4 = sdpa(q4, k4, v4, 0.0, False, False, scale=scale)
+                    bwd_args = (do[None], q4, k4, v4, *fwd4[:6], 0.0, False, *fwd4[6:8])
+                    library["K4"] = library["K5"] = cuda_ms(
+                        lambda: sdpa_bwd(*bwd_args, scale=scale), 20)
             else:  # f32: the memory-efficient SDPA ops (output + logsumexp)
-                out4, lse4, seed, offset = eff(q4, k4, v4, None, True, 0.0, False,
-                                               scale=scale)
-                bwd_args = (do[None], q4, k4, v4, None, out4, lse4, seed, offset,
-                            0.0, [True, True, True, False], False)
-                library["K2"] = cuda_ms(lambda: eff(
-                    q[None], k[None], v[None], None, True, 0.0, False,
-                    scale=scale), 20)
-                library["K4"] = library["K5"] = cuda_ms(
-                    lambda: eff_bwd(*bwd_args, scale=scale), 20)
+                try:
+                    library["K2"] = cuda_ms(lambda: eff(
+                        q[None], k[None], v[None], None, True, 0.0, False,
+                        scale=scale), 20)
+                except RuntimeError as e:  # e.g. a head dim it does not take
+                    library["K2"] = None
+                    log(f"[k2] ({bhp}, {s}, {d}) f32: the memory-efficient SDPA "
+                        f"forward with logsumexp refuses it: {str(e).splitlines()[0]}")
+                if backward:
+                    out4, lse4, seed, offset = eff(q4, k4, v4, None, True, 0.0, False,
+                                                   scale=scale)
+                    bwd_args = (do[None], q4, k4, v4, None, out4, lse4, seed, offset,
+                                0.0, [True, True, True, False], False)
+                    library["K4"] = library["K5"] = cuda_ms(
+                        lambda: eff_bwd(*bwd_args, scale=scale), 20)
             for label, (kernel, plain) in calls.items():
                 outs, refs = kernel(), plain()
                 torch.cuda.synchronize()
                 outs = outs if isinstance(outs, tuple) else (outs,)
                 refs = refs if isinstance(refs, tuple) else (refs,)
-                errs = [((a.float() - b.float()).abs().max().item(), pair_tol(b))
+                design = fa.design(label, d, dtype)
+                errs = [((a.float() - b.float()).abs().max().item(), pair_tol(b, design))
                         for a, b in zip(outs, refs)]
+                if design == "tf32x3":
+                    # the gate must reject one TF32 product per f32 product
+                    one = (one_tf32_forward(q, k, v, scale) - refs[0]).abs().max().item()
+                    log(f"[{label.lower()}] ({bhp}, {s}, {d}) f32: one TF32 product "
+                        f"per product reads {one:.3g}, over the gate {errs[0][1]:.3g}")
+                    if not one > errs[0][1]:
+                        raise AssertionError(f"{label}'s tf32x3 gate passes one TF32 "
+                                             f"product at ({bhp}, {s}, {d})")
                 shape = (bhp if label == "K2" else r * bhp, s, d)
                 row = dict(max_abs_err=max(e for e, _ in errs),
                            ms=cuda_ms(kernel, 20), host_us=host_us(kernel),
@@ -627,7 +669,7 @@ def phase_pair(fa):
                 rr = 1 if label == "K2" else r
                 row["bound_ms"], row["bound_by"] = pair_bound_ms(
                     label, bhp, rr, s, d, dtype)
-                row["design"] = fa.design(label, shape[-1], dtype)
+                row["design"] = design
                 rows[(label, shape, dtype)] = row
                 log(f"[{label.lower()}] {shape} {str(dtype)[6:]}: max_abs_err "
                     + ", ".join(f"{e:.3g} (tol {t:.3g})" for e, t in errs)
@@ -3270,6 +3312,228 @@ def phase_tooling(fa):
         raise AssertionError("phase 14 checks failed")
     return paths
 
+def ring_gate(out, dense, math32, dtype):
+    """The merged ring against the dense f32 math: in f32 TF32X3_TOL (the
+    shards' K2 on 'tf32x3' and the merge in f32), in bf16 no further than
+    twice dense K1's own distance from it (the ring rounds P to bf16
+    against each shard's running max, K1 against the whole row's)."""
+    err = (out.float() - math32).abs().max().item()
+    if dtype == torch.float32:
+        return err, TF32X3_TOL
+    return err, 2 * (dense.float() - math32).abs().max().item()
+
+
+def served_designs(fa, fn):
+    """(fn's result, its launches by (kernel, design) as the C entries count
+    them in the branch that launched each kernel)."""
+    pairs = [(k, d) for k in fa.KERNELS for d in fa.DESIGNS]
+    before = {kd: fa.served(*kd) for kd in pairs}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, collections.Counter(
+        {kd: fa.served(*kd) - before[kd] for kd in pairs if fa.served(*kd) > before[kd]})
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_parallel(fa):
+    """Phase 15, the device mesh (parallel/):
+    (a) ring attention's per-rank loop (ring_merge) over n = 2 and 4
+        virtual ranks in one process, the K/V shards handed in ring order,
+        K2 per ring step at the shard shapes of RING_CASES (SD 2.1-base's
+        self-attentions in bf16 on 'wgmma', the VAE's 512-wide head in f32
+        on 'tf32x3'): its n² K2 launches counted, the ring held to the same
+        ring on K2's plain version (K2's gates, one more bf16 ulp for the
+        merged output's final rounding) and to the dense f32 math
+        (ring_gate), the design of each launch as the C entries counted
+        it in the branch that launched it (served_designs);
+    (b) NCCL at world size 1: make_mesh(('dp', 'probe', 'sp', 'tp')), the
+        probe-sharded pullback of the full-width SD 2.1-base U-Net's mid
+        tap (the fused pair, pca_rank 2, injected probes) against
+        local_pullback, dp_vmap over two such pullbacks, and ring_attention
+        over the one-rank 'sp' group (one K2) against dense K1;
+    (c) the CLI at one rank with --mesh_axes sp:4: the preset's auto →
+        ring, build_mesh's single-chip line and no mesh, the pullback on
+        the pair, and one full-width U-Net pass of the driver main.main
+        built launching K1 at every self-attention, as 'flash' does (the
+        ring's fallback on the card)."""
+    import torch.distributed as dist
+
+    from diffusion_pullback_tpu_torch.geometry import local_pullback
+    from diffusion_pullback_tpu_torch.models import (TapPoint, UNet2DCondition,
+                                                     random_init_, sd21_base_unet)
+    from diffusion_pullback_tpu_torch.models.layers import attn_impl_as
+    from diffusion_pullback_tpu_torch.parallel import (dp_vmap, make_mesh,
+                                                       make_sharded_pullback,
+                                                       ring_attention)
+    from diffusion_pullback_tpu_torch.parallel.mesh import mesh_shape
+    from diffusion_pullback_tpu_torch.parallel.ring_attention import (
+        _partial_flash, ring_attention_virtual)
+
+    paths, checks = [], {}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    fold = lambda x: x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[-1])
+    for (bh, s, d), dtype in RING_CASES:
+        q, k, v = (torch.randn(1, s, bh, d, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+        scale = d ** -0.5
+        dense = fa.flash_forward(fold(q), fold(k), fold(v), scale)
+        math32 = fa.flash_forward_plain(*(fold(t).float() for t in (q, k, v)), scale)
+        for n in RING_NS:
+            (out, designs), seconds, _, launches, path = drive(
+                fa, lambda: served_designs(
+                    fa, lambda: ring_attention_virtual(q, k, v, n, inner="flash")))
+            expected = collections.Counter({("flash_fwd_lse", (bh, s // n, d), dtype): n * n})
+            tag = f"({bh},{s},{d}) {str(dtype)[6:]} over {n}"
+            checks[f"(a) {tag}: {n * n} K2 launches at the shard shape"] = check_launches(
+                "ring", launches, path, expected)
+            plain = ring_attention_virtual(
+                q, k, v, n, partial=lambda a, b, c: _partial_flash(
+                    a, b, c, scale, fa.flash_forward_lse_plain))
+            out_bh = fold(out)
+            design = fa.design("K2", d, dtype)
+            # the merge is a convex combination of the shards' outputs in
+            # f32, so it keeps K2's gate; in bf16 the final cast may round
+            # the other way, one ulp of max |plain| more
+            ref = fold(plain)
+            e_plain = (out_bh.float() - ref.float()).abs().max().item()
+            t_plain = pair_tol(ref, design) + (0.0 if dtype == torch.float32 else
+                                               pair_tol(ref) / 2)
+            e_dense, t_dense = ring_gate(out_bh, dense, math32, dtype)
+            log(f"[ring] {tag}: {seconds:.4f} s, vs the ring on K2's plain version "
+                f"{e_plain:.3g} (tol {t_plain:.3g}), vs the dense f32 math {e_dense:.3g} "
+                f"(tol {t_dense:.3g}), the rule's design {design}, launches by design "
+                f"as the C entries counted them {dict(designs)}")
+            checks[f"(a) {tag}: within K2's gate of the plain ring"] = e_plain <= t_plain
+            checks[f"(a) {tag}: within the ring gate of dense attention"] = e_dense <= t_dense
+            want = "tf32x3" if dtype == torch.float32 else "wgmma"
+            checks[f"(a) {tag}: every K2 launch served by {want}"] = (
+                design == want and designs == {("K2", want): n * n})
+            paths.append(path)
+        del q, k, v, dense, math32
+    torch.cuda.empty_cache()
+
+    # (b) NCCL at world size 1
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(("dp", "probe", "sp", "tp"), device="cuda")
+        log(f"[mesh] {dist.get_backend()} mesh {mesh_shape(mesh)}")
+        checks["(b) the mesh: NCCL, every axis 1"] = (
+            dist.get_backend() == "nccl" and set(mesh_shape(mesh).values()) == {1})
+        unet = random_init_(UNet2DCondition(sd21_base_unet(attn_impl="flash")), 0)
+        unet = unet.cuda().eval().requires_grad_(False).to(torch.bfloat16)
+        z = torch.randn(2, 1, 4, 64, 64, device="cuda", generator=gen)
+        ctx = torch.randn(1, 77, 1024, device="cuda", generator=gen)
+        v0 = torch.stack([torch.linalg.qr(torch.randn(z[0].numel(), PCA_RANK, device="cuda",
+                                                      generator=gen))[0].T for _ in range(2)])
+
+        def enc(impl):
+            def f(x):
+                with attn_impl_as(unet, impl):
+                    return unet.encode(x, 500.0, ctx, TapPoint("mid"))
+            return f
+
+        kw = dict(pca_rank=PCA_RANK, min_iter=3, max_iter=3, atol=0.0)
+        runner = make_sharded_pullback(enc("flash_jvp"), mesh, fn_vjp=enc("flash"),
+                                       v_init=v0[0], **kw)
+        res, seconds, peak, launches, path = drive(fa, lambda: runner(z[0], None))
+        expected = collections.Counter()
+        pair_k2_k5(expected, torch.bfloat16, 3, layers=2)
+        checks["(b) sharded pullback: K2–K5 launches"] = check_launches(
+            "mesh", launches, path, expected)
+        paths.append(path)
+        ref = local_pullback(enc("flash_jvp"), z[0], fn_vjp=enc("flash"), v_init=v0[0], **kw)
+        srel = ((res.s - ref.s).abs() / ref.s).max().item()
+        cos = (res.vT * ref.vT).sum(dim=1).abs().min().item()
+        same = torch.equal(res.s, ref.s) and torch.equal(res.vT, ref.vT)
+        log(f"[mesh] sharded pullback: {seconds:.3f} s, peak {peak:.2f} GB, sigma "
+            f"{res.s.tolist()} vs {ref.s.tolist()} (max rel {srel:.3g}, tol 1e-3), "
+            f"min |cos| {cos:.6f} (tol 0.99), bit for bit {same}")
+        checks["(b) sharded pullback equals local_pullback"] = srel <= 1e-3 and cos >= 0.99
+
+        sweep = dp_vmap(lambda x, v: local_pullback(
+            enc("flash_jvp"), x, fn_vjp=enc("flash"), v_init=v, **kw), mesh)
+        out, seconds, _, launches, path = drive(fa, lambda: sweep(z, v0))
+        expected = collections.Counter()
+        for _ in range(2):
+            pair_k2_k5(expected, torch.bfloat16, 3, layers=2)
+        checks["(b) dp_vmap: K2–K5 launches of two pullbacks"] = check_launches(
+            "mesh", launches, path, expected)
+        paths.append(path)
+        same0 = torch.equal(out.s[0], ref.s) and torch.equal(out.vT[0], ref.vT)
+        log(f"[mesh] dp_vmap over 2 pullbacks: {seconds:.3f} s, sigma {out.s.tolist()}, "
+            f"first equals local_pullback bit for bit: {same0}")
+        checks["(b) dp_vmap: the first pullback equals local_pullback"] = bool(
+            torch.isfinite(out.s).all() and
+            ((out.s[0] - ref.s).abs() / ref.s).max().item() <= 1e-3
+            and (out.vT[0] * ref.vT).sum(dim=1).abs().min().item() >= 0.99)
+        del unet
+        torch.cuda.empty_cache()
+
+        q, k, v = (torch.randn(1, 4096, 5, 64, device="cuda", generator=gen).to(BF16)
+                   for _ in range(3))
+        out, _, _, launches, path = drive(fa, lambda: ring_attention(q, k, v, mesh=mesh))
+        checks["(b) the one-rank ring: one K2"] = check_launches(
+            "mesh", launches, path,
+            collections.Counter({("flash_fwd_lse", (5, 4096, 64), BF16): 1}))
+        paths.append(path)
+        dense = fa.flash_forward(fold(q), fold(k), fold(v), 64 ** -0.5)
+        err = (fold(out).float() - dense.float()).abs().max().item()
+        tol = k1_tol(dense, BF16, "wgmma")
+        log(f"[mesh] ring over the one-rank sp group vs dense K1: {err:.3g} (tol {tol:.3g})")
+        checks["(b) the one-rank ring equals dense K1"] = err <= tol
+    finally:
+        dist.destroy_process_group()
+
+    # (c) --mesh_axes sp:4 on one card: the single-chip run keeps the kernels
+    from diffusion_pullback_tpu_torch import main as port_main
+    from diffusion_pullback_tpu_torch.parallel import get_ring_mesh
+
+    out_dir = os.path.join(OUT, "mesh_sp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with torch.device("cuda"), contextlib.redirect_stdout(printed):  # weights on the card
+        edit = port_main.main(["--note", "chip_smoke", "--result_folder", out_dir,
+                               "--mesh_axes", "sp:4"])
+    for line in printed.getvalue().splitlines():
+        log(f"[mesh sp:4] {line}")
+    unet = edit.unet
+    dtype = next(unet.parameters()).dtype
+    z = torch.randn(1, 4, 64, 64, device="cuda", generator=gen)
+    ctx = torch.randn(1, 77, 1024, device="cuda", generator=gen)
+    with torch.no_grad():
+        eps, seconds, _, launches, path = drive(fa, lambda: unet(z, 500.0, ctx))
+    expected = collections.Counter()
+    unet_k1(expected, 1, 1, dtype)
+    log(f"[mesh sp:4] built in {time.perf_counter() - t0:.1f} s, attn "
+        f"{unet.config.attn_impl}, pullback attn {edit.cfg.pullback_attn_impl}, ring "
+        f"mesh {get_ring_mesh()[0]}, one U-Net pass {seconds:.3f} s")
+    checks["(c) sp:4 at one rank: auto -> ring, no mesh, the pair for the pullback"] = (
+        unet.config.attn_impl == "ring" and edit.cfg.mesh is None
+        and get_ring_mesh()[0] is None and edit.cfg.pullback_attn_impl == "flash"
+        and "only 1 device visible; running single-chip" in printed.getvalue())
+    checks["(c) sp:4 at one rank: a U-Net pass launches K1 at every self-attention"] = (
+        check_launches("mesh sp:4", launches, path, expected)
+        and bool(torch.isfinite(eps).all()) and eps.shape == z.shape)
+    paths.append(path)
+    del edit, unet, eps
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    for what, ok in checks.items():
+        log(f"[parallel] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("phase 15 checks failed")
+    return paths
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3334,6 +3598,8 @@ def main():
     lap("phase 13")
     paths += phase_tooling(fa)
     lap("phase 14")
+    paths += phase_parallel(fa)
+    lap("phase 15")
 
     # every (kernel, shape, dtype) the main paths launched was held against
     # its plain version in phases 1–2
@@ -3345,7 +3611,7 @@ def main():
                              f"did not hold against their plain versions: {missing}")
 
     # launches and summed device time of each (kernel, shape) over the main
-    # paths of phases 4 and 6–14
+    # paths of phases 4 and 6–15
     merged = collections.defaultdict(lambda: [0, 0.0])
     for path in paths:
         for key, (n, ms) in path.items():
@@ -3353,11 +3619,11 @@ def main():
             merged[key][1] += ms
     for (sym, shape, dtype), (n, ms) in sorted(merged.items(), key=lambda kv: -kv[1][1]):
         log(f"[paths] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches, "
-            f"{ms:.3f} ms on the device over phases 4 and 6–14")
-    log(f"[smoke] phases 1–14 in {time.perf_counter() - t_start:.1f} s")
+            f"{ms:.3f} ms on the device over phases 4 and 6–15")
+    log(f"[smoke] phases 1–15 in {time.perf_counter() - t_start:.1f} s")
 
     # one entry per kernel, design and head dim on the main paths (phases
-    # 4, 6–14): their launches and summed device time there (path_ms), and
+    # 4, 6–15): their launches and summed device time there (path_ms), and
     # the per-launch numbers of phases 1–2 at the shape that carries most
     # of that device time
     kernels = []

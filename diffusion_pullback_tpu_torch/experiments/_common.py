@@ -2,10 +2,19 @@
 diffusion_pullback_tpu/experiments/_common.py): the NHWC ↔ NCHW boundary,
 the synchronised stage timer, the exported programs, the tap construction,
 the grid index of a t, the seeded sample draw, the basis write and its
-analysis artifacts, and the post-edit regularizers."""
+analysis artifacts, the post-edit regularizers, and the device mesh: the
+weights' placement, the probe-sharded pullback's axis size and the dp
+sweeps.
+
+Under a mesh every rank runs the driver, and only rank 0 writes files
+(PNGs, bases, the JSONL log); a decision that rests on a file (a cache hit,
+an edit already on disk) is rank 0's on every rank (``_missing``,
+BasisCache.load), so every rank takes the same branch and runs the same
+collectives."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
@@ -14,8 +23,11 @@ from typing import Optional
 import torch
 
 from ..models.unet2d import TapPoint
+from ..parallel.mesh import agreed, axis_group, axis_size, is_writer
 from ..samplers.regularizers import (dynamic_thresholding, preserve_contrast,
                                      preserve_norm)
+
+Basis = collections.namedtuple("Basis", "u s vT")
 
 to_nchw = lambda z: z.permute(0, 3, 1, 2)
 to_nhwc = lambda z: z.permute(0, 2, 3, 1)
@@ -48,6 +60,10 @@ class DriverCommonMixin:
         eager process has no trace to save). Either way the outcome is
         logged once per program as an ``aot_program`` event."""
         mode = self.cfg.aot_export
+        if mode == "on" and getattr(self.cfg, "mesh", None) is not None:
+            # a program of collectives is not exported (the JAX package's
+            # mesh runs skip the export cache too)
+            mode = "on, not under a mesh"
         if mode != "on":
             logged = self.__dict__.setdefault("_eager_programs", set())
             if name not in logged:
@@ -121,7 +137,9 @@ class DriverCommonMixin:
         cfg.obs_folder: its eigenvalue spectrum and the RGB map of its
         directions (``shape`` one sample's (H, W, C)). Visualisation never
         ends a run: a failure to plot (matplotlib absent, say) is logged as
-        ``vis_failed``."""
+        ``vis_failed``. Rank 0 writes them."""
+        if not is_writer():
+            return
         s, vT = s.float().cpu().numpy(), vT.float().cpu().numpy()
         try:
             from .vis import plot_eigenvalue_spectrum, visualize_vT_rgb
@@ -157,3 +175,85 @@ class DriverCommonMixin:
             layer = self._arch_config.layers_per_block - 1
             return TapPoint(op, block_idx, ("res", layer) if after_res else ("attn", layer))
         return TapPoint(op, block_idx)
+
+    # ---- the device mesh ------------------------------------------------------
+
+    def _missing(self, path: str) -> bool:
+        """Whether ``path`` is missing, as rank 0 sees it (every rank takes
+        the branch rank 0 takes)."""
+        return agreed(not os.path.exists(path))
+
+    def _place_weights(self, module: torch.nn.Module) -> torch.nn.Module:
+        """Place ``module``'s weights on cfg.mesh: rank 0's weights on every
+        rank, then the Megatron layout when the mesh has a 'tp' axis
+        (parallel/tp.py). An 'sp' axis publishes the mesh for ring
+        attention (a mesh without one clears any earlier one). No mesh:
+        unchanged."""
+        mesh = self.cfg.mesh
+        if mesh is None:
+            return module
+        from ..parallel import set_ring_mesh, tp_shard_params
+
+        set_ring_mesh(mesh if axis_size(mesh, "sp") > 1 else None)
+        self._replicate(module)
+        if axis_size(mesh, "tp") > 1:
+            tp_shard_params(module, mesh)
+        return module
+
+    @staticmethod
+    def _replicate(module: torch.nn.Module) -> None:
+        """Rank 0's parameters and buffers on every rank."""
+        import torch.distributed as dist
+
+        with torch.no_grad():
+            for t in list(module.parameters()) + list(module.buffers()):
+                dist.broadcast(t.data, src=0)
+
+    def _mesh_probe_size(self, pca_rank: int) -> int:
+        """Probe-axis size when the configured mesh can shard this pullback
+        (0 = run on one rank): a 'probe' axis > 1 dividing pca_rank, and no
+        pullback_chunk_size (chunking and probe sharding exclude each
+        other, as in the JAX package; SDXL's chunked pullback stays
+        whole)."""
+        mesh = self.cfg.mesh
+        n = axis_size(mesh, "probe")
+        if n <= 1 or pca_rank % n != 0 or self.cfg.pullback_chunk_size:
+            return 0
+        return n
+
+    def _probe_group(self, pca_rank: int):
+        """The probe group of a pullback at ``pca_rank`` (None: unsharded)."""
+        return axis_group(self.cfg.mesh, "probe") if self._mesh_probe_size(pca_rank) else None
+
+    def _harvest_dp(self, n_items: int, log_name: str) -> int:
+        """dp-axis size when the configured mesh can shard an n-item sweep
+        (0 = every item on every rank)."""
+        dp = axis_size(self.cfg.mesh, "dp")
+        if dp <= 1:
+            return 0
+        if n_items % dp != 0:
+            self.log.log(log_name, num_t=n_items, dp=dp)
+            return 0
+        return dp
+
+    def _dp_sweep(self, items, compute, dp: int):
+        """The bases (u, s, vT) of ``compute(item)`` (a PullbackResult) for
+        every item: with dp > 1 the items, padded with the last to a
+        multiple of dp, split into contiguous shares, each rank computing
+        its own and the bases gathered over the mesh's 'dp' axis, whole on
+        every rank; else each item's PullbackResult, in turn on every
+        rank."""
+        if not dp:
+            return [compute(it) for it in items]
+        from ..parallel.collectives import gather_rows
+        from ..parallel.ring_attention import dp_split
+
+        group = axis_group(self.cfg.mesh, "dp")
+        padded = list(items) + list(items[-1:]) * ((-len(items)) % dp)
+        per = len(padded) // dp
+        me = torch.distributed.get_rank(group)
+        with dp_split():
+            mine = [compute(it) for it in padded[me * per:(me + 1) * per]]
+        u, s, vT = (gather_rows(torch.stack([getattr(r, f) for r in mine]), group)
+                    for f in ("u", "s", "vT"))
+        return [Basis(u[i], s[i], vT[i]) for i in range(len(items))]

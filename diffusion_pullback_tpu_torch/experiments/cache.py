@@ -9,7 +9,9 @@ raw float32), then the .npz, skipping a file it cannot read, and widens the
 raw bfloat16 bytes of legacy .npz files to float32. So each package reads
 the other's bases, under the folder names both CLIs build for the same
 flags. It writes .dpb through the native library (utils/native.py) when
-that loads, else .npz.
+that loads, else .npz. Under a torch.distributed run rank 0 reads the
+cache's state and writes it: ``load`` finds a file when rank 0 does, and
+``save`` returns once rank 0's file is in place on every rank.
 """
 
 from __future__ import annotations
@@ -69,10 +71,12 @@ class BasisCache:
 
     def load(self, name: str) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """(u, s, vT) of a cached basis from the first readable of .dpb and
-        .npz; None when neither is."""
+        .npz (as rank 0 finds them); None when neither is."""
+        from ..parallel.mesh import agreed
+
         for ext in (".dpb", ".npz"):
             p = os.path.join(self.root, name + ext)
-            if os.path.exists(p):
+            if agreed(os.path.exists(p)):
                 try:
                     return load_basis(p)
                 except Exception:  # unreadable here: try the other format
@@ -94,7 +98,19 @@ class BasisCache:
 
     def save(self, name: str, u, s, vT) -> str:
         """Write the basis as float32: .dpb through the native library
-        (temp file, fsync, rename), else .npz (temp file, rename)."""
+        (temp file, fsync, rename), else .npz (temp file, rename). Under a
+        torch.distributed run rank 0 writes, and every rank returns after
+        it has."""
+        from ..parallel.mesh import barrier, is_writer
+
+        if not is_writer():
+            barrier()
+            return self.path(name)
+        p = self._write(name, u, s, vT)
+        barrier()
+        return p
+
+    def _write(self, name: str, u, s, vT) -> str:
         from ..utils.native import basis_write
 
         u, s, vT = (np.asarray(a, dtype=np.float32) for a in (u, s, vT))

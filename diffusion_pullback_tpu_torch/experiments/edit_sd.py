@@ -109,8 +109,9 @@ class SDExperimentConfig:
     # decode at most this many latents per VAE call (None = all at once):
     # bounds the VAE's activations at 1024 px
     decode_chunk: Optional[int] = None
-    # a device mesh (the JAX driver's sharded pullback and sweeps): not
-    # ported, refused (ROADMAP queue 1, item 16)
+    # a device mesh (parallel.make_mesh): 'probe' shards the pullback's
+    # probes, 'dp' the harvests' sweeps, 'tp' the U-Net's weights, 'sp' the
+    # sequence of ring attention
     mesh: Optional[object] = None
     # 'on': the per-step ε and the VAE encode / decode through the export
     # cache (utils/aot.py); 'auto' and 'off' run them eagerly
@@ -136,9 +137,6 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
         logger: Optional[JSONLLogger] = None,
         device=None,
     ):
-        if config.mesh is not None:
-            raise NotImplementedError("a device mesh is not ported yet (ROADMAP "
-                                      "queue 1, item 16)")
         self.device = resolve_device(device)
         strict_f32()
         prep = lambda m: m.to(self.device).eval().requires_grad_(False)
@@ -146,6 +144,12 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
         self.schedule = schedule.to(self.device)
         self.dataset = dataset
         self.cfg = config
+        # on a mesh the U-Net takes the tensor-parallel layout when it has a
+        # 'tp' axis; the VAE and the text towers are replicated
+        self.unet = self._place_weights(self.unet)
+        if config.mesh is not None:
+            for m in self._replicated_modules():
+                self._replicate(m)
         self.tokenizer = tokenizer or load_tokenizer(text_model.config)
         self.log = logger or JSONLLogger(
             os.path.join(config.result_folder, "log.jsonl"))
@@ -165,6 +169,11 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
     @property
     def _arch_config(self):
         return self.unet.config
+
+    def _replicated_modules(self):
+        """The modules a mesh replicates (the SDXL driver adds its second
+        text tower)."""
+        return [self.vae, self.text_model]
 
     # ---- prompt / ε ---------------------------------------------------------
 
@@ -302,6 +311,10 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
         impl = self.cfg.pullback_attn_impl or self.unet.config.attn_impl
         if impl in ("flash", "flash_jvp"):
             return "flash_jvp", "flash"
+        if impl == "ring":
+            # the ring's flash inner (K2) is primal only; the differentiated
+            # encoder rings over the math path, as the JAX driver does
+            return "ring_xla", None
         return impl, None
 
     def _tap_encode_with_state(self, z, t, emb, tap: TapPoint):
@@ -357,15 +370,19 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
     def compute_local_basis(self, zt, t, tap: TapPoint, pca_rank: int,
                             edit_emb=None) -> PullbackResult:
         """Pullback of the encoder z → h at ``tap``, conditioned on
-        ``edit_emb`` (default the edit prompt's)."""
+        ``edit_emb`` (default the edit prompt's); its probes sharded over
+        the mesh's 'probe' axis where ``_mesh_probe_size`` allows."""
         enc, enc_vjp, tag = self._pullback_tap_encoders(t, tap, edit_emb)
-        with self._stage("sd_local_pullback", encoder=tag) as log:
+        n_probe = self._mesh_probe_size(pca_rank)
+        with self._stage("sd_local_pullback", encoder=tag,
+                         probe_shards=n_probe or 1) as log:
             res = local_encoder_pullback(
                 enc, zt, torch.Generator().manual_seed(self.cfg.seed),
                 pca_rank=pca_rank, min_iter=self.cfg.pullback_min_iter,
                 max_iter=self.cfg.pullback_max_iter,
                 atol=self.cfg.pullback_atol, fn_vjp=enc_vjp,
-                chunk_size=self.cfg.pullback_chunk_size, remat=self.cfg.pullback_remat)
+                chunk_size=self.cfg.pullback_chunk_size, remat=self.cfg.pullback_remat,
+                probe_group=self._probe_group(pca_rank))
             log.update(iterations=res.iterations,
                        top_s=res.s[:3].float().cpu().numpy().round(4))
         return res
@@ -635,8 +652,8 @@ class EditStableDiffusion(DriverCommonMixin, SDPCAMixin, SDHarvestMixin):
         grid each."""
         cfg = self.cfg
         t_edit = self.fwd_grid.timesteps[self.edit_t_idx]
-        todo = [i for i, n in enumerate(names) if not os.path.exists(
-            os.path.join(cfg.result_folder, n + ".png"))]
+        todo = [i for i, n in enumerate(names)
+                if self._missing(os.path.join(cfg.result_folder, n + ".png"))]
         if not todo:
             self.log.log("all_edits_cached")
             return names

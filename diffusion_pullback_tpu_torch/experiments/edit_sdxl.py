@@ -61,6 +61,9 @@ class EditStableDiffusionXL(EditStableDiffusion):
         super().__init__(unet, vae, text_model_1, schedule, dataset, config,
                          tokenizer=tokenizer_1, logger=logger, device=device)
 
+    def _replicated_modules(self):
+        return super()._replicated_modules() + [self.text_model_2]
+
     @torch.no_grad()
     def _get_emb(self, prompt: str):
         """Prompt → ((1, 77, 2048) context, (1, 1280) pooled)."""

@@ -59,6 +59,7 @@ from ..models.unet2d import TapPoint, UNet2D
 from ..ops.ddim import predict_x0, split_learned_sigma
 from ..ops.schedule import (DiffusionSchedule, alpha_bar, ddim_timestep_grid,
                             respaced_timestep_grid)
+from ..parallel.mesh import axis_size
 from ..samplers.ddim_loop import ddim_forward, ddim_invert, ddim_scan
 from ..samplers.guidance import guided_eps_fn, x_space_guidance_scan
 from ..samplers.regularizers import sega_sparsify
@@ -94,7 +95,9 @@ class UncondExperimentConfig:
     use_preserve_norm: bool = False
     use_sega_reg: bool = False
     sega_reg_sigma: float = 1.0
-    # not ported: raises when set (ROADMAP queue 1 item 16)
+    # a device mesh (parallel.make_mesh): 'probe' shards the pullback's
+    # probes, 'dp' the harvests' sweeps, 'tp' the model's weights, 'sp' the
+    # sequence of ring attention
     mesh: Optional[object] = None
     # 'on': the unguided per-step ε of the DDIM loops through the export
     # cache (utils/aot.py); 'auto' and 'off' run it eagerly
@@ -127,14 +130,6 @@ class UncondExperimentConfig:
     vis_num_pc: int = 2
 
 
-def _refuse_unported(cfg: UncondExperimentConfig) -> None:
-    unported = [("a device mesh", cfg.mesh is not None, 16)]
-    for what, asked, item in unported:
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1, item {item})")
-
-
 class EditUncondDiffusion(DriverCommonMixin):
     """Experiment driver bound to one (model, schedule) pair. ``cond_fn``
     (x, t) → ∇ₓ log p(y | x), set after construction
@@ -149,13 +144,13 @@ class EditUncondDiffusion(DriverCommonMixin):
         logger: Optional[JSONLLogger] = None,
         device=None,
     ):
-        _refuse_unported(config)
         self.device = resolve_device(device)
         strict_f32()
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.schedule = schedule.to(self.device)
         self.dataset = dataset
         self.cfg = config
+        self.model = self._place_weights(self.model)
         self.log = logger or JSONLLogger(
             os.path.join(config.result_folder, "log.jsonl"))
         self.cache = BasisCache(config.basis_folder)
@@ -230,6 +225,9 @@ class EditUncondDiffusion(DriverCommonMixin):
         impl = self.cfg.pullback_attn_impl or model_impl
         if impl in ("flash", "flash_jvp"):
             return "flash_jvp", "flash", "flashpair"
+        if impl == "ring":
+            # the ring's flash inner (K2) is primal only: the math inner
+            return "ring_xla", None, "ring_xla"
         return impl, None, impl
 
     def _with_impl(self, fn, attn_impl: Optional[str]):
@@ -303,17 +301,21 @@ class EditUncondDiffusion(DriverCommonMixin):
     def compute_local_basis(self, xt, t, tap: TapPoint, pca_rank: int
                             ) -> PullbackResult:
         """Pullback of the encoder x → h at ``tap`` (NHWC on both sides),
-        on the fused pair where ``_pullback_models`` gives it."""
+        on the fused pair where ``_pullback_models`` gives it, its probes
+        sharded over the mesh's 'probe' axis where ``_mesh_probe_size``
+        allows."""
         cfg = self.cfg
         enc, enc_vjp, tag = self._pullback_models()
-        with self._stage("local_pullback", encoder=tag) as log:
+        n_probe = self._mesh_probe_size(pca_rank)
+        with self._stage("local_pullback", encoder=tag, probe_shards=n_probe or 1) as log:
             res = local_pullback(
                 self._encode_nhwc(enc, t, tap), xt,
                 torch.Generator().manual_seed(cfg.seed),
                 pca_rank=pca_rank, min_iter=cfg.pullback_min_iter,
                 max_iter=cfg.pullback_max_iter, atol=cfg.pullback_atol,
                 fn_vjp=enc_vjp and self._encode_nhwc(enc_vjp, t, tap),
-                chunk_size=cfg.pullback_chunk_size)
+                chunk_size=cfg.pullback_chunk_size,
+                probe_group=self._probe_group(pca_rank))
             log.update(iterations=res.iterations, final_delta=res.final_delta,
                        top_s=res.s[:3].float().cpu().numpy().round(4))
         return res
@@ -372,7 +374,7 @@ class EditUncondDiffusion(DriverCommonMixin):
         PNG grid each."""
         cfg = self.cfg
         t_edit = self.fwd_grid.timesteps[self.edit_t_idx]
-        todo = [i for i, n in enumerate(names) if not os.path.exists(
+        todo = [i for i, n in enumerate(names) if self._missing(
             os.path.join(cfg.result_folder, n + ".png"))]
         if not todo:
             self.log.log("all_edits_cached")
@@ -487,7 +489,7 @@ class EditUncondDiffusion(DriverCommonMixin):
                 signs.append((pc, sign))
                 names.append(f"Edit_h_space-{cfg.dataset_name}_{idx}-edit_{cfg.edit_t}T"
                              f"-{op}-block_{block_idx}-scale_{scale}-pc_{pc:03d}_{stag}")
-        todo = [i for i, n in enumerate(names) if not os.path.exists(
+        todo = [i for i, n in enumerate(names) if self._missing(
             os.path.join(cfg.result_folder, n + ".png"))]
         if not todo:
             self.log.log("all_edits_cached")
@@ -703,9 +705,26 @@ class EditUncondDiffusion(DriverCommonMixin):
 
     def _harvest_bases(self, sample_indices, op, block_idx, pca_rank):
         """{idx: (u, s, vT)} of each sample's pullback basis at the edit t,
-        from the cache or computed and saved, one sample after another (the
-        JAX driver's device-mesh sweep is refused with the mesh)."""
+        from the cache or computed and saved: one sample after another, or
+        with a 'dp' mesh axis and more than one missing sample, the missing
+        samples' inversions, forwards and pullbacks split over the axis
+        (``_dp_sweep``), as the JAX driver shards its sweep."""
+        cfg = self.cfg
         tap = TapPoint(op, block_idx)
+        dp = axis_size(cfg.mesh, "dp")
+        names = {idx: basis_name(cfg.dataset_name, idx, cfg.edit_t, op, block_idx,
+                                 cfg.seed, pca_rank=pca_rank) + self._basis_name_extras(tap)
+                 for idx in sample_indices}
+        missing = [idx for idx in sample_indices
+                   if dp > 1 and self.cache.load(names[idx]) is None]
+        if len(missing) > 1:
+            t_edit = self.fwd_grid.timesteps[self.edit_t_idx]
+            with self._stage("sample_harvest_dp", num_samples=len(missing), dp=dp):
+                bases = self._dp_sweep(missing, lambda idx: self.compute_local_basis(
+                    self.forward_to_edit_t(self.run_ddim_inversion(idx)), t_edit, tap,
+                    pca_rank), dp)
+            for idx, res in zip(missing, bases):
+                self._save_basis(names[idx], res)
         return {idx: self._basis(idx, tap, pca_rank) for idx in sample_indices}
 
     def _edit_with_mean_basis(self, mean_basis, tag, idx, basis_indices, op,
@@ -758,7 +777,9 @@ class EditUncondDiffusion(DriverCommonMixin):
         grid point's while the image varies; each adds its name suffix.
         Returns {t: basis file}. ``sequential`` is the JAX signature's: on
         one device the JAX package too maps the per-t pullbacks in
-        sequence, and here they always run so."""
+        sequence, and here they always run so. With a 'dp' mesh axis that
+        divides the grid the pullbacks split over the axis
+        (``_dp_sweep``)."""
         cfg = self.cfg
         tap = self._make_tap(op, block_idx, after_res, after_sa)
         t_grid = tuple(t_grid or np.linspace(0.1, 1.0, 10).round(2))
@@ -770,17 +791,21 @@ class EditUncondDiffusion(DriverCommonMixin):
         if all(self.cache.load(n) is not None for n in names):
             return {et: self.cache.path(n) for et, n in zip(t_grid, names)}
 
+        dp = self._harvest_dp(len(t_grid), "harvest_dp_skip")
         x, cur, images = self.run_ddim_inversion(idx), 0, {}
         for ti in sorted(set(t_indices)):
             if ti > cur:
                 x, cur = self._forward_steps(x, cur, ti), ti
             images[ti] = x
         out = {}
-        with self._stage("tangent_harvest", num_t=len(t_grid), pca_rank=pca_rank):
-            for et, ti, name in zip(t_grid, t_indices, names):
-                res = self.compute_local_basis(
-                    images[t_indices[0] if fix_xt else ti],
-                    self.fwd_grid.timesteps[t_indices[0] if fix_t else ti], tap, pca_rank)
+        with self._stage("tangent_harvest", num_t=len(t_grid), pca_rank=pca_rank,
+                         dp=dp or 1):
+            points = list(zip(t_grid, t_indices, names))
+            bases = self._dp_sweep(points, lambda p: self.compute_local_basis(
+                images[t_indices[0] if fix_xt else p[1]],
+                self.fwd_grid.timesteps[t_indices[0] if fix_t else p[1]], tap,
+                pca_rank), dp)
+            for (et, _, name), res in zip(points, bases):
                 out[et] = self._save_basis(name, res)
         return out
 

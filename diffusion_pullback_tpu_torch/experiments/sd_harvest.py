@@ -11,8 +11,10 @@ the basis (u, s, vT) saved under the name the edit paths read.
     prompt's basis under the per-prompt edit path's cache name.
 
 On one device every per-point pullback runs in sequence, as the JAX
-package's auto dispatch runs them there; its device-mesh sweeps are not
-ported (the driver refuses a mesh).
+package's auto dispatch runs them there. With a 'dp' mesh axis the points
+missing from the cache split over its ranks (``_dp_sweep``: each rank its
+contiguous share, the bases gathered, rank 0 writing them), where the JAX
+package vmaps them with the sweep axis sharded.
 """
 
 from __future__ import annotations
@@ -49,7 +51,9 @@ class SDHarvestMixin:
         {t: basis file}; points already in the cache are not recomputed.
         ``sequential`` is the JAX signature's: on one device the JAX
         package too maps the per-t pullbacks in sequence, and here they
-        always run so."""
+        always run so. With a 'dp' mesh axis that divides the grid every
+        rank walks the trajectory and the missing points' pullbacks split
+        over the axis."""
         cfg = self.cfg
         tap = self._make_tap(op, block_idx, after_res, after_sa)
         t_grid = tuple(t_grid or np.linspace(0.1, 1.0, 10).round(2))
@@ -60,18 +64,28 @@ class SDHarvestMixin:
         if all(self.cache.load(n) is not None for n in names.values()):
             return {et: self.cache.path(n) for et, n in names.items()}
 
+        dp = self._harvest_dp(len(t_grid), "sd_harvest_dp_skip")
         z, cur = self.run_DDIMinversion(idx), 0
-        out = {}
-        with self._stage("sd_tangent_harvest", num_t=len(t_grid), pca_rank=pca_rank):
+        points = {}
+        with self._stage("sd_tangent_harvest", num_t=len(t_grid), pca_rank=pca_rank,
+                         dp=dp or 1):
             for et in sorted(t_grid, key=self._t_index):
                 ti = self._t_index(et)
                 if ti > cur:
                     z, cur = self.DDIMforwardsteps(z, cur, ti), ti
-                if self.cache.load(names[et]) is None:
+                if self.cache.load(names[et]) is not None:
+                    continue
+                if dp:
+                    points[et] = (z, self.fwd_grid.timesteps[ti])
+                else:
                     self._save_basis(names[et], self.compute_local_basis(
                         z, self.fwd_grid.timesteps[ti], tap, pca_rank))
-                out[et] = self.cache.path(names[et])
-        return {et: out[et] for et in t_grid}
+            todo = list(points)
+            for et, res in zip(todo, self._dp_sweep(
+                    todo, lambda et: self.compute_local_basis(*points[et], tap, pca_rank),
+                    dp)):
+                self._save_basis(names[et], res)
+        return {et: self.cache.path(names[et]) for et in t_grid}
 
     def run_sample_encoder_local_tangent_space_zt_various_prompt(
         self,
@@ -90,7 +104,9 @@ class SDHarvestMixin:
         draws them. The names are that path's, so
         run_edit_local_encoder_pullback_zt with each prompt afterwards
         reads the cache and runs no pullback. Returns {prompt: basis
-        file}. ``sequential`` as in the t-grid harvest."""
+        file}. ``sequential`` as in the t-grid harvest. With a 'dp' mesh
+        axis the missing prompts (padded to a multiple of its size) split
+        over it."""
         cfg = self.cfg
         tap = TapPoint(op, block_idx)
         pca_rank = pca_rank or cfg.pca_rank
@@ -100,15 +116,20 @@ class SDHarvestMixin:
                  + self._basis_name_extras(tap) for pr in prompts]
         todo = [i for i, n in enumerate(names) if self.cache.load(n) is None]
         if todo:
+            from ..parallel.mesh import axis_size
+
             t_idx = self._t_index(h_t)
             zt = self.run_DDIMinversion(idx)
             if t_idx > 0:
                 zt = self.DDIMforwardsteps(zt, 0, t_idx)
-            with self._stage("sd_prompt_sweep", num_prompts=len(todo)):
-                for i in todo:
-                    self._save_basis(names[i], self.compute_local_basis(
-                        zt, self.fwd_grid.timesteps[t_idx], tap, pca_rank,
-                        edit_emb=self._get_emb(prompts[i])))
+            dp = axis_size(cfg.mesh, "dp")
+            dp = dp if dp > 1 else 0
+            with self._stage("sd_prompt_sweep", num_prompts=len(todo), dp=dp or 1):
+                bases = self._dp_sweep(todo, lambda i: self.compute_local_basis(
+                    zt, self.fwd_grid.timesteps[t_idx], tap, pca_rank,
+                    edit_emb=self._get_emb(prompts[i])), dp)
+                for i, res in zip(todo, bases):
+                    self._save_basis(names[i], res)
         return {p: self.cache.path(n) for p, n in zip(prompts, names)}
 
     def run_sample_encoder_local_tangent_space_zt(

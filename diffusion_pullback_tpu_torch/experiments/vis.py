@@ -15,6 +15,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..parallel.mesh import is_writer
 from ..utils.images import save_image_grid
 
 
@@ -94,6 +95,8 @@ def vis_power_spectral_density(traj, path: str, num_bins: int = 64, labels=None
     """One PSD curve per trajectory frame, log scale, coloured from early to
     late, the DC bin dropped. Returns the (T, bins) PSD matrix."""
     curves = psd_curves(traj, num_bins)
+    if not is_writer():  # rank 0 of a torch.distributed run plots
+        return curves
     plt = _pyplot()
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     fig, ax = plt.subplots(figsize=(5, 4))

@@ -24,6 +24,7 @@ import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.func import jvp, vjp, vmap
 
 
@@ -99,25 +100,39 @@ def _cotangent_pass(fn: Callable, x: torch.Tensor, remat: bool, out_shape):
     return lambda u: pull(h, vjp_fn, u)
 
 
-def _power_iteration(fwd, bwd, v, min_iter, max_iter, atol, svd_method
-                     ) -> PullbackResult:
+def _power_iteration(fwd, bwd, v, min_iter, max_iter, atol, svd_method,
+                     probe_group=None) -> PullbackResult:
     """The subspace power iteration from the probes ``v`` (…, r, dim_x),
     any leading axes a batch sharing the iteration count and δ (the max
-    over it)."""
+    over it). With ``probe_group`` each rank of the group runs the tangent
+    and cotangent passes of its r/n rows of the iterate, the rows are
+    gathered for the short-fat SVD, and the SVD's result is the group's
+    first rank's on every rank, so every rank computes the same δ and
+    leaves the loop at the same iteration (a rank that left alone would
+    hang the others' gather)."""
+    if probe_group is None:
+        rows = gather = agree = lambda a: a
+    else:
+        from ..parallel.collectives import from_first, gather_rows
+
+        n, me = dist.get_world_size(probe_group), dist.get_rank(probe_group)
+        rows = lambda a: a[me * (a.shape[0] // n):(me + 1) * (a.shape[0] // n)]
+        gather = lambda a: gather_rows(a, probe_group)
+        agree = lambda a: from_first(a, probe_group)
     s = torch.zeros(v.shape[:-1], device=v.device)
     delta, it = math.inf, 0
     while it < max_iter and (it <= min_iter + 1 or delta > atol):
-        s, v_new = _short_fat_svd(bwd(fwd(v)).float(), method=svd_method)
+        s, v_new = _short_fat_svd(gather(bwd(fwd(rows(v)))).float(), method=svd_method)
         # sign-align rows to the previous iterate: no ± flapping in the
         # convergence test or the result
         signs = torch.sign((v_new * v).sum(dim=-1))
         signs = torch.where(signs == 0, torch.ones_like(signs), signs)
-        v_new = v_new * signs[..., None]
+        v_new, s = agree(v_new * signs[..., None]), agree(s)
         delta = (v_new - v).abs().max().item()
         v, it = v_new, it + 1
 
     # final tangent pass so u belongs to the converged v
-    u = fwd(v)
+    u = gather(fwd(rows(v)))
     return PullbackResult(u=u.mT, s=torch.sqrt(s), vT=v, iterations=it,
                           final_delta=delta)
 
@@ -135,6 +150,7 @@ def local_pullback(
     chunk_size: Optional[int] = None,
     remat: bool = False,
     svd_method: str = "qr",
+    probe_group=None,
 ) -> PullbackResult:
     """Top-``pca_rank`` singular triplets of ∂fn/∂x at ``x``.
 
@@ -154,7 +170,22 @@ def local_pullback(
     activations live only during that pass, not across the iteration (the
     tangent passes hold none); the numbers do not change. ``svd_method``:
     'qr' or 'gram' (``_short_fat_svd``).
+
+    ``probe_group`` (a torch.distributed process group, the mesh's 'probe'
+    axis; where JAX takes ``probe_sharding``): each of its n ranks runs the
+    tangent and cotangent passes of r/n probes, and the (r, dim_x) iterate
+    is gathered for the SVD (``_power_iteration``). The probes are drawn
+    whole on every rank from ``generator``, so the basis does not depend on
+    n. ``u`` and ``vT`` come back whole on every rank. Mutually exclusive
+    with ``chunk_size``; ``pca_rank`` must divide by n.
     """
+    if probe_group is not None:
+        if chunk_size is not None:
+            raise ValueError("probe_group and chunk_size are mutually exclusive")
+        n = dist.get_world_size(probe_group)
+        if pca_rank % n:
+            raise ValueError(f"pca_rank {pca_rank} not divisible by the probe "
+                             f"group's {n} ranks")
     x = x.to(torch.float32)
     dim_x = math.prod(x.shape)
     fwd = _batched(lambda vi: jvp(fn, (x,), (vi.reshape(x.shape),))[1].reshape(-1),
@@ -171,7 +202,8 @@ def local_pullback(
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         v = _orthonormal_probes(generator, dim_x, pca_rank).to(x.device)
-    return _power_iteration(fwd, bwd, v, min_iter, max_iter, atol, svd_method)
+    return _power_iteration(fwd, bwd, v, min_iter, max_iter, atol, svd_method,
+                            probe_group)
 
 
 def batched_local_pullback(

@@ -28,6 +28,13 @@ with the same flag names, experiment folders and basis folders.
         --checkpoint_path 256x256_diffusion_uncond.pt \\
         --run_edit_h_space_guidance True
 
+On a device mesh, one rank per device through torchrun (NCCL on CUDA,
+gloo with ``--device cpu``; rank 0 writes the run's files):
+
+    torchrun --nproc_per_node 4 -m diffusion_pullback_tpu_torch.main \\
+        --note mesh --mesh_axes dp:2,probe:2 \\
+        --run_sample_encoder_local_tangent_space_zt True
+
 Runs on CUDA unless ``--device cpu`` is given. Without --checkpoint_path
 the models take seeded random weights (--seed), as the JAX CLI's do; with
 it they load local torch files (nothing is downloaded): one file for an
@@ -169,9 +176,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attn_impl", type=str, default="auto",
                    choices=["auto", "xla", "blockwise", "flash", "ring"],
                    help="sampling attention of the SD and ADM nets: 'auto' = "
-                        "flash on cuda, xla on cpu (the DDPM U-Net's "
-                        "≤256-token attention is always the math path); "
-                        "'ring' is not ported (ROADMAP queue 1, item 16)")
+                        "ring with an 'sp' axis in --mesh_axes, else flash on "
+                        "cuda, xla on cpu (the DDPM U-Net's ≤256-token "
+                        "attention is always the math path); 'ring' = "
+                        "sequence parallel over the mesh's 'sp' axis (K2 per "
+                        "ring step on cuda)")
+    p.add_argument("--mesh_axes", type=str, default="",
+                   help="the device mesh of a torchrun launch: 'probe' | 'dp' | "
+                        "'dp:2,probe:4' | 'tp:2' | 'sp:4' (axis[:size], sizes "
+                        "factored over the ranks where one is missing); NCCL on "
+                        "cuda, gloo with --device cpu; '' or one rank = none")
     p.add_argument("--pullback_attn_impl", type=str, default="",
                    choices=["", "xla", "blockwise", "flash"],
                    help="attention inside the differentiated encoder: "
@@ -264,19 +278,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "JAX CLI's 'auto' exports on an accelerator, where a "
                         "process re-traces its programs; an eager process has "
                         "no trace to skip)")
-    for flag, item, kw in UNPORTED_FLAGS:
-        p.add_argument(f"--{flag}", help=f"not ported (ROADMAP queue 1, item {item})",
-                       **kw)
     for flag, kind, default in INERT_FLAGS:
         p.add_argument(f"--{flag}", type=kind, default=default,
                        help="accepted and unused, as in the JAX CLI")
     return p
 
 
-# flags of open ROADMAP items: refused when set to anything but the default
-UNPORTED_FLAGS = (
-    ("mesh_axes", 16, dict(type=str, default="")),
-)
 # flags the JAX CLI accepts and never reads (or overwrites in its preset:
 # image_size and c_in), with its types and defaults
 INERT_FLAGS = (
@@ -361,7 +368,7 @@ def _weights(module, path: str, seed: int):
     return load_torch_checkpoint(path, module)
 
 
-def build_uncond(args):
+def build_uncond(args, mesh=None):
     """The uncond editing driver: the DDPM or ADM U-Net of ``--model_name``
     with the weights of --checkpoint_path or seeded random ones, drawn or
     loaded on the device, the linear schedule, images at the model's size;
@@ -428,6 +435,7 @@ def build_uncond(args):
         result_folder=os.path.join(exp_folder, "results"),
         obs_folder=os.path.join(exp_folder, "obs"),
         basis_folder=basis_folder,
+        mesh=mesh,
     )
     edit = EditUncondDiffusion(
         model, DiffusionSchedule.from_name("linear"), _dataset(args, size), cfg,
@@ -526,7 +534,7 @@ def _sd_weights(args, modules):
             for i, (m, f) in enumerate(zip(modules, SD_CHECKPOINT_FILES))]
 
 
-def build_sd(args):
+def build_sd(args, mesh=None):
     """The SD 2.1-base editing driver: U-Net, VAE at 512 px and the 23-layer
     OpenCLIP-H text tower with the weights of --checkpoint_path or seeded
     random ones."""
@@ -548,7 +556,7 @@ def build_sd(args):
     unet, vae, text = _sd_weights(args, (
         UNet2DCondition(sd21_base_unet(attn_impl=attn, dtype=dtype)),
         AutoencoderKL(sd_vae(attn_impl=attn)), CLIPTextModel(sd21_text_encoder())))
-    cfg, log_path = _sd_config(args, device)
+    cfg, log_path = _sd_config(args, device, mesh=mesh)
     return EditStableDiffusion(
         unet, vae, text, DiffusionSchedule.from_name("scaled_linear"),
         _dataset(args, unet.config.sample_size * 8), cfg,
@@ -561,7 +569,7 @@ def sdxl_pullback_chunk(args):
     return args.pullback_chunk_size or (None if (args.pca_rank or 2) <= 2 else 1)
 
 
-def build_sdxl(args):
+def build_sdxl(args, mesh=None):
     """The SDXL-base editing driver: the 2.57 B-parameter U-Net at 128²
     latents, the VAE at 1024 px with scaling factor 0.13025, the CLIP ViT-L
     and OpenCLIP bigG towers, with the weights of --checkpoint_path or
@@ -595,25 +603,59 @@ def build_sdxl(args):
             CLIPTextModel(sdxl_text_encoder_1()),
             CLIPTextModel(sdxl_text_encoder_2(), projection=True)))
     cfg, log_path = _sd_config(args, device, decode_chunk=1, pullback_remat=True,
-                               pullback_chunk_size=sdxl_pullback_chunk(args))
+                               pullback_chunk_size=sdxl_pullback_chunk(args), mesh=mesh)
     return EditStableDiffusionXL(
         unet, vae, text1, text2, DiffusionSchedule.from_name("scaled_linear"),
         _dataset(args, unet.config.sample_size * 8), cfg,
         logger=JSONLLogger(log_path), device=device)
 
 
+def mesh_spec(spec: str):
+    """--mesh_axes → (axes, {axis: size} of the axes that give one)."""
+    axes, shape = [], {}
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" in part:
+            a, n = part.split(":")
+            axes.append(a.strip())
+            shape[a.strip()] = int(n)
+        else:
+            axes.append(part)
+    return tuple(axes), shape
+
+
+def build_mesh(args):
+    """--mesh_axes 'probe' / 'dp' / 'dp:2,probe:4' → a DeviceMesh over the
+    ranks of the torchrun launch ('' or a single rank → None, the
+    single-device path, as the JAX CLI with one device visible)."""
+    from .parallel.mesh import make_mesh, mesh_shape, world_size
+
+    axes, shape = mesh_spec(getattr(args, "mesh_axes", ""))
+    if not axes:
+        return None
+    if world_size() == 1:
+        print("[main] --mesh_axes given but only 1 device visible; "
+              "running single-chip")
+        return None
+    from .utils.device import resolve_device
+
+    mesh = make_mesh(axes, shape=shape if len(shape) == len(axes) else None,
+                     device=resolve_device(args.device or None))
+    print(f"[main] device mesh: {mesh_shape(mesh)}")
+    return mesh
+
+
 def check_preset(args) -> None:
     """The JAX CLI's preset: its asserts (the custom scheduler; an uncond
     run takes 100 forward steps and boosting at 0.2·T, an SD run no
-    boosting) and the copy of --sh_file_name's script into the experiment
-    folder; and the flags of open ROADMAP items refused when set."""
-    for flag, item, kw in UNPORTED_FLAGS:
-        if getattr(args, flag) != kw["default"]:
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP queue 1, "
-                                      f"item {item})")
-    if args.attn_impl == "ring":
-        raise NotImplementedError("--attn_impl ring (sequence parallel over a device "
-                                  "mesh) is not ported yet (ROADMAP queue 1, item 16)")
+    boosting), --attn_impl auto as ring when --mesh_axes has an 'sp' axis,
+    and the copy of --sh_file_name's script into the experiment folder."""
+    if args.attn_impl == "auto" and "sp" in mesh_spec(args.mesh_axes)[0]:
+        # an 'sp' axis asks for sequence parallelism: ring attention
+        args.attn_impl = "ring"
+        print("[preset] --attn_impl auto -> ring (sp mesh axis)")
     if not args.use_yh_custom_scheduler:
         raise ValueError("--use_yh_custom_scheduler False: the JAX CLI asserts it True")
     if is_stable_diffusion(args):
@@ -639,9 +681,10 @@ def main(argv=None):
     check_preset(args)
     build = build_sdxl if is_sdxl(args) else (
         build_sd if is_stable_diffusion(args) else build_uncond)
+    mesh = build_mesh(args)
     with (torch.autograd.detect_anomaly(check_nan=True) if args.debug_nans
           else contextlib.nullcontext()), trace(args.profile_dir):
-        edit = build(args)
+        edit = build(args) if mesh is None else build(args, mesh=mesh)
         dispatch(edit, args)
     return edit
 

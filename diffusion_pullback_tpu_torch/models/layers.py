@@ -46,11 +46,16 @@ class LayerNorm(nn.LayerNorm):
 
 
 def project_qkv(x: torch.Tensor, context: Optional[torch.Tensor],
-                to_q: nn.Linear, to_k: nn.Linear, to_v: nn.Linear):
+                to_q: nn.Linear, to_k: nn.Linear, to_v: nn.Linear, fuse: bool = True):
     """q/k/v projections with same-operand matmuls fused into one: one
     (…, C)×(C, 3·inner) product for self-attention, one k/v product over
     the context for cross-attention. Each output column sees exactly the
-    weights it would unfused."""
+    weights it would unfused. ``fuse`` False runs them one by one (the
+    attention modules' ``fuse_qkv``, which tensor parallelism turns off as
+    the JAX package does)."""
+    if not fuse:
+        src = x if context is None else context
+        return to_q(x), to_k(src), to_v(src)
     cat = lambda *ts: None if ts[0] is None else torch.cat(ts)
     if context is None:
         qkv = F.linear(x, cat(to_q.weight, to_k.weight, to_v.weight),
@@ -125,6 +130,8 @@ class SelfAttention2D(nn.Module):
     """Spatial self-attention with a residual add; one head over all
     channels when ``num_head_channels`` is None (the VAE mid-block)."""
 
+    fuse_qkv = True  # project_qkv's fuse
+
     def __init__(self, channels: int, num_head_channels: Optional[int] = None,
                  norm_num_groups: int = 32, eps: float = 1e-6,
                  attn_impl: str = "xla"):
@@ -140,11 +147,12 @@ class SelfAttention2D(nn.Module):
     def forward(self, x):
         b, c, hgt, wid = x.shape
         h = self.group_norm(x).flatten(2).transpose(1, 2)  # (B, HW, C)
-        q, k, v = project_qkv(h, None, self.to_q, self.to_k, self.to_v)
-        shape4 = (b, hgt * wid, self.heads, c // self.heads)
+        q, k, v = project_qkv(h, None, self.to_q, self.to_k, self.to_v, self.fuse_qkv)
+        # q's width: c, or c/tp with heads/tp heads under tensor parallelism
+        shape4 = (b, hgt * wid, self.heads, q.shape[-1] // self.heads)
         out = attention(q.reshape(shape4), k.reshape(shape4),
                         v.reshape(shape4), impl=self.attn_impl)
-        out = self.to_out[0](out.reshape(b, hgt * wid, c))
+        out = self.to_out[0](out.reshape(b, hgt * wid, q.shape[-1]))
         return x + out.transpose(1, 2).reshape(b, c, hgt, wid)
 
 

@@ -25,6 +25,8 @@ from .layers import GroupNorm, LayerNorm, attn_impl_as, project_qkv
 class CrossAttention(nn.Module):
     """Multi-head attention; self-attention when context is None."""
 
+    fuse_qkv = True  # project_qkv's fuse
+
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None, attn_impl: str = "xla"):
         super().__init__()
@@ -38,7 +40,8 @@ class CrossAttention(nn.Module):
     def forward(self, x, context=None):
         b, sq, _ = x.shape
         sk = sq if context is None else context.shape[1]
-        q, k, v = project_qkv(x, context, self.to_q, self.to_k, self.to_v)
+        q, k, v = project_qkv(x, context, self.to_q, self.to_k, self.to_v,
+                              self.fuse_qkv)
         out = attention(
             q.reshape(b, sq, self.heads, self.head_dim),
             k.reshape(b, sk, self.heads, self.head_dim),

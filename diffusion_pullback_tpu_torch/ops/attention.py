@@ -8,8 +8,11 @@ logits never exceed (Sq, block_k); 'auto' takes it from 1024 tokens on and
 the math path below. 'flash' and 'flash_jvp' route long self-attention to
 the fused kernels and everything else to the math path: 'flash' is the
 reverse-mode entry (K1, or K2 with K4/K5 as its backward), 'flash_jvp' the
-forward-mode one (K2 with K3 as its tangent rule). 'ring' (sequence
-parallel over a device mesh) is not ported.
+forward-mode one (K2 with K3 as its tangent rule). 'ring' is sequence
+parallel over the mesh published by parallel.ring_attention.set_ring_mesh
+(an 'sp' axis): K2 per ring step on the card, the math path on the CPU;
+'ring_xla' keeps the math inner everywhere, for the differentiated encoder.
+Where the ring does not engage, 'ring' on the card falls back to 'flash'.
 """
 
 from __future__ import annotations
@@ -77,7 +80,13 @@ def attention(q, k, v, scale: Optional[float] = None,
     blockwise when sq and sk are both ≥ 1024, else the math path. 'flash' /
     'flash_jvp': the fused kernels when sq ≥ 1024, sk ≥ 128 and both divide
     by min(512, s); the math path otherwise (e.g. the 77-token
-    cross-attention)."""
+    cross-attention). 'ring' / 'ring_xla': ``ring_attention`` (K2 or the
+    math path per step; the math path for 'ring_xla') when the published
+    mesh's 'sp' axis is > 1, divides sq and sk and leaves shards of at least
+    MIN_SHARD_TOKENS rows. Otherwise 'ring' on a CUDA tensor takes the
+    'flash' dispatch (K1 where its rule allows), and on the CPU, as
+    'ring_xla' everywhere, the 'auto' rule (blockwise from 1024 tokens, the
+    math path below), the JAX dispatcher's fallback."""
     if impl == "xla":
         return xla_attention(q, k, v, scale)
     if impl == "blockwise":
@@ -95,8 +104,24 @@ def attention(q, k, v, scale: Optional[float] = None,
             return flash_attention(q, k, v, scale)
         return flash_attention_jvp(q, k, v, scale)
     if impl in ("ring", "ring_xla"):
-        raise NotImplementedError(
-            "ring attention (sequence parallel over a device mesh) is not "
-            "ported yet (ROADMAP queue 1, item 16)")
+        # the ring when a mesh with an 'sp' axis is published and the
+        # sequence splits into shards of MIN_SHARD_TOKENS rows or more
+        from ..parallel.mesh import axis_size
+        from ..parallel.ring_attention import (MIN_SHARD_TOKENS, get_ring_mesh,
+                                               ring_attention)
+
+        mesh, axis = get_ring_mesh()
+        n = axis_size(mesh, axis)
+        sq, sk = q.shape[1], k.shape[1]
+        if n > 1 and sq % n == 0 and sk % n == 0 and min(sq, sk) // n >= MIN_SHARD_TOKENS:
+            return ring_attention(q, k, v, scale, mesh=mesh, axis=axis,
+                                  inner="xla" if impl == "ring_xla" else "auto")
+        if impl == "ring" and q.device.type == "cuda":
+            # on the card the primal falls back to the kernels' dispatch
+            return attention(q, k, v, scale, impl="flash")
+        # the JAX dispatcher's fallback; 'ring_xla' is differentiated in
+        # both modes, which neither fused entry carries alone
+        return attention(q, k, v, scale, impl="auto")
     raise ValueError(f"unknown attention impl: {impl!r} (the port has 'xla', "
-                     f"'blockwise', 'auto', 'flash' and 'flash_jvp')")
+                     f"'blockwise', 'auto', 'flash', 'flash_jvp', 'ring' and "
+                     f"'ring_xla')")

@@ -359,16 +359,18 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
     if (bad_shape(bh, bh_primal, sq, sk, d)) return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (flash_design(4, d, is_bf16))
-        return flash::dq_wgmma(q, k, v, dout, lse, delta, dq, bh, bh_primal, sq, sk, d, scale,
-                               s);
+        return flash::served(4, flash::kWgmma,
+                             flash::dq_wgmma(q, k, v, dout, lse, delta, dq, bh, bh_primal, sq,
+                                             sk, d, scale, s));
     if (is_bf16) return int(cudaErrorInvalidValue);  // simt below is f32 only
     if (d == 64)
-        return launch_dq<TileB>(q, k, v, dout, lse, delta, dq, bh, bh_primal, sq, sk,
-                                       scale, s);
-    return flash::on_tile_n(d, [&](auto dim) {
+        return flash::served(4, flash::kSimt,
+                             launch_dq<TileB>(q, k, v, dout, lse, delta, dq, bh, bh_primal,
+                                              sq, sk, scale, s));
+    return flash::served(4, flash::kSimt, flash::on_tile_n(d, [&](auto dim) {
         return launch_dq<flash::TileN<decltype(dim)::value>>(
             q, k, v, dout, lse, delta, dq, bh, bh_primal, sq, sk, scale, s);
-    });
+    }));
 }
 
 // K5: dk, dv (bh, sk, d).
@@ -379,16 +381,18 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
     if (bad_shape(bh, bh_primal, sq, sk, d)) return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (flash_design(5, d, is_bf16))
-        return flash::dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, bh, bh_primal, sq, sk, d,
-                                scale, s);
+        return flash::served(5, flash::kWgmma,
+                             flash::dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, bh,
+                                              bh_primal, sq, sk, d, scale, s));
     if (is_bf16) return int(cudaErrorInvalidValue);
     if (d == 64)
-        return launch_dkv<TileB>(q, k, v, dout, lse, delta, dk, dv, bh, bh_primal, sq,
-                                        sk, scale, s);
-    return flash::on_tile_n(d, [&](auto dim) {
+        return flash::served(5, flash::kSimt,
+                             launch_dkv<TileB>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                               bh_primal, sq, sk, scale, s));
+    return flash::served(5, flash::kSimt, flash::on_tile_n(d, [&](auto dim) {
         return launch_dkv<flash::TileN<decltype(dim)::value>>(
             q, k, v, dout, lse, delta, dk, dv, bh, bh_primal, sq, sk, scale, s);
-    });
+    }));
 }
 
 }  // extern "C"

@@ -182,7 +182,8 @@ inline cudaError_t allow_smem(K kernel, int smem) {
 
 // The tensor-core designs. "wgmma", bf16 at D = 40, 64, 80, 128 and 160:
 // K1 / K2 (flash_fwd_tc.cu), K3 (flash_jvp_tc.cu) and K4 / K5
-// (flash_bwd_tc.cu). "tf32x3", f32 at D = 512: K1 (flash_fwd_tf32.cu).
+// (flash_bwd_tc.cu). "tf32x3", f32 at D = 512: K1, and K2 with lse
+// (flash_fwd_tf32.cu).
 int fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
               int bh, int sq, int sk, int d, float scale, cudaStream_t stream);
 int dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
@@ -195,11 +196,16 @@ int tangent_wgmma(const void* q, const void* k, const void* v, const void* dq,
                   const void* dk, const void* dv, const void* o, const void* lse,
                   void* dout, int bh, int bh_primal, int sq, int sk, int d, float scale,
                   cudaStream_t stream);
-int fwd_tf32x3(const void* q, const void* k, const void* v, void* o, int bh, int sq,
-               int sk, float scale, cudaStream_t stream);
+int fwd_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+               int sq, int sk, float scale, cudaStream_t stream);
 
 // The designs flash_design returns.
 enum Design { kSimt = 0, kWgmma = 1, kTf32x3 = 2 };
+
+// Count a launch of kernel K<kernel> (1-5) on ``design`` when ``err`` is
+// cudaSuccess (flash_fwd.cu keeps the counts, flash_served reads them) and
+// return err: each C entry passes the launch of the branch it took through.
+int served(int kernel, int design, int err);
 
 }  // namespace flash
 
@@ -209,3 +215,8 @@ enum Design { kSimt = 0, kWgmma = 1, kTf32x3 = 2 };
 // "simt" (0). The C entries dispatch on it, and the bindings ask it which
 // design served a launch.
 extern "C" int flash_design(int kernel, int d, int is_bf16);
+
+// Launches of kernel K<kernel> (1-5) that the C entries made on design
+// ``design`` since the library was loaded (-1 for an unknown pair): which
+// kernel code served the calls, as counted where it was launched.
+extern "C" long long flash_served(int kernel, int design);

@@ -53,6 +53,8 @@
 
 #include "flash_common.cuh"
 
+#include <atomic>
+
 namespace {
 
 using flash::Io;
@@ -258,17 +260,30 @@ int launch_n(const void* q, const void* k, const void* v, void* o, float* lse,
     });
 }
 
+std::atomic<long long> g_served[6][3];  // by kernel (1-5) and design
+
 }  // namespace
+
+int flash::served(int kernel, int design, int err) {
+    if (err == int(cudaSuccess)) g_served[kernel][design].fetch_add(1, std::memory_order_relaxed);
+    return err;
+}
 
 extern "C" {
 
+long long flash_served(int kernel, int design) {
+    if (kernel < 1 || kernel > 5 || design < 0 || design > 2) return -1;
+    return g_served[kernel][design].load(std::memory_order_relaxed);
+}
+
 // The one design rule (declared in flash_common.cuh): bf16 at D = 40, 64,
-// 80, 128 and 160 runs the wgmma kernels of K1–K5; K1 in f32 at D = 512
-// runs the tf32x3 kernel; every other call runs on the CUDA cores (f32 at
-// every head dim but K1's 512, and K1 in bf16 at 512).
+// 80, 128 and 160 runs the wgmma kernels of K1–K5; K1 and K2 in f32 at
+// D = 512 (the VAE's head; K2 as ring attention's inner) run the tf32x3
+// kernel; every other call runs on the CUDA cores (f32 at every head dim
+// but 512, and K1 in bf16 at 512).
 int flash_design(int kernel, int d, int is_bf16) {
     if (is_bf16 && flash::pair_head_dim(d)) return flash::kWgmma;
-    if (kernel == 1 && d == 512 && !is_bf16) return flash::kTf32x3;
+    if (kernel <= 2 && d == 512 && !is_bf16) return flash::kTf32x3;
     return flash::kSimt;
 }
 
@@ -281,26 +296,43 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, int bh,
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (flash_design(1, d, is_bf16)) {
-        case flash::kWgmma: return flash::fwd_wgmma(q, k, v, o, nullptr, bh, sq, sk, d, scale, s);
-        case flash::kTf32x3: return flash::fwd_tf32x3(q, k, v, o, bh, sq, sk, scale, s);
+        case flash::kWgmma:
+            return flash::served(1, flash::kWgmma,
+                                 flash::fwd_wgmma(q, k, v, o, nullptr, bh, sq, sk, d, scale, s));
+        case flash::kTf32x3:
+            return flash::served(1, flash::kTf32x3,
+                                 flash::fwd_tf32x3(q, k, v, o, nullptr, bh, sq, sk, scale, s));
     }
-    if (d == 64) return launch<float, TileD64, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
-    if (d == 512) return launch<__nv_bfloat16, TileD512, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
-    return launch_n<false>(q, k, v, o, nullptr, bh, sq, sk, d, scale, s);
+    int err;
+    if (d == 64) err = launch<float, TileD64, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
+    else if (d == 512) err = launch<__nv_bfloat16, TileD512, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
+    else err = launch_n<false>(q, k, v, o, nullptr, bh, sq, sk, d, scale, s);
+    return flash::served(1, flash::kSimt, err);
 }
 
 // K2: as flash_fwd, plus lse (bh, sq) float32, the row logsumexp of the
-// scaled logits. Head dims 40, 64, 80, 128, 160 (flash::pair_head_dim).
+// scaled logits. Head dims 40, 64, 80, 128, 160 (flash::pair_head_dim),
+// and 512 in f32 (tf32x3).
 int flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
                   void* lse, int bh, int sq, int sk, int d, int is_bf16,
                   float scale, void* stream) {
-    if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || !flash::pair_head_dim(d))
+    const int design = flash_design(2, d, is_bf16);
+    if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 ||
+        !(flash::pair_head_dim(d) || design == flash::kTf32x3))
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* l = static_cast<float*>(lse);
-    if (flash_design(2, d, is_bf16)) return flash::fwd_wgmma(q, k, v, o, l, bh, sq, sk, d, scale, s);
-    if (d == 64) return launch<float, TileD64, true>(q, k, v, o, l, bh, sq, sk, scale, s);
-    return launch_n<true>(q, k, v, o, l, bh, sq, sk, d, scale, s);
+    switch (design) {
+        case flash::kWgmma:
+            return flash::served(2, flash::kWgmma,
+                                 flash::fwd_wgmma(q, k, v, o, l, bh, sq, sk, d, scale, s));
+        case flash::kTf32x3:
+            return flash::served(2, flash::kTf32x3,
+                                 flash::fwd_tf32x3(q, k, v, o, l, bh, sq, sk, scale, s));
+    }
+    return flash::served(2, flash::kSimt, d == 64
+        ? launch<float, TileD64, true>(q, k, v, o, l, bh, sq, sk, scale, s)
+        : launch_n<true>(q, k, v, o, l, bh, sq, sk, d, scale, s));
 }
 
 }  // extern "C"

@@ -1,13 +1,15 @@
-// Flash attention forward (K1) on Hopper's tensor cores for f32 at head
-// dim 512, the VAE mid-block's single head: O = softmax(Q Kᵀ · scale) V.
+// Flash attention forward (K1, and K2 with the row logsumexp) on Hopper's
+// tensor cores for f32 at head dim 512, the VAE mid-block's single head:
+// O = softmax(Q Kᵀ · scale) V, and L = m + log l when lse is not null.
 //
-// For f32 inputs at D = 512 this replaces the Pallas TPU kernel
-// `_flash_kernel` / `_flash_forward` in
-// diffusion_pullback_tpu/ops/pallas/flash_attention.py; flash_fwd.cu's
-// entry routes those calls here. Same arithmetic: online softmax per query
-// row in f32, logits never written to device memory, the probabilities
-// unrounded before P·V (`p.astype(v.dtype)` is a no-op in f32), output in
-// f32.
+// For f32 inputs at D = 512 this replaces the Pallas TPU kernels
+// `_flash_kernel` / `_flash_forward` (K1) and `_flash_fwd_lse_kernel` /
+// `_flash_forward_lse` (K2, which ring attention runs per ring step on the
+// VAE's shards) in diffusion_pullback_tpu/ops/pallas/flash_attention.py;
+// flash_fwd.cu's entries route those calls here. Same arithmetic: online
+// softmax per query row in f32, logits never written to device memory, the
+// probabilities unrounded before P·V (`p.astype(v.dtype)` is a no-op in
+// f32), output in f32, L in natural log.
 //
 // What bounds it: 4·BH·Sq·Sk·D operations on 4·BH·S·D f32 elements, so it
 // is bound by operations. f32-accurate products run on the tensor cores as
@@ -122,8 +124,8 @@ __device__ __forceinline__ void copy_rows(uint32_t dst, int ld, const float* src
 
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ o, int sq,
-                        int sk, float scale) {
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int sq, int sk, float scale) {
     extern __shared__ __align__(16) float smem[];
     float* Qs = smem;                  // [BQ][QS]
     float* Ks = Qs + BQ * QS;          // [BK][QS]
@@ -337,7 +339,12 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
         if (k0 + BK < sk) copy_rows(sV, VS, vb, k0 + BK, sk, vbar);
     }
 
-    if (scol == 0) row_f[srow] = l;
+    if (scol == 0) {
+        row_f[srow] = l;
+        // K2: L = (m + log2 l)·ln 2, m being the base-2 running max
+        if (lse != nullptr && q0 + srow < sq)
+            lse[bh * sq + q0 + srow] = (m + log2f(l)) * 0.6931471805599453f;
+    }
     __syncthreads();
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -358,17 +365,18 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
 
 namespace flash {
 
-// K1 on contiguous f32 q (bh, sq, 512), k/v (bh, sk, 512), o (bh, sq, 512),
-// 16-byte aligned; flash_fwd (flash_fwd.cu) routes its f32 D = 512 calls
-// here. Returns a cudaError_t code: 0 on a launch that was accepted.
-int fwd_tf32x3(const void* q, const void* k, const void* v, void* o, int bh, int sq,
-               int sk, float scale, cudaStream_t stream) {
+// K1 (lse null) or K2 (lse (bh, sq) f32) on contiguous f32 q (bh, sq, 512),
+// k/v (bh, sk, 512), o (bh, sq, 512), 16-byte aligned; flash_fwd and
+// flash_fwd_lse (flash_fwd.cu) route their f32 D = 512 calls here. Returns
+// a cudaError_t code: 0 on a launch that was accepted.
+int fwd_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+               int sq, int sk, float scale, cudaStream_t stream) {
     const cudaError_t err = allow_smem(flash_fwd_tf32x3_kernel, SMEM);
     if (err != cudaSuccess) return int(err);
     const dim3 grid((sq + BQ - 1) / BQ, bh);
     flash_fwd_tf32x3_kernel<<<grid, NT, SMEM, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), sq, sk, scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk, scale);
     return int(cudaGetLastError());
 }
 

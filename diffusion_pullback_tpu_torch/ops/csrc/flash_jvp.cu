@@ -224,16 +224,18 @@ int flash_tangent(const void* q, const void* k, const void* v, const void* dq,
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (flash_design(3, d, is_bf16))
-        return flash::tangent_wgmma(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal, sq,
-                                    sk, d, scale, s);
+        return flash::served(3, flash::kWgmma,
+                             flash::tangent_wgmma(q, k, v, dq, dk, dv, o, lse, dout, bh,
+                                                  bh_primal, sq, sk, d, scale, s));
     if (is_bf16) return int(cudaErrorInvalidValue);  // simt below is f32 only
     if (d == 64)
-        return launch<TileJ>(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal, sq, sk,
-                             scale, s);
-    return flash::on_tile_n(d, [&](auto dim) {
+        return flash::served(3, flash::kSimt,
+                             launch<TileJ>(q, k, v, dq, dk, dv, o, lse, dout, bh, bh_primal,
+                                           sq, sk, scale, s));
+    return flash::served(3, flash::kSimt, flash::on_tile_n(d, [&](auto dim) {
         return launch<flash::TileN<decltype(dim)::value>>(q, k, v, dq, dk, dv, o, lse, dout,
                                                          bh, bh_primal, sq, sk, scale, s);
-    });
+    }));
 }
 
 }  // extern "C"

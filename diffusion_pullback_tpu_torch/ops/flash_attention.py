@@ -18,11 +18,12 @@ served a call):
   SD 1.5's 8 heads per block, ImageNet128Cond's 4 heads of 128; rows as
   64-column panels), TMA loads and wgmma products on the tensor cores
   (csrc/flash_fwd_tc.cu, flash_jvp_tc.cu, flash_bwd_tc.cu);
-* 'tf32x3': K1 in f32 at head dim 512 (the VAE's single head), each f32
-  product as three TF32 mma.sync products (csrc/flash_fwd_tf32.cu);
+* 'tf32x3': K1 and K2 in f32 at head dim 512 (the VAE's single head; K2
+  where ring attention shards it), each f32 product as three TF32
+  mma.sync products (csrc/flash_fwd_tf32.cu);
 * 'simt': every other call, CUDA-core kernels that compute in f32
   (csrc/flash_fwd.cu, flash_jvp.cu, flash_bwd.cu): f32 at every head dim
-  but K1's 512, and K1 in bf16 at 512.
+  but 512, and K1 in bf16 at 512 (K2 refuses bf16 at 512).
 
 The sources are csrc/*.cu; they are compiled with nvcc for sm_90a at first
 use into one shared library under ``.build/`` next to this package (keyed on
@@ -68,8 +69,10 @@ import threading
 import torch
 
 NEG_INF = -1e30
-PAIR_HEAD_DIMS = (40, 64, 80, 128, 160)  # head dims K2–K5 are built for
-HEAD_DIMS = PAIR_HEAD_DIMS + (512,)  # head dims K1 is built for
+PAIR_HEAD_DIMS = (40, 64, 80, 128, 160)  # head dims K3–K5 are built for
+# head dims K1 and K2 are built for (K2 at 512 in f32 only: ring
+# attention's shards of the VAE's single head, 'tf32x3')
+HEAD_DIMS = PAIR_HEAD_DIMS + (512,)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_HERE, "csrc", "*.cu"))))
@@ -155,6 +158,8 @@ def _load():
                 fn.restype = ci
             lib.flash_design.argtypes = [ci, ci, ci]
             lib.flash_design.restype = ci
+            lib.flash_served.argtypes = [ci, ci]
+            lib.flash_served.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 
@@ -347,6 +352,13 @@ def design(kernel: str, d: int, dtype: torch.dtype) -> str:
                                         int(dtype == torch.bfloat16))]
 
 
+def served(kernel: str, design_: str) -> int:
+    """Launches of kernel ``kernel`` ('K1'…'K5') on design ``design_`` since
+    the library was loaded, as the C entries count them in the branch that
+    launched the kernel."""
+    return _load().flash_served(KERNELS.index(kernel) + 1, DESIGNS.index(design_))
+
+
 # ---- the kernels as custom ops -----------------------------------------------
 #
 # Each kernel is the custom op dpx::<symbol>: its CUDA implementation
@@ -494,10 +506,13 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_forward_lse(q, k, v, scale: float):
-    """K2 on (B·H, S, D) tensors → (o in q's dtype, L (B·H, Sq) f32)."""
+    """K2 on (B·H, S, D) tensors → (o in q's dtype, L (B·H, Sq) f32); at
+    head dim 512 (ring attention's shards of the VAE's head) f32 only."""
     bh, sq, d = q.shape
     sk = k.shape[1]
-    q, k, v = _operands(q, PAIR_HEAD_DIMS, q=(q, (bh, sq, d), None),
+    if d == 512 and q.dtype != torch.float32 and _device(q):
+        raise ValueError("K2 takes head dim 512 in float32 only ('tf32x3')")
+    q, k, v = _operands(q, HEAD_DIMS, q=(q, (bh, sq, d), None),
                         k=(k, (bh, sk, d), None), v=(v, (bh, sk, d), None))
     return torch.ops.dpx.flash_fwd_lse(q, k, v, float(scale))
 

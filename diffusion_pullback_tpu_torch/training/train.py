@@ -17,13 +17,27 @@ AdamW, p·(1 − lr·wd) − lr·m̂/(√v̂+ε), and optax.sgd torch's SGD with
 momentum. The step updates the state's tensors in place and returns the
 state with its counter advanced; afterwards each master's ``.grad`` holds
 the gradient the step applied.
+
+Under a dp×fsdp mesh (the first leg of the JAX package's multi-device dry
+run, __graft_entry__._dryrun_impl, where GSPMD shards the batch over 'dp'
+and the state over 'fsdp') the same step runs with ``mesh=``: an explicit
+ZeRO-style shard. Each master is flattened, padded to a multiple of the
+fsdp size and cut into one flat f32 chunk per fsdp rank; the optimizer
+and the EMA run on the chunks (AdamW and SGD are elementwise, so a
+chunk's update is the whole tensor's on its elements). The step gathers
+the masters over 'fsdp', runs the loss of the rank's 'dp' share of each
+microbatch on them, averages the gradients over 'dp' and hands each chunk
+its slice. The draws are the whole batch's on every rank, so the sharded
+step computes the single-device step's function.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops.schedule import DiffusionSchedule, alpha_bar
@@ -40,16 +54,51 @@ class TrainState(NamedTuple):
     opt_state: torch.optim.Optimizer  # holds its state beside the masters
 
 
+def _fsdp(mesh):
+    """(the 'fsdp' group or None, its size, this rank's place in it)."""
+    from ..parallel.mesh import axis_group, axis_names, axis_size
+
+    if "fsdp" not in axis_names(mesh):
+        return None, 1, 0
+    group = axis_group(mesh, "fsdp")
+    return group, axis_size(mesh, "fsdp"), dist.get_rank(group)
+
+
+def _chunk(t: torch.Tensor, n: int, me: int) -> torch.Tensor:
+    """Flat chunk ``me`` of ``n`` of t, zero-padded to a multiple of n."""
+    flat = t.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros((-flat.numel()) % n)])
+    return flat.chunk(n)[me]
+
+
+def gather_params(shards: Mapping[str, torch.Tensor], shapes, mesh) -> Params:
+    """The whole tensors of a sharded state's flat chunks (name → chunk:
+    its masters, an EMA copy) over the mesh's 'fsdp' axis, each reshaped
+    to ``shapes[name]``."""
+    from ..parallel.collectives import gather_rows
+
+    group, _, _ = _fsdp(mesh)
+    return {k: (v.detach() if group is None else gather_rows(v.detach(), group))
+            [:math.prod(shapes[k])].reshape(shapes[k]) for k, v in shards.items()}
+
+
 def create_train_state(params: Mapping[str, torch.Tensor],
                        optimizer: Callable[[list], torch.optim.Optimizer],
-                       n_ema: int = 1) -> TrainState:
+                       n_ema: int = 1, mesh=None) -> TrainState:
     """A state on f32 copies of ``params`` (e.g. ``model.state_dict()``),
     with the optimizer ``optimizer`` builds on them. ``n_ema > 1`` keeps
     one EMA copy per rate (guided-diffusion's comma-separated ema_rate):
     ``ema_params`` is then a tuple, for a tuple ``ema_rate`` in
-    make_train_step."""
-    masters = {k: v.detach().to(torch.float32, copy=True).requires_grad_()
-               for k, v in params.items()}
+    make_train_step. With a ``mesh``, rank 0's ``params`` on every rank,
+    and each master and EMA copy is this rank's flat chunk over the mesh's
+    'fsdp' axis (gather_params gives them back whole)."""
+    masters = {k: v.detach().to(torch.float32, copy=True) for k, v in params.items()}
+    if mesh is not None:
+        _, n, me = _fsdp(mesh)
+        for v in masters.values():
+            dist.broadcast(v, src=0)
+        masters = {k: _chunk(v, n, me).clone() for k, v in masters.items()}
+    masters = {k: v.requires_grad_() for k, v in masters.items()}
     copy = lambda: {k: v.detach().clone() for k, v in masters.items()}
     return TrainState(
         step=0, params=masters,
@@ -57,12 +106,38 @@ def create_train_state(params: Mapping[str, torch.Tensor],
         opt_state=optimizer(list(masters.values())))
 
 
+def sample_losses(model: nn.Module, params: Params, x0, t, noise, sched,
+                  learn_sigma_vb_weight: Optional[float] = None) -> torch.Tensor:
+    """The per-sample losses of ``model`` run on ``params`` (f32 masters,
+    cast to the module's dtype) at x_t = √ᾱ·x0 + √(1−ᾱ)·noise: the ε MSE,
+    plus ``learn_sigma_vb_weight``·L_vb on the detached ε for a learned-σ
+    head."""
+    tf = t.to(torch.float32)
+    at = alpha_bar(sched, tf).reshape((-1,) + (1,) * (x0.ndim - 1))
+    xt = torch.sqrt(at) * x0 + torch.sqrt(1.0 - at) * noise
+    dtype = next(model.parameters()).dtype  # the cast is a no-op in f32
+    pred = torch.func.functional_call(
+        model, {k: v.to(dtype) for k, v in params.items()}, (xt, tf))
+    channels = noise.shape[1]
+    eps_pred, logvar = ((pred[:, :channels], pred[:, channels:])
+                        if pred.shape[1] != channels else (pred, None))
+    losses = torch.mean((eps_pred.float() - noise) ** 2,
+                        dim=tuple(range(1, x0.ndim)))
+    if learn_sigma_vb_weight and logvar is not None:
+        losses = losses + learn_sigma_vb_weight * vb_term(
+            sched, x0, xt, tf, eps_pred.detach().float(), logvar.float())
+    return losses
+
+
 def make_train_step(model: nn.Module, schedule: DiffusionSchedule,
                     optimizer: Callable[[list], torch.optim.Optimizer],
                     ema_rate=0.9999, learn_sigma_vb_weight: Optional[float] = None,
-                    loss_aware: bool = False, accum_steps: int = 1):
+                    loss_aware: bool = False, accum_steps: int = 1, mesh=None):
     """Build the train step of ``model`` (ε-prediction, NCHW; a learned-σ
-    head has twice the image's channels).
+    head has twice the image's channels). With ``mesh``, the step of a
+    state create_train_state sharded over the mesh's 'fsdp' axis, each
+    microbatch split over its 'dp' axis (the module docstring); ``x0`` is
+    the whole batch on every rank and the metrics are the whole batch's.
 
     Plain:      step(state, x0, generator) → (state, metrics)
     loss_aware: step(state, x0, generator, sampler_state) → (state,
@@ -85,26 +160,35 @@ def make_train_step(model: nn.Module, schedule: DiffusionSchedule,
     the random draws: ``draw(i) → (t, weights, noise)`` for microbatch i,
     as local_pca's ``draw`` does.
     """
+    from ..parallel.collectives import gather_rows
+    from ..parallel.mesh import axis_group, axis_size
+
     del optimizer  # the state holds the optimizer it built
     if isinstance(ema_rate, (tuple, list)) and len(ema_rate) == 1:
         ema_rate = ema_rate[0]
+    dp = axis_size(mesh, "dp")
+    dp_group = axis_group(mesh, "dp") if dp > 1 else None
+    if mesh is not None:
+        _, n_fsdp, me_fsdp = _fsdp(mesh)
+        shapes = {k: v.shape for k, v in model.state_dict().items()}
+
+    def leaves(state):
+        """The params the loss runs on, whose .grad the backward fills: the
+        masters, or under a mesh their whole copies gathered over 'fsdp'."""
+        if mesh is None:
+            return state.params
+        return {k: v.requires_grad_()
+                for k, v in gather_params(state.params, shapes, mesh).items()}
+
+    def share(rows: int) -> slice:
+        """This rank's dp share of a microbatch of ``rows``."""
+        if dp_group is None:
+            return slice(None)
+        me, n = dist.get_rank(dp_group), rows // dp
+        return slice(me * n, (me + 1) * n)
 
     def per_sample_losses(params, x0, t, noise, sched):
-        tf = t.to(torch.float32)
-        at = alpha_bar(sched, tf).reshape((-1,) + (1,) * (x0.ndim - 1))
-        xt = torch.sqrt(at) * x0 + torch.sqrt(1.0 - at) * noise
-        dtype = next(model.parameters()).dtype  # the cast is a no-op in f32
-        pred = torch.func.functional_call(
-            model, {k: v.to(dtype) for k, v in params.items()}, (xt, tf))
-        channels = noise.shape[1]
-        eps_pred, logvar = ((pred[:, :channels], pred[:, channels:])
-                            if pred.shape[1] != channels else (pred, None))
-        losses = torch.mean((eps_pred.float() - noise) ** 2,
-                            dim=tuple(range(1, x0.ndim)))
-        if learn_sigma_vb_weight and logvar is not None:
-            losses = losses + learn_sigma_vb_weight * vb_term(
-                sched, x0, xt, tf, eps_pred.detach().float(), logvar.float())
-        return losses
+        return sample_losses(model, params, x0, t, noise, sched, learn_sigma_vb_weight)
 
     def sample(generator, x0_i, sampler_state):
         if loss_aware:
@@ -137,29 +221,41 @@ def make_train_step(model: nn.Module, schedule: DiffusionSchedule,
         if x0.shape[0] % accum_steps:
             raise ValueError(f"batch {x0.shape[0]} not divisible by accum_steps "
                              f"{accum_steps}")
+        if (x0.shape[0] // accum_steps) % dp:
+            raise ValueError(f"microbatch {x0.shape[0] // accum_steps} does not "
+                             f"split over dp={dp}")
         emas = ema_pairs(state)
         sched = schedule.to(x0.device)
         masters = list(state.params.values())
+        params = leaves(state)
         for p in masters:
             p.grad = None
         loss, ts, all_losses = 0.0, [], []
         for i, x0_i in enumerate(x0.chunk(accum_steps)):
             t, weights, noise = (draw(i) if draw is not None
                                  else sample(generator, x0_i, sampler_state))
-            losses = per_sample_losses(state.params, x0_i, t, noise, sched)
-            loss_i = torch.mean(losses * weights)
+            rows = share(x0_i.shape[0])
+            losses = per_sample_losses(params, x0_i[rows], t[rows], noise[rows], sched)
+            loss_i = torch.mean(losses * weights[rows])
             loss_i.backward()
             loss = loss + loss_i.detach()
             ts.append(t)
             all_losses.append(losses.detach())
-        for p in masters:
-            if p.grad is None:  # a parameter the output does not reach
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in masters]
+        # a parameter the output does not reach has no gradient: zero
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params.values()]
+        if dp_group is not None:  # the mean over dp of the shares' means
+            for g in grads + [loss]:
+                dist.all_reduce(g, group=dp_group)
+            torch._foreach_div_(grads, dp)
+            loss = loss / dp
+            all_losses = [gather_rows(x, dp_group) for x in all_losses]
         if accum_steps > 1:
             torch._foreach_div_(grads, accum_steps)
             loss = loss / accum_steps
         grad_norm = torch.nn.utils.get_total_norm(grads)
+        for p, g in zip(masters, grads):
+            p.grad = g if mesh is None else _chunk(g, n_fsdp, me_fsdp).clone()
         state.opt_state.step()
         with torch.no_grad():
             for rate, ema in emas:  # e·rate + p·(1 − rate)

@@ -35,7 +35,12 @@ def to_uint8(batch: np.ndarray) -> np.ndarray:
 
 
 def save_image_grid(batch: np.ndarray, path: str) -> None:
-    """Save an NHWC batch as one PNG, the images side by side."""
+    """Save an NHWC batch as one PNG, the images side by side (rank 0 of a
+    torch.distributed run writes)."""
+    from ..parallel.mesh import is_writer
+
+    if not is_writer():
+        return
     arr = to_uint8(batch)
     grid = np.concatenate(list(arr), axis=1)   # (H, N·W, C)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

@@ -1,5 +1,6 @@
 """Structured logging: JSONL + console (counterpart of
-diffusion_pullback_tpu/utils/logging.py)."""
+diffusion_pullback_tpu/utils/logging.py). Under a torch.distributed run
+only rank 0 writes and prints."""
 
 from __future__ import annotations
 
@@ -12,10 +13,13 @@ from typing import Any, Dict, Optional
 
 class JSONLLogger:
     def __init__(self, path: Optional[str] = None, echo: bool = True):
+        from ..parallel.mesh import is_writer
+
+        writer = is_writer()
         self.path = path
-        self.echo = echo
+        self.echo = echo and writer
         self._fh = None
-        if path:
+        if path and writer:
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
             self._fh = open(path, "a")
 

@@ -176,16 +176,25 @@ def test_adm_refusals(tmp_path, monkeypatch):
         texp.UncondExperimentConfig(basis_folder=str(tmp_path)), device="cpu")
     with pytest.raises(ValueError, match="intra-block taps"):
         edit._make_tap("mid", 0, after_res=True)
-    # the regularizers are ported (SEGA among them); the mesh is refused
+    # the regularizers are ported (SEGA among them), and so is the mesh: a
+    # driver on a one-rank ('dp', 'probe') mesh keeps the weights and
+    # shards no pullback
     assert texp.EditUncondDiffusion(
         tmodels.UNetADM(tmodels.adm_tiny(16)), DiffusionSchedule.linear(), None,
         texp.UncondExperimentConfig(use_sega_reg=True, basis_folder=str(tmp_path)),
         device="cpu").cfg.use_sega_reg
-    with pytest.raises(NotImplementedError, match="item 16"):
-        texp.EditUncondDiffusion(
-            tmodels.UNetADM(tmodels.adm_tiny(16)), None, None,
-            texp.UncondExperimentConfig(mesh=object(), basis_folder=str(tmp_path)),
-            device="cpu")
+    from torch_port_dist import mesh, one_rank
+
+    model = tmodels.UNetADM(tmodels.adm_tiny(16))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with one_rank(tmp_path):
+        edit = texp.EditUncondDiffusion(
+            model, DiffusionSchedule.linear(), None,
+            texp.UncondExperimentConfig(mesh=mesh(("dp", "probe")),
+                                        basis_folder=str(tmp_path)), device="cpu")
+        assert edit._mesh_probe_size(2) == 0 and edit._harvest_dp(4, "skip") == 0
+    for k, v in edit.model.state_dict().items():
+        torch.testing.assert_close(v, before[k], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("spec", ["ddim25", "ddim50", "250", "25,25,25", "10"])

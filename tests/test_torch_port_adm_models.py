@@ -206,7 +206,7 @@ def test_blockwise_attention_matches_jax(sk):
 def test_auto_dispatch_and_blockwise_derivatives():
     """'auto' is the blockwise path from 1024 tokens on and the math path
     below; blockwise composes with torch.func (jvp and vjp as the math
-    path's); 'ring' is not ported."""
+    path's); 'ring' without a mesh falls back as 'auto' does.""" 
     rng = np.random.default_rng(9)
     x = torch.from_numpy(rng.normal(size=(1, 2048, 2, 8)).astype(np.float32))
     f = lambda impl: (lambda y: tattn.attention(y, 0.5 * y, torch.tanh(y), impl=impl))
@@ -220,8 +220,9 @@ def test_auto_dispatch_and_blockwise_derivatives():
     vb = torch.func.vjp(f("blockwise"), x)[1](t)[0]
     vx = torch.func.vjp(f("xla"), x)[1](t)[0]
     _close(vb.numpy(), vx.numpy())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tattn.attention(x, x, x, impl="ring")
+    # 'ring' with no mesh published takes the dense path, the 'auto' rule
+    for y in (x, small):
+        torch.testing.assert_close(f("ring")(y), f("auto")(y), rtol=0, atol=0)
 
 
 def test_adm256_self_attention_calls_per_pass(plain_shapes):

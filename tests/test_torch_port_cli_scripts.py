@@ -5,8 +5,8 @@ defaults to SD 2.1-base); every command line of the three edit scripts in
 scripts/, its loop variables filled in by bash, parses in both packages;
 the port's preset copies --sh_file_name's script where the JAX preset
 copies it, refuses --use_yh_custom_scheduler False as the JAX preset's
-assert does, maps --xsg_pair_impl auto as it does, refuses the flags of
-open ROADMAP items, naming the item, and takes the tooling flags
+assert does, maps --xsg_pair_impl auto as it does, takes the mesh flags
+(--mesh_axes, --attn_impl ring) and takes the tooling flags
 --profile_dir and --aot_export into the run. Runs on the CPU; nothing is
 built."""
 
@@ -119,11 +119,21 @@ def test_xsg_pair_impl_auto_maps_as_the_jax_preset(model, tmp_path, monkeypatch)
 
 @pytest.mark.parametrize("flag, value, item", [
     ("mesh_axes", "dp:2,probe:4", 16), ("attn_impl", "ring", 16)])
-def test_flags_of_open_items_raise_naming_the_item(flag, value, item, tmp_path, monkeypatch):
+def test_flags_of_open_items_raise_naming_the_item(flag, value, item, tmp_path, monkeypatch,
+                                                   capsys):
+    """The flags once refused naming item 16 are ported: the preset takes
+    them, and at one rank --mesh_axes prints the JAX CLI's single-chip line
+    and builds no mesh."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     args = tmain.parse_args(["--note", "x", f"--{flag}", value])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
-        tmain.check_preset(args)
+    tmain.check_preset(args)
+    assert getattr(args, flag) == value
+    assert tmain.build_mesh(args) is None
+    if flag == "mesh_axes":
+        assert tmain.mesh_spec(value) == (("dp", "probe"), {"dp": 2, "probe": 4})
+        assert ("--mesh_axes given but only 1 device visible; running single-chip"
+                in capsys.readouterr().out)
     assert not os.path.exists(tmp_path / "runs")
 
 

@@ -48,10 +48,10 @@ def _one_tf32_forward(q, k, v, scale):
 
 def _design(kernel, d, dtype):
     """The design the C rule gives: 'wgmma' for bf16 at D = 40, 64, 80, 128
-    and 160, 'tf32x3' for K1 in f32 at D=512, 'simt' for the rest."""
+    and 160, 'tf32x3' for K1 and K2 in f32 at D=512, 'simt' for the rest."""
     if dtype == torch.bfloat16 and d in (40, 64, 80, 128, 160):
         return "wgmma"
-    if kernel == "K1" and d == 512 and dtype == torch.float32:
+    if kernel in ("K1", "K2") and d == 512 and dtype == torch.float32:
         return "tf32x3"
     return "simt"
 
@@ -93,14 +93,15 @@ def _design(kernel, d, dtype):
     (4, 200, 130, 40), (4, 200, 130, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
-    """K1 (and K2 at the pair's head dims) against their plain versions,
-    one launch each, on the wgmma design in bf16 at D = 40, 64, 80, 128 and
-    160, tf32x3 in f32 at D=512 and the CUDA-core one otherwise; on tf32x3
-    the gate rejects one TF32 product."""
+    """K1 (and K2 at the pair's head dims, and in f32 at 512) against their
+    plain versions, one launch each, on the wgmma design in bf16 at D = 40,
+    64, 80, 128 and 160, tf32x3 in f32 at D=512 and the CUDA-core one
+    otherwise; on tf32x3 the gate rejects one TF32 product."""
     bh, sq, sk, d = shape
     want = _design("K1", d, dtype)
     assert fa.design("K1", d, dtype) == want
-    if d in fa.PAIR_HEAD_DIMS:
+    with_k2 = d in fa.PAIR_HEAD_DIMS or want == "tf32x3"
+    if with_k2:
         assert fa.design("K2", d, dtype) == want
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(n, s, d, device=cuda, generator=gen).to(dtype)
@@ -121,7 +122,7 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     assert (out.float() - ref.float()).abs().max().item() <= tol
     if want == "tf32x3":
         assert (_one_tf32_forward(q, k, v, d ** -0.5) - ref).abs().max().item() > tol
-    if d not in fa.PAIR_HEAD_DIMS:
+    if not with_k2:
         return
     n0 = fa.flash_forward_lse.launches
     out, lse = fa.flash_forward_lse(q, k, v, d ** -0.5)

@@ -163,8 +163,12 @@ def test_uncond_driver_accepts_the_regularizers(tmp_path):
         texp.UncondExperimentConfig(use_sega_reg=True, use_dynamic_thresholding=True,
                                     basis_folder=str(tmp_path)), device="cpu")
     assert edit.cfg.use_sega_reg and edit.cfg.sega_reg_sigma == 1.0
-    with pytest.raises(NotImplementedError, match="item 16"):
-        texp.EditUncondDiffusion(
-            tmodels.UNet2D(tmodels.ddpm_tiny(8)), None, None,
-            texp.UncondExperimentConfig(mesh=object(), basis_folder=str(tmp_path)),
-            device="cpu")
+    # with a mesh too (one rank here): the regularizers do not depend on it
+    from torch_port_dist import mesh, one_rank
+
+    with one_rank(tmp_path):
+        edit = texp.EditUncondDiffusion(
+            tmodels.UNet2D(tmodels.ddpm_tiny(8)), DiffusionSchedule.linear(), None,
+            texp.UncondExperimentConfig(use_sega_reg=True, mesh=mesh(("dp",)),
+                                        basis_folder=str(tmp_path)), device="cpu")
+        assert edit.cfg.use_sega_reg and edit.cfg.mesh is not None

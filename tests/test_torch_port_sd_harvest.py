@@ -121,12 +121,17 @@ def test_single_point_harvest_matches_jax(fresh):
     same_basis_files(mine, theirs)
 
 
-def test_a_mesh_is_refused(pair):
+def test_a_mesh_is_refused(pair, tmp_path):
+    """No longer refused: the driver takes a mesh (one rank here), whose 'dp'
+    axis of size 1 splits no sweep."""
     import dataclasses
 
+    from torch_port_dist import mesh, one_rank
+
     _, tdrv, _ = pair
-    with pytest.raises(NotImplementedError, match="item 16"):
-        type(tdrv)(tdrv.unet, tdrv.vae, tdrv.text_model, tdrv.schedule, tdrv.dataset,
-                   dataclasses.replace(tdrv.cfg, mesh=object()), tokenizer=tdrv.tokenizer,
-                   logger=tdrv.log, device="cpu")
+    with one_rank(tmp_path):
+        drv = type(tdrv)(tdrv.unet, tdrv.vae, tdrv.text_model, tdrv.schedule,
+                         tdrv.dataset, dataclasses.replace(tdrv.cfg, mesh=mesh(("dp",))),
+                         tokenizer=tdrv.tokenizer, logger=tdrv.log, device="cpu")
+        assert drv._harvest_dp(4, "skip") == 0
     assert tsd_harvest.SDHarvestMixin in type(tdrv).__mro__

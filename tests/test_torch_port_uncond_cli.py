@@ -167,16 +167,21 @@ def test_preset_checks():
     ("mesh", object(), 16)])
 def test_unported_options_raise(tmp_path, field, value, item):
     """Options once refused naming their ROADMAP queue 1 item: the
-    regularizers (item 12) are ported and build, the mesh (16) raises."""
-    cfg = texp.UncondExperimentConfig(**{field: value}, basis_folder=str(tmp_path))
-    build = lambda: texp.EditUncondDiffusion(
+    regularizers (item 12) and the mesh (16, a one-rank mesh here) are
+    ported and build."""
+    from torch_port_dist import mesh, one_rank
+
+    build = lambda cfg: texp.EditUncondDiffusion(
         tmodels.UNet2D(tmodels.ddpm_tiny(8)), DiffusionSchedule.linear(), None, cfg,
         device="cpu")
     if item == 12:
-        assert getattr(build().cfg, field) is value
+        cfg = texp.UncondExperimentConfig(**{field: value}, basis_folder=str(tmp_path))
+        assert getattr(build(cfg).cfg, field) is value
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build()
+    with one_rank(tmp_path):
+        m = mesh(("probe",))
+        cfg = texp.UncondExperimentConfig(**{field: m}, basis_folder=str(tmp_path))
+        assert build(cfg).cfg.mesh is m
 
 
 def test_uncond_cli_needs_cuda_unless_cpu(monkeypatch):
