@@ -7,9 +7,8 @@ Phases (any failure exits non-zero before the last line is printed):
                the main path gives it, float32 (TF32 off) and bfloat16, with
                the design that served it as the C library's one rule
                reports it ('wgmma': K1–K5 in bf16 at D=40, 64, 80, 128
-               and 160; 'tf32x3': K1 and K2 in f32 at D=512; 'simt': the
-               CUDA-core kernels, every kernel in f32 at those head
-               dims), the kernel's,
+               and 160; 'tf32x3': K1 and K2 in f32 at every head dim;
+               'simt': the CUDA-core kernels, K3–K5 in f32), the kernel's,
                the plain version's and a PyTorch yardstick's times
                (F.scaled_dot_product_attention for K1; for K2 and K4+K5 the
                flash SDPA forward / backward ops in bf16 and the
@@ -20,7 +19,7 @@ Phases (any failure exits non-zero before the last line is printed):
                wrapper call, the bound, the achieved TFLOP/s and the bound's
                share of the kernel's time; for K1 and K2 on 'tf32x3' also
                the error of one TF32 product per f32 product, which their
-               gate must reject;
+               gate must reject, at every shape and head dim;
                then the fused pair under torch.func (vmap of jvp, vmap of a
                vjp function) against the math path;
   3. U-Net   — one full-width SD 2.1-base U-Net: ε with attn_impl='flash'
@@ -126,8 +125,10 @@ Phases (any failure exits non-zero before the last line is printed):
                EditStableDiffusion's run_edit_local_encoder_pullback_zt at
                phase 4's settings (K1 at 8 heads of 40 over 4096 tokens and
                of 80 over 1024, K2–K5 at those heads in the pullback), its
-               launches by shape, stage seconds and peak memory, and its
-               mid-tap pullback on the pair against the math path in f32;
+               launches by shape, stage seconds and peak memory, the same
+               edit with the U-Net in f32 (K1 and K2 on 'tf32x3', K3–K5 on
+               'simt', as the C entries count them), and its mid-tap
+               pullback on the pair against the math path in f32;
                ImageNet128Cond at full width with labels (K1–K5 at 4 heads
                of 128 over 1024 tokens): ε and the mid-tap rank-2 pullback
                on the pair against the math path in f32 and bf16; every
@@ -170,10 +171,23 @@ Phases (any failure exits non-zero before the last line is printed):
                probe-sharded pullback of the full-width SD 2.1-base mid tap
                on the pair against local_pullback, dp_vmap over two
                pullbacks, and the ring over the one-rank 'sp' group against
-               dense K1.
-Phases 1–2 hold every (kernel, shape) that phases 4 and 6–15 launch.
+               dense K1;
+ 16. f32     — the SD 2.1-base edit at --dtype fp32 through the CLI's
+               builder at phase 4's settings (the 865.9 M-parameter U-Net
+               in f32, weights drawn on the card, 10/10 steps, edit t 0.5,
+               pca_rank 2, 2 walk steps, 1–3 power iterations, 2
+               directions × 3 frames): K1 and K2 on 'tf32x3' at (B·H,
+               4096 | 1024, 64), K3–K5 on 'simt' under the fused pair; its
+               launches by shape, each stage's seconds, the peak memory and
+               the launches by design as the C entries counted them (every
+               f32 K1/K2 launch must be 'tf32x3'); then the same run on the
+               math path (--attn_impl xla --pullback_attn_impl xla), which
+               launches none of K1–K5, and the JAX package's f32 gates
+               between the two: σ within rtol 1e-3, |cos| ≥ 0.99 per σ-gap
+               group, the edited images ≥ 35 dB PSNR.
+Phases 1–2 hold every (kernel, shape) that phases 4 and 6–16 launch.
 Then a JSON line of the kernels (one entry per kernel, design and head dim
-over phases 4 and 6–15, at the shape that carries most of that entry's
+over phases 4 and 6–16, at the shape that carries most of that entry's
 device time there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
@@ -290,8 +304,9 @@ PAIR_CASES += [(*shape, SDXL_RANK, (BF16,), ("K3", "K4", "K5")) for shape in SDX
 # phase 12: SD 1.5 (8 heads per block: 40 at 4096 tokens, 80 at 1024, 160
 # at 256 and 64 tokens, which take the math path) and ImageNet128Cond (4
 # heads of 128 at 1024 tokens; 192 at 256 and 256 at 64, math path): K1–K5
-# on 'wgmma' in bf16, on 'simt' in f32. K1: the SD 1.5
-# edit's U-Net at batch 1, 4 (walk) and 6 (finish) in bf16; SD 1.5's
+# on 'wgmma' in bf16; in f32 K1 and K2 on 'tf32x3', K3–K5 on 'simt'. K1:
+# the SD 1.5 edit's U-Net at batch 1, 4 (walk) and 6 (finish) in both
+# dtypes (the edit runs in bf16 and in f32); SD 1.5's
 # self-attentions at batch 1 and 2, ImageNet128Cond's at batch 1 and 8
 # heads of 160 at 1024 tokens (SD 1.5's third block at 1024 px) in both
 # dtypes. K2–K5: the
@@ -305,7 +320,7 @@ ADM128_PAIR = [(4, 1024, 128)]
 HEAD_DIM_K1 = [(8, 4096, 40), (16, 4096, 40), (8, 1024, 80), (16, 1024, 80),
                (4, 1024, 128), (8, 1024, 160)]
 K1_CASES += [(s, dt) for s in HEAD_DIM_K1 for dt in (F32, BF16)] + [
-    ((8 * b, s, d), BF16) for b in (4, 6) for _, s, d in SD15_PAIR]
+    ((8 * b, s, d), dt) for b in (4, 6) for _, s, d in SD15_PAIR for dt in (F32, BF16)]
 PAIR_CASES += [(*shape, PCA_RANK, (F32, BF16), ("K2", "K3", "K4", "K5"))
                for shape in SD15_PAIR + ADM128_PAIR + [(8, 1024, 160)]]
 # phase 13: training ImageNet256Uncond in bf16, K2 in each forward and K4 +
@@ -329,10 +344,9 @@ PAIR_CASES += [(bh, s // n, d, 1, (dt,), ("K2",)) for (bh, s, d), dt in RING_CAS
 KERNELS = {
     "flash_fwd": ("K1", "flash_forward",
                   {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu",
-                   "tf32x3": "flash_fwd_tf32.cu"}, 190),
+                   "tf32x3": "flash_fwd_tf32_rows.cu"}, 190),
     "flash_fwd_lse": ("K2", "flash_forward_lse",
-                      {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu",
-                       "tf32x3": "flash_fwd_tf32.cu"}, 262),
+                      {"wgmma": "flash_fwd_tc.cu", "tf32x3": "flash_fwd_tf32_rows.cu"}, 262),
     "flash_tangent": ("K3", "flash_tangent",
                       {"simt": "flash_jvp.cu", "wgmma": "flash_jvp_tc.cu"}, 505),
     "flash_dq": ("K4", "flash_dq",
@@ -341,16 +355,24 @@ KERNELS = {
                   {"simt": "flash_bwd.cu", "wgmma": "flash_bwd_tc.cu"}, 396),
 }
 KERNELS_BY_LABEL = {label: sym for sym, (label, *_) in KERNELS.items()}
+
+
+def kernel_source(sources, design, d):
+    """The csrc file of a kernel's ``design`` at head dim d: 'tf32x3' at
+    D = 512 is flash_fwd_tf32.cu (warps split D), at 40–160
+    flash_fwd_tf32_rows.cu (warps own rows)."""
+    return "flash_fwd_tf32.cu" if design == "tf32x3" and d == 512 else sources[design]
 # K2–K5's operations per (B·H)·S²·D, B·H the tangents' or the cotangent's,
 # with the primal's QKᵀ (2 of them) recomputed for every probe, as the
 # kernels do; pair_ops counts what the function needs
 PAIR_OPS = {"K2": 4, "K3": 10, "K4": 6, "K5": 8}
-# K1 on 'tf32x3' against its plain version (f32, TF32 off). Three TF32
-# products per f32 product read 9.39e-6 at (3,4096,512) and 5.25e-6 at
-# (1,4096,512) on an H100; one TF32 product per f32 product stays under
-# 1e-4 at those shapes, so 1e-4 would pass a kernel that dropped the two
-# small products. Phase 2 measures the one-product error too and fails
-# unless this gate lies below it.
+# K1 and K2 on 'tf32x3' against their plain versions (f32, TF32 off).
+# Three TF32 products per f32 product read 9.39e-6 at (3,4096,512) and
+# 5.25e-6 at (1,4096,512) on an H100, and under 1.8e-6 at the f32 path
+# shapes of head dims 40–160 (phases 1–2); one TF32 product
+# per f32 product stays under 1e-4 at the VAE's shapes, so 1e-4 would pass
+# a kernel that dropped the two small products. Phases 1–2 measure the
+# one-product error too and fail unless this gate lies below it.
 TF32X3_TOL = 2.5e-5
 
 
@@ -407,14 +429,13 @@ def served_by(fn, n=2):
     return "; ".join(e.key[:100] for e in top[:n]) or "not traced"
 
 
-def k1_tol(ref, dtype, design):
-    """K1 against its plain version: in float32 1e-4 on 'simt' (the two
-    differ in the order of f32 sums, ~4e-7 measured) and TF32X3_TOL on
-    'tf32x3'; in bfloat16 two ulps of max |ref| (the two round the same f32
-    value to bf16 and differ by at most one ulp where the sums straddle a
-    rounding boundary)."""
+def k1_tol(ref, dtype):
+    """K1 against its plain version: in float32 TF32X3_TOL (every f32 call
+    runs 'tf32x3'); in bfloat16 two ulps of max |ref| (the two round the
+    same f32 value to bf16 and differ by at most one ulp where the sums
+    straddle a rounding boundary)."""
     if dtype == torch.float32:
-        return TF32X3_TOL if design == "tf32x3" else 1e-4
+        return TF32X3_TOL
     top = ref.float().abs().max().item()
     return 2 * torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top))
 
@@ -434,15 +455,15 @@ def one_tf32_forward(q, k, v, scale):
 
 
 def pair_tol(ref, design="simt"):
-    """K2–K5 against their plain versions: for a float32 output 1e-4 of
-    max(1, max |ref|) (f32 sums in another order; the f32 outputs reach
-    |x| ≈ 10 for L), TF32X3_TOL of it on 'tf32x3' (K2 at D = 512, K1's
-    gate), for a bfloat16 one two ulps of max |ref| (as K1). Dropping one
-    64-key tile (K5: one 64-query tile) from the plain versions at these
-    shapes moves the outputs by far more than either."""
+    """K2–K5 against their plain versions: for a float32 output TF32X3_TOL
+    on 'tf32x3' (K2's O and L, K1's gate), 1e-4 of max(1, max |ref|) on
+    'simt' (K3–K5; f32 sums in another order; the f32 outputs reach |x| ≈
+    10 for L), for a bfloat16 one two ulps of max |ref| (as K1). Dropping
+    one 64-key tile (K5: one 64-query tile) from the plain versions at
+    these shapes moves the outputs by far more than any of them."""
     top = ref.float().abs().max().item()
     if ref.dtype == torch.float32:
-        return (TF32X3_TOL if design == "tf32x3" else 1e-4) * max(1.0, top)
+        return TF32X3_TOL if design == "tf32x3" else 1e-4 * max(1.0, top)
     return 2 * torch.finfo(ref.dtype).eps * 2.0 ** math.floor(math.log2(top))
 
 
@@ -508,7 +529,7 @@ def phase_k1(fa):
         ref = fa.flash_forward_plain(q, k, v, scale)
         err = (out.float() - ref.float()).abs().max().item()
         design = fa.design("K1", shape[-1], dtype)
-        tol = k1_tol(ref, dtype, design)
+        tol = k1_tol(ref, dtype)
         row = dict(
             max_abs_err=err,
             ms=cuda_ms(lambda: fa.flash_forward(q, k, v, scale), 20),
@@ -524,10 +545,10 @@ def phase_k1(fa):
         if design == "tf32x3":
             row["one_tf32_err"] = (one_tf32_forward(q, k, v, scale)
                                    - ref).abs().max().item()
-            log(f"[k1] {shape} f32: sdpa served by " + served_by(
+            sdpa = "sdpa served by " + served_by(
                 lambda: F.scaled_dot_product_attention(
-                    q[None], k[None], v[None], scale=scale))
-                + f"; one TF32 product per f32 product: max_abs_err "
+                    q[None], k[None], v[None], scale=scale)) + "; " if shape[-1] == 512 else ""
+            log(f"[k1] {shape} f32: {sdpa}one TF32 product per f32 product: max_abs_err "
                 f"{row['one_tf32_err']:.3g} (must exceed the tol {tol:.3g})")
             if not row["one_tf32_err"] > tol:
                 raise AssertionError(f"K1's tf32x3 gate {tol} does not part "
@@ -2640,7 +2661,7 @@ def phase_extras(fa):
 
 def phase_head_dim_models(fa):
     """Phase 12: the two model configs at head dims other than 64 and 512,
-    where K1–K5 run 'wgmma' in bf16.
+    where K1–K5 run 'wgmma' in bf16, and K1 and K2 'tf32x3' in f32.
     (b) SD 1.5 at full width, built directly into
     EditStableDiffusion as a user of the library builds it (no CLI of
     either package builds SD 1.5): the 859.5 M-parameter U-Net in bf16 with
@@ -2649,21 +2670,24 @@ def phase_head_dim_models(fa):
     weights drawn on the card, the bundled example images at 512 px,
     run_edit_local_encoder_pullback_zt at phase 4's settings with the
     fused pair in the pullback; its launches by shape held to the count the
-    code gives, each stage's seconds and peak memory; then its mid-tap
+    code gives, each stage's seconds and peak memory; (b') the same edit
+    with the U-Net cast to f32, its launches by shape held likewise, every
+    K1/K2 launch served by 'tf32x3' (at D = 40 and 80 among them) and
+    K3–K5 by 'simt', as the C entries count them; then its mid-tap
     pullback on the pair against the math path in f32. (c) ImageNet128Cond
     (421.5 M parameters, labels y) at full width: ε with K1 (4 heads of 128
     over 1024 tokens) against the math path in f32 and bf16, and the
     mid-tap rank-2 pullback on the pair against the math path in f32 and
     bf16; the bf16 ε and pair pullback with their launches by shape. Every
-    launch of both runs at the head dims 40, 80 and 128 (all bf16) must
-    have been served by 'wgmma', for each of K1–K5.
-    Returns the path dicts of the SD 1.5 edit and of ImageNet128Cond's bf16
-    ε and pair pullback."""
+    bf16 launch of these runs at the head dims 40, 80 and 128 must have
+    been served by 'wgmma', for each of K1–K5.
+    Returns the path dicts of the SD 1.5 edits (bf16, f32) and of
+    ImageNet128Cond's bf16 ε and pair pullback."""
     import numpy as np
     from PIL import Image
 
     from diffusion_pullback_tpu_torch.experiments import (
-        EditStableDiffusion, SDExperimentConfig)
+        BasisCache, EditStableDiffusion, SDExperimentConfig)
     from diffusion_pullback_tpu_torch.geometry import local_pullback
     from diffusion_pullback_tpu_torch.models import (
         AutoencoderKL, CLIPTextModel, TapPoint, UNet2DCondition, model_for_name,
@@ -2743,10 +2767,52 @@ def phase_head_dim_models(fa):
         "(sd15) every kernel launched": {sym for sym, _, _ in paths[0]} == set(KERNELS),
     })
 
+    # (b') the same edit with the U-Net in f32 (the same bf16-valued
+    # weights), into basis and result folders of its own so that its
+    # pullback and edits run: K1 and K2 on 'tf32x3' at 8 heads of 40 over
+    # 4096 tokens and of 80 over 1024, K3–K5 on 'simt'
+    unet.to(torch.float32)
+    cfg.basis_folder = os.path.join(out, "inputs_f32")
+    cfg.result_folder = os.path.join(out, "f32")
+    os.makedirs(cfg.result_folder, exist_ok=True)
+    edit.cache = BasisCache(cfg.basis_folder)
+
+    def expected_f32(expected, events):
+        edit_k1(expected, edit, n_dir, frames, (F32, F32), unet=SD15_UNET)
+        pair_k2_k5(expected, F32, named(events, "sd_local_pullback")[-1]["iterations"],
+                   layers=2, shapes=SD15_PAIR)
+
+    (names, designs), events, _, seconds = checked_run(
+        fa, "sd15", "edit f32", edit, lambda: served_designs(
+            fa, lambda: edit.run_edit_local_encoder_pullback_zt(
+                idx=0, pca_rank=PCA_RANK, vis_num=vis_num, vis_num_pc=vis_num_pc)),
+        expected_f32, checks, paths)
+    launched = collections.Counter()
+    for (sym, shape, _), (n, _) in paths[-1].items():
+        launched[KERNELS[sym][0]] += n
+        launched[(KERNELS[sym][0], shape[-1])] += n
+    for (sym, dsg, d), (_, n, ms) in sorted(by_design(fa, paths[-1:], head_dim=True).items()):
+        log(f"[sd15] f32 {KERNELS[sym][0]} on {dsg} at D={d}: {n} launches, {ms:.2f} ms on "
+            f"the device ({100 * ms / 1e3 / seconds:.2f} % of the path)")
+    s32 = load_basis(os.path.join(cfg.basis_folder, os.listdir(cfg.basis_folder)[0]))[1]
+    log(f"[sd15] f32 edit: sigma {s32.tolist()}, launches by design as the C entries "
+        f"counted them {dict(designs)}")
+    finite = named(events, "sd_decode_and_save")
+    checks.update({
+        "(sd15) f32 edit: two PNGs of 3 frames, finite": len(names) == n_dir and all(
+            Image.open(os.path.join(cfg.result_folder, n + ".png")).size
+            == (512 * frames, 512) for n in names) and bool(finite and finite[-1]["finite"]),
+        "(sd15) f32 edit: every K1/K2 launch on tf32x3, K3–K5 on simt": (
+            designs[("K1", "tf32x3")] == launched["K1"]
+            and designs[("K2", "tf32x3")] == launched["K2"]
+            and all(designs[(k, "simt")] == launched[k] > 0 for k in ("K3", "K4", "K5"))),
+        "(sd15) f32 edit: K1 and K2 at D = 40 and 80": all(
+            launched[(k, d)] > 0 for k in ("K1", "K2") for d in (40, 80)),
+    })
+
     # the mid-tap pullback on the pair and on the math path from the same
     # probes (the driver's seeded ones), 3 iterations, in f32 (the same
     # bf16-valued weights)
-    unet.to(torch.float32)
     cfg.pullback_min_iter = cfg.pullback_max_iter = 3
     cfg.pullback_atol = 0.0
     zt = torch.randn(1, 64, 64, 4, device="cuda",
@@ -2832,7 +2898,7 @@ def phase_head_dim_models(fa):
     served = collections.Counter()
     for path in paths:
         for (sym, shape, dtype), (n, _) in path.items():
-            if shape[-1] != 512:  # the SD VAE's f32 head runs 'tf32x3'
+            if dtype == torch.bfloat16:  # the f32 edit's are checked above
                 label = KERNELS[sym][0]
                 served[(label, fa.design(label, shape[-1], dtype))] += n
     log(f"[dims] launches by kernel and design: {dict(served)}")
@@ -3487,7 +3553,7 @@ def phase_parallel(fa):
         paths.append(path)
         dense = fa.flash_forward(fold(q), fold(k), fold(v), 64 ** -0.5)
         err = (fold(out).float() - dense.float()).abs().max().item()
-        tol = k1_tol(dense, BF16, "wgmma")
+        tol = k1_tol(dense, BF16)
         log(f"[mesh] ring over the one-rank sp group vs dense K1: {err:.3g} (tol {tol:.3g})")
         checks["(b) the one-rank ring equals dense K1"] = err <= tol
     finally:
@@ -3533,6 +3599,104 @@ def phase_parallel(fa):
     if not all(checks.values()):
         raise AssertionError("phase 15 checks failed")
     return paths
+
+
+def phase_f32_edit(fa):
+    """Phase 16 (module docstring): the SD 2.1-base edit at --dtype fp32
+    through the CLI's builder at phase 4's settings, its K1/K2 on 'tf32x3'
+    at (B·H, 4096 | 1024, 64), against the same run on the math path."""
+    import numpy as np
+    from PIL import Image
+
+    from diffusion_pullback_tpu_torch import main as port_main
+    from diffusion_pullback_tpu_torch.experiments import BasisCache
+    from diffusion_pullback_tpu_torch.geometry import compare_bases, passes_acceptance
+
+    runs, checks, vis_num, vis_num_pc = {}, {}, 2, 1
+    for impl in ("flash", "xla"):
+        folder = os.path.join(OUT, f"f32_{impl}")
+        shutil.rmtree(folder, ignore_errors=True)
+        math_path = ["--attn_impl", "xla", "--pullback_attn_impl", "xla"]
+        args = port_main.parse_args([
+            "--note", "chip_smoke_f32", "--result_folder", folder, "--dtype", "fp32",
+            "--for_steps", "10", "--inv_steps", "10", "--edit_t", "0.5",
+            "--pca_rank", str(PCA_RANK), "--x_space_guidance_num_step", "2",
+            "--edit_prompt", "a photo of a smiling face"] + (math_path if impl == "xla" else []))
+        t0 = time.perf_counter()
+        with torch.device("cuda"):  # the weights drawn on the card
+            edit = port_main.build_sd(args)
+        cfg = edit.cfg
+        cfg.pullback_min_iter, cfg.pullback_max_iter = 1, 3
+        cfg.basis_folder = os.path.join(folder, "inputs")
+        edit.cache = BasisCache(cfg.basis_folder)
+        dtypes = (next(edit.unet.parameters()).dtype, next(edit.vae.parameters()).dtype)
+        log(f"[f32] built the SD 2.1-base driver in {time.perf_counter() - t0:.1f} s "
+            f"(U-Net {dtypes[0]}, {sum(p.numel() for p in edit.unet.parameters())} "
+            f"parameters, attn {edit.unet.config.attn_impl}, pullback attn "
+            f"{cfg.pullback_attn_impl})")
+        (names, designs), seconds, peak, launches, path = drive(
+            fa, lambda: served_designs(fa, lambda: edit.run_edit_local_encoder_pullback_zt(
+                idx=0, pca_rank=PCA_RANK, vis_num=vis_num, vis_num_pc=vis_num_pc)))
+        events = read_events(edit)
+        log_stages(f"f32 {impl}", events)
+        pullback = named(events, "sd_local_pullback")[-1]
+        basis = os.listdir(cfg.basis_folder)
+        runs[impl] = dict(
+            basis=load_basis(os.path.join(cfg.basis_folder, basis[0])),
+            pngs={n: np.asarray(Image.open(os.path.join(cfg.result_folder, n + ".png")))
+                  for n in names})
+        log(f"[f32 {impl}] main path {seconds:.3f} s, peak memory {peak:.2f} GB, pullback "
+            f"{pullback['seconds']:.3f} s (encoder {pullback['encoder']}, "
+            f"{pullback['iterations']} iterations), sigma {runs[impl]['basis'][1].tolist()}; "
+            f"launches by design as the C entries counted them {dict(designs)}")
+        if impl == "flash":
+            n_dir = 2 * vis_num_pc
+            stride = max(1, (cfg.x_space_guidance_num_step + 1) // vis_num)
+            frames = len(range(0, cfg.x_space_guidance_num_step + 1, stride))
+            expected = collections.Counter()
+            edit_k1(expected, edit, n_dir, frames, dtypes)
+            pair_k2_k5(expected, dtypes[0], pullback["iterations"], layers=2)
+            checks["U-Net in f32, K1 and the pair on the card"] = (
+                dtypes == (F32, F32) and edit.unet.config.attn_impl == "flash"
+                and cfg.pullback_attn_impl == "flash" and pullback["encoder"] == "flashpair")
+            checks["launches by shape"] = check_launches("f32", launches, path, expected)
+            served = by_design(fa, [path], head_dim=True)
+            for (sym, dsg, d), (_, n, ms) in sorted(served.items()):
+                log(f"[f32] {KERNELS[sym][0]} on {dsg} at D={d}: {n} launches, "
+                    f"{ms:.2f} ms on the device ({100 * ms / 1e3 / seconds:.2f} % of the path)")
+            checks["every f32 K1/K2 launch served by tf32x3, K1 and K2 at D=64 among them"] = (
+                designs[("K1", "tf32x3")] == launches["flash_fwd"]
+                and designs[("K2", "tf32x3")] == launches["flash_fwd_lse"]
+                and served.get(("flash_fwd", "tf32x3", 64), (0, 0))[1] > 0
+                and served.get(("flash_fwd_lse", "tf32x3", 64), (0, 0))[1] > 0)
+            checks["K3–K5 in f32 on simt"] = all(
+                designs[(k, "simt")] == launches[KERNELS_BY_LABEL[k]] > 0
+                for k in ("K3", "K4", "K5"))
+            flash_path = path
+        else:
+            checks["the math path launches none of K1–K5"] = not any(launches.values())
+        del edit
+        torch.cuda.empty_cache()
+
+    (_, s0, v0), (_, s1, v1) = runs["flash"]["basis"], runs["xla"]["basis"]
+    cmp = compare_bases(v0, s0, v1, s1)
+    first, second = runs["flash"]["pngs"], runs["xla"]["pngs"]
+    worst = min(psnr(first[n], second[n]) for n in first) if first.keys() == second.keys() \
+        else float("nan")
+    log(f"[f32] flash against the math path: sigma max rel err "
+        f"{cmp.sigma_rel_err.max():.3g} (tol 1e-3), min |cos| per σ-gap group "
+        f"{cmp.per_direction_cos.min():.6f} (tol ≥ 0.99) over {len(cmp.gap_groups)} "
+        f"groups, {len(first)} PNGs, worst PSNR {worst:.2f} dB (tol ≥ 35)")
+    checks["basis: sigma rtol 1e-3, cos >= 0.99 per σ-gap group"] = passes_acceptance(
+        cmp, cos_min=0.99, sigma_rtol=1e-3)
+    checks["edited images: PSNR >= 35 dB"] = len(first) == 2 * vis_num_pc and worst >= 35.0
+    for folder in ("f32_flash", "f32_xla"):
+        shutil.rmtree(os.path.join(OUT, folder), ignore_errors=True)
+    for what, ok in checks.items():
+        log(f"[f32] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("phase 16 checks failed")
+    return [flash_path]
 
 
 def main():
@@ -3600,6 +3764,8 @@ def main():
     lap("phase 14")
     paths += phase_parallel(fa)
     lap("phase 15")
+    paths += phase_f32_edit(fa)
+    lap("phase 16")
 
     # every (kernel, shape, dtype) the main paths launched was held against
     # its plain version in phases 1–2
@@ -3611,7 +3777,7 @@ def main():
                              f"did not hold against their plain versions: {missing}")
 
     # launches and summed device time of each (kernel, shape) over the main
-    # paths of phases 4 and 6–15
+    # paths of phases 4 and 6–16
     merged = collections.defaultdict(lambda: [0, 0.0])
     for path in paths:
         for key, (n, ms) in path.items():
@@ -3619,11 +3785,11 @@ def main():
             merged[key][1] += ms
     for (sym, shape, dtype), (n, ms) in sorted(merged.items(), key=lambda kv: -kv[1][1]):
         log(f"[paths] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches, "
-            f"{ms:.3f} ms on the device over phases 4 and 6–15")
-    log(f"[smoke] phases 1–15 in {time.perf_counter() - t_start:.1f} s")
+            f"{ms:.3f} ms on the device over phases 4 and 6–16")
+    log(f"[smoke] phases 1–16 in {time.perf_counter() - t_start:.1f} s")
 
     # one entry per kernel, design and head dim on the main paths (phases
-    # 4, 6–15): their launches and summed device time there (path_ms), and
+    # 4, 6–16): their launches and summed device time there (path_ms), and
     # the per-launch numbers of phases 1–2 at the shape that carries most
     # of that device time
     kernels = []
@@ -3634,7 +3800,7 @@ def main():
         row = k1_rows[(shape, dtype)] if label == "K1" else pair_rows[(label, shape, dtype)]
         kernels.append(dict(
             name=f"{sym} ({label}, {dsg}, D={d})", route="cuda",
-            source=f"diffusion_pullback_tpu_torch/ops/csrc/{sources[dsg]}",
+            source=f"diffusion_pullback_tpu_torch/ops/csrc/{kernel_source(sources, dsg, d)}",
             replaces=f"diffusion_pullback_tpu/ops/pallas/flash_attention.py:{line}",
             launches=n, shape=list(shape), dtype=str(dtype)[6:], path_ms=ms, **row))
     log(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@
 // loader of a (rows × D) tile into shared memory.
 //
 // The CUDA-core kernels ("simt"; all but the tensor-core designs of
-// flash_fwd_tc.cu, flash_bwd_tc.cu, flash_jvp_tc.cu and flash_fwd_tf32.cu)
+// flash_fwd_tc.cu, flash_bwd_tc.cu, flash_jvp_tc.cu, flash_fwd_tf32.cu and
+// flash_fwd_tf32_rows.cu)
 // keep their tiles in shared memory in f32 and compute with f32 FMAs. A
 // thread block owns one tile of "rows"
 // (query rows for K1-K4, key rows for K5) and loops over tiles of "columns". A
@@ -102,7 +103,7 @@ __device__ __forceinline__ bool has_chunk(int g, int c) {
 }
 
 // The CUDA-core tile of the head dims other than 64 and 512, in f32 for
-// K1–K5 (bf16 runs "wgmma" there): SD 1.5's 8 heads of 40 and 80 (160 at
+// K3–K5 (bf16 runs "wgmma" there, K1 and K2 in f32 "tf32x3"): SD 1.5's 8 heads of 40 and 80 (160 at
 // 1024 px) and ImageNet128Cond's 4 of 128. 64 rows × 32 columns, G = 8 (128 threads,
 // 4 rows × 4 logits each), so K3's and K5's six tiles fit in shared memory
 // at D = 160 (191.7 KB; 64 × 64 tiles would need 291 KB).
@@ -182,8 +183,9 @@ inline cudaError_t allow_smem(K kernel, int smem) {
 
 // The tensor-core designs. "wgmma", bf16 at D = 40, 64, 80, 128 and 160:
 // K1 / K2 (flash_fwd_tc.cu), K3 (flash_jvp_tc.cu) and K4 / K5
-// (flash_bwd_tc.cu). "tf32x3", f32 at D = 512: K1, and K2 with lse
-// (flash_fwd_tf32.cu).
+// (flash_bwd_tc.cu). "tf32x3", K1 and K2 (with lse) in f32: at D = 512
+// (flash_fwd_tf32.cu) and at D = 40, 64, 80, 128 and 160
+// (flash_fwd_tf32_rows.cu).
 int fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
               int bh, int sq, int sk, int d, float scale, cudaStream_t stream);
 int dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
@@ -198,6 +200,8 @@ int tangent_wgmma(const void* q, const void* k, const void* v, const void* dq,
                   cudaStream_t stream);
 int fwd_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                int sq, int sk, float scale, cudaStream_t stream);
+int fwd_tf32x3_rows(const void* q, const void* k, const void* v, void* o, float* lse,
+                    int bh, int sq, int sk, int d, float scale, cudaStream_t stream);
 
 // The designs flash_design returns.
 enum Design { kSimt = 0, kWgmma = 1, kTf32x3 = 2 };

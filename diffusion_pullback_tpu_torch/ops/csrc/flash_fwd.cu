@@ -14,18 +14,18 @@
 // Layout (B·H, S, D), contiguous; f32 or bf16 inputs. K1 and K2 take head
 // dims 40, 64, 80, 128 and 160 (the U-Net self-attentions: SD 2.1 / SDXL /
 // ADM-256 at 64, SD 1.5 at 40 / 80 / 160, ImageNet128Cond at 128), and K1
-// also 512 (the single-head VAE mid-block).
+// also 512 (the single-head VAE mid-block), K2 at 512 in f32 only.
 //
 // Three designs. bf16 at D = 40, 64, 80, 128 and 160 goes to the
 // tensor-core design "wgmma" (flash_fwd_tc.cu: TMA loads of 64-column
-// panels, wgmma products, bound by the bf16 tensor-core rate); K1 in f32 at
-// D = 512 to the tensor-core design "tf32x3" (flash_fwd_tf32.cu: each f32
-// product as three TF32 mma.sync products, which holds it within 2.5e-5 of
-// the plain version at the path's shapes, a gate that one TF32 product
-// misses; chip_smoke.py measures both). The rest, f32 at D = 40, 64, 80,
-// 128 and 160 and K1 in bf16 at D = 512, runs the CUDA-core design "simt"
-// below: wgmma has no f32 operand, and its bf16 kernel holds at most three
-// panels (D ≤ 192).
+// panels, wgmma products, bound by the bf16 tensor-core rate); f32 at every
+// head dim to the tensor-core design "tf32x3" (each f32 product as three
+// TF32 mma.sync products, which holds it within 2.5e-5 of the plain version
+// at the path's shapes, a gate that one TF32 product misses; chip_smoke.py
+// measures both): flash_fwd_tf32.cu at D = 512, flash_fwd_tf32_rows.cu at
+// D = 40, 64, 80, 128 and 160. Only K1 in bf16 at D = 512 runs the
+// CUDA-core design "simt" below: wgmma has no f32 operand, and its bf16
+// kernel holds at most three panels (D ≤ 192).
 //
 // "simt": the Pallas grid carries the softmax state across a sequential
 // K-block axis. Here one thread block owns a Q tile and loops over all K/V
@@ -34,15 +34,13 @@
 // its rows/columns of S with vector loads), V row-major, and the
 // probability tile Pᵀ. A group of G consecutive lanes shares TR query rows;
 // the row max and row sum are reduced with warp shuffles inside the group,
-// and the same group splits the D output columns of those rows (unevenly
-// where G does not divide D/4: flash::has_chunk). One kernel template
-// serves K1 and K2 (LSE = false / true).
+// and the same group splits the D output columns of those rows.
 //
 // What bounds it: the work is 4·BH·Sq·Sk·D operations on
 // 2·(BH·Sq·D + BH·Sk·D) elements (K2: plus BH·Sq f32), so at the path's
 // shapes it is bound by operations, not bytes. "simt" computes on the CUDA
-// cores in FP32 (67 TFLOP/s peak on an H100 SXM), so it cannot reach the
-// f32 bound of three TF32 products (164.9 TFLOP/s). The design keeps each S
+// cores in FP32 (67 TFLOP/s peak on an H100 SXM), far below the bf16
+// tensor-core rate that bounds bf16 work. The design keeps each S
 // element's D-long dot product and each P·V update in registers fed by
 // broadcast or conflict-free shared-memory loads, so the FMA units rather
 // than shared memory set the pace.
@@ -66,19 +64,15 @@ using flash::Tile;
 template <class C>
 constexpr int kSmemFloats = C::D * C::QS + C::D * C::KS + C::BK * C::D + C::BK * C::QS;
 
-// D=64: 64×64 tiles, 128 threads, 68.6 KB shared memory (3 blocks per SM).
-using TileD64 = Tile<64, 64, 64, 8>;
-// D=512 (bf16; f32 runs "tf32x3"): 32×32 tiles, 256 threads, 217.6 KB
+// D=512 in bf16 (f32 runs "tf32x3"): 32×32 tiles, 256 threads, 217.6 KB
 // shared memory (1 block per SM).
 using TileD512 = Tile<512, 32, 32, 32>;
-// D = 40, 80, 128, 160 in f32 (bf16 runs "wgmma"): flash::TileN, 64×32
-// tiles, 128 threads, 30.5–95.7 KB shared memory.
 
-template <typename T, class C, bool LSE>
+template <typename T, class C>
 __global__ void __launch_bounds__(C::NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int sq, int sk, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
+                 float scale) {
     constexpr int D = C::D, BQ = C::BQ, BK = C::BK, G = C::G, TR = C::TR;
     constexpr int TC = C::TC, DC = C::DC, QS = C::QS, KS = C::KS;
     constexpr int D4 = D / 4;
@@ -229,35 +223,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int t = 0; t < 4; ++t) out[t] = acc[i][4 * g + t] / l[i];
             Io<T>::store4(orow + (g * G + c) * 4, out);
         }
-        // every lane of the group holds the same m and l after the shuffles
-        if constexpr (LSE) {
-            if (c == 0) lse[bh * sq + row] = m[i] + logf(l[i]);
-        }
     }
 }
 
-template <typename T, class C, bool LSE>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int bh, int sq, int sk, float scale, cudaStream_t stream) {
+template <typename T, class C>
+int launch(const void* q, const void* k, const void* v, void* o, int bh, int sq,
+           int sk, float scale, cudaStream_t stream) {
     const int smem = kSmemFloats<C> * int(sizeof(float));
-    auto kernel = flash_fwd_kernel<T, C, LSE>;
+    auto kernel = flash_fwd_kernel<T, C>;
     cudaError_t err = flash::allow_smem(kernel, smem);
     if (err != cudaSuccess) return int(err);
     const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
     kernel<<<grid, C::NT, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, scale);
+        static_cast<const T*>(v), static_cast<T*>(o), sq, sk, scale);
     return int(cudaGetLastError());
 }
 
-// K1 (LSE false) or K2 in f32 at a head dim of flash::TileN.
-template <bool LSE>
-int launch_n(const void* q, const void* k, const void* v, void* o, float* lse,
-             int bh, int sq, int sk, int d, float scale, cudaStream_t stream) {
-    return flash::on_tile_n(d, [&](auto dim) {
-        using C = flash::TileN<decltype(dim)::value>;
-        return launch<float, C, LSE>(q, k, v, o, lse, bh, sq, sk, scale, stream);
-    });
+// K1 (lse null) or K2 on the tf32x3 kernel of head dim d.
+int tf32x3(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
+           int sk, int d, float scale, cudaStream_t s) {
+    return d == 512 ? flash::fwd_tf32x3(q, k, v, o, lse, bh, sq, sk, scale, s)
+                    : flash::fwd_tf32x3_rows(q, k, v, o, lse, bh, sq, sk, d, scale, s);
 }
 
 std::atomic<long long> g_served[6][3];  // by kernel (1-5) and design
@@ -278,12 +265,13 @@ long long flash_served(int kernel, int design) {
 
 // The one design rule (declared in flash_common.cuh): bf16 at D = 40, 64,
 // 80, 128 and 160 runs the wgmma kernels of K1–K5; K1 and K2 in f32 at
-// D = 512 (the VAE's head; K2 as ring attention's inner) run the tf32x3
-// kernel; every other call runs on the CUDA cores (f32 at every head dim
-// but 512, and K1 in bf16 at 512).
+// those head dims and at D = 512 (the VAE's head; K2 as ring attention's
+// inner) run the tf32x3 kernels; every other call runs on the CUDA cores
+// (K3–K5 in f32, and K1 in bf16 at 512).
 int flash_design(int kernel, int d, int is_bf16) {
     if (is_bf16 && flash::pair_head_dim(d)) return flash::kWgmma;
-    if (kernel <= 2 && d == 512 && !is_bf16) return flash::kTf32x3;
+    if (kernel <= 2 && !is_bf16 && (d == 512 || flash::pair_head_dim(d)))
+        return flash::kTf32x3;
     return flash::kSimt;
 }
 
@@ -301,18 +289,16 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, int bh,
                                  flash::fwd_wgmma(q, k, v, o, nullptr, bh, sq, sk, d, scale, s));
         case flash::kTf32x3:
             return flash::served(1, flash::kTf32x3,
-                                 flash::fwd_tf32x3(q, k, v, o, nullptr, bh, sq, sk, scale, s));
+                                 tf32x3(q, k, v, o, nullptr, bh, sq, sk, d, scale, s));
     }
-    int err;
-    if (d == 64) err = launch<float, TileD64, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
-    else if (d == 512) err = launch<__nv_bfloat16, TileD512, false>(q, k, v, o, nullptr, bh, sq, sk, scale, s);
-    else err = launch_n<false>(q, k, v, o, nullptr, bh, sq, sk, d, scale, s);
-    return flash::served(1, flash::kSimt, err);
+    if (d != 512) return int(cudaErrorInvalidValue);
+    return flash::served(1, flash::kSimt,
+                         launch<__nv_bfloat16, TileD512>(q, k, v, o, bh, sq, sk, scale, s));
 }
 
 // K2: as flash_fwd, plus lse (bh, sq) float32, the row logsumexp of the
-// scaled logits. Head dims 40, 64, 80, 128, 160 (flash::pair_head_dim),
-// and 512 in f32 (tf32x3).
+// scaled logits. Head dims 40, 64, 80, 128, 160 (flash::pair_head_dim; bf16
+// on wgmma, f32 on tf32x3), and 512 in f32 (tf32x3).
 int flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
                   void* lse, int bh, int sq, int sk, int d, int is_bf16,
                   float scale, void* stream) {
@@ -328,11 +314,9 @@ int flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
                                  flash::fwd_wgmma(q, k, v, o, l, bh, sq, sk, d, scale, s));
         case flash::kTf32x3:
             return flash::served(2, flash::kTf32x3,
-                                 flash::fwd_tf32x3(q, k, v, o, l, bh, sq, sk, scale, s));
+                                 tf32x3(q, k, v, o, l, bh, sq, sk, d, scale, s));
     }
-    return flash::served(2, flash::kSimt, d == 64
-        ? launch<float, TileD64, true>(q, k, v, o, l, bh, sq, sk, scale, s)
-        : launch_n<true>(q, k, v, o, l, bh, sq, sk, d, scale, s));
+    return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

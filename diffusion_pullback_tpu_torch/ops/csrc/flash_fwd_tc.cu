@@ -7,11 +7,10 @@
 // this replaces the Pallas TPU kernels `_flash_kernel` / `_flash_forward`
 // (K1) and `_flash_fwd_lse_kernel` / `_flash_forward_lse` (K2) in
 // diffusion_pullback_tpu/ops/pallas/flash_attention.py; flash_fwd.cu's
-// entries route those calls here. f32 inputs go to the "tf32x3" design at
-// D = 512 (flash_fwd_tf32.cu) and stay on flash_fwd.cu's CUDA-core design
-// at the other head dims, as bf16 at D = 512 does: wgmma has no f32
-// operand, and one TF32 product keeps about 10 mantissa bits of an f32
-// product where three keep about 21.
+// entries route those calls here. f32 inputs go to the "tf32x3" design
+// (flash_fwd_tf32.cu at D = 512, flash_fwd_tf32_rows.cu at these head
+// dims): wgmma has no f32 operand, and one TF32 product keeps about 10
+// mantissa bits of an f32 product where three keep about 21.
 //
 // What bounds it: 4·BH·Sq·Sk·D operations on 2·(BH·Sq·D + BH·Sk·D) bf16
 // elements, so at the path's shapes it is bound by operations, at the bf16

@@ -13,9 +13,9 @@
 //
 // What bounds it: 4·BH·Sq·Sk·D operations on 4·BH·S·D f32 elements, so it
 // is bound by operations. f32-accurate products run on the tensor cores as
-// three TF32 products ("3xTF32"): each operand x is split into hi =
-// tf32_rna(x) and lo = tf32_rna(x − hi), and a·b is a_lo·b_hi + a_hi·b_lo
-// + a_hi·b_hi (the small terms first) with f32 accumulation, which keeps
+// three TF32 products ("3xTF32", tf32.cuh): each operand x is split into
+// hi = tf32(x) and lo = tf32(x − hi), and a·b is a_lo·b_hi + a_hi·b_lo +
+// a_hi·b_hi (the small terms first) with f32 accumulation, which keeps
 // about 21 mantissa bits of each product where one TF32 product keeps 10.
 // The least time is then the operations at a third of the TF32 rate
 // (494.7 / 3 ≈ 164.9 TFLOP/s dense on an H100 SXM).
@@ -45,20 +45,22 @@
 // (queries) discard. The row strides make every fragment load free
 // of bank conflicts: inside each 8- or 16-element chunk of the k dimension
 // a lane reads adjacent elements as the logical columns t and t + 4, for A
-// and B alike, so a fragment is one float4 or float2 load. TF32 rounding is
-// done in integer arithmetic (two instructions; cvt.rna.tf32.f32 checks
-// for NaN and infinity besides, which finite inputs do not need). 226.6 KB
-// of shared memory, 256 threads, one block per SM.
+// and B alike, so a fragment is one float4 or float2 load. 226.6 KB of
+// shared memory, 256 threads, one block per SM. flash_fwd_tf32_rows.cu
+// serves the narrower head dims, where warps own query rows instead.
 //
 // Built with nvcc for sm_90a into the flash library.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using flash::kLog2e;
 using flash::kNegInf;
+using tf32::Frag;
+using tf32::mma3;
 
 constexpr int D = 512;
 constexpr int BQ = 32, BK = 32;
@@ -71,41 +73,6 @@ constexpr int QS = D + 16, VS = D + 4, SS = BK + 8, PS = BK + 8;
 constexpr int SMEM_FLOATS =
     BQ * QS + BK * QS + BK * VS + SLOTS * BQ * SS + 2 * BQ * PS + BQ;
 constexpr int SMEM = SMEM_FLOATS * 4 + 24;  // and the K, V and Q mbarriers
-
-// ---- TF32 ----------------------------------------------------------------------
-
-// Finite x rounded to TF32, to nearest with ties away from zero (as
-// cvt.rna.tf32.f32): half a TF32 ulp added to the magnitude, the 13 low
-// mantissa bits cleared.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-    return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// d (16 × 8) += a (16 × 8) · b (8 × 8), TF32 operands, f32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One operand fragment as TF32 hi and lo
-template <int N>
-struct Frag {
-    uint32_t hi[N], lo[N];
-    __device__ __forceinline__ void set(int i, float x) {
-        hi[i] = tf32_rna(x);
-        lo[i] = tf32_rna(x - __uint_as_float(hi[i]));
-    }
-};
-
-// d += a·b in 3xTF32, the small terms first
-__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
-    mma_tf32(d, a.lo, b.hi);
-    mma_tf32(d, a.hi, b.lo);
-    mma_tf32(d, a.hi, b.hi);
-}
 
 // Rows [row0, row0 + 32) below n of a contiguous (n, D) f32 matrix into
 // shared memory at dst (row stride ld floats), completing on bar, whose

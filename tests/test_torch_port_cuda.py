@@ -1,8 +1,8 @@
 """K1–K5 on the card: each CUDA kernel against its plain version, with the
 design the C library's rule reports ('wgmma' for K1–K5 in bf16 at D=64 and
 at SD 1.5's and ImageNet128Cond's head dims 40, 80, 128 and 160, 'tf32x3'
-for K1 in f32 at D=512, 'simt' otherwise: every kernel in f32 at those head
-dims and K1 in bf16 at 512), the fused pair under torch.func against
+for K1 and K2 in f32 at every head dim, 'simt' otherwise: K3–K5 in f32 and
+K1 in bf16 at 512), the fused pair under torch.func against
 the math path, the kernels' custom ops counting the CPU's FLOPs, and a K1
 program exported and reloaded. Marked ``cuda``: these
 skip without a GPU and run on one with
@@ -31,9 +31,10 @@ def cuda():
     return torch.device("cuda")
 
 
-# K1 on 'tf32x3' against its plain version, as chip_smoke.py holds it: three
-# TF32 products per f32 product read ≤ 9.39e-6 at the VAE's shapes on an
-# H100, one TF32 product stays under 1e-4 there
+# K1 and K2 on 'tf32x3' against their plain versions, as chip_smoke.py
+# holds them: three TF32 products per f32 product read ≤ 9.39e-6 at the
+# VAE's shapes and under 1.8e-6 at the U-Nets' (head dims 40–160) on an
+# H100, one TF32 product stays under 1e-4 at the VAE's
 TF32X3_TOL = 2.5e-5
 
 
@@ -48,10 +49,11 @@ def _one_tf32_forward(q, k, v, scale):
 
 def _design(kernel, d, dtype):
     """The design the C rule gives: 'wgmma' for bf16 at D = 40, 64, 80, 128
-    and 160, 'tf32x3' for K1 and K2 in f32 at D=512, 'simt' for the rest."""
+    and 160, 'tf32x3' for K1 and K2 in f32 at those head dims and at 512,
+    'simt' for the rest (K3–K5 in f32, K1 in bf16 at 512)."""
     if dtype == torch.bfloat16 and d in (40, 64, 80, 128, 160):
         return "wgmma"
-    if kernel in ("K1", "K2") and d == 512 and dtype == torch.float32:
+    if kernel in ("K1", "K2") and d in (40, 64, 80, 128, 160, 512) and dtype == torch.float32:
         return "tf32x3"
     return "simt"
 
@@ -69,8 +71,8 @@ def _design(kernel, d, dtype):
 # run_ddim_forward), 4 (walk) and 6 (finish); and the SD U-Net's 10 heads
 # at 1024 tokens over global PCA's 16 latents; the batched pullback's
 # primal over 4 SD latents (20 heads at 4096 tokens, 40 at 1024). At D =
-# 40, 80, 128 and 160 (f32 on simt, 64-row query tiles and 32-key tiles,
-# the output columns split unevenly over the lanes at 40 and 80; bf16 on
+# 40, 80, 128 and 160 (f32 on tf32x3, 64- or 32-row query tiles and 64-key
+# tiles, 32 at 160; bf16 on
 # wgmma, a row as 1, 2, 2 or 3 panels of 64 columns, the columns past D
 # zero-filled): ragged Sq and Sk both ways with B·H > 1 at every D, Sq < 64
 # at 40, 128 and 160, Sk off the 64-key tiles at every D, and SD 1.5's and
@@ -95,8 +97,8 @@ def _design(kernel, d, dtype):
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     """K1 (and K2 at the pair's head dims, and in f32 at 512) against their
     plain versions, one launch each, on the wgmma design in bf16 at D = 40,
-    64, 80, 128 and 160, tf32x3 in f32 at D=512 and the CUDA-core one
-    otherwise; on tf32x3 the gate rejects one TF32 product."""
+    64, 80, 128 and 160, tf32x3 in f32 and the CUDA-core one in bf16 at
+    D=512; on tf32x3 the gate rejects one TF32 product."""
     bh, sq, sk, d = shape
     want = _design("K1", d, dtype)
     assert fa.design("K1", d, dtype) == want
@@ -112,12 +114,11 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     assert fa.flash_forward.launches == n0 + 1
     ref = fa.flash_forward_plain(q, k, v, d ** -0.5)
     assert out.dtype == dtype
-    # f32 on simt: the two differ in the order of f32 sums; f32 on tf32x3:
-    # TF32X3_TOL, which one TF32 product per f32 product must miss; bf16:
-    # both round the same f32 value, so at most an ulp apart — two ulps of
-    # max |ref|
+    # f32 (tf32x3): TF32X3_TOL, which one TF32 product per f32 product must
+    # miss; bf16: both round the same f32 value, so at most an ulp apart —
+    # two ulps of max |ref|
     top = ref.float().abs().max().item()
-    tol = (TF32X3_TOL if want == "tf32x3" else 1e-4) if dtype == torch.float32 else (
+    tol = TF32X3_TOL if dtype == torch.float32 else (
         2 * torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top)))
     assert (out.float() - ref.float()).abs().max().item() <= tol
     if want == "tf32x3":
@@ -130,7 +131,7 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     assert fa.flash_forward_lse.launches == n0 + 1
     ref_o, ref_lse = fa.flash_forward_lse_plain(q, k, v, d ** -0.5)
     assert (out.float() - ref_o.float()).abs().max().item() <= tol
-    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    assert (lse - ref_lse).abs().max().item() <= (TF32X3_TOL if want == "tf32x3" else 1e-4)
 
 
 def test_tf32x3_at_the_sdxl_vae_tokens(cuda):
@@ -149,6 +150,40 @@ def test_tf32x3_at_the_sdxl_vae_tokens(cuda):
     ref = fa.flash_forward_plain(q, k, v, 512 ** -0.5)
     assert (out - ref).abs().max().item() <= TF32X3_TOL
     assert (_one_tf32_forward(q, k, v, 512 ** -0.5) - ref).abs().max().item() > TF32X3_TOL
+
+
+# (B·H, Sq, Sk) of f32 K1 and K2 at each head dim the rows kernel serves,
+# on each of its block shapes: a grid of 64-row tiles under one block an SM
+# (32-row blocks, each key tile split over two warps and merged), over it
+# (64-row blocks: at D ≤ 64 two pairs of warps of two m16 tiles, each pair
+# on half of each key tile and merged, (10, 1000, 700)), and at D ≤ 80 at
+# least 3 blocks of 128 rows for every 2 SMs (two m16 tiles a warp;
+# (40, 1000, 700) and (300, 130, 300), the latter with 2 rows in its last
+# block); ragged Sq and Sk both ways, a key tile of 32 at D = 160, and Sk
+# < one key tile
+@pytest.mark.parametrize("d", [40, 64, 80, 128, 160])
+@pytest.mark.parametrize("shape", [(1, 1000, 700), (2, 700, 1000), (10, 1000, 700),
+                                   (40, 1000, 700), (300, 130, 300), (3, 70, 20)])
+def test_tf32x3_rows_at_each_block_shape(cuda, shape, d):
+    """K1 and K2 in f32 on 'tf32x3' (csrc/flash_fwd_tf32_rows.cu) against
+    their plain versions at TF32X3_TOL (O and L),
+    each launch counted on 'tf32x3' where the C entry launched it, and one
+    TF32 product per f32 product outside the gate."""
+    bh, sq, sk = shape
+    assert fa.design("K1", d, torch.float32) == fa.design("K2", d, torch.float32) == "tf32x3"
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(bh, n, d, device=cuda, generator=gen) for n in (sq, sk, sk))
+    scale = d ** -0.5
+    n0 = fa.served("K1", "tf32x3"), fa.served("K2", "tf32x3")
+    out = fa.flash_forward(q, k, v, scale)
+    o2, lse = fa.flash_forward_lse(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert (fa.served("K1", "tf32x3"), fa.served("K2", "tf32x3")) == (n0[0] + 1, n0[1] + 1)
+    ref_o, ref_lse = fa.flash_forward_lse_plain(q, k, v, scale)
+    assert (out - ref_o).abs().max().item() <= TF32X3_TOL
+    assert (o2 - ref_o).abs().max().item() <= TF32X3_TOL
+    assert (lse - ref_lse).abs().max().item() <= TF32X3_TOL
+    assert (_one_tf32_forward(q, k, v, scale) - ref_o).abs().max().item() > TF32X3_TOL
 
 
 def _tol(ref, dtype):
@@ -187,7 +222,7 @@ def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
 
 # (B·H, Sq, Sk, probes, D) at D = 40, 80, 128, 160, where K2–K5 run wgmma
 # in bf16 (a row as 1, 2, 2 or 3 panels of 64 columns; K3 with one stage of
-# its ring at 160) and simt in f32: ragged Sq and Sk both ways, Sk off the
+# its ring at 160) and in f32 K2 tf32x3, K3–K5 simt: ragged Sq and Sk both ways, Sk off the
 # 64-row tiles at every D, Sq < 64 at every D, a last query tile of 36 rows
 # at 160, B·H > 1 with a ragged last tile in each head at every D, three
 # probes; SD 1.5's mid-tap pullback at rank 2 (8 heads of 40 at 4096
@@ -204,8 +239,8 @@ def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_kernels_at_head_dims_40_to_160(cuda, shape, dtype):
     """K2–K5 against their plain versions at the head dims other than 64
-    (every kernel on 'wgmma' in bf16 and on 'simt' in f32), as
-    test_pair_kernels_match_plain_versions."""
+    (every kernel on 'wgmma' in bf16; in f32 K2 on 'tf32x3', K3–K5 on
+    'simt'), as test_pair_kernels_match_plain_versions."""
     _check_pair(cuda, *shape, dtype)
 
 
@@ -233,8 +268,12 @@ def _check_pair(cuda, bh, sq, sk, r, d, dtype):
     ref["tangent"] = fa.flash_tangent_plain(*cpu(q, k, v, dq, dk, dv, o, lse), scale)
     ref["dq"] = fa.flash_dq_plain(*cpu(q, k, v, do, lse, delta), scale)
     ref["dk"], ref["dv"] = fa.flash_dkv_plain(*cpu(q, k, v, do, lse, delta), scale)
+    tf32x3 = _design("K2", d, dtype) == "tf32x3"
     for name, out in got.items():
-        tol = 1e-4 if name == "lse" else _tol(ref[name], dtype)
+        if tf32x3 and name in ("o", "lse"):  # K2's gate on tf32x3, as chip_smoke.py's
+            tol = TF32X3_TOL
+        else:
+            tol = 1e-4 if name == "lse" else _tol(ref[name], dtype)
         err = (out.cpu().float() - ref[name].float()).abs().max().item()
         want = torch.float32 if name == "lse" else dtype
         assert out.dtype == ref[name].dtype == want and err <= tol, (name, err, tol)

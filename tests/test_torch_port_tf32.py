@@ -1,16 +1,20 @@
-"""The precision argument of K1's 'tf32x3' design (ops/csrc/flash_fwd_tf32.cu)
-on the CPU: each f32 product as three TF32 products keeps K1's f32 gate
-for that design, and one TF32 product does not. The gate is 2.5e-5, not
-the 1e-4 of the CUDA-core design: at the VAE's 4096 tokens one TF32
-product stays under 1e-4.
+"""The precision argument of K1's and K2's 'tf32x3' design
+(ops/csrc/flash_fwd_tf32.cu at D = 512, ops/csrc/flash_fwd_tf32_rows.cu at
+D = 40, 64, 80, 128 and 160; the split in ops/csrc/tf32.cuh) on the CPU:
+each f32 product as three TF32 products keeps the design's f32 gate, and
+one TF32 product does not. The gate is 2.5e-5, not the 1e-4 of the
+CUDA-core design: at the VAE's 4096 tokens one TF32 product stays under
+1e-4.
 
 TF32 rounding is emulated here with integer bit masks (round to nearest,
-ties away from zero, to 10 stored mantissa bits, as cvt.rna.tf32.f32). A
-product of two TF32 values is exact in f32, so an f32 matrix product of
-TF32-rounded operands is what the tensor cores compute, up to the order of
-the f32 sums. The attention is computed at the VAE mid-block head's width
-(D = 512) at a short sequence, with inputs made with numpy from a seed, and
-held against the JAX package's f32 reference and its Pallas kernel in
+ties away from zero, to 10 stored mantissa bits, as cvt.rna.tf32.f32), and
+the split as the kernels make it: hi rounded, lo = x − hi passed whole, of
+which the tensor core reads the TF32 bits (lo truncated). A product of two
+TF32 values is exact in f32, so an f32 matrix product of TF32 operands is
+what the tensor cores compute, up to the order of the f32 sums. The
+attention is computed at the VAE mid-block head's width (D = 512) and at
+the U-Nets' head dims, with inputs made with numpy from a seed, and held
+against the JAX package's f32 reference and its Pallas kernels in
 interpret mode.
 """
 
@@ -22,8 +26,9 @@ from torch_port_common import one_torch_thread  # noqa: F401
 
 import diffusion_pullback_tpu.ops.pallas.flash_attention as jfa
 
-GATE = 2.5e-5  # K1 on tf32x3 against its plain version (chip_smoke.py, card tests)
+GATE = 2.5e-5  # K1 and K2 on tf32x3 against their plain versions (chip_smoke.py, card tests)
 SHAPE = (1, 256, 512)  # (B·H, S, D): one 512-wide head, as the VAE's
+HEAD_DIMS = [40, 64, 80, 128, 160]  # the U-Nets' self-attentions, on flash_fwd_tf32_rows.cu
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -33,10 +38,17 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def truncated(x: torch.Tensor) -> torch.Tensor:
+    """The TF32 bits of x (f32), the low 13 mantissa bits cleared: what the
+    tensor core reads of an operand that is not rounded to TF32."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
 def split(x):
-    """x as hi + lo, hi = tf32(x), lo = tf32(x − hi)."""
+    """x as hi + lo as the kernels split it: hi = tf32(x), lo = x − hi of
+    which the tensor core reads truncated(lo)."""
     hi = tf32(x)
-    return hi, tf32(x - hi)
+    return hi, truncated(x - hi)
 
 
 def matmul_tf32(a, b, terms):
@@ -51,8 +63,13 @@ def matmul_tf32(a, b, terms):
 def attention_tf32(q, k, v, scale, terms):
     """softmax(Q Kᵀ·scale)·V in f32 with both products in TF32 (P split
     like the inputs: in f32 the kernel does not round it)."""
+    return attention_lse_tf32(q, k, v, scale, terms)[0]
+
+
+def attention_lse_tf32(q, k, v, scale, terms):
+    """(O, L): attention_tf32 and the row logsumexp of its logits (K2)."""
     s = matmul_tf32(q, k.transpose(-1, -2), terms) * scale
-    return matmul_tf32(torch.softmax(s, dim=-1), v, terms)
+    return matmul_tf32(torch.softmax(s, dim=-1), v, terms), torch.logsumexp(s, dim=-1)
 
 
 def _inputs(seed=0, shape=SHAPE):
@@ -86,7 +103,7 @@ def test_tf32_rounding_emulation():
 @pytest.mark.parametrize("terms", [3, 1])
 def test_tf32x3_keeps_the_f32_gate(reference, terms):
     """Three TF32 products per f32 product stay within a tenth of K1's
-    tf32x3 gate of the JAX package's f32 attention (measured 8.9e-7); one
+    tf32x3 gate of the JAX package's f32 attention (measured 1.0e-6); one
     TF32 product misses the gate by more than 2× (measured 3.1e-4)."""
     q, k, v = _inputs()
     scale = SHAPE[-1] ** -0.5
@@ -108,7 +125,7 @@ def test_one_tf32_product_passes_1e4_at_4096_tokens():
     TF32 product per f32 product falls under 1e-4 of the JAX package's f32
     attention (measured 7.5e-5), so 1e-4 would not tell it from three, and
     the tf32x3 gate still rejects it; three stay within a tenth of the gate
-    (measured 3.0e-7)."""
+    (measured 2.8e-7)."""
     shape = (1, 4096, 512)
     q, k, v = _inputs(shape=shape)
     scale = shape[-1] ** -0.5
@@ -118,3 +135,49 @@ def test_one_tf32_product_passes_1e4_at_4096_tokens():
            for terms in (3, 1)}
     assert err[3] <= GATE / 10, err
     assert GATE < err[1] < 1e-4, err
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_tf32x3_rows_keep_the_f32_gate_at_1024_tokens(d, terms):
+    """At the U-Nets' head dims over 1024 tokens (one head, the JAX
+    package's f32 attention as the reference): three TF32 products per f32
+    product stay within a tenth of the gate (measured 3.0e-7 to 5.1e-7 at
+    D = 40–160); one TF32 product lies above the gate (measured 1.2e-4 to
+    2.5e-4), so the card's gate tells the two apart at every head dim the
+    rows kernel serves."""
+    q, k, v = _inputs(shape=(1, 1024, d))
+    scale = d ** -0.5
+    ref = _xla_reference(q, k, v, scale)
+    out = attention_tf32(*map(torch.from_numpy, (q, k, v)), scale, terms).numpy()
+    err = np.abs(out - ref).max()
+    if terms == 3:
+        assert err <= GATE / 10, err
+    else:
+        assert err > GATE, err
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_tf32x3_rows_keep_the_f32_gate_against_pallas(d, terms):
+    """The same against the Pallas kernels K1 and K2 replace, in interpret
+    mode over 256 tokens: three TF32 products keep O (against
+    `_flash_forward` and `_flash_forward_lse`) and K2's L within a tenth of
+    the gate (measured O 5.2e-7 to 7.8e-7, L 4.8e-7: one f32 ulp of |L| ≈
+    6.4); one TF32 product puts O above the gate (measured 2.5e-4 to
+    4.0e-4)."""
+    q, k, v = _inputs(shape=(1, 256, d))
+    scale = d ** -0.5
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    ref_o = np.asarray(jfa._flash_forward(jq, jk, jv, scale, interpret=True))
+    ref_o2, ref_l = (np.asarray(x) for x in jfa._flash_forward_lse(jq, jk, jv, scale,
+                                                                   interpret=True))
+    out, lse = (x.numpy() for x in attention_lse_tf32(*map(torch.from_numpy, (q, k, v)),
+                                                      scale, terms))
+    err_o = max(np.abs(out - ref_o).max(), np.abs(out - ref_o2).max())
+    if terms == 3:
+        assert err_o <= GATE / 10, err_o
+        err_l = np.abs(lse - ref_l[..., 0]).max()  # Pallas broadcasts L over 128 lanes
+        assert err_l <= GATE / 10, err_l
+    else:
+        assert err_o > GATE, err_o

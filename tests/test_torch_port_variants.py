@@ -1,7 +1,7 @@
-"""ops/fwd_tc_variants.py builds each design variant of the bf16 forward,
-and ops/bwd_tc_variants.py each variant of the bf16 tangent, by replacing
-a text of the kernel sources. Each such text must stand in its file
-exactly once, so that a variant still builds the one change it names
+"""ops/fwd_tc_variants.py builds each design variant of the bf16 and the
+f32 forward and ops/bwd_tc_variants.py each variant of the bf16 tangent,
+by replacing a text of the kernel sources. Each such text must stand in
+its file exactly once, so that a variant still builds the one change it names
 after the sources move on. ops/bwd_tc_variants.py (the tangent and the
 backward as built against an earlier tree's csrc/) reads registers and
 spills per K3/K4/K5 instance from nvcc's -Xptxas -v output (an earlier
@@ -14,9 +14,12 @@ import pytest
 
 from diffusion_pullback_tpu_torch.ops import bwd_tc_variants, fwd_tc_variants
 
-EDITS = [(tool.__name__.rsplit(".", 1)[1], name, file, old)
-         for tool in (fwd_tc_variants, bwd_tc_variants)
-         for name, edits in tool.VARIANTS.items() for file, old, _ in edits]
+# (tool, variant, file, old text); the f32 forward's under "fwd_tc_variants f32"
+EDITS = [(tool, name, file, old)
+         for tool, variants in (("fwd_tc_variants", fwd_tc_variants.VARIANTS["bf16"]),
+                                ("fwd_tc_variants f32", fwd_tc_variants.VARIANTS["f32"]),
+                                ("bwd_tc_variants", bwd_tc_variants.VARIANTS))
+         for name, edits in variants.items() for file, old, _ in edits]
 
 
 @pytest.mark.parametrize("tool, variant, file, old", EDITS,
@@ -63,3 +66,21 @@ ptxas info    : Used 128 registers, used 1 barriers
                                               ("K5", 64): (166, 0, 0),
                                               ("K3", 80): (168, 0, 0),
                                               ("K3", 64): (151, 0, 0)}
+
+
+def test_rows_kernel_registers_are_read_per_block_shape():
+    """ops/fwd_tc_variants.py reads registers and spills per f32 rows-kernel
+    instance, keyed (D, rows of a block, rows of a warp) from its template
+    arguments (D, row groups, m-tiles a warp); other kernels are skipped."""
+    log = """\
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__d96ef202_22_flash_fwd_tf32_rows_cu_22685d6f26flash_fwd_tf32_rows_kernelILi64ELi4ELi2EEEvPKfS2_S2_PfS3_iif' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__d96ef202_22_flash_fwd_tf32_rows_cu_22685d6f26flash_fwd_tf32_rows_kernelILi64ELi4ELi2EEEvPKfS2_S2_PfS3_iif
+    0 bytes stack frame, 76 bytes spill stores, 88 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__1_15_flash_fwd_tc_cu_222flash_fwd_wgmma_kernelILi40ELb1EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Used 95 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__d96ef202_22_flash_fwd_tf32_rows_cu_22685d6f26flash_fwd_tf32_rows_kernelILi160ELi2ELi1EEEvPKfS2_S2_PfS3_iif' for 'sm_90a'
+ptxas info    : Used 173 registers, used 1 barriers
+"""
+    assert fwd_tc_variants.registers(log) == {(64, 128, 32): (255, 76, 88),
+                                              (160, 32, 16): (173, 0, 0)}
