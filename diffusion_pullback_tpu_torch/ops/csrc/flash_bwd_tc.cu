@@ -10,8 +10,8 @@
 // 128) this replaces the Pallas TPU kernels `_flash_dq_kernel` and
 // `_flash_dkv_kernel` (the dq and dkv pallas_calls of `_flash_backward`) in
 // diffusion_pullback_tpu/ops/pallas/flash_attention.py; flash_bwd.cu's
-// entries route those calls here, and f32 stays on its CUDA-core design
-// (wgmma has no f32 operand; TF32 would lose the 1e-4 agreement). Same
+// entries route those calls here, and f32 ones to flash_bwd_tf32_rows.cu
+// (wgmma has no f32 operand). Same
 // rounding as the Pallas kernels and the plain versions: dS rounded to bf16
 // before dS·K (K4), P and dS before Pᵀ·dO and dSᵀ·Q (K5); sums in f32;
 // outputs in bf16.

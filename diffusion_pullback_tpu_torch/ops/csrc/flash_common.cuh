@@ -2,13 +2,11 @@
 // f32/bf16 loads and stores, the tile shape and its thread mapping, and the
 // loader of a (rows × D) tile into shared memory.
 //
-// The CUDA-core kernels ("simt"; all but the tensor-core designs of
-// flash_fwd_tc.cu, flash_bwd_tc.cu, flash_jvp_tc.cu, flash_fwd_tf32.cu and
-// flash_fwd_tf32_rows.cu)
-// keep their tiles in shared memory in f32 and compute with f32 FMAs. A
-// thread block owns one tile of "rows"
-// (query rows for K1-K4, key rows for K5) and loops over tiles of "columns". A
-// group of G consecutive lanes shares TR = 4 rows; each lane holds TC
+// The CUDA-core kernels ("simt": K1 in bf16 at D = 512, flash_fwd.cu, and
+// K3 in f32, flash_jvp.cu; every other call runs a tensor-core design) keep
+// their tiles in shared memory in f32 and compute with f32 FMAs. A thread
+// block owns one tile of query rows and loops over tiles of key "columns".
+// A group of G consecutive lanes shares TR = 4 rows; each lane holds TC
 // columns of every row for the logits and DC of the D output columns.
 
 #pragma once
@@ -102,11 +100,11 @@ __device__ __forceinline__ bool has_chunk(int g, int c) {
     return C::D4 % C::G == 0 || g * C::G + c < C::D4;
 }
 
-// The CUDA-core tile of the head dims other than 64 and 512, in f32 for
-// K3–K5 (bf16 runs "wgmma" there, K1 and K2 in f32 "tf32x3"): SD 1.5's 8 heads of 40 and 80 (160 at
-// 1024 px) and ImageNet128Cond's 4 of 128. 64 rows × 32 columns, G = 8 (128 threads,
-// 4 rows × 4 logits each), so K3's and K5's six tiles fit in shared memory
-// at D = 160 (191.7 KB; 64 × 64 tiles would need 291 KB).
+// The CUDA-core tile of the head dims other than 64 and 512, for K3 in f32
+// (bf16 runs "wgmma" there, K1, K2, K4 and K5 in f32 "tf32x3"): SD 1.5's 8
+// heads of 40 and 80 (160 at 1024 px) and ImageNet128Cond's 4 of 128. 64
+// rows × 32 columns, G = 8 (128 threads, 4 rows × 4 logits each), so K3's
+// six tiles fit in shared memory at D = 160.
 template <int D>
 using TileN = Tile<D, 64, 32, 8>;
 
@@ -183,9 +181,9 @@ inline cudaError_t allow_smem(K kernel, int smem) {
 
 // The tensor-core designs. "wgmma", bf16 at D = 40, 64, 80, 128 and 160:
 // K1 / K2 (flash_fwd_tc.cu), K3 (flash_jvp_tc.cu) and K4 / K5
-// (flash_bwd_tc.cu). "tf32x3", K1 and K2 (with lse) in f32: at D = 512
+// (flash_bwd_tc.cu). "tf32x3" in f32: K1 and K2 (with lse) at D = 512
 // (flash_fwd_tf32.cu) and at D = 40, 64, 80, 128 and 160
-// (flash_fwd_tf32_rows.cu).
+// (flash_fwd_tf32_rows.cu), K4 and K5 at those five (flash_bwd_tf32_rows.cu).
 int fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
               int bh, int sq, int sk, int d, float scale, cudaStream_t stream);
 int dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
@@ -202,6 +200,12 @@ int fwd_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse,
                int sq, int sk, float scale, cudaStream_t stream);
 int fwd_tf32x3_rows(const void* q, const void* k, const void* v, void* o, float* lse,
                     int bh, int sq, int sk, int d, float scale, cudaStream_t stream);
+int dq_tf32x3_rows(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, int bh, int bh_primal, int sq,
+                   int sk, int d, float scale, cudaStream_t stream);
+int dkv_tf32x3_rows(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv, int bh,
+                    int bh_primal, int sq, int sk, int d, float scale, cudaStream_t stream);
 
 // The designs flash_design returns.
 enum Design { kSimt = 0, kWgmma = 1, kTf32x3 = 2 };

@@ -264,13 +264,13 @@ long long flash_served(int kernel, int design) {
 }
 
 // The one design rule (declared in flash_common.cuh): bf16 at D = 40, 64,
-// 80, 128 and 160 runs the wgmma kernels of K1–K5; K1 and K2 in f32 at
-// those head dims and at D = 512 (the VAE's head; K2 as ring attention's
-// inner) run the tf32x3 kernels; every other call runs on the CUDA cores
-// (K3–K5 in f32, and K1 in bf16 at 512).
+// 80, 128 and 160 runs the wgmma kernels of K1–K5; in f32, K1, K2, K4 and
+// K5 at those head dims and K1 and K2 at D = 512 (the VAE's head; K2 as
+// ring attention's inner) run the tf32x3 kernels; every other call runs on
+// the CUDA cores (K3 in f32, and K1 in bf16 at 512).
 int flash_design(int kernel, int d, int is_bf16) {
     if (is_bf16 && flash::pair_head_dim(d)) return flash::kWgmma;
-    if (kernel <= 2 && !is_bf16 && (d == 512 || flash::pair_head_dim(d)))
+    if (!is_bf16 && kernel != 3 && (flash::pair_head_dim(d) || (kernel <= 2 && d == 512)))
         return flash::kTf32x3;
     return flash::kSimt;
 }

@@ -62,14 +62,16 @@
 // Built with nvcc for sm_90a into the flash library.
 
 #include "flash_common.cuh"
-#include "hopper.cuh"
 #include "tf32.cuh"
 
 namespace {
 
 using flash::kLog2e;
 using flash::kNegInf;
+using tf32::cp_async_commit;
+using tf32::cp_async_wait;
 using tf32::Frag;
+using tf32::load_rows;
 using tf32::mma3;
 
 constexpr int NW = 4, NT = 32 * NW;  // warps, threads
@@ -86,38 +88,6 @@ constexpr int kVStride = D + 4;
 
 template <int D, int BQ>  // BQ query rows
 constexpr int kSmemFloats = BQ * kQKStride<D> + STAGES * kKeys<D> * (kQKStride<D> + kVStride<D>);
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
-                 "r"(valid ? 16 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// Wait until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Rows [row0, row0 + ROWS) of a contiguous (n, D) f32 matrix into shared
-// memory at dst (row stride ld floats); rows at or past n are zero-filled.
-// Every thread issues its share of the 16-byte copies.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int row0,
-                                          int n) {
-    constexpr int D4 = D / 4;
-#pragma unroll 4
-    for (int e = threadIdx.x; e < ROWS * D4; e += NT) {
-        const int r = e / D4, c = e % D4;
-        const bool valid = row0 + r < n;
-        cp_async16(hopper::smem_u32(dst + r * ld + 4 * c),
-                   valid ? src + size_t(row0 + r) * D + 4 * c : src, valid);
-    }
-}
 
 template <int D, int R, int MT>
 __global__ void __launch_bounds__(NT)
@@ -401,16 +371,6 @@ int launch(const float* q, const float* k, const float* v, float* o, float* lse,
     return int(cudaGetLastError());
 }
 
-int sm_count() {
-    static const int n = [] {
-        int dev = 0, sms = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        return sms > 0 ? sms : 132;
-    }();
-    return n;
-}
-
 }  // namespace
 
 namespace flash {
@@ -428,7 +388,7 @@ int fwd_tf32x3_rows(const void* q, const void* k, const void* v, void* o, float*
     auto* of = static_cast<float*>(o);
     // the block's query rows: 128 (at D ≤ 80) where there are at least 3
     // such blocks for every 2 SMs, 64 where they give every SM one, else 32
-    const long long sms = sm_count(), n128 = (long long)((sq + 127) / 128) * bh;
+    const long long sms = tf32::sm_count(), n128 = (long long)((sq + 127) / 128) * bh;
     const int rows = 2 * n128 >= 3 * sms ? 128 : (long long)((sq + 63) / 64) * bh >= sms ? 64 : 32;
     return on_pair_head_dim(d, [&](auto dim) {
         constexpr int D = decltype(dim)::value;

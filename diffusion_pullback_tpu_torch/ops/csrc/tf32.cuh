@@ -1,6 +1,7 @@
 // f32-accurate products on Hopper's TF32 tensor cores ("3xTF32"), shared by
-// the 'tf32x3' forward kernels (flash_fwd_tf32.cu at D = 512,
-// flash_fwd_tf32_rows.cu at D = 40, 64, 80, 128 and 160).
+// the 'tf32x3' kernels (flash_fwd_tf32.cu, K1/K2 at D = 512;
+// flash_fwd_tf32_rows.cu, K1/K2, and flash_bwd_tf32_rows.cu, K4/K5, at D =
+// 40, 64, 80, 128 and 160), and the rows kernels' cp.async loads.
 //
 // Each operand x is split into hi = rna(x), x rounded to TF32, and lo = x −
 // hi (exact in f32), and a·b is a_lo·b_hi + a_hi·b_lo + a_hi·b_hi (the small
@@ -55,6 +56,73 @@ __device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag
     mma(d, a.lo, b.hi);
     mma(d, a.hi, b.lo);
     mma(d, a.hi, b.hi);
+}
+
+// ---- loads of the rows kernels (flash_fwd_tf32_rows.cu, flash_bwd_tf32_rows.cu)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src into shared memory at dst, zeros where !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+                 "r"(valid ? 16 : 0)
+                 : "memory");
+}
+
+// 4 bytes, as cp_async16 (rows of L and δ, which need not be 16-byte aligned)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+                 "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of a contiguous (n, D) f32 matrix into shared
+// memory at dst (row stride ld floats); rows at or past n are zero-filled.
+// Every one of the block's NT threads issues its share of the 16-byte copies.
+template <int D, int ROWS, int NT = 128>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int row0,
+                                          int n) {
+    constexpr int D4 = D / 4;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < ROWS * D4; e += NT) {
+        const int r = e / D4, c = e % D4;
+        const bool valid = row0 + r < n;
+        cp_async16(smem_addr(dst + r * ld + 4 * c),
+                   valid ? src + size_t(row0 + r) * D + 4 * c : src, valid);
+    }
+}
+
+// src[row0, row0 + ROWS) of an f32 vector of n into shared memory at dst,
+// zeros at or past n.
+template <int ROWS, int NT = 128>
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int row0, int n) {
+    for (int e = threadIdx.x; e < ROWS; e += NT) {
+        const bool valid = row0 + e < n;
+        cp_async4(smem_addr(dst + e), valid ? src + row0 + e : src, valid);
+    }
+}
+
+// The card's SM count, which the rows kernels' block rules read.
+inline int sm_count() {
+    static const int n = [] {
+        int dev = 0, sms = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        return sms > 0 ? sms : 132;
+    }();
+    return n;
 }
 
 }  // namespace tf32

@@ -18,14 +18,16 @@ served a call):
   SD 1.5's 8 heads per block, ImageNet128Cond's 4 heads of 128; rows as
   64-column panels), TMA loads and wgmma products on the tensor cores
   (csrc/flash_fwd_tc.cu, flash_jvp_tc.cu, flash_bwd_tc.cu);
-* 'tf32x3': K1 and K2 in f32 at every head dim, each f32 product as
-  three TF32 mma.sync products: at 512 (the VAE's single head; K2 where
-  ring attention shards it) warps split D (csrc/flash_fwd_tf32.cu), at 40,
-  64, 80, 128 and 160 (the U-Nets run in f32, ``--dtype fp32``) warps own
-  query rows (csrc/flash_fwd_tf32_rows.cu);
+* 'tf32x3': K1, K2, K4 and K5 in f32, each f32 product as three TF32
+  mma.sync products: K1 and K2 at 512 (the VAE's single head; K2 where
+  ring attention shards it) with warps that split D
+  (csrc/flash_fwd_tf32.cu); K1 and K2 at 40, 64, 80, 128 and 160 (the
+  U-Nets run in f32, ``--dtype fp32``) with warps that own query rows
+  (csrc/flash_fwd_tf32_rows.cu), and K4 and K5 there with warps that own
+  query rows (K4) or key rows (K5) (csrc/flash_bwd_tf32_rows.cu);
 * 'simt': every other call, CUDA-core kernels that compute in f32
-  (csrc/flash_fwd.cu, flash_jvp.cu, flash_bwd.cu): K3–K5 in f32, and K1
-  in bf16 at 512 (K2 refuses bf16 at 512).
+  (csrc/flash_fwd.cu, flash_jvp.cu): K3 in f32, and K1 in bf16 at 512
+  (K2 refuses bf16 at 512).
 
 The sources are csrc/*.cu; they are compiled with nvcc for sm_90a at first
 use into one shared library under ``.build/`` next to this package (keyed on

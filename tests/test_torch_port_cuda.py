@@ -1,8 +1,9 @@
 """K1–K5 on the card: each CUDA kernel against its plain version, with the
 design the C library's rule reports ('wgmma' for K1–K5 in bf16 at D=64 and
 at SD 1.5's and ImageNet128Cond's head dims 40, 80, 128 and 160, 'tf32x3'
-for K1 and K2 in f32 at every head dim, 'simt' otherwise: K3–K5 in f32 and
-K1 in bf16 at 512), the fused pair under torch.func against
+for K1 and K2 in f32 at every head dim and K4 and K5 in f32 at 40–160,
+'simt' otherwise: K3 in f32 and K1 in bf16 at 512), the fused pair under
+torch.func against
 the math path, the kernels' custom ops counting the CPU's FLOPs, and a K1
 program exported and reloaded. Marked ``cuda``: these
 skip without a GPU and run on one with
@@ -49,11 +50,13 @@ def _one_tf32_forward(q, k, v, scale):
 
 def _design(kernel, d, dtype):
     """The design the C rule gives: 'wgmma' for bf16 at D = 40, 64, 80, 128
-    and 160, 'tf32x3' for K1 and K2 in f32 at those head dims and at 512,
-    'simt' for the rest (K3–K5 in f32, K1 in bf16 at 512)."""
+    and 160, 'tf32x3' in f32 for K1, K2, K4 and K5 at those head dims and
+    for K1 and K2 at 512, 'simt' for the rest (K3 in f32, K1 in bf16 at
+    512)."""
     if dtype == torch.bfloat16 and d in (40, 64, 80, 128, 160):
         return "wgmma"
-    if kernel in ("K1", "K2") and d in (40, 64, 80, 128, 160, 512) and dtype == torch.float32:
+    if dtype == torch.float32 and kernel != "K3" and (
+            d in (40, 64, 80, 128, 160) or (kernel in ("K1", "K2") and d == 512)):
         return "tf32x3"
     return "simt"
 
@@ -186,12 +189,73 @@ def test_tf32x3_rows_at_each_block_shape(cuda, shape, d):
     assert (_one_tf32_forward(q, k, v, scale) - ref_o).abs().max().item() > TF32X3_TOL
 
 
-def _tol(ref, dtype):
-    """f32: 1e-4 of max(1, max |ref|) (the two differ in the order of f32
-    sums); bf16: two ulps of max |ref| (both round the same f32 values)."""
+def _one_tf32_backward(q, k, v, do, lse, delta, scale, block=512):
+    """K4 and K5 in f32 with one TF32 product per f32 product, (dQ, dK, dV):
+    the operands of Q·Kᵀ, dO·Vᵀ, dS·K, Pᵀ·dO and dSᵀ·Q rounded to TF32, the
+    exact products summed in f32, over key blocks; the cotangent may carry
+    r times the primal's B·H."""
+    tf32 = lambda x: ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    r = do.shape[0] // q.shape[0]
+    q, k, v, lse = (x.repeat(r, *(1,) * (x.ndim - 1)) for x in (q, k, v, lse))
+    dq = torch.zeros_like(do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for i in range(0, k.shape[1], block):
+        kb, vb = k[:, i:i + block], v[:, i:i + block]
+        p = torch.exp(tf32(q) @ tf32(kb).transpose(1, 2) * scale - lse[..., None])
+        ds = p * (tf32(do) @ tf32(vb).transpose(1, 2) - delta[..., None])
+        dq += tf32(ds) @ tf32(kb)
+        dv[:, i:i + block] = tf32(p).transpose(1, 2) @ tf32(do)
+        dk[:, i:i + block] = tf32(ds).transpose(1, 2) @ tf32(q) * scale
+    return dq * scale, dk, dv
+
+
+# (B·H primal, Sq, Sk, probes) of f32 K4 and K5 at each head dim, on each
+# block shape of their rules: K4 on 64-row blocks, and at D ≤ 80 on
+# 128-row blocks (two m16 tiles a warp) at 3 such blocks an SM ((50, 1000,
+# 700, 1), and (100, 130, 300, 3) with 2 rows in the last block); K5 on
+# 32-row blocks (each query tile split over two warps) under one 64-row
+# block an SM, else on 64-row blocks ((10, 1000, 700, 2) and the two
+# above); ragged Sq and Sk both ways, Sk and Sq under one tile, probes
+# folded (cotangent slice b reads primal slice b % B·H)
+@pytest.mark.parametrize("d", [40, 64, 80, 128, 160])
+@pytest.mark.parametrize("shape", [(1, 1000, 700, 2), (2, 700, 1000, 3), (10, 1000, 700, 2),
+                                   (50, 1000, 700, 1), (100, 130, 300, 3), (3, 70, 20, 1)])
+def test_tf32x3_backward_at_each_block_shape(cuda, shape, d):
+    """K4 and K5 in f32 on 'tf32x3' (csrc/flash_bwd_tf32_rows.cu) against
+    their plain versions at TF32X3_TOL of max(1, max |plain|) (dQ, dK, dV),
+    each launch counted on 'tf32x3' where the C entry launched it, and one
+    TF32 product per f32 product outside the gate."""
+    bhp, sq, sk, r = shape
+    assert fa.design("K4", d, torch.float32) == fa.design("K5", d, torch.float32) == "tf32x3"
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    rnd = lambda n, s: torch.randn(n, s, d, device=cuda, generator=gen)
+    q, k, v, do = rnd(bhp, sq), rnd(bhp, sk), rnd(bhp, sk), rnd(r * bhp, sq)
+    scale = d ** -0.5
+    o, lse = fa.flash_forward_lse_plain(q, k, v, scale)
+    delta = (do * o.repeat(r, 1, 1)).sum(-1)
+    n0 = fa.served("K4", "tf32x3"), fa.served("K5", "tf32x3")
+    got = (fa.flash_dq(q, k, v, do, lse, delta, scale), *fa.flash_dkv(q, k, v, do, lse, delta,
+                                                                       scale))
+    torch.cuda.synchronize()
+    assert (fa.served("K4", "tf32x3"), fa.served("K5", "tf32x3")) == (n0[0] + 1, n0[1] + 1)
+    ref = (fa.flash_dq_plain(q, k, v, do, lse, delta, scale),
+           *fa.flash_dkv_plain(q, k, v, do, lse, delta, scale))
+    one = _one_tf32_backward(q, k, v, do, lse, delta, scale)
+    for name, out, want, bad in zip(("dq", "dk", "dv"), got, ref, one):
+        tol = _tol(want, torch.float32, "tf32x3")
+        err = (out - want).abs().max().item()
+        assert out.shape == want.shape and err <= tol, (name, err, tol)
+        assert (bad - want).abs().max().item() > tol, name
+
+
+def _tol(ref, dtype, design="simt"):
+    """f32: on 'tf32x3' (K4 and K5) TF32X3_TOL of max(1, max |ref|), which
+    one TF32 product per f32 product must miss, on 'simt' 1e-4 of it (the
+    two differ in the order of f32 sums); bf16: two ulps of max |ref| (both
+    round the same f32 values)."""
     top = ref.float().abs().max().item()
     if dtype == torch.float32:
-        return 1e-4 * max(1.0, top)
+        return (TF32X3_TOL if design == "tf32x3" else 1e-4) * max(1.0, top)
     return 2 * torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top))
 
 
@@ -222,7 +286,7 @@ def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
 
 # (B·H, Sq, Sk, probes, D) at D = 40, 80, 128, 160, where K2–K5 run wgmma
 # in bf16 (a row as 1, 2, 2 or 3 panels of 64 columns; K3 with one stage of
-# its ring at 160) and in f32 K2 tf32x3, K3–K5 simt: ragged Sq and Sk both ways, Sk off the
+# its ring at 160) and in f32 K2, K4, K5 tf32x3, K3 simt: ragged Sq and Sk both ways, Sk off the
 # 64-row tiles at every D, Sq < 64 at every D, a last query tile of 36 rows
 # at 160, B·H > 1 with a ragged last tile in each head at every D, three
 # probes; SD 1.5's mid-tap pullback at rank 2 (8 heads of 40 at 4096
@@ -239,8 +303,8 @@ def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_kernels_at_head_dims_40_to_160(cuda, shape, dtype):
     """K2–K5 against their plain versions at the head dims other than 64
-    (every kernel on 'wgmma' in bf16; in f32 K2 on 'tf32x3', K3–K5 on
-    'simt'), as test_pair_kernels_match_plain_versions."""
+    (every kernel on 'wgmma' in bf16; in f32 K2, K4 and K5 on 'tf32x3', K3
+    on 'simt'), as test_pair_kernels_match_plain_versions."""
     _check_pair(cuda, *shape, dtype)
 
 
@@ -268,12 +332,13 @@ def _check_pair(cuda, bh, sq, sk, r, d, dtype):
     ref["tangent"] = fa.flash_tangent_plain(*cpu(q, k, v, dq, dk, dv, o, lse), scale)
     ref["dq"] = fa.flash_dq_plain(*cpu(q, k, v, do, lse, delta), scale)
     ref["dk"], ref["dv"] = fa.flash_dkv_plain(*cpu(q, k, v, do, lse, delta), scale)
-    tf32x3 = _design("K2", d, dtype) == "tf32x3"
+    kernel = {"o": "K2", "lse": "K2", "tangent": "K3", "dq": "K4", "dk": "K5", "dv": "K5"}
     for name, out in got.items():
-        if tf32x3 and name in ("o", "lse"):  # K2's gate on tf32x3, as chip_smoke.py's
+        design = _design(kernel[name], d, dtype)
+        if design == "tf32x3" and name in ("o", "lse"):  # K2's gate on tf32x3, as chip_smoke.py's
             tol = TF32X3_TOL
         else:
-            tol = 1e-4 if name == "lse" else _tol(ref[name], dtype)
+            tol = 1e-4 if name == "lse" else _tol(ref[name], dtype, design)
         err = (out.cpu().float() - ref[name].float()).abs().max().item()
         want = torch.float32 if name == "lse" else dtype
         assert out.dtype == ref[name].dtype == want and err <= tol, (name, err, tol)
@@ -308,7 +373,8 @@ def test_pair_under_torch_func_matches_math_path(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_under_torch_func_at_head_dim_40(cuda, dtype):
     """The pair under torch.func (two probes vmapped) at SD 1.5's 8 heads of
-    40 over 1024 tokens (K2–K5 on 'wgmma' in bf16, on 'simt' in f32)
+    40 over 1024 tokens (K2–K5 on 'wgmma' in bf16; in f32 K3 on 'simt',
+    the others on 'tf32x3')
     against the math path; each of K2–K5 launches,
     and head dim 32 still raises."""
     from torch.func import jvp, vjp, vmap

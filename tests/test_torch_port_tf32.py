@@ -1,10 +1,12 @@
-"""The precision argument of K1's and K2's 'tf32x3' design
+"""The precision argument of the 'tf32x3' design, K1 and K2
 (ops/csrc/flash_fwd_tf32.cu at D = 512, ops/csrc/flash_fwd_tf32_rows.cu at
-D = 40, 64, 80, 128 and 160; the split in ops/csrc/tf32.cuh) on the CPU:
-each f32 product as three TF32 products keeps the design's f32 gate, and
-one TF32 product does not. The gate is 2.5e-5, not the 1e-4 of the
-CUDA-core design: at the VAE's 4096 tokens one TF32 product stays under
-1e-4.
+D = 40, 64, 80, 128 and 160) and K4 and K5 (ops/csrc/flash_bwd_tf32_rows.cu
+at D = 40–160; the split in ops/csrc/tf32.cuh), on the CPU: each f32
+product as three TF32 products keeps the design's f32 gate, and one TF32
+product does not. The gate is 2.5e-5, not the 1e-4 of the CUDA-core
+design: at the VAE's 4096 tokens one TF32 product stays under 1e-4. K1 and
+K2 are held to it absolutely; K4's dQ and K5's dK and dV, sums over every
+key or query, to 2.5e-5 of max(1, max |reference|).
 
 TF32 rounding is emulated here with integer bit masks (round to nearest,
 ties away from zero, to 10 stored mantissa bits, as cvt.rna.tf32.f32), and
@@ -15,9 +17,13 @@ what the tensor cores compute, up to the order of the f32 sums. The
 attention is computed at the VAE mid-block head's width (D = 512) and at
 the U-Nets' head dims, with inputs made with numpy from a seed, and held
 against the JAX package's f32 reference and its Pallas kernels in
-interpret mode.
+interpret mode; the backward against `_flash_backward` in interpret mode,
+`jax.vjp` of the f32 reference and the port's plain versions.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +31,7 @@ import torch
 from torch_port_common import one_torch_thread  # noqa: F401
 
 import diffusion_pullback_tpu.ops.pallas.flash_attention as jfa
+from diffusion_pullback_tpu_torch.ops import flash_attention as tfa
 
 GATE = 2.5e-5  # K1 and K2 on tf32x3 against their plain versions (chip_smoke.py, card tests)
 SHAPE = (1, 256, 512)  # (B·H, S, D): one 512-wide head, as the VAE's
@@ -181,3 +188,97 @@ def test_tf32x3_rows_keep_the_f32_gate_against_pallas(d, terms):
         assert err_l <= GATE / 10, err_l
     else:
         assert err_o > GATE, err_o
+
+
+def backward_tf32(q, k, v, do, lse, delta, scale, terms):
+    """(dQ, dK, dV) of K4 and K5 with the operands of Q·Kᵀ, dO·Vᵀ, dS·K,
+    Pᵀ·dO and dSᵀ·Q in TF32 (matmul_tf32; P and dS split like the inputs:
+    in f32 the kernels do not round them), P = exp(S·scale − L), dS = P ∘
+    (dO·Vᵀ − δ). The cotangent (do, delta) may carry r times the primal's
+    B·H, slice b reading primal slice b % B·H, as the kernels index them."""
+    r = do.shape[0] // q.shape[0]
+    q, k, v, lse = (x.repeat(r, *(1,) * (x.ndim - 1)) for x in (q, k, v, lse))
+    p = torch.exp(matmul_tf32(q, k.transpose(-1, -2), terms) * scale - lse[..., None])
+    ds = p * (matmul_tf32(do, v.transpose(-1, -2), terms) - delta[..., None])
+    return (matmul_tf32(ds, k, terms) * scale,
+            matmul_tf32(ds.transpose(-1, -2), q, terms) * scale,
+            matmul_tf32(p.transpose(-1, -2), do, terms))
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_case(bhp, sq, sk, r, d):
+    """Inputs from a numpy seed and the references of one backward case:
+    q (bhp, sq, d), k/v (bhp, sk, d), a cotangent of r·bhp slices; L and O
+    from the Pallas forward (K2) in interpret mode, δ = rowsum(dO∘O); the
+    references (dQ, dK, dV) of `_flash_backward` in interpret mode (blocks
+    of 512, 256 or 128 rows, over the primal tiled r times), of `jax.vjp` of the JAX
+    package's f32 attention and of the port's plain versions."""
+    rng = np.random.default_rng(d + sq + 7 * sk + r)
+    q, k, v = (rng.normal(size=(bhp, n, d)).astype(np.float32) for n in (sq, sk, sk))
+    do = rng.normal(size=(r * bhp, sq, d)).astype(np.float32)
+    scale = d ** -0.5
+    block = lambda n: next(b for b in (512, 256, 128) if n % b == 0)
+    blocks = dict(block_q=block(sq), block_k=block(sk), interpret=True)
+    tile = lambda x: jnp.asarray(np.tile(x, (r, 1, 1)))
+    o, lse = jfa._flash_forward_lse(*map(tile, (q, k, v)), scale, **blocks)
+    pallas = jfa._flash_backward(*map(tile, (q, k, v)), o, jnp.asarray(do), lse, scale,
+                                 **blocks)
+    to_bshd = lambda x: jnp.asarray(x)[:, :, None]
+    _, vjp = jax.vjp(lambda a, b, c: jfa._xla_reference(a, b, c, scale),
+                     *map(to_bshd, (np.tile(q, (r, 1, 1)), np.tile(k, (r, 1, 1)),
+                                    np.tile(v, (r, 1, 1)))))
+    xla = [np.asarray(g)[:, :, 0] for g in vjp(to_bshd(do))]
+    t = lambda x: torch.from_numpy(np.array(x, np.float32))
+    tq, tk, tv, tdo = map(t, (q, k, v, do))
+    tlse = t(np.asarray(lse)[:bhp, :, 0])
+    delta = (tdo * t(o)).sum(-1)
+    plain = (tfa.flash_dq_plain(tq, tk, tv, tdo, tlse, delta, scale),
+             *tfa.flash_dkv_plain(tq, tk, tv, tdo, tlse, delta, scale))
+    refs = {"pallas_interpret": [np.asarray(x) for x in pallas], "xla_vjp": xla,
+            "plain": [x.numpy() for x in plain]}
+    return (tq, tk, tv, tdo, tlse, delta, scale), refs
+
+
+def _backward_errors(case, terms):
+    """{reference: [(max |emulation − reference|, gate) for dQ, dK, dV]}."""
+    args, refs = _backward_case(*case)
+    out = [x.numpy() for x in backward_tf32(*args, terms)]
+    return {name: [(np.abs(o - r).max(), GATE * max(1.0, np.abs(r).max()))
+                   for o, r in zip(out, ref)] for name, ref in refs.items()}
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_tf32x3_backward_keeps_the_gate_at_1024_tokens(d, terms):
+    """K4 and K5 at the U-Nets' head dims over 1024 tokens (one head): with
+    three TF32 products per f32 product dQ, dK and dV stay within a tenth of
+    the gate of the Pallas backward in interpret mode, of jax.vjp of the
+    JAX package's f32 attention and of the plain versions (measured 2.4e-7
+    to 7.0e-7 at D = 40–160, max |plain| under 1, so the gate is 2.5e-5);
+    with one TF32 product each lies above the gate (measured 1.5e-4 to
+    4.9e-4), so the card's gate tells the two apart at every head dim the
+    backward's rows kernels serve."""
+    for name, errs in _backward_errors((1, 1024, 1024, 1, d), terms).items():
+        for err, gate in errs:
+            if terms == 3:
+                assert err <= gate / 10, (name, err, gate)
+            else:
+                assert err > gate, (name, err, gate)
+
+
+# (primal B·H, Sq, Sk, probes, D): ragged Sq ≠ Sk both ways, and the
+# cotangent folded over three probes (B·H 3·bh_primal) against one primal
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("case", [(1, 384, 640, 1, 40), (1, 640, 384, 1, 160),
+                                  (2, 256, 512, 3, 64), (1, 512, 256, 3, 80)])
+def test_tf32x3_backward_keeps_the_gate_ragged_and_folded(case, terms):
+    """As test_tf32x3_backward_keeps_the_gate_at_1024_tokens with Sq ≠ Sk
+    and with probes folded into the cotangent's B·H: three TF32 products
+    within a tenth of the gate of every reference (measured 2.4e-7 to
+    1.1e-6), one above it (measured 2.4e-4 to 7.6e-4)."""
+    for name, errs in _backward_errors(case, terms).items():
+        for err, gate in errs:
+            if terms == 3:
+                assert err <= gate / 10, (name, err, gate)
+            else:
+                assert err > gate, (name, err, gate)

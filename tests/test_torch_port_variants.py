@@ -1,11 +1,12 @@
 """ops/fwd_tc_variants.py builds each design variant of the bf16 and the
-f32 forward and ops/bwd_tc_variants.py each variant of the bf16 tangent,
-by replacing a text of the kernel sources. Each such text must stand in
+f32 forward and ops/bwd_tc_variants.py each variant of the bf16 tangent
+and of the f32 backward, by replacing a text of the kernel sources. Each such text must stand in
 its file exactly once, so that a variant still builds the one change it names
 after the sources move on. ops/bwd_tc_variants.py (the tangent and the
 backward as built against an earlier tree's csrc/) reads registers and
 spills per K3/K4/K5 instance from nvcc's -Xptxas -v output (an earlier
-tree's D = 64-only kernels too, for its --parent build). Runs on the CPU:
+tree's D = 64-only kernels too, for its --parent build), and per block
+shape of the f32 backward's. Runs on the CPU:
 nothing is compiled."""
 
 import os
@@ -18,7 +19,8 @@ from diffusion_pullback_tpu_torch.ops import bwd_tc_variants, fwd_tc_variants
 EDITS = [(tool, name, file, old)
          for tool, variants in (("fwd_tc_variants", fwd_tc_variants.VARIANTS["bf16"]),
                                 ("fwd_tc_variants f32", fwd_tc_variants.VARIANTS["f32"]),
-                                ("bwd_tc_variants", bwd_tc_variants.VARIANTS))
+                                ("bwd_tc_variants", bwd_tc_variants.VARIANTS["bf16"]),
+                                ("bwd_tc_variants f32", bwd_tc_variants.VARIANTS["f32"]))
          for name, edits in variants.items() for file, old, _ in edits]
 
 
@@ -61,11 +63,32 @@ ptxas info    : Used 151 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__1_11_flash_jvp_cu_5b1f2a2c20flash_tangent_kernelIN5flash4TileILi64ELi64ELi64ELi16EEEEvPKfS5_S5_S5_S5_S5_S5_S5_Pfiiif' for 'sm_90a'
 ptxas info    : Used 128 registers, used 1 barriers
 """
-    assert bwd_tc_variants.registers(log) == {("K5", 160): (255, 8, 12),
-                                              ("K4", 40): (110, 0, 0),
-                                              ("K5", 64): (166, 0, 0),
-                                              ("K3", 80): (168, 0, 0),
-                                              ("K3", 64): (151, 0, 0)}
+    assert bwd_tc_variants.registers(log) == {("K5", "wgmma", 160, 64): (255, 8, 12),
+                                              ("K4", "wgmma", 40, 64): (110, 0, 0),
+                                              ("K5", "wgmma", 64, 64): (166, 0, 0),
+                                              ("K3", "wgmma", 80, 64): (168, 0, 0),
+                                              ("K3", "wgmma", 64, 64): (151, 0, 0)}
+
+
+def test_tf32x3_backward_registers_are_read_per_block_shape():
+    """ops/bwd_tc_variants.py --dtype f32 reads registers and spills per
+    tf32x3 K4/K5 instance, keyed (kernel, design, D, rows of a block) from
+    its template arguments (K4: D, m-tiles a warp of 4 warps; K5: D, row
+    groups, m-tiles a warp); the forward's rows kernels are skipped."""
+    log = """\
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__0f1e2d3c_22_flash_bwd_tf32_rows_cu_5a6b7c8d25flash_dq_tf32_rows_kernelILi80ELi2EEEvPKfS2_S2_S2_S2_S2_Pfiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__0f1e2d3c_22_flash_bwd_tf32_rows_cu_5a6b7c8d25flash_dq_tf32_rows_kernelILi80ELi2EEEvPKfS2_S2_S2_S2_S2_Pfiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 198 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__d96ef202_22_flash_fwd_tf32_rows_cu_22685d6f26flash_fwd_tf32_rows_kernelILi64ELi4ELi2EEEvPKfS2_S2_PfS3_iif' for 'sm_90a'
+ptxas info    : Used 200 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__0f1e2d3c_22_flash_bwd_tf32_rows_cu_5a6b7c8d26flash_dkv_tf32_rows_kernelILi160ELi2ELi1EEEvPKfS2_S2_S2_S2_S2_PfS3_iiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__0f1e2d3c_22_flash_bwd_tf32_rows_cu_5a6b7c8d26flash_dkv_tf32_rows_kernelILi160ELi2ELi1EEEvPKfS2_S2_S2_S2_S2_PfS3_iiif
+    0 bytes stack frame, 40 bytes spill stores, 40 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+"""
+    assert bwd_tc_variants.registers(log) == {("K4", "tf32x3", 80, 128): (198, 0, 0),
+                                              ("K5", "tf32x3", 160, 32): (255, 40, 40)}
 
 
 def test_rows_kernel_registers_are_read_per_block_shape():
