@@ -7,9 +7,9 @@ Phases (any failure exits non-zero before the last line is printed):
                the main path gives it, float32 (TF32 off) and bfloat16, with
                the design that served it as the C library's one rule
                reports it ('wgmma': K1–K5 in bf16 at D=40, 64, 80, 128
-               and 160; 'tf32x3': K1 and K2 in f32 at every head dim, K4
-               and K5 in f32 at 40–160; 'simt': the CUDA-core kernels, K3
-               in f32), each launch's design as the C entries counted it, the kernel's,
+               and 160; 'tf32x3': K1 and K2 in f32 at every head dim, K3,
+               K4 and K5 in f32 at 40–160; 'mma_bf16': K1 in bf16 at
+               D=512), each launch's design as the C entries counted it, the kernel's,
                the plain version's and a PyTorch yardstick's times
                (F.scaled_dot_product_attention for K1; for K2 and K4+K5 the
                flash SDPA forward / backward ops in bf16 and the
@@ -18,10 +18,9 @@ Phases (any failure exits non-zero before the last line is printed):
                never calls them), with the kernels the profiler saw serve
                the yardsticks of K1 at D=512 and of K3, the host's time per
                wrapper call, the bound, the achieved TFLOP/s and the bound's
-               share of the kernel's time; for K1, K2, K4 and K5 on
-               'tf32x3' also the error of one TF32 product per f32
-               product, which their gate must reject, at every shape and
-               head dim;
+               share of the kernel's time; for K1–K5 on 'tf32x3' also the
+               error of one TF32 product per f32 product, which their gate
+               must reject, at every shape and head dim;
                then the fused pair under torch.func (vmap of jvp, vmap of a
                vjp function) against the math path;
   3. U-Net   — one full-width SD 2.1-base U-Net: ε with attn_impl='flash'
@@ -128,8 +127,8 @@ Phases (any failure exits non-zero before the last line is printed):
                phase 4's settings (K1 at 8 heads of 40 over 4096 tokens and
                of 80 over 1024, K2–K5 at those heads in the pullback), its
                launches by shape, stage seconds and peak memory, the same
-               edit with the U-Net in f32 (K1, K2, K4 and K5 on 'tf32x3',
-               K3 on 'simt', as the C entries count them), and its mid-tap
+               edit with the U-Net in f32 (K1–K5 on 'tf32x3', as the C
+               entries count them), and its mid-tap
                pullback on the pair against the math path in f32;
                ImageNet128Cond at full width with labels (K1–K5 at 4 heads
                of 128 over 1024 tokens): ε and the mid-tap rank-2 pullback
@@ -178,18 +177,34 @@ Phases (any failure exits non-zero before the last line is printed):
                builder at phase 4's settings (the 865.9 M-parameter U-Net
                in f32, weights drawn on the card, 10/10 steps, edit t 0.5,
                pca_rank 2, 2 walk steps, 1–3 power iterations, 2
-               directions × 3 frames): K1, K2, K4 and K5 on 'tf32x3' at
-               (B·H, 4096 | 1024, 64), K3 on 'simt' under the fused pair;
-               its launches by shape, each stage's seconds, the peak memory
-               and the launches by design as the C entries counted them
-               (every f32 K1/K2/K4/K5 launch must be 'tf32x3'); then the same run on the
+               directions × 3 frames): K1–K5 on 'tf32x3' at (B·H, 4096 |
+               1024, 64), K2–K5 under the fused pair; its launches by
+               shape, each stage's seconds, the peak memory and the
+               launches by design as the C entries counted them (every f32
+               launch must be 'tf32x3'); then the same run on the
                math path (--attn_impl xla --pullback_attn_impl xla), which
                launches none of K1–K5, and the JAX package's f32 gates
                between the two: σ within rtol 1e-3, |cos| ≥ 0.99 per σ-gap
-               group, the edited images ≥ 35 dB PSNR.
-Phases 1–2 hold every (kernel, shape) that phases 4 and 6–16 launch.
+               group, the edited images ≥ 35 dB PSNR;
+ 17. bf16 VAE — the SD 2.1-base edit of phase 4 through main.build_sd
+               (weights drawn on the card), run with its f32 VAE, then with
+               the VAE built in bf16 (AutoencoderKL(sd_vae(attn_impl=
+               'flash', dtype='bfloat16')), the same weights), then with
+               that VAE on the math path, with the U-Net in bf16 (as the
+               CLI builds it) and then cast to f32, every run after the
+               first reading its basis: the bf16 VAE's K1 at (1 | 3, 4096,
+               512) on 'mma_bf16', each run's launches by shape held to the
+               count the code gives and by design as the C entries counted
+               them; with the f32 U-Net the edited images ≥ 35 dB PSNR
+               against the math-path VAE's, with the bf16 U-Net within
+               1.5× the math path's distance from the f32 VAE's, and every
+               PSNR reported; then one bundled image encoded and decoded
+               through SDXL's 1024 px VAE in bf16 (K1 at (1, 16384, 512) on
+               'mma_bf16'), held to the f32 math path within 1.5× the bf16
+               math path's error.
+Phases 1–2 hold every (kernel, shape) that phases 4 and 6–17 launch.
 Then a JSON line of the kernels (one entry per kernel, design and head dim
-over phases 4 and 6–16, at the shape that carries most of that entry's
+over phases 4 and 6–17, at the shape that carries most of that entry's
 device time there), the card's name and power limit, and
 finally {"ok": true, "device": {...}}.
 """
@@ -250,6 +265,9 @@ K1_CASES += [((10 * b, 4096, 64), BF16) for b in (1, 4, 6)] + [
 # --xsg_pair_impl auto), 4 (the split walk of 4 directions in phases 9–10)
 # and 6 (finish); its 256- and 64-token layers take the math path
 K1_CASES += [((8 * b, 1024, 64), BF16) for b in (1, 2, 4, 6)]
+# phase 17: SDXL's 1024 px VAE built in bf16, its one 512-wide head over
+# 16 384 tokens ('mma_bf16'; the SD VAE's (1 | 3, 4096, 512) are K1_SHAPES')
+K1_CASES += [((1, 16384, 512), BF16)]
 # phase 9's K1 shapes: the SD 2.1-base U-Net over 16 latents at once (local
 # PCA's chunk of 16 perturbations through the mid-tap encoder) and over 100
 # (the CLI's global PCA population, --num_local_basis), and the ADM-256
@@ -306,7 +324,7 @@ PAIR_CASES += [(*shape, SDXL_RANK, (BF16,), ("K3", "K4", "K5")) for shape in SDX
 # phase 12: SD 1.5 (8 heads per block: 40 at 4096 tokens, 80 at 1024, 160
 # at 256 and 64 tokens, which take the math path) and ImageNet128Cond (4
 # heads of 128 at 1024 tokens; 192 at 256 and 256 at 64, math path): K1–K5
-# on 'wgmma' in bf16; in f32 K3 on 'simt', the others on 'tf32x3'. K1:
+# on 'wgmma' in bf16 and on 'tf32x3' in f32. K1:
 # the SD 1.5 edit's U-Net at batch 1, 4 (walk) and 6 (finish) in both
 # dtypes (the edit runs in bf16 and in f32); SD 1.5's
 # self-attentions at batch 1 and 2, ImageNet128Cond's at batch 1 and 8
@@ -345,12 +363,12 @@ PAIR_CASES += [(bh, s // n, d, 1, (dt,), ("K2",)) for (bh, s, d), dt in RING_CAS
 # pl.pallas_call it replaces in diffusion_pullback_tpu/ops/pallas/flash_attention.py)
 KERNELS = {
     "flash_fwd": ("K1", "flash_forward",
-                  {"simt": "flash_fwd.cu", "wgmma": "flash_fwd_tc.cu",
+                  {"mma_bf16": "flash_fwd_mma_bf16.cu", "wgmma": "flash_fwd_tc.cu",
                    "tf32x3": "flash_fwd_tf32_rows.cu"}, 190),
     "flash_fwd_lse": ("K2", "flash_forward_lse",
                       {"wgmma": "flash_fwd_tc.cu", "tf32x3": "flash_fwd_tf32_rows.cu"}, 262),
     "flash_tangent": ("K3", "flash_tangent",
-                      {"simt": "flash_jvp.cu", "wgmma": "flash_jvp_tc.cu"}, 505),
+                      {"wgmma": "flash_jvp_tc.cu", "tf32x3": "flash_jvp_tf32_rows.cu"}, 505),
     "flash_dq": ("K4", "flash_dq",
                  {"wgmma": "flash_bwd_tc.cu", "tf32x3": "flash_bwd_tf32_rows.cu"}, 378),
     "flash_dkv": ("K5", "flash_dkv",
@@ -457,25 +475,23 @@ def one_tf32_forward(q, k, v, scale):
     return tf32(p) @ tf32(v)
 
 
-def pair_tol(ref, design="simt", label="K2"):
-    """K2–K5 against their plain versions. A float32 output on 'tf32x3':
+def pair_tol(ref, label="K2"):
+    """K2–K5 against their plain versions. A float32 output ('tf32x3'):
     TF32X3_TOL, absolute for K2's O and L (K1's gate), of max(1, max |ref|)
-    for K4's dQ and K5's dK and dV, sums over every key or query whose
-    size follows the inputs'. In the CPU emulation of 3xTF32
+    for K3's Ȯ, K4's dQ and K5's dK and dV, sums over every key or query
+    whose size follows the inputs'. In the CPU emulation of 3xTF32
     (tests/test_torch_port_tf32.py; one head over 1024 tokens at D =
-    40–160, Sq ≠ Sk and probes folded, max |plain| under 1) three TF32
-    products per f32 product land 2.4e-7–1.1e-6 from the references and
+    40–160, Sq ≠ Sk and probes folded, max |plain| about 1) three TF32
+    products per f32 product land 2.4e-7–2.7e-6 from the references and
     one 1.5e-4–7.6e-4; on an H100 at the f32 path shapes (phases 1–2)
-    three read 6.7e-7–3.8e-6 and one 1.2e-4–1.6e-3. Phases 1–2 measure the
-    one-product error and fail unless this gate lies below it. On 'simt' (K3) 1e-4 of max(1, max |ref|) (f32 sums in another
-    order). A bfloat16 output: two ulps of max |ref| (as K1). Dropping one
+    three read 6.7e-7–3.8e-6 (K2, K4, K5) and one 1.2e-4–1.6e-3. Phases
+    1–2 measure the one-product error and fail unless this gate lies below
+    it. A bfloat16 output: two ulps of max |ref| (as K1). Dropping one
     64-key tile (K5: one 64-query tile) from the plain versions at these
     shapes moves the outputs by far more than any of them."""
     top = ref.float().abs().max().item()
     if ref.dtype == torch.float32:
-        if design != "tf32x3":
-            return 1e-4 * max(1.0, top)
-        return TF32X3_TOL * (max(1.0, top) if label in ("K4", "K5") else 1.0)
+        return TF32X3_TOL * (max(1.0, top) if label in ("K3", "K4", "K5") else 1.0)
     return 2 * torch.finfo(ref.dtype).eps * 2.0 ** math.floor(math.log2(top))
 
 
@@ -496,6 +512,25 @@ def one_tf32_backward(q, k, v, do, lse, delta, scale, block=512):
         dv[:, i:i + block] = tf32(p).transpose(1, 2) @ tf32(do)
         dk[:, i:i + block] = tf32(ds).transpose(1, 2) @ tf32(q) * scale
     return dq * scale, dk, dv
+
+
+def one_tf32_tangent(q, k, v, dq, dk, dv, o, lse, scale, block=512):
+    """K3 in f32 with one TF32 product per f32 product, Ȯ: the operands of
+    Q·Kᵀ, Q̇·Kᵀ, Q·K̇ᵀ, (P∘Ṡ)·V and P·V̇ rounded to TF32, the products
+    (exact in f32) summed in f32, over key blocks; the tangents may carry r
+    times the primal's B·H. This is 'tf32x3' with its two small products
+    dropped."""
+    r = dq.shape[0] // q.shape[0]
+    q, k, v, o, lse = (x.repeat(r, *(1,) * (x.ndim - 1)) for x in (q, k, v, o, lse))
+    acc = torch.zeros_like(dq)
+    rsum = torch.zeros(*dq.shape[:2], 1, device=dq.device)
+    for i in range(0, k.shape[1], block):
+        kb = tf32(k[:, i:i + block]).transpose(1, 2)
+        p = torch.exp(tf32(q) @ kb * scale - lse[..., None])
+        pds = p * (tf32(dq) @ kb + tf32(q) @ tf32(dk[:, i:i + block]).transpose(1, 2)) * scale
+        acc += tf32(pds) @ tf32(v[:, i:i + block]) + tf32(p) @ tf32(dv[:, i:i + block])
+        rsum += pds.sum(-1, keepdim=True)
+    return acc - rsum * o
 
 
 def rate(row, ops):
@@ -573,13 +608,13 @@ def phase_k1(fa):
         row["bound_ms"], row["bound_by"] = k1_bound_ms(shape, dtype)
         row["design"] = design
         rows[(shape, dtype)] = row
+        if shape[-1] == 512:
+            log(f"[k1] {shape} {str(dtype)[6:]}: sdpa served by " + served_by(
+                lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale)))
         if design == "tf32x3":
             row["one_tf32_err"] = (one_tf32_forward(q, k, v, scale)
                                    - ref).abs().max().item()
-            sdpa = "sdpa served by " + served_by(
-                lambda: F.scaled_dot_product_attention(
-                    q[None], k[None], v[None], scale=scale)) + "; " if shape[-1] == 512 else ""
-            log(f"[k1] {shape} f32: {sdpa}one TF32 product per f32 product: max_abs_err "
+            log(f"[k1] {shape} f32: one TF32 product per f32 product: max_abs_err "
                 f"{row['one_tf32_err']:.3g} (must exceed the tol {tol:.3g})")
             if not row["one_tf32_err"] > tol:
                 raise AssertionError(f"K1's tf32x3 gate {tol} does not part "
@@ -709,13 +744,15 @@ def phase_pair(fa):
                                          f"launched on {design}, the rule's design")
                 outs = outs if isinstance(outs, tuple) else (outs,)
                 refs = refs if isinstance(refs, tuple) else (refs,)
-                errs = [((a.float() - b.float()).abs().max().item(), pair_tol(b, design, label))
+                errs = [((a.float() - b.float()).abs().max().item(), pair_tol(b, label))
                         for a, b in zip(outs, refs)]
                 one_errs = []
                 if design == "tf32x3":
                     # the gate must reject one TF32 product per f32 product
                     if label == "K2":
                         ones = (one_tf32_forward(q, k, v, scale),)
+                    elif label == "K3":
+                        ones = (one_tf32_tangent(q, k, v, dq, dk, dv, o, lse, scale),)
                     else:
                         one_bwd = one_bwd or one_tf32_backward(q, k, v, do, lse, delta, scale)
                         ones = one_bwd[:1] if label == "K4" else one_bwd[1:]
@@ -2709,7 +2746,7 @@ def phase_extras(fa):
 
 def phase_head_dim_models(fa):
     """Phase 12: the two model configs at head dims other than 64 and 512,
-    where K1–K5 run 'wgmma' in bf16, and K1 and K2 'tf32x3' in f32.
+    where K1–K5 run 'wgmma' in bf16 and 'tf32x3' in f32.
     (b) SD 1.5 at full width, built directly into
     EditStableDiffusion as a user of the library builds it (no CLI of
     either package builds SD 1.5): the 859.5 M-parameter U-Net in bf16 with
@@ -2720,8 +2757,8 @@ def phase_head_dim_models(fa):
     fused pair in the pullback; its launches by shape held to the count the
     code gives, each stage's seconds and peak memory; (b') the same edit
     with the U-Net cast to f32, its launches by shape held likewise, every
-    K1/K2/K4/K5 launch served by 'tf32x3' (at D = 40 and 80 among them)
-    and K3 by 'simt', as the C entries count them; then its mid-tap
+    K1–K5 launch served by 'tf32x3' (at D = 40 and 80 among them), as the
+    C entries count them; then its mid-tap
     pullback on the pair against the math path in f32. (c) ImageNet128Cond
     (421.5 M parameters, labels y) at full width: ε with K1 (4 heads of 128
     over 1024 tokens) against the math path in f32 and bf16, and the
@@ -2817,8 +2854,8 @@ def phase_head_dim_models(fa):
 
     # (b') the same edit with the U-Net in f32 (the same bf16-valued
     # weights), into basis and result folders of its own so that its
-    # pullback and edits run: K1, K2, K4 and K5 on 'tf32x3' at 8 heads of
-    # 40 over 4096 tokens and of 80 over 1024, K3 on 'simt'
+    # pullback and edits run: K1–K5 on 'tf32x3' at 8 heads of 40 over 4096
+    # tokens and of 80 over 1024
     unet.to(torch.float32)
     cfg.basis_folder = os.path.join(out, "inputs_f32")
     cfg.result_folder = os.path.join(out, "f32")
@@ -2850,12 +2887,11 @@ def phase_head_dim_models(fa):
         "(sd15) f32 edit: two PNGs of 3 frames, finite": len(names) == n_dir and all(
             Image.open(os.path.join(cfg.result_folder, n + ".png")).size
             == (512 * frames, 512) for n in names) and bool(finite and finite[-1]["finite"]),
-        "(sd15) f32 edit: K3 on simt, every K1/K2/K4/K5 launch on tf32x3": (
-            designs[("K3", "simt")] == launched["K3"] > 0
-            and all(designs[(k, "tf32x3")] == launched[k] > 0
-                    for k in ("K1", "K2", "K4", "K5"))),
-        "(sd15) f32 edit: K1, K2, K4 and K5 at D = 40 and 80": all(
-            launched[(k, d)] > 0 for k in ("K1", "K2", "K4", "K5") for d in (40, 80)),
+        "(sd15) f32 edit: every K1–K5 launch on tf32x3": (
+            sum(designs.values()) == sum(launched[k] for k in KERNELS_BY_LABEL)
+            and all(designs[(k, "tf32x3")] == launched[k] > 0 for k in KERNELS_BY_LABEL)),
+        "(sd15) f32 edit: K1–K5 at D = 40 and 80": all(
+            launched[(k, d)] > 0 for k in KERNELS_BY_LABEL for d in (40, 80)),
     })
 
     # the mid-tap pullback on the pair and on the math path from the same
@@ -2868,14 +2904,13 @@ def phase_head_dim_models(fa):
     res = {}
     for impl in ("flash", "xla"):
         cfg.pullback_attn_impl = impl
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res[impl] = edit.compute_local_basis(
-            zt, edit.fwd_grid.timesteps[edit.edit_t_idx], TapPoint("mid", 0), PCA_RANK)
-        torch.cuda.synchronize()
-        log(f"[sd15] mid-tap pullback f32 {impl}: {time.perf_counter() - t0:.3f} s, "
-            f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        res[impl], seconds, peak, _, path = drive(fa, lambda: edit.compute_local_basis(
+            zt, edit.fwd_grid.timesteps[edit.edit_t_idx], TapPoint("mid", 0), PCA_RANK))
+        # K3's events on this pullback alone, beside the edit's above
+        k3 = ", ".join(f"{shape} {n} launches {ms:.2f} ms" for (sym, shape, _), (n, ms)
+                       in sorted(path.items()) if sym == "flash_tangent")
+        log(f"[sd15] mid-tap pullback f32 {impl}: {seconds:.3f} s, peak memory {peak:.2f} GB"
+            + (f"; K3 on the device: {k3}" if k3 else ""))
     pair_vs_math("mid-tap f32", res, phase="sd15")
     del edit, unet, vae, text, res
     torch.cuda.empty_cache()
@@ -3517,8 +3552,7 @@ def phase_parallel(fa):
             # the other way, one ulp of max |plain| more
             ref = fold(plain)
             e_plain = (out_bh.float() - ref.float()).abs().max().item()
-            t_plain = pair_tol(ref, design) + (0.0 if dtype == torch.float32 else
-                                               pair_tol(ref) / 2)
+            t_plain = pair_tol(ref) * (1.0 if dtype == torch.float32 else 1.5)
             e_dense, t_dense = ring_gate(out_bh, dense, math32, dtype)
             log(f"[ring] {tag}: {seconds:.4f} s, vs the ring on K2's plain version "
                 f"{e_plain:.3g} (tol {t_plain:.3g}), vs the dense f32 math {e_dense:.3g} "
@@ -3651,9 +3685,8 @@ def phase_parallel(fa):
 
 def phase_f32_edit(fa):
     """Phase 16 (module docstring): the SD 2.1-base edit at --dtype fp32
-    through the CLI's builder at phase 4's settings, its K1, K2, K4 and K5
-    on 'tf32x3' at (B·H, 4096 | 1024, 64), against the same run on the math
-    path."""
+    through main.build_sd at phase 4's settings, its K1–K5 on 'tf32x3'
+    at (B·H, 4096 | 1024, 64), against the same run on the math path."""
     import numpy as np
     from PIL import Image
 
@@ -3718,12 +3751,12 @@ def phase_f32_edit(fa):
                 and designs[("K2", "tf32x3")] == launches["flash_fwd_lse"]
                 and served.get(("flash_fwd", "tf32x3", 64), (0, 0))[1] > 0
                 and served.get(("flash_fwd_lse", "tf32x3", 64), (0, 0))[1] > 0)
-            checks["K3 on simt, every f32 K4/K5 launch on tf32x3, at D=64"] = (
-                designs[("K3", "simt")] == launches["flash_tangent"] > 0
+            checks["every f32 K3/K4/K5 launch served by tf32x3, at D=64"] = (
+                sum(designs.values()) == sum(launches.values())
                 and all(designs[(k, "tf32x3")] == launches[KERNELS_BY_LABEL[k]] > 0
-                        for k in ("K4", "K5"))
+                        for k in ("K3", "K4", "K5"))
                 and all(served.get((KERNELS_BY_LABEL[k], "tf32x3", 64), (0, 0))[1] > 0
-                        for k in ("K4", "K5")))
+                        for k in ("K3", "K4", "K5")))
             flash_path = path
         else:
             checks["the math path launches none of K1–K5"] = not any(launches.values())
@@ -3749,6 +3782,172 @@ def phase_f32_edit(fa):
     if not all(checks.values()):
         raise AssertionError("phase 16 checks failed")
     return [flash_path]
+
+
+def phase_bf16_vae(fa):
+    """Phase 17 (module docstring): the SD 2.1-base edit at phase 4's
+    settings with its f32 VAE, then with the VAE built in bf16 (K1 at D =
+    512 on 'mma_bf16') and with that VAE on the math path, with the U-Net
+    in bf16 and in f32, all but the first reading the first run's basis;
+    then SDXL's 1024 px VAE in bf16 against the same VAE on the math path.
+    Returns the path dicts of the runs."""
+    import numpy as np
+    from PIL import Image
+
+    from diffusion_pullback_tpu_torch import main as port_main
+    from diffusion_pullback_tpu_torch.experiments import BasisCache
+    from diffusion_pullback_tpu_torch.models import AutoencoderKL, random_init_, sd_vae
+    from diffusion_pullback_tpu_torch.models.layers import attn_impl_as
+    from diffusion_pullback_tpu_torch.utils.datasets import get_dataset
+
+    out = os.path.join(OUT, "bf16_vae")
+    shutil.rmtree(out, ignore_errors=True)
+    args = port_main.parse_args([
+        "--note", "chip_smoke_bf16_vae", "--result_folder", out,
+        "--for_steps", "10", "--inv_steps", "10", "--edit_t", "0.5",
+        "--pca_rank", str(PCA_RANK), "--x_space_guidance_num_step", "2",
+        "--edit_prompt", "a photo of a smiling face"])
+    t0 = time.perf_counter()
+    with torch.device("cuda"):  # the weights drawn on the card
+        edit = port_main.build_sd(args)
+        vae16 = AutoencoderKL(sd_vae(attn_impl="flash", dtype="bfloat16"))
+    vae16.load_state_dict(edit.vae.state_dict())  # the f32 VAE's weights, rounded
+    vae16.eval().requires_grad_(False)
+    vae32, cfg = edit.vae, edit.cfg
+    cfg.pullback_min_iter, cfg.pullback_max_iter = 1, 3
+    cfg.basis_folder = os.path.join(out, "inputs")
+    edit.cache = BasisCache(cfg.basis_folder)
+    log(f"[vae16] built the SD 2.1-base driver and a bf16 copy of its VAE in "
+        f"{time.perf_counter() - t0:.1f} s (U-Net {next(edit.unet.parameters()).dtype}, "
+        f"VAE attn {vae16.config.attn_impl}, {vae16.config.dtype})")
+
+    vis_num, vis_num_pc = 2, 1
+    n_dir = 2 * vis_num_pc
+    stride = max(1, (cfg.x_space_guidance_num_step + 1) // vis_num)
+    frames = len(range(0, cfg.x_space_guidance_num_step + 1, stride))
+    runs, paths, checks = {}, [], {}
+    # the U-Net as the CLI builds it on the card (bf16), then cast to f32,
+    # each with the three VAEs; every run after the first reads its basis
+    for udt in (BF16, F32):
+        edit.unet.to(udt)
+        for vtag, vae, impl in (("f32 VAE", vae32, "flash"), ("bf16 VAE", vae16, "flash"),
+                                ("bf16 VAE math", vae16, "xla")):
+            tag = f"{str(udt)[6:]} U-Net, {vtag}"
+            first = not runs
+            edit.vae = vae
+            cfg.result_folder = os.path.join(out, f"{str(udt)[6:]}_{vtag.replace(' ', '_')}")
+            os.makedirs(cfg.result_folder, exist_ok=True)
+            vae_dtype = next(vae.parameters()).dtype
+
+            def expected_fn(expected, events):
+                edit_k1(expected, edit, n_dir, frames, (udt, vae_dtype))
+                if impl == "xla":  # the VAE's attention on the math path
+                    for key in [key for key in expected if key[1][-1] == 512]:
+                        del expected[key]
+                if named(events, "sd_local_pullback"):  # the first run's basis
+                    pair_k2_k5(expected, udt,
+                               named(events, "sd_local_pullback")[-1]["iterations"], layers=2)
+
+            with attn_impl_as(vae, impl):
+                (names, designs), events, _, seconds = checked_run(
+                    fa, "vae16", tag, edit, lambda: served_designs(
+                        fa, lambda: edit.run_edit_local_encoder_pullback_zt(
+                            idx=0, pca_rank=PCA_RANK, vis_num=vis_num, vis_num_pc=vis_num_pc)),
+                    expected_fn, checks, paths)
+            k1_512 = sum(n for (sym, shape, _), (n, _) in paths[-1].items()
+                         if sym == "flash_fwd" and shape[-1] == 512)
+            ms_512 = sum(ms for (sym, shape, _), (_, ms) in paths[-1].items()
+                         if sym == "flash_fwd" and shape[-1] == 512)
+            finite = named(events, "sd_decode_and_save")
+            runs[(udt, vtag)] = {
+                n: np.asarray(Image.open(os.path.join(cfg.result_folder, n + ".png")))
+                for n in names}
+            log(f"[vae16] ({tag}) {seconds:.3f} s, K1 at D=512: {k1_512} launches, "
+                f"{ms_512:.3f} ms on the device; launches by design as the C entries counted "
+                f"them {dict(designs)}")
+            checks[f"({tag}) two PNGs of 3 frames, finite"] = (
+                len(names) == n_dir and bool(finite and finite[-1]["finite"])
+                and all(a.shape == (512, 512 * frames, 3) for a in runs[(udt, vtag)].values()))
+            checks[f"({tag}) the basis {'computed' if first else 'read from the cache'}"] = (
+                bool(named(events, "sd_local_pullback")) == first
+                and bool(named(events, "basis_cache_hit")) != first)
+            on_mma = designs[("K1", "mma_bf16")]
+            if vtag == "bf16 VAE":
+                checks[f"({tag}) every K1 launch at D=512 on mma_bf16"] = on_mma == k1_512 > 0
+            else:
+                checks[f"({tag}) no K1 launch on mma_bf16"] = on_mma == 0
+            if impl == "xla":
+                checks[f"({tag}) the VAE launches none of K1–K5"] = k1_512 == 0
+
+        def worst(a, b):
+            first, second = runs[(udt, a)], runs[(udt, b)]
+            return min(psnr(first[n], second[n]) for n in first) \
+                if first.keys() == second.keys() else float("nan")
+        against_math = worst("bf16 VAE", "bf16 VAE math")
+        kernel_f32, math_f32 = worst("bf16 VAE", "f32 VAE"), worst("bf16 VAE math", "f32 VAE")
+        log(f"[vae16] {str(udt)[6:]} U-Net, edited images, worst PSNR: the bf16 VAE against "
+            f"its math path {against_math:.2f} dB, against the f32 VAE {kernel_f32:.2f} dB; "
+            f"the bf16 math path against the f32 VAE {math_f32:.2f} dB")
+        if udt == BF16:
+            # the bf16 U-Net's own rounding spreads a one-ulp difference in
+            # the encoded latent over the inversion and the edit, for the
+            # math path as for the kernel: the bf16 VAE is held as every
+            # bf16 output here, to the f32 result no farther than 1.5× the
+            # bf16 math path (20·log10 1.5 = 3.52 dB)
+            checks["(bf16 U-Net) the bf16 VAE's images within 1.5x the math path's distance "
+                   "from the f32 VAE's"] = kernel_f32 >= math_f32 - 20 * math.log10(1.5)
+        else:
+            checks["(f32 U-Net) the bf16 VAE's images against its math path: PSNR >= 35 dB"] = (
+                against_math >= 35.0)
+    edit.vae = vae32
+    del edit, vae16, vae32
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # SDXL's VAE at 1024 px (scaling factor 0.13025) in bf16: K1 at (1,
+    # 16384, 512) in the encode and in the decode, against the same bf16
+    # VAE on the math path, both held to the f32 VAE on the math path
+    with torch.device("cuda"):
+        xl = random_init_(AutoencoderKL(sd_vae(attn_impl="flash", scaling_factor=0.13025)), 3)
+    xl.eval().requires_grad_(False)
+    x = torch.as_tensor(np.asarray(get_dataset("Examples", 1024)[0]), device="cuda")
+    x = x.reshape(1, 1024, 1024, 3).permute(0, 3, 1, 2).contiguous()
+
+    def roundtrip(impl):
+        with torch.no_grad(), attn_impl_as(xl, impl):
+            z = xl.encode(x)
+            return z.float(), xl.decode(z).float()
+
+    ref = roundtrip("xla")
+    xl.to(torch.bfloat16)
+    (got, designs), seconds, peak, launches, path = drive(
+        fa, lambda: served_designs(fa, lambda: roundtrip("flash")))
+    checks["(sdxl vae) two K1 launches at (1, 16384, 512) in bf16"] = check_launches(
+        "vae16 sdxl", launches, path,
+        collections.Counter({("flash_fwd", (1, 16384, 512), BF16): 2}))
+    checks["(sdxl vae) both on mma_bf16"] = designs == {("K1", "mma_bf16"): 2}
+    paths.append(path)
+    math16 = roundtrip("xla")
+    rel = lambda a, b: (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+    to8 = lambda img: ((img[0].permute(1, 2, 0).clamp(-1, 1) + 1) * 127.5).round().to(
+        torch.uint8).cpu().numpy()
+    for i, what in enumerate(("latent", "image")):
+        e_flash, e_math = rel(got[i], ref[i]), rel(math16[i], ref[i])
+        log(f"[vae16] SDXL VAE bf16 {what}: relative RMS error against the f32 math path, "
+            f"flash {e_flash:.4g}, math {e_math:.4g} (tol 1.5 × math = {1.5 * e_math:.4g})")
+        checks[f"(sdxl vae) bf16 {what} within 1.5x the bf16 math path"] = bool(
+            torch.isfinite(got[i]).all() and got[i].shape == ref[i].shape
+            and e_flash <= 1.5 * e_math)
+    log(f"[vae16] SDXL VAE bf16 round trip {seconds:.3f} s, peak memory {peak:.2f} GB; "
+        f"image PSNR flash against the bf16 math path {psnr(to8(got[1]), to8(math16[1])):.2f} "
+        f"dB, against the f32 one {psnr(to8(got[1]), to8(ref[1])):.2f} dB")
+    del xl, x, ref, got, math16
+    torch.cuda.empty_cache()
+    for what, ok in checks.items():
+        log(f"[vae16] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("phase 17 checks failed")
+    return paths
 
 
 def main():
@@ -3818,6 +4017,8 @@ def main():
     lap("phase 15")
     paths += phase_f32_edit(fa)
     lap("phase 16")
+    paths += phase_bf16_vae(fa)
+    lap("phase 17")
 
     # every (kernel, shape, dtype) the main paths launched was held against
     # its plain version in phases 1–2
@@ -3829,7 +4030,7 @@ def main():
                              f"did not hold against their plain versions: {missing}")
 
     # launches and summed device time of each (kernel, shape) over the main
-    # paths of phases 4 and 6–16
+    # paths of phases 4 and 6–17
     merged = collections.defaultdict(lambda: [0, 0.0])
     for path in paths:
         for key, (n, ms) in path.items():
@@ -3837,11 +4038,11 @@ def main():
             merged[key][1] += ms
     for (sym, shape, dtype), (n, ms) in sorted(merged.items(), key=lambda kv: -kv[1][1]):
         log(f"[paths] {KERNELS[sym][0]} at {shape} {str(dtype)[6:]}: {n} launches, "
-            f"{ms:.3f} ms on the device over phases 4 and 6–16")
-    log(f"[smoke] phases 1–16 in {time.perf_counter() - t_start:.1f} s")
+            f"{ms:.3f} ms on the device over phases 4 and 6–17")
+    log(f"[smoke] phases 1–17 in {time.perf_counter() - t_start:.1f} s")
 
     # one entry per kernel, design and head dim on the main paths (phases
-    # 4, 6–16): their launches and summed device time there (path_ms), and
+    # 4, 6–17): their launches and summed device time there (path_ms), and
     # the per-launch numbers of phases 1–2 at the shape that carries most
     # of that device time
     kernels = []

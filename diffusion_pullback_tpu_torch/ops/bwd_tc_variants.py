@@ -4,13 +4,18 @@ own and timed against the other on one card, in turns, at the shapes the
 paths give them:
 
     python -m diffusion_pullback_tpu_torch.ops.bwd_tc_variants [--dtype bf16|f32] [--parent DIR]
+        [--only PREFIX]
 
 bf16 ('wgmma'): K3 (csrc/flash_jvp_tc.cu), K4 and K5 (csrc/flash_bwd_tc.cu).
-f32 ('tf32x3'): K4 and K5 (csrc/flash_bwd_tf32_rows.cu); K3 in f32 stays on
-the CUDA cores and is not timed here.
+f32 ('tf32x3'): K3 (csrc/flash_jvp_tf32_rows.cu), K4 and K5
+(csrc/flash_bwd_tf32_rows.cu). With ``--parent`` the earlier tree's
+kernels of the same calls are timed in turns with these (before this
+tree's K3 in f32 that was the CUDA-core 'simt' K3 of its flash_jvp.cu).
 
 Besides those, each variant of VARIANTS[dtype] is built from the sources
-as they stand with its edits applied (as fwd_tc_variants builds its own).
+as they stand with its edits applied (as fwd_tc_variants builds its own);
+``--only PREFIX`` builds only the variants whose name starts with PREFIX
+and, where PREFIX names a kernel (K3, K4 or K5), times only that kernel.
 bf16: K3's ring waits for and frees the two halves of a stage (K, K̇ and V,
 V̇) apart where it has one stage (D = 160) and whole where it has two; the
 variants take one rule at every D:
@@ -18,28 +23,33 @@ variants take one rule at every D:
 * ``K3 whole stages``: whole stages at every D;
 * ``K3 split stages``: split stages at every D.
 
-f32: one block shape at every grid instead of the rules (K4: 128 query
-rows, as 4 warps of two m16 tiles each, at D ≤ 80 where there are 3 such
-blocks an SM, else 64; K5: 64 key rows where they give every SM one, else
-32, each query tile split over two warps), and the number of n8 output
-tiles whose sums a pass of the products into dQ (K4), dK and dV (K5)
-holds apart (as built: K4 all of them with one m-tile a warp, one with
-two; K5 all of them at D = 40, else 4):
+f32: one block shape at every grid instead of the rules (K3 and K4: 128
+query rows, as 4 warps of two m16 tiles each, at D ≤ 80 where there are 3
+such blocks an SM, else 64; K5: 64 key rows where they give every SM one,
+else 32, each query tile split over two warps), the number of n8 output
+tiles whose sums a pass of the products into Ȯ (K3), dQ (K4), dK and dV
+(K5) holds apart (as built: K3 all of them; K4 all of them with one
+m-tile a warp, one with two; K5 all of them at D = 40, else 4), and K3's
+key tile (as built 32 keys at D = 40 and 128, 16 at 64, 80 and 160):
 
+* ``K3 128-row blocks`` (64 at D > 80) / ``K3 64-row blocks``;
+* ``K3 1 n8 tile a pass`` / ``K3 4 n8 tiles a pass``;
+* ``K3 16-key tiles`` / ``K3 32-key tiles`` (16 at D = 160, where 32 do
+  not fit): one key tile at every D;
 * ``K4 128-row blocks`` (64 at D > 80) / ``K4 64-row blocks``;
 * ``K5 64-row blocks`` / ``K5 32-row blocks``;
 * ``K4 1 n8 tile a pass`` / ``K4 every n8 tile a pass``;
 * ``K5 1 n8 tile a pass`` / ``K5 every n8 tile a pass``.
 
 Prints each build's registers and spill bytes per kernel instance (nvcc's
-``-Xptxas -v``: the wgmma K3/K4/K5 in bf16, the tf32x3 K4/K5 in f32), then
+``-Xptxas -v``: the wgmma K3/K4/K5 in bf16, the tf32x3 K3/K4/K5 in f32), then
 per shape each build's ms per launch of each kernel (CUDA events over 20
 launches, the ctypes call straight into the library; the cotangent or the
 tangents with ``r`` probe slices per primal slice), twice, the builds timed
 in turns (in order, then in reverse), TFLOP/s on the operations the
 function needs (flash_ops), and their largest differences from the plain
-versions (bf16: the gate is two bf16 ulps of max |plain|; f32: dQ, dK and
-dV against TF32X3_TOL of max(1, max |plain|)), then the library's backward
+versions (bf16: the gate is two bf16 ulps of max |plain|; f32: Ȯ, dQ, dK
+and dV against TF32X3_TOL of max(1, max |plain|)), then the library's backward
 (the flash SDPA backward in bf16, the memory-efficient one in f32; K4 + K5
 in one op) and the card's name and power limit. Needs nvcc and a card;
 builds under ``.build/variants/bwd/<dtype>``, all in parallel (a variant
@@ -62,8 +72,12 @@ import torch
 from diffusion_pullback_tpu_torch.ops import flash_attention as fa
 from diffusion_pullback_tpu_torch.ops.fwd_tc_variants import CSRC, OUT, build, cuda_ms
 
-TF32X3_TOL = 2.5e-5  # K4 and K5 on tf32x3, of max(1, max |plain|) (chip_smoke.py)
+TF32X3_TOL = 2.5e-5  # K3, K4 and K5 on tf32x3, of max(1, max |plain|) (chip_smoke.py)
 ROWS = "flash_bwd_tf32_rows.cu"
+TAN = "flash_jvp_tf32_rows.cu"
+RULE_TAN = "const bool rows128 = (long long)((sq + 127) / 128) * bh >= 3 * tf32::sm_count();"
+GROUP_TAN = "constexpr int kGroup = D / 8;"
+KEYS_TAN = "constexpr int kKeys = D == 40 || D == 128 ? 32 : 16;"
 RULE_DQ = "const bool rows128 = blocks(128, sq, bh) >= 3 * tf32::sm_count();"
 RULE_DKV = "const int rows = blocks(64, sk, bh) >= tf32::sm_count() ? 64 : 32;"
 GROUP_DQ = "constexpr int kDqGroup = MT == 1 ? D / 8 : 1;"
@@ -91,6 +105,12 @@ VARIANTS = {
                             ("flash_jvp_tc.cu", "+ 64 + 1024;", "+ 128 + 1024;")],
     },
     "f32": {
+        "K3 128-row blocks": [(TAN, RULE_TAN, "const bool rows128 = true;")],
+        "K3 64-row blocks": [(TAN, RULE_TAN, "const bool rows128 = false;")],
+        "K3 1 n8 tile a pass": [(TAN, GROUP_TAN, "constexpr int kGroup = 1;")],
+        "K3 4 n8 tiles a pass": [(TAN, GROUP_TAN, "constexpr int kGroup = 4;")],
+        "K3 16-key tiles": [(TAN, KEYS_TAN, "constexpr int kKeys = 16;")],
+        "K3 32-key tiles": [(TAN, KEYS_TAN, "constexpr int kKeys = D > 128 ? 16 : 32;")],
         "K4 128-row blocks": [(ROWS, RULE_DQ, "const bool rows128 = true;")],
         "K4 64-row blocks": [(ROWS, RULE_DQ, "const bool rows128 = false;")],
         "K5 64-row blocks": [(ROWS, RULE_DKV, "const int rows = 64;")],
@@ -102,15 +122,15 @@ VARIANTS = {
     },
 }
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-KERNELS = {"bf16": ("K3", "K4", "K5"), "f32": ("K4", "K5")}
+KERNELS = {"bf16": ("K3", "K4", "K5"), "f32": ("K3", "K4", "K5")}
 
 
 def registers(log):
     """{(kernel, design, D, rows of a block): (registers, spill store bytes,
     spill load bytes)} of the wgmma K3/K4/K5 instances (rows 64; D = 64 for
     a kernel not templated on the head dim, as before D = 40–160) and the
-    tf32x3 K4/K5 instances (K4 templated on (D, m-tiles a warp) of 4
-    warps, K5 on (D, row groups, m-tiles a warp)) in nvcc's -Xptxas -v
+    tf32x3 K3/K4/K5 instances (K3 and K4 templated on (D, m-tiles a warp)
+    of 4 warps, K5 on (D, row groups, m-tiles a warp)) in nvcc's -Xptxas -v
     output."""
     label = {"tangent": "K3", "dq": "K4", "dkv": "K5"}
     out, entry, spills = {}, None, None
@@ -119,8 +139,8 @@ def registers(log):
             name = m.group(1)
             if k := re.search(r"flash_(tangent|dq|dkv)_wgmma_kernel(?:ILi(\d+)E)?", name):
                 entry = (label[k.group(1)], "wgmma", int(k.group(2) or 64), 64)
-            elif k := re.search(r"flash_dq_tf32_rows_kernelILi(\d+)ELi(\d+)E", name):
-                entry = ("K4", "tf32x3", int(k.group(1)), 64 * int(k.group(2)))
+            elif k := re.search(r"flash_(tangent|dq)_tf32_rows_kernelILi(\d+)ELi(\d+)E", name):
+                entry = (label[k.group(1)], "tf32x3", int(k.group(2)), 64 * int(k.group(3)))
             elif k := re.search(r"flash_dkv_tf32_rows_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name):
                 entry = ("K5", "tf32x3", int(k.group(1)), 16 * int(k.group(2)) * int(k.group(3)))
             else:
@@ -141,12 +161,18 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     parser.add_argument("--parent", help="csrc/ of an earlier tree, timed as 'parent'")
+    parser.add_argument("--only", default="",
+                        help="time only the variants whose name starts with this, and the "
+                             "kernel it names (K3, K4 or K5) if it names one")
     args = parser.parse_args()
     dtype, labels = DTYPES[args.dtype], KERNELS[args.dtype]
+    if args.only[:2] in labels:
+        labels = (args.only[:2],)
     flag = int(dtype == torch.bfloat16)
     builds = [("parent", args.parent, [])] if args.parent else []
     builds += [("as built", CSRC, [])] + [
-        (name, CSRC, e) for name, e in VARIANTS[args.dtype].items()]
+        (name, CSRC, e) for name, e in VARIANTS[args.dtype].items()
+        if name.startswith(args.only)]
 
     def make(name, src, edits):
         units = sorted(os.path.basename(p) for p in glob.glob(os.path.join(src, "*.cu")))
@@ -182,10 +208,10 @@ def main():
         scale = d ** -0.5
         o, lse = fa.flash_forward_lse_plain(q, k, v, scale)
         delta = (do.float() * o.float().repeat(r, 1, 1)).sum(-1)
-        ref = {"K4": (fa.flash_dq_plain(q, k, v, do, lse, delta, scale),),
-               "K5": fa.flash_dkv_plain(q, k, v, do, lse, delta, scale)}
-        if "K3" in labels:
-            ref["K3"] = (fa.flash_tangent_plain(q, k, v, tq, tk, tv, o, lse, scale),)
+        plain = {"K3": lambda: (fa.flash_tangent_plain(q, k, v, tq, tk, tv, o, lse, scale),),
+                 "K4": lambda: (fa.flash_dq_plain(q, k, v, do, lse, delta, scale),),
+                 "K5": lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, scale)}
+        ref = {label: plain[label]() for label in labels}
         tan, dq, dk, dv = (torch.empty_like(do) for _ in range(4))
         out = {"K3": (tan,), "K4": (dq,), "K5": (dk, dv)}
         stream = torch.cuda.current_stream().cuda_stream

@@ -72,6 +72,10 @@
 namespace {
 
 using flash::kLog2e;
+using tf32::a_frag;
+using tf32::acc_frag;
+using tf32::b_frag_k;
+using tf32::b_frag_mn;
 using tf32::cp_async_commit;
 using tf32::cp_async_wait;
 using tf32::Frag;
@@ -108,49 +112,6 @@ constexpr int kDqSmemFloats = 2 * 16 * NW * MT * kStride<D> + 2 * STAGES * KW * 
 template <int D, int R, int MT>  // K and V of 16·R·MT rows, the Q/dO/L/δ ring
 constexpr int kDkvSmemFloats = 2 * 16 * R * MT * kStride<D> +
                                2 * STAGES * kQueries<D> * (NW / R) * (kStride<D> + 1);
-
-// A fragment (16 rows × k8) of a row-major tile X (row stride ld), split:
-// rows g and g + 8, columns t and t + 4 of k8 step ks
-__device__ __forceinline__ Frag<4> a_frag(const float* X, int ld, int ks, int g, int t) {
-    const float* p = X + g * ld + 8 * ks + t;
-    Frag<4> a;
-    a.set(0, p[0]);
-    a.set(1, p[8 * ld]);
-    a.set(2, p[4]);
-    a.set(3, p[8 * ld + 4]);
-    return a;
-}
-
-// B fragment of X·Yᵀ from Y's rows (K-major), split: row g, columns t and
-// t + 4 of k8 step ks
-__device__ __forceinline__ Frag<2> b_frag_k(const float* Y, int ld, int ks, int g, int t) {
-    const float* p = Y + g * ld + 8 * ks + t;
-    Frag<2> b;
-    b.set(0, p[0]);
-    b.set(1, p[4]);
-    return b;
-}
-
-// B fragment of A·Y from Y's columns (MN-major), split, for an A fragment
-// taken from accumulators (acc_frag): rows 2t and 2t + 1, column 8n + g
-__device__ __forceinline__ Frag<2> b_frag_mn(const float* Y, int ld, int n, int g, int t) {
-    const float* p = Y + 2 * t * ld + 8 * n + g;
-    Frag<2> b;
-    b.set(0, p[0]);
-    b.set(1, p[ld]);
-    return b;
-}
-
-// An accumulator tile (rows g and g + 8, columns 2t and 2t + 1) as an A
-// fragment: column 2t as the logical k t, 2t + 1 as t + 4
-__device__ __forceinline__ Frag<4> acc_frag(const float (&x)[4]) {
-    Frag<4> a;
-    a.set(0, x[0]);
-    a.set(1, x[2]);
-    a.set(2, x[1]);
-    a.set(3, x[3]);
-    return a;
-}
 
 // K4 at head dim D on blocks of 4 warps of MT m-tiles (16 query rows each),
 // every warp over all 32 keys of a tile.

@@ -14,8 +14,8 @@
 //
 // What bounds it: 4·BH·Sq·Sk·D operations on 2·(BH·Sq·D + BH·Sk·D) bf16
 // elements, so at the path's shapes it is bound by operations, at the bf16
-// tensor-core rate (989 TFLOP/s dense on an H100 SXM). The CUDA-core design
-// computes in f32 FMAs and cannot pass their 67 TFLOP/s peak.
+// tensor-core rate (989 TFLOP/s dense on an H100 SXM); f32 FMAs on the CUDA
+// cores could not pass their 67 TFLOP/s peak.
 //
 // Design "wgmma": a thread block owns BQ = 64 query rows of one head, with
 // one consumer warpgroup (one wgmma M = 64) and one producer warp. The

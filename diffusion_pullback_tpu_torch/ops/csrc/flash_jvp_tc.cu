@@ -10,7 +10,8 @@
 // ImageNet128Cond's at 128) this replaces the Pallas TPU kernel
 // `_flash_tangent_kernel` / `_flash_tangent` in
 // diffusion_pullback_tpu/ops/pallas/flash_attention.py; flash_jvp.cu's
-// entry routes those calls here, and f32 stays on its CUDA-core design.
+// entry routes those calls here, and f32 ones to "tf32x3"
+// (flash_jvp_tf32_rows.cu).
 // Same rounding as the Pallas kernel and the plain version: P∘Ṡ and P
 // rounded to bf16 before their products with V and V̇, rowsum(P∘Ṡ) and the
 // accumulator in f32, Ȯ written in O's dtype.

@@ -1,7 +1,8 @@
 // f32-accurate products on Hopper's TF32 tensor cores ("3xTF32"), shared by
 // the 'tf32x3' kernels (flash_fwd_tf32.cu, K1/K2 at D = 512;
-// flash_fwd_tf32_rows.cu, K1/K2, and flash_bwd_tf32_rows.cu, K4/K5, at D =
-// 40, 64, 80, 128 and 160), and the rows kernels' cp.async loads.
+// flash_fwd_tf32_rows.cu, K1/K2, flash_jvp_tf32_rows.cu, K3, and
+// flash_bwd_tf32_rows.cu, K4/K5, at D = 40, 64, 80, 128 and 160), and the
+// rows kernels' fragment reads and cp.async loads.
 //
 // Each operand x is split into hi = rna(x), x rounded to TF32, and lo = x −
 // hi (exact in f32), and a·b is a_lo·b_hi + a_hi·b_lo + a_hi·b_hi (the small
@@ -58,7 +59,56 @@ __device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag
     mma(d, a.hi, b.hi);
 }
 
-// ---- loads of the rows kernels (flash_fwd_tf32_rows.cu, flash_bwd_tf32_rows.cu)
+// ---- fragments of the backward's and the tangent's rows kernels
+// (flash_bwd_tf32_rows.cu, flash_jvp_tf32_rows.cu): f32 tiles in shared
+// memory at a row stride ≡ 4 mod 8, where these reads are free of bank
+// conflicts
+
+// A fragment (16 rows × k8) of a row-major tile X (row stride ld), split:
+// rows g and g + 8, columns t and t + 4 of k8 step ks
+__device__ __forceinline__ Frag<4> a_frag(const float* X, int ld, int ks, int g, int t) {
+    const float* p = X + g * ld + 8 * ks + t;
+    Frag<4> a;
+    a.set(0, p[0]);
+    a.set(1, p[8 * ld]);
+    a.set(2, p[4]);
+    a.set(3, p[8 * ld + 4]);
+    return a;
+}
+
+// B fragment of X·Yᵀ from Y's rows (K-major), split: row g, columns t and
+// t + 4 of k8 step ks
+__device__ __forceinline__ Frag<2> b_frag_k(const float* Y, int ld, int ks, int g, int t) {
+    const float* p = Y + g * ld + 8 * ks + t;
+    Frag<2> b;
+    b.set(0, p[0]);
+    b.set(1, p[4]);
+    return b;
+}
+
+// B fragment of A·Y from Y's columns (MN-major), split, for an A fragment
+// taken from accumulators (acc_frag): rows 2t and 2t + 1, column 8n + g
+__device__ __forceinline__ Frag<2> b_frag_mn(const float* Y, int ld, int n, int g, int t) {
+    const float* p = Y + 2 * t * ld + 8 * n + g;
+    Frag<2> b;
+    b.set(0, p[0]);
+    b.set(1, p[ld]);
+    return b;
+}
+
+// An accumulator tile (rows g and g + 8, columns 2t and 2t + 1) as an A
+// fragment: column 2t as the logical k t, 2t + 1 as t + 4
+__device__ __forceinline__ Frag<4> acc_frag(const float (&x)[4]) {
+    Frag<4> a;
+    a.set(0, x[0]);
+    a.set(1, x[2]);
+    a.set(2, x[1]);
+    a.set(3, x[3]);
+    return a;
+}
+
+// ---- loads of the rows kernels (flash_fwd_tf32_rows.cu, flash_bwd_tf32_rows.cu,
+// flash_jvp_tf32_rows.cu)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));

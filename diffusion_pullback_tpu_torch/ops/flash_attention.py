@@ -10,24 +10,24 @@ diffusion_pullback_tpu/ops/pallas/flash_attention.py:
     K4  flash_dq           `_flash_backward`     dQ   (its dq pallas_call)
     K5  flash_dkv          `_flash_backward`     dK, dV (its dkv pallas_call)
 
-Three designs, chosen by the C library's one rule (``design`` says which
-served a call):
+Three designs, all on the tensor cores, chosen by the C library's one rule
+(``design`` says which served a call):
 
 * 'wgmma': K1–K5 in bf16 at head dims 40, 64, 80, 128 and 160 (the SD
   2.1, SDXL and ADM-256 U-Nets' self-attentions and their pullbacks at 64,
   SD 1.5's 8 heads per block, ImageNet128Cond's 4 heads of 128; rows as
-  64-column panels), TMA loads and wgmma products on the tensor cores
+  64-column panels), TMA loads and wgmma products
   (csrc/flash_fwd_tc.cu, flash_jvp_tc.cu, flash_bwd_tc.cu);
-* 'tf32x3': K1, K2, K4 and K5 in f32, each f32 product as three TF32
-  mma.sync products: K1 and K2 at 512 (the VAE's single head; K2 where
-  ring attention shards it) with warps that split D
-  (csrc/flash_fwd_tf32.cu); K1 and K2 at 40, 64, 80, 128 and 160 (the
-  U-Nets run in f32, ``--dtype fp32``) with warps that own query rows
-  (csrc/flash_fwd_tf32_rows.cu), and K4 and K5 there with warps that own
-  query rows (K4) or key rows (K5) (csrc/flash_bwd_tf32_rows.cu);
-* 'simt': every other call, CUDA-core kernels that compute in f32
-  (csrc/flash_fwd.cu, flash_jvp.cu): K3 in f32, and K1 in bf16 at 512
-  (K2 refuses bf16 at 512).
+* 'tf32x3': K1–K5 in f32, each f32 product as three TF32 mma.sync
+  products: K1 and K2 at 512 (the VAE's single head; K2 where ring
+  attention shards it) with warps that split D (csrc/flash_fwd_tf32.cu);
+  at 40, 64, 80, 128 and 160 (the U-Nets run in f32, ``--dtype fp32``)
+  K1 and K2 (csrc/flash_fwd_tf32_rows.cu), K3 (csrc/flash_jvp_tf32_rows.cu)
+  and K4 and K5 (csrc/flash_bwd_tf32_rows.cu), with warps that own query
+  rows (K5: key rows);
+* 'mma_bf16': K1 in bf16 at 512 (a VAE built in bf16), one bf16 mma.sync
+  product per product, with warps that split D (csrc/flash_fwd_mma_bf16.cu).
+  K2 refuses bf16 at 512.
 
 The sources are csrc/*.cu; they are compiled with nvcc for sm_90a at first
 use into one shared library under ``.build/`` next to this package (keyed on
@@ -345,15 +345,17 @@ def _is_bf16(q) -> int:
 
 
 KERNELS = ("K1", "K2", "K3", "K4", "K5")
-DESIGNS = ("simt", "wgmma", "tf32x3")  # by the C rule's number
+DESIGNS = ("mma_bf16", "wgmma", "tf32x3")  # by the C rule's number
 
 
 def design(kernel: str, d: int, dtype: torch.dtype) -> str:
     """The design kernel ``kernel`` ('K1'…'K5') runs on the card at head
-    dim d and dtype, as the C entries dispatch: 'wgmma' or 'tf32x3'
-    (tensor cores) or 'simt' (CUDA cores)."""
-    return DESIGNS[_load().flash_design(KERNELS.index(kernel) + 1, d,
-                                        int(dtype == torch.bfloat16))]
+    dim d and dtype, as the C entries dispatch: 'wgmma', 'tf32x3' or
+    'mma_bf16'. Raises where no kernel takes the call."""
+    n = _load().flash_design(KERNELS.index(kernel) + 1, d, int(dtype == torch.bfloat16))
+    if n < 0:
+        raise ValueError(f"no kernel takes {kernel} at head dim {d} in {dtype}")
+    return DESIGNS[n]
 
 
 def served(kernel: str, design_: str) -> int:

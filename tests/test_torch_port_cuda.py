@@ -1,9 +1,8 @@
 """K1–K5 on the card: each CUDA kernel against its plain version, with the
 design the C library's rule reports ('wgmma' for K1–K5 in bf16 at D=64 and
 at SD 1.5's and ImageNet128Cond's head dims 40, 80, 128 and 160, 'tf32x3'
-for K1 and K2 in f32 at every head dim and K4 and K5 in f32 at 40–160,
-'simt' otherwise: K3 in f32 and K1 in bf16 at 512), the fused pair under
-torch.func against
+for K1–K5 in f32 there and K1 and K2 in f32 at 512, 'mma_bf16' for K1 in
+bf16 at 512), the fused pair under torch.func against
 the math path, the kernels' custom ops counting the CPU's FLOPs, and a K1
 program exported and reloaded. Marked ``cuda``: these
 skip without a GPU and run on one with
@@ -49,16 +48,12 @@ def _one_tf32_forward(q, k, v, scale):
 
 
 def _design(kernel, d, dtype):
-    """The design the C rule gives: 'wgmma' for bf16 at D = 40, 64, 80, 128
-    and 160, 'tf32x3' in f32 for K1, K2, K4 and K5 at those head dims and
-    for K1 and K2 at 512, 'simt' for the rest (K3 in f32, K1 in bf16 at
-    512)."""
-    if dtype == torch.bfloat16 and d in (40, 64, 80, 128, 160):
-        return "wgmma"
-    if dtype == torch.float32 and kernel != "K3" and (
-            d in (40, 64, 80, 128, 160) or (kernel in ("K1", "K2") and d == 512)):
-        return "tf32x3"
-    return "simt"
+    """The design the C rule gives: at D = 40, 64, 80, 128 and 160 'wgmma'
+    in bf16 and 'tf32x3' in f32 for K1–K5; at 512 (K1, and K2 in f32)
+    'mma_bf16' in bf16 and 'tf32x3' in f32."""
+    if d in (40, 64, 80, 128, 160):
+        return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    return "mma_bf16" if dtype == torch.bfloat16 else "tf32x3"
 
 
 # (B·H, Sq, Sk, D). At D=64 in bf16 the wgmma design serves K1 and K2 with
@@ -100,8 +95,9 @@ def _design(kernel, d, dtype):
 def test_kernel_matches_plain_version(cuda, shape, dtype):
     """K1 (and K2 at the pair's head dims, and in f32 at 512) against their
     plain versions, one launch each, on the wgmma design in bf16 at D = 40,
-    64, 80, 128 and 160, tf32x3 in f32 and the CUDA-core one in bf16 at
-    D=512; on tf32x3 the gate rejects one TF32 product."""
+    64, 80, 128 and 160, tf32x3 in f32 and mma_bf16 in bf16 at D=512, each
+    launch counted on that design where the C entry launched it; on tf32x3
+    the gate rejects one TF32 product."""
     bh, sq, sk, d = shape
     want = _design("K1", d, dtype)
     assert fa.design("K1", d, dtype) == want
@@ -111,10 +107,10 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(n, s, d, device=cuda, generator=gen).to(dtype)
                for n, s in ((bh, sq), (bh, sk), (bh, sk)))
-    n0 = fa.flash_forward.launches
+    n0 = fa.flash_forward.launches, fa.served("K1", want)
     out = fa.flash_forward(q, k, v, d ** -0.5)
     torch.cuda.synchronize()
-    assert fa.flash_forward.launches == n0 + 1
+    assert (fa.flash_forward.launches, fa.served("K1", want)) == (n0[0] + 1, n0[1] + 1)
     ref = fa.flash_forward_plain(q, k, v, d ** -0.5)
     assert out.dtype == dtype
     # f32 (tf32x3): TF32X3_TOL, which one TF32 product per f32 product must
@@ -242,20 +238,94 @@ def test_tf32x3_backward_at_each_block_shape(cuda, shape, d):
            *fa.flash_dkv_plain(q, k, v, do, lse, delta, scale))
     one = _one_tf32_backward(q, k, v, do, lse, delta, scale)
     for name, out, want, bad in zip(("dq", "dk", "dv"), got, ref, one):
-        tol = _tol(want, torch.float32, "tf32x3")
+        tol = _tol(want, torch.float32)
         err = (out - want).abs().max().item()
         assert out.shape == want.shape and err <= tol, (name, err, tol)
         assert (bad - want).abs().max().item() > tol, name
 
 
-def _tol(ref, dtype, design="simt"):
-    """f32: on 'tf32x3' (K4 and K5) TF32X3_TOL of max(1, max |ref|), which
-    one TF32 product per f32 product must miss, on 'simt' 1e-4 of it (the
-    two differ in the order of f32 sums); bf16: two ulps of max |ref| (both
-    round the same f32 values)."""
+def _one_tf32_tangent(q, k, v, dq, dk, dv, o, lse, scale, block=512):
+    """K3 in f32 with one TF32 product per f32 product, Ȯ: the operands of
+    Q·Kᵀ, Q̇·Kᵀ, Q·K̇ᵀ, (P∘Ṡ)·V and P·V̇ rounded to TF32, the exact
+    products summed in f32, over key blocks; the tangents may carry r times
+    the primal's B·H."""
+    tf32 = lambda x: ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    r = dq.shape[0] // q.shape[0]
+    q, k, v, o, lse = (x.repeat(r, *(1,) * (x.ndim - 1)) for x in (q, k, v, o, lse))
+    acc = torch.zeros_like(dq)
+    rsum = torch.zeros(*dq.shape[:2], 1, device=dq.device)
+    for i in range(0, k.shape[1], block):
+        kb = tf32(k[:, i:i + block]).transpose(1, 2)
+        p = torch.exp(tf32(q) @ kb * scale - lse[..., None])
+        pds = p * (tf32(dq) @ kb + tf32(q) @ tf32(dk[:, i:i + block]).transpose(1, 2)) * scale
+        acc += tf32(pds) @ tf32(v[:, i:i + block]) + tf32(p) @ tf32(dv[:, i:i + block])
+        rsum += pds.sum(-1, keepdim=True)
+    return acc - rsum * o
+
+
+# (B·H primal, Sq, Sk, probes) of f32 K3 at each head dim, on each block
+# shape of its rule: 64-row blocks, and at D ≤ 80 128-row blocks (two m16
+# tiles a warp) at 3 such blocks an SM ((50, 1000, 700, 1), and (100, 130,
+# 300, 3) with 2 rows in the last block); ragged Sq and Sk both ways, Sk
+# under one key tile (16 at D = 160, else 32), probes folded (tangent slice
+# b reads primal slice b % B·H)
+@pytest.mark.parametrize("d", [40, 64, 80, 128, 160])
+@pytest.mark.parametrize("shape", [(1, 1000, 700, 2), (2, 700, 1000, 3), (10, 1000, 700, 2),
+                                   (50, 1000, 700, 1), (100, 130, 300, 3), (3, 70, 12, 1)])
+def test_tf32x3_tangent_at_each_block_shape(cuda, shape, d):
+    """K3 in f32 on 'tf32x3' (csrc/flash_jvp_tf32_rows.cu) against its plain
+    version at TF32X3_TOL of max(1, max |plain|), each launch counted on
+    'tf32x3' where the C entry launched it, and one TF32 product per f32
+    product outside the gate."""
+    bhp, sq, sk, r = shape
+    assert fa.design("K3", d, torch.float32) == "tf32x3"
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    rnd = lambda n, s: torch.randn(n, s, d, device=cuda, generator=gen)
+    q, k, v = rnd(bhp, sq), rnd(bhp, sk), rnd(bhp, sk)
+    dq, dk, dv = rnd(r * bhp, sq), rnd(r * bhp, sk), rnd(r * bhp, sk)
+    scale = d ** -0.5
+    o, lse = fa.flash_forward_lse_plain(q, k, v, scale)
+    n0 = fa.served("K3", "tf32x3")
+    out = fa.flash_tangent(q, k, v, dq, dk, dv, o, lse, scale)
+    torch.cuda.synchronize()
+    assert fa.served("K3", "tf32x3") == n0 + 1
+    ref = fa.flash_tangent_plain(q, k, v, dq, dk, dv, o, lse, scale)
+    tol = _tol(ref, torch.float32)
+    assert out.shape == ref.shape and (out - ref).abs().max().item() <= tol
+    one = _one_tf32_tangent(q, k, v, dq, dk, dv, o, lse, scale)
+    assert (one - ref).abs().max().item() > tol
+
+
+# (B·H, S, D): the VAE's single 512-wide head built in bf16: SD's encode
+# (1 image) and decode of 3 frames at 4096 tokens, SDXL's at 16 384
+@pytest.mark.parametrize("shape", [(1, 4096, 512), (3, 4096, 512), (1, 16384, 512)])
+def test_mma_bf16_at_the_vae_shapes(cuda, shape):
+    """K1 in bf16 at D = 512 on 'mma_bf16' (csrc/flash_fwd_mma_bf16.cu)
+    against its plain version within two bf16 ulps of max |plain|, the
+    launch counted on 'mma_bf16' where the C entry launched it; K2 still
+    refuses bf16 at 512."""
+    assert fa.design("K1", 512, torch.bfloat16) == "mma_bf16"
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    n0 = fa.served("K1", "mma_bf16")
+    out = fa.flash_forward(q, k, v, 512 ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.served("K1", "mma_bf16") == n0 + 1
+    ref = fa.flash_forward_plain(q, k, v, 512 ** -0.5)
+    assert out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, torch.bfloat16)
+    with pytest.raises(ValueError, match="512 in float32 only"):
+        fa.flash_forward_lse(q, k, v, 512 ** -0.5)
+
+
+def _tol(ref, dtype):
+    """f32 ('tf32x3', K3, K4 and K5): TF32X3_TOL of max(1, max |ref|), which
+    one TF32 product per f32 product must miss; bf16: two ulps of max |ref|
+    (both round the same f32 values)."""
     top = ref.float().abs().max().item()
     if dtype == torch.float32:
-        return (TF32X3_TOL if design == "tf32x3" else 1e-4) * max(1.0, top)
+        return TF32X3_TOL * max(1.0, top)
     return 2 * torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top))
 
 
@@ -286,7 +356,7 @@ def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
 
 # (B·H, Sq, Sk, probes, D) at D = 40, 80, 128, 160, where K2–K5 run wgmma
 # in bf16 (a row as 1, 2, 2 or 3 panels of 64 columns; K3 with one stage of
-# its ring at 160) and in f32 K2, K4, K5 tf32x3, K3 simt: ragged Sq and Sk both ways, Sk off the
+# its ring at 160) and tf32x3 in f32: ragged Sq and Sk both ways, Sk off the
 # 64-row tiles at every D, Sq < 64 at every D, a last query tile of 36 rows
 # at 160, B·H > 1 with a ragged last tile in each head at every D, three
 # probes; SD 1.5's mid-tap pullback at rank 2 (8 heads of 40 at 4096
@@ -303,8 +373,8 @@ def test_pair_kernels_match_plain_versions(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_kernels_at_head_dims_40_to_160(cuda, shape, dtype):
     """K2–K5 against their plain versions at the head dims other than 64
-    (every kernel on 'wgmma' in bf16; in f32 K2, K4 and K5 on 'tf32x3', K3
-    on 'simt'), as test_pair_kernels_match_plain_versions."""
+    (every kernel on 'wgmma' in bf16 and on 'tf32x3' in f32), as
+    test_pair_kernels_match_plain_versions."""
     _check_pair(cuda, *shape, dtype)
 
 
@@ -332,13 +402,11 @@ def _check_pair(cuda, bh, sq, sk, r, d, dtype):
     ref["tangent"] = fa.flash_tangent_plain(*cpu(q, k, v, dq, dk, dv, o, lse), scale)
     ref["dq"] = fa.flash_dq_plain(*cpu(q, k, v, do, lse, delta), scale)
     ref["dk"], ref["dv"] = fa.flash_dkv_plain(*cpu(q, k, v, do, lse, delta), scale)
-    kernel = {"o": "K2", "lse": "K2", "tangent": "K3", "dq": "K4", "dk": "K5", "dv": "K5"}
     for name, out in got.items():
-        design = _design(kernel[name], d, dtype)
-        if design == "tf32x3" and name in ("o", "lse"):  # K2's gate on tf32x3, as chip_smoke.py's
+        if dtype == torch.float32 and name in ("o", "lse"):  # K2's gate on tf32x3, as chip_smoke.py's
             tol = TF32X3_TOL
         else:
-            tol = 1e-4 if name == "lse" else _tol(ref[name], dtype, design)
+            tol = 1e-4 if name == "lse" else _tol(ref[name], dtype)
         err = (out.cpu().float() - ref[name].float()).abs().max().item()
         want = torch.float32 if name == "lse" else dtype
         assert out.dtype == ref[name].dtype == want and err <= tol, (name, err, tol)
@@ -373,8 +441,7 @@ def test_pair_under_torch_func_matches_math_path(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_under_torch_func_at_head_dim_40(cuda, dtype):
     """The pair under torch.func (two probes vmapped) at SD 1.5's 8 heads of
-    40 over 1024 tokens (K2–K5 on 'wgmma' in bf16; in f32 K3 on 'simt',
-    the others on 'tf32x3')
+    40 over 1024 tokens (K2–K5 on 'wgmma' in bf16 and on 'tf32x3' in f32)
     against the math path; each of K2–K5 launches,
     and head dim 32 still raises."""
     from torch.func import jvp, vjp, vmap

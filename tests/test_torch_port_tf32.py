@@ -1,12 +1,13 @@
 """The precision argument of the 'tf32x3' design, K1 and K2
 (ops/csrc/flash_fwd_tf32.cu at D = 512, ops/csrc/flash_fwd_tf32_rows.cu at
-D = 40, 64, 80, 128 and 160) and K4 and K5 (ops/csrc/flash_bwd_tf32_rows.cu
-at D = 40–160; the split in ops/csrc/tf32.cuh), on the CPU: each f32
-product as three TF32 products keeps the design's f32 gate, and one TF32
-product does not. The gate is 2.5e-5, not the 1e-4 of the CUDA-core
-design: at the VAE's 4096 tokens one TF32 product stays under 1e-4. K1 and
-K2 are held to it absolutely; K4's dQ and K5's dK and dV, sums over every
-key or query, to 2.5e-5 of max(1, max |reference|).
+D = 40, 64, 80, 128 and 160), K3 (ops/csrc/flash_jvp_tf32_rows.cu) and K4
+and K5 (ops/csrc/flash_bwd_tf32_rows.cu) at D = 40–160 (the split in
+ops/csrc/tf32.cuh), on the CPU: each f32 product as three TF32 products
+keeps the design's f32 gate, and one TF32 product does not. The gate is
+2.5e-5, not 1e-4: at the VAE's 4096 tokens one TF32 product stays under
+1e-4. K1 and K2 are held to it absolutely; K3's Ȯ, K4's dQ and K5's dK
+and dV, sums over every key or query, to 2.5e-5 of max(1, max
+|reference|).
 
 TF32 rounding is emulated here with integer bit masks (round to nearest,
 ties away from zero, to 10 stored mantissa bits, as cvt.rna.tf32.f32), and
@@ -18,7 +19,9 @@ attention is computed at the VAE mid-block head's width (D = 512) and at
 the U-Nets' head dims, with inputs made with numpy from a seed, and held
 against the JAX package's f32 reference and its Pallas kernels in
 interpret mode; the backward against `_flash_backward` in interpret mode,
-`jax.vjp` of the f32 reference and the port's plain versions.
+`jax.vjp` of the f32 reference and the port's plain versions; the tangent
+against `_flash_tangent` in interpret mode, `jax.jvp` of the f32 reference
+and the port's plain version.
 """
 
 import functools
@@ -282,3 +285,82 @@ def test_tf32x3_backward_keeps_the_gate_ragged_and_folded(case, terms):
                 assert err <= gate / 10, (name, err, gate)
             else:
                 assert err > gate, (name, err, gate)
+
+
+def tangent_tf32(q, k, v, dq, dk, dv, o, lse, scale, terms):
+    """Ȯ of K3 with the operands of Q·Kᵀ, Q̇·Kᵀ, Q·K̇ᵀ, (P∘Ṡ)·V and P·V̇
+    in TF32 (matmul_tf32; P∘Ṡ and P split like the inputs: in f32 the
+    kernel does not round them), P = exp(S·scale − L), Ṡ = (Q̇Kᵀ + QK̇ᵀ)·
+    scale, Ȯ = (P∘Ṡ)·V + P·V̇ − rowsum(P∘Ṡ)∘O. The tangents may carry r
+    times the primal's B·H, slice b reading primal slice b % B·H, as the
+    kernel indexes them."""
+    r = dq.shape[0] // q.shape[0]
+    q, k, v, o, lse = (x.repeat(r, *(1,) * (x.ndim - 1)) for x in (q, k, v, o, lse))
+    kt = k.transpose(-1, -2)
+    p = torch.exp(matmul_tf32(q, kt, terms) * scale - lse[..., None])
+    pds = p * (matmul_tf32(dq, kt, terms) + matmul_tf32(q, dk.transpose(-1, -2), terms)) * scale
+    return (matmul_tf32(pds, v, terms) + matmul_tf32(p, dv, terms)
+            - pds.sum(-1, keepdim=True) * o)
+
+
+@functools.lru_cache(maxsize=None)
+def _tangent_case(bhp, sq, sk, r, d):
+    """Inputs from a numpy seed and the references of one tangent case: q
+    (bhp, sq, d), k/v (bhp, sk, d), tangents of r·bhp slices; O and L from
+    the Pallas forward (K2) in interpret mode; the references Ȯ of
+    `_flash_tangent` in interpret mode (blocks of 512, 256 or 128 rows, over
+    the primal tiled r times), of `jax.jvp` of the JAX package's f32
+    attention and of the port's plain version."""
+    rng = np.random.default_rng(3 * d + sq + 5 * sk + r)
+    q, k, v = (rng.normal(size=(bhp, n, d)).astype(np.float32) for n in (sq, sk, sk))
+    dq, dk, dv = (rng.normal(size=(r * bhp, n, d)).astype(np.float32) for n in (sq, sk, sk))
+    scale = d ** -0.5
+    block = lambda n: next(b for b in (512, 256, 128) if n % b == 0)
+    blocks = dict(block_q=block(sq), block_k=block(sk), interpret=True)
+    tile = lambda x: jnp.asarray(np.tile(x, (r, 1, 1)))
+    o, lse = jfa._flash_forward_lse(*map(tile, (q, k, v)), scale, **blocks)
+    pallas = jfa._flash_tangent(*map(tile, (q, k, v)), *map(jnp.asarray, (dq, dk, dv)), o, lse,
+                                scale, **blocks)
+    to_bshd = lambda x: jnp.asarray(x)[:, :, None]
+    _, xla = jax.jvp(lambda a, b, c: jfa._xla_reference(a, b, c, scale),
+                     tuple(to_bshd(np.tile(x, (r, 1, 1))) for x in (q, k, v)),
+                     tuple(to_bshd(x) for x in (dq, dk, dv)))
+    t = lambda x: torch.from_numpy(np.array(x, np.float32))
+    args = (*map(t, (q, k, v, dq, dk, dv)), t(np.asarray(o)[:bhp]),
+            t(np.asarray(lse)[:bhp, :, 0]), scale)
+    refs = {"pallas_interpret": np.asarray(pallas), "xla_jvp": np.asarray(xla)[:, :, 0],
+            "plain": tfa.flash_tangent_plain(*args).numpy()}
+    return args, refs
+
+
+def _tangent_errors(case, terms):
+    """{reference: (max |emulation − reference|, gate)} of Ȯ."""
+    args, refs = _tangent_case(*case)
+    out = tangent_tf32(*args, terms).numpy()
+    return {name: (np.abs(out - ref).max(), GATE * max(1.0, np.abs(ref).max()))
+            for name, ref in refs.items()}
+
+
+# (primal B·H, Sq, Sk, probes, D): one head over 1024 tokens at every head
+# dim the tangent's rows kernel serves; ragged Sq ≠ Sk both ways, and the
+# tangents folded over three probes (B·H 3·bh_primal) against one primal
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("case", [(1, 1024, 1024, 1, d) for d in HEAD_DIMS] + [
+    (1, 384, 640, 1, 40), (1, 640, 384, 1, 160), (2, 256, 512, 3, 64), (1, 512, 256, 3, 80)])
+def test_tf32x3_tangent_keeps_the_gate(case, terms):
+    """K3 (ops/csrc/flash_jvp_tf32_rows.cu): with three TF32 products per
+    f32 product Ȯ stays within a fifth of the gate (2.5e-5 of max(1, max
+    |reference|), as K4's dQ: a sum over every key) of the Pallas tangent
+    in interpret mode, of jax.jvp of the JAX package's f32 attention and of
+    the plain version (measured 5.5e-7 to 2.7e-6, max |Ȯ| 0.56 to 1.01); with
+    one TF32 product it lies above the gate (measured 3.4e-4 to 7.5e-4), so
+    the card's gate tells the two apart at every head dim and batching the
+    kernel serves. A fifth, not the tenth of K4's and K5's test: the three
+    f32 references differ among themselves by up to 1.3e-6 (the order of
+    their f32 sums, and Ȯ = acc − rowsum(P∘Ṡ)∘O cancels), half of a tenth
+    of the gate."""
+    for name, (err, gate) in _tangent_errors(case, terms).items():
+        if terms == 3:
+            assert err <= gate / 5, (name, err, gate)
+        else:
+            assert err > gate, (name, err, gate)

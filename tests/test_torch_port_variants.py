@@ -1,13 +1,14 @@
 """ops/fwd_tc_variants.py builds each design variant of the bf16 and the
 f32 forward and ops/bwd_tc_variants.py each variant of the bf16 tangent
-and of the f32 backward, by replacing a text of the kernel sources. Each such text must stand in
-its file exactly once, so that a variant still builds the one change it names
-after the sources move on. ops/bwd_tc_variants.py (the tangent and the
-backward as built against an earlier tree's csrc/) reads registers and
-spills per K3/K4/K5 instance from nvcc's -Xptxas -v output (an earlier
-tree's D = 64-only kernels too, for its --parent build), and per block
-shape of the f32 backward's. Runs on the CPU:
-nothing is compiled."""
+and of the f32 tangent and backward, by replacing a text of the kernel
+sources. Each such text must stand in its file exactly once, so that a
+variant still builds the one change it names after the sources move on.
+ops/bwd_tc_variants.py (the tangent and the backward as built against an
+earlier tree's csrc/) reads registers and spills per K3/K4/K5 instance
+from nvcc's -Xptxas -v output (an earlier tree's D = 64-only kernels too,
+for its --parent build), and per block shape of the f32 tangent's and
+backward's; ops/fwd_tc_variants.py those of the f32 rows forward and of
+the bf16 D = 512 forward. Runs on the CPU: nothing is compiled."""
 
 import os
 
@@ -107,3 +108,24 @@ ptxas info    : Used 173 registers, used 1 barriers
 """
     assert fwd_tc_variants.registers(log) == {(64, 128, 32): (255, 76, 88),
                                               (160, 32, 16): (173, 0, 0)}
+
+
+def test_tf32x3_tangent_and_bf16_d512_registers_are_read():
+    """The f32 tangent's rows kernel (K3, csrc/flash_jvp_tf32_rows.cu) is
+    read by ops/bwd_tc_variants.py keyed (kernel, design, D, rows of a
+    block) from its template arguments (D, m-tiles a warp of 4 warps), and
+    the bf16 D = 512 forward (csrc/flash_fwd_mma_bf16.cu) by
+    ops/fwd_tc_variants.py as (512, 32 rows, 32 a warp)."""
+    log = """\
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__7a1b2c3d_22_flash_jvp_tf32_rows_cu_1e2f3a4b30flash_tangent_tf32_rows_kernelILi80ELi2EEEvPKfS2_S2_S2_S2_S2_S2_S2_Pfiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__7a1b2c3d_22_flash_jvp_tf32_rows_cu_1e2f3a4b30flash_tangent_tf32_rows_kernelILi80ELi2EEEvPKfS2_S2_S2_S2_S2_S2_S2_Pfiiif
+    0 bytes stack frame, 16 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__7a1b2c3d_22_flash_jvp_tf32_rows_cu_1e2f3a4b30flash_tangent_tf32_rows_kernelILi160ELi1EEEvPKfS2_S2_S2_S2_S2_S2_S2_Pfiiif' for 'sm_90a'
+ptxas info    : Used 210 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__5e6f7a8b_21_flash_fwd_mma_bf16_cu_9c0d1e2f25flash_fwd_mma_bf16_kernelEPK13__nv_bfloat16S2_S2_PS0_iif' for 'sm_90a'
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+    assert bwd_tc_variants.registers(log) == {("K3", "tf32x3", 80, 128): (255, 16, 24),
+                                              ("K3", "tf32x3", 160, 64): (210, 0, 0)}
+    assert fwd_tc_variants.registers(log) == {(512, 32, 32): (168, 0, 0)}
