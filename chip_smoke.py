@@ -8,12 +8,13 @@ Phases (any failure exits non-zero before the last line is printed):
                the design that served it as the C library's one rule
                reports it ('wgmma': K1–K5 in bf16 at D=40, 64, 80, 128
                and 160; 'tf32x3': K1 and K2 in f32 at every head dim, K3,
-               K4 and K5 in f32 at 40–160; 'mma_bf16': K1 in bf16 at
-               D=512), each launch's design as the C entries counted it, the kernel's,
+               K4 and K5 in f32 at 40–160; 'mma_bf16': K1 and K2 in bf16
+               at D=512), each launch's design as the C entries counted it, the kernel's,
                the plain version's and a PyTorch yardstick's times
                (F.scaled_dot_product_attention for K1; for K2 and K4+K5 the
                flash SDPA forward / backward ops in bf16 and the
-               memory-efficient ones in f32; for K3 torch.func.jvp of
+               memory-efficient ones in f32 and for K2 in bf16 at D=512
+               (with its logsumexp); for K3 torch.func.jvp of
                F.scaled_dot_product_attention on its math backend; the port
                never calls them), with the kernels the profiler saw serve
                the yardsticks of K1 at D=512 and of K3, the host's time per
@@ -132,8 +133,10 @@ Phases (any failure exits non-zero before the last line is printed):
                pullback on the pair against the math path in f32;
                ImageNet128Cond at full width with labels (K1–K5 at 4 heads
                of 128 over 1024 tokens): ε and the mid-tap rank-2 pullback
-               on the pair against the math path in f32 and bf16; every
-               bf16 K1–K5 launch of both served by 'wgmma';
+               on the pair against the math path in f32 and bf16, each
+               dtype's flash run with its launches by shape held to the
+               count the code gives; every bf16 K1–K5 launch of both served
+               by 'wgmma', every f32 one of ImageNet128Cond by 'tf32x3';
  13. train   — training through the library API: ImageNet256Uncond at full
                width in bf16 (attn 'flash', weights drawn on the card) on
                f32 master params with AdamW and two EMA rates, the bundled
@@ -162,12 +165,16 @@ Phases (any failure exits non-zero before the last line is printed):
  15. parallel — the device mesh (parallel/): ring attention's per-rank loop
                over 2 and 4 virtual ranks in one process, K2 per ring step
                at the shard shapes of SD 2.1-base's self-attentions (bf16,
-               'wgmma') and of the VAE's 512-wide head (f32, 'tf32x3'),
-               held to the same ring on K2's plain version and to dense
-               attention, each launch's design as the C entries counted it
-               where they launched; the CLI (main.main) with --mesh_axes
-               sp:4 at one rank: auto becomes ring, no mesh is built, and a
-               full-width U-Net pass launches K1 as 'flash' does; then NCCL
+               'wgmma') and of the VAE's 512-wide head (f32, 'tf32x3';
+               bf16, 'mma_bf16', on random operands and on the q, k and v
+               of the mid-block attention of SD's and SDXL's VAEs built in
+               bf16 through the library, encoding a bundled image at 512
+               and 1024 px), held to the same ring on K2's plain version
+               and to dense attention, each launch's design as the C
+               entries counted it where they launched; the CLI (main.main)
+               with --mesh_axes sp:4 at one rank: auto becomes ring, no
+               mesh is built, and a full-width U-Net pass launches K1 as
+               'flash' does; then NCCL
                at world size 1: a ('dp', 'probe', 'sp', 'tp') mesh, the
                probe-sharded pullback of the full-width SD 2.1-base mid tap
                on the pair against local_pullback, dp_vmap over two
@@ -353,9 +360,13 @@ PAIR_CASES += [(8 * b, 1024, 64, 1, (BF16,), ("K2", "K4", "K5"))
                for b in (TRAIN_BATCH, TRAIN_BATCH // 2)]
 # phase 15: ring attention's K2 at its shard shapes, the ring over n = 2
 # and 4 virtual ranks: SD 2.1-base's self-attentions in bf16 (5 heads of
-# 64 over 4096 tokens, 10 over 1024) and the VAE's single 512-wide head
-# over 4096 tokens in f32 ('tf32x3'); each rank runs K2 at (B·H, S/n, D)
-RING_CASES = [((5, 4096, 64), BF16), ((10, 1024, 64), BF16), ((1, 4096, 512), F32)]
+# 64 over 4096 tokens, 10 over 1024), the VAE's single 512-wide head over
+# 4096 tokens in f32 ('tf32x3'), and that head of a VAE built in bf16
+# ('mma_bf16') over SD's 4096 tokens and SDXL's 16 384 (random operands,
+# then the q, k and v the bf16 VAEs' encoders hand their mid-block
+# attention at 512 and 1024 px); each rank runs K2 at (B·H, S/n, D)
+RING_CASES = [((5, 4096, 64), BF16), ((10, 1024, 64), BF16), ((1, 4096, 512), F32),
+              ((1, 4096, 512), BF16), ((1, 16384, 512), BF16)]
 RING_NS = (2, 4)
 PAIR_CASES += [(bh, s // n, d, 1, (dt,), ("K2",)) for (bh, s, d), dt in RING_CASES
                for n in RING_NS]
@@ -366,7 +377,8 @@ KERNELS = {
                   {"mma_bf16": "flash_fwd_mma_bf16.cu", "wgmma": "flash_fwd_tc.cu",
                    "tf32x3": "flash_fwd_tf32_rows.cu"}, 190),
     "flash_fwd_lse": ("K2", "flash_forward_lse",
-                      {"wgmma": "flash_fwd_tc.cu", "tf32x3": "flash_fwd_tf32_rows.cu"}, 262),
+                      {"mma_bf16": "flash_fwd_mma_bf16.cu", "wgmma": "flash_fwd_tc.cu",
+                       "tf32x3": "flash_fwd_tf32_rows.cu"}, 262),
     "flash_tangent": ("K3", "flash_tangent",
                       {"wgmma": "flash_jvp_tc.cu", "tf32x3": "flash_jvp_tf32_rows.cu"}, 505),
     "flash_dq": ("K4", "flash_dq",
@@ -709,7 +721,8 @@ def phase_pair(fa):
                         f"torch.func.jvp of SDPA on the math backend {served} (on "
                         f"SDPA's own choice it {default})")
             backward = {"K4", "K5"} & set(labels)
-            if dtype == torch.bfloat16:  # the flash SDPA ops take bf16 only
+            # the flash SDPA ops take bf16 only, at head dims up to 256
+            if dtype == torch.bfloat16 and d <= 256:
                 library["K2"] = cuda_ms(lambda: sdpa(
                     q[None], k[None], v[None], 0.0, False, False, scale=scale), 20)
                 if backward:
@@ -717,15 +730,16 @@ def phase_pair(fa):
                     bwd_args = (do[None], q4, k4, v4, *fwd4[:6], 0.0, False, *fwd4[6:8])
                     library["K4"] = library["K5"] = cuda_ms(
                         lambda: sdpa_bwd(*bwd_args, scale=scale), 20)
-            else:  # f32: the memory-efficient SDPA ops (output + logsumexp)
+            else:  # f32, and bf16 at D = 512: the memory-efficient SDPA ops
+                # (output + logsumexp)
                 try:
                     library["K2"] = cuda_ms(lambda: eff(
                         q[None], k[None], v[None], None, True, 0.0, False,
                         scale=scale), 20)
                 except RuntimeError as e:  # e.g. a head dim it does not take
                     library["K2"] = None
-                    log(f"[k2] ({bhp}, {s}, {d}) f32: the memory-efficient SDPA "
-                        f"forward with logsumexp refuses it: {str(e).splitlines()[0]}")
+                    log(f"[k2] ({bhp}, {s}, {d}) {str(dtype)[6:]}: the memory-efficient "
+                        f"SDPA forward with logsumexp refuses it: {str(e).splitlines()[0]}")
                 if backward:
                     out4, lse4, seed, offset = eff(q4, k4, v4, None, True, 0.0, False,
                                                    scale=scale)
@@ -2763,11 +2777,12 @@ def phase_head_dim_models(fa):
     (421.5 M parameters, labels y) at full width: ε with K1 (4 heads of 128
     over 1024 tokens) against the math path in f32 and bf16, and the
     mid-tap rank-2 pullback on the pair against the math path in f32 and
-    bf16; the bf16 ε and pair pullback with their launches by shape. Every
-    bf16 launch of these runs at the head dims 40, 80 and 128 must have
-    been served by 'wgmma', for each of K1–K5.
+    bf16; the f32 and the bf16 ε and pair pullback with their launches by
+    shape, every f32 launch served by 'tf32x3' at D = 128, as the C entries
+    count them. Every bf16 launch of these runs at the head dims 40, 80 and
+    128 must have been served by 'wgmma', for each of K1–K5.
     Returns the path dicts of the SD 1.5 edits (bf16, f32) and of
-    ImageNet128Cond's bf16 ε and pair pullback."""
+    ImageNet128Cond's f32 and bf16 ε and pair pullback."""
     import numpy as np
     from PIL import Image
 
@@ -2947,14 +2962,28 @@ def phase_head_dim_models(fa):
 
     adm.to(torch.float32)
     eps_math = eps("xla")
-    eps_flash = eps("flash")
+    ((eps_flash, pair32), designs), seconds, peak_gb, launches, path = drive(
+        fa, lambda: served_designs(fa, lambda: (eps("flash"), pair_pullback())))
+    expected = collections.Counter()
+    unet_k1(expected, 1, 1, F32, **ADM128_UNET)
+    pair_k2_k5(expected, F32, pair32.iterations, layers=2, shapes=ADM128_PAIR)
+    checks["(adm128) f32 launches by shape"] = check_launches("adm128 f32", launches, path,
+                                                              expected)
+    log(f"[adm128] f32 eps + pair pullback: {seconds:.3f} s, peak memory {peak_gb:.2f} GB, "
+        f"launches by design as the C entries counted them {dict(designs)}")
+    checks["(adm128) f32: every K1–K5 launch on tf32x3 at D = 128"] = (
+        sum(designs.values()) == sum(launches.values())
+        and {label for label, _ in designs} == set(KERNELS_BY_LABEL)
+        and all(dsg == "tf32x3" for _, dsg in designs)
+        and all(shape[-1] == 128 for _, shape, _ in path))
+    paths.append(path)
     err, top = (eps_flash - eps_math).abs().max().item(), eps_math.abs().max().item()
     log(f"[adm128] full-width eps f32 (labels {y.tolist()}), flash vs math: "
         f"max_abs_err {err:.3g} (max |eps| {top:.3g}, tol 1e-4 relative)")
     checks["(adm128) eps f32 flash vs math"] = bool(
         torch.isfinite(eps_flash).all() and eps_flash.shape == (1, 6, 128, 128)
         and err <= 1e-4 * top)
-    ref = pair_vs_math("mid-tap f32", {"flash": pair_pullback(), "xla": math_pullback()},
+    ref = pair_vs_math("mid-tap f32", {"flash": pair32, "xla": math_pullback()},
                        phase="adm128")
 
     adm.to(torch.bfloat16)
@@ -3465,11 +3494,19 @@ def ring_gate(out, dense, math32, dtype):
     """The merged ring against the dense f32 math: in f32 TF32X3_TOL (the
     shards' K2 on 'tf32x3' and the merge in f32), in bf16 no further than
     twice dense K1's own distance from it (the ring rounds P to bf16
-    against each shard's running max, K1 against the whole row's)."""
+    against each shard's running max, K1 against the whole row's) plus half
+    a bf16 ulp of max |math|: each shard's output reaches the merge rounded
+    to bf16 (K2's O is in q's dtype, as in the JAX ring), one rounding more
+    than K1's. On the q, k and v of SD's bf16 VAE at sp 2 that rounding
+    alone takes the ring 2.11x dense K1's distance from the math, on K2 and
+    on its plain version alike, while the same ring fed f32 shard outputs
+    lands on dense K1's distance."""
     err = (out.float() - math32).abs().max().item()
     if dtype == torch.float32:
         return err, TF32X3_TOL
-    return err, 2 * (dense.float() - math32).abs().max().item()
+    half_ulp = 0.5 * torch.finfo(dtype).eps * 2.0 ** math.floor(
+        math.log2(math32.abs().max().item()))
+    return err, 2 * (dense.float() - math32).abs().max().item() + half_ulp
 
 
 def served_designs(fa, fn):
@@ -3491,15 +3528,63 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def vae_qkv():
+    """[(label, (q, k, v))]: the q, k and v (1, S, 1, 512) that the
+    encoder's mid-block attention of a VAE built in bf16 through the
+    library (sd_vae(dtype='bfloat16'), full width, seeded weights drawn on
+    the card) computes from a bundled image: SD's VAE at 512 px (4096
+    tokens) and SDXL's at 1024 px (16 384), captured where the attention
+    layer calls ``attention``."""
+    import numpy as np
+
+    from diffusion_pullback_tpu_torch.models import AutoencoderKL, layers, random_init_, sd_vae
+    from diffusion_pullback_tpu_torch.utils.datasets import get_dataset
+
+    out = []
+    for name, px, over, seed in (("SD VAE", 512, {}, 1),
+                                 ("SDXL VAE", 1024, {"scaling_factor": 0.13025}, 3)):
+        with torch.device("cuda"):
+            vae = random_init_(AutoencoderKL(sd_vae(attn_impl="flash", dtype="bfloat16",
+                                                    **over)), seed)
+        vae.eval().requires_grad_(False)
+        x = torch.as_tensor(np.asarray(get_dataset("Examples", px)[0]), device="cuda")
+        x = x.reshape(1, px, px, 3).permute(0, 3, 1, 2).contiguous()
+        seen, attention = [], layers.attention
+
+        def capture(q, k, v, *args, **kwargs):
+            seen.append((q, k, v))
+            return attention(q, k, v, *args, **kwargs)
+
+        layers.attention = capture
+        try:
+            with torch.no_grad():
+                vae.encode(x)
+        finally:
+            layers.attention = attention
+        if len(seen) != 1 or seen[0][0].shape != (1, (px // 8) ** 2, 1, 512):
+            raise AssertionError(f"{name}: the encoder's attention calls "
+                                 f"{[tuple(t[0].shape) for t in seen]}, expected one "
+                                 f"at (1, {(px // 8) ** 2}, 1, 512)")
+        q, k, v = (t.contiguous() for t in seen[0])
+        log(f"[ring] {name} bf16 at {px} px: captured q, k, v {tuple(q.shape)} "
+            f"{q.dtype}, max |q| {q.abs().max().item():.3g}")
+        out.append((f"{name} {px} px {tuple(q.shape)} bf16", (q, k, v)))
+        del vae, x
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_parallel(fa):
     """Phase 15, the device mesh (parallel/):
     (a) ring attention's per-rank loop (ring_merge) over n = 2 and 4
         virtual ranks in one process, the K/V shards handed in ring order,
         K2 per ring step at the shard shapes of RING_CASES (SD 2.1-base's
         self-attentions in bf16 on 'wgmma', the VAE's 512-wide head in f32
-        on 'tf32x3'): its n² K2 launches counted, the ring held to the same
-        ring on K2's plain version (K2's gates, one more bf16 ulp for the
-        merged output's final rounding) and to the dense f32 math
+        on 'tf32x3' and in bf16 on 'mma_bf16', the latter also on the q, k
+        and v that bf16 VAEs built through the library compute at 512 and
+        1024 px, vae_qkv): its n² K2 launches counted, the ring held to the
+        same ring on K2's plain version (K2's gates, one more bf16 ulp for
+        the merged output's final rounding) and to the dense f32 math
         (ring_gate), the design of each launch as the C entries counted
         it in the branch that launched it (served_designs);
     (b) NCCL at world size 1: make_mesh(('dp', 'probe', 'sp', 'tp')), the
@@ -3528,9 +3613,13 @@ def phase_parallel(fa):
     paths, checks = [], {}
     gen = torch.Generator(device="cuda").manual_seed(15)
     fold = lambda x: x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[-1])
-    for (bh, s, d), dtype in RING_CASES:
-        q, k, v = (torch.randn(1, s, bh, d, device="cuda", generator=gen).to(dtype)
-                   for _ in range(3))
+    cases = [(f"({bh},{s},{d}) {str(dtype)[6:]}", tuple(
+        torch.randn(1, s, bh, d, device="cuda", generator=gen).to(dtype) for _ in range(3)))
+        for (bh, s, d), dtype in RING_CASES]
+    cases += vae_qkv()
+    for what, (q, k, v) in cases:
+        _, s, bh, d = q.shape
+        dtype = q.dtype
         scale = d ** -0.5
         dense = fa.flash_forward(fold(q), fold(k), fold(v), scale)
         math32 = fa.flash_forward_plain(*(fold(t).float() for t in (q, k, v)), scale)
@@ -3539,7 +3628,7 @@ def phase_parallel(fa):
                 fa, lambda: served_designs(
                     fa, lambda: ring_attention_virtual(q, k, v, n, inner="flash")))
             expected = collections.Counter({("flash_fwd_lse", (bh, s // n, d), dtype): n * n})
-            tag = f"({bh},{s},{d}) {str(dtype)[6:]} over {n}"
+            tag = f"{what} over {n}"
             checks[f"(a) {tag}: {n * n} K2 launches at the shard shape"] = check_launches(
                 "ring", launches, path, expected)
             plain = ring_attention_virtual(
@@ -3554,17 +3643,20 @@ def phase_parallel(fa):
             e_plain = (out_bh.float() - ref.float()).abs().max().item()
             t_plain = pair_tol(ref) * (1.0 if dtype == torch.float32 else 1.5)
             e_dense, t_dense = ring_gate(out_bh, dense, math32, dtype)
+            e_k1 = (dense.float() - math32).abs().max().item()
             log(f"[ring] {tag}: {seconds:.4f} s, vs the ring on K2's plain version "
                 f"{e_plain:.3g} (tol {t_plain:.3g}), vs the dense f32 math {e_dense:.3g} "
-                f"(tol {t_dense:.3g}), the rule's design {design}, launches by design "
-                f"as the C entries counted them {dict(designs)}")
+                f"(tol {t_dense:.3g}; dense K1's {e_k1:.3g}), "
+                f"the rule's design {design}, launches by design as the C entries "
+                f"counted them {dict(designs)}")
             checks[f"(a) {tag}: within K2's gate of the plain ring"] = e_plain <= t_plain
             checks[f"(a) {tag}: within the ring gate of dense attention"] = e_dense <= t_dense
-            want = "tf32x3" if dtype == torch.float32 else "wgmma"
+            want = "tf32x3" if dtype == torch.float32 else "mma_bf16" if d == 512 else "wgmma"
             checks[f"(a) {tag}: every K2 launch served by {want}"] = (
                 design == want and designs == {("K2", want): n * n})
             paths.append(path)
         del q, k, v, dense, math32
+    del cases
     torch.cuda.empty_cache()
 
     # (b) NCCL at world size 1

@@ -18,7 +18,7 @@ constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
 // softmax scale folded into it
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The head dims K2–K5 take (K1 also takes 512).
+// The head dims K3–K5 take (K1 and K2 also take 512).
 __host__ __device__ constexpr bool pair_head_dim(int d) {
     return d == 40 || d == 64 || d == 80 || d == 128 || d == 160;
 }
@@ -49,7 +49,7 @@ inline cudaError_t allow_smem(K kernel, int smem) {
 // "tf32x3" in f32: K1 and K2 (with lse) at D = 512 (flash_fwd_tf32.cu) and
 // at D = 40, 64, 80, 128 and 160 (flash_fwd_tf32_rows.cu), K3 at those five
 // (flash_jvp_tf32_rows.cu), K4 and K5 there (flash_bwd_tf32_rows.cu).
-// "mma_bf16": K1 in bf16 at D = 512 (flash_fwd_mma_bf16.cu).
+// "mma_bf16": K1 and K2 (with lse) in bf16 at D = 512 (flash_fwd_mma_bf16.cu).
 int fwd_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
               int bh, int sq, int sk, int d, float scale, cudaStream_t stream);
 int dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
@@ -76,8 +76,8 @@ int tangent_tf32x3_rows(const void* q, const void* k, const void* v, const void*
                         const void* dk, const void* dv, const void* o, const void* lse,
                         void* dout, int bh, int bh_primal, int sq, int sk, int d, float scale,
                         cudaStream_t stream);
-int fwd_mma_bf16(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk,
-                 float scale, cudaStream_t stream);
+int fwd_mma_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                 int sq, int sk, float scale, cudaStream_t stream);
 
 // The designs flash_design returns (-1: no kernel takes the call).
 enum Design { kMmaBf16 = 0, kWgmma = 1, kTf32x3 = 2 };

@@ -14,8 +14,9 @@
 //
 // Layout (B·H, S, D), contiguous; f32 or bf16 inputs. K1 and K2 take head
 // dims 40, 64, 80, 128 and 160 (the U-Net self-attentions: SD 2.1 / SDXL /
-// ADM-256 at 64, SD 1.5 at 40 / 80 / 160, ImageNet128Cond at 128), and K1
-// also 512 (the single-head VAE mid-block), K2 at 512 in f32 only.
+// ADM-256 at 64, SD 1.5 at 40 / 80 / 160, ImageNet128Cond at 128), and
+// also 512 (the single-head VAE mid-block; K2 where ring attention shards
+// it).
 //
 // Three designs, all on the tensor cores. bf16 at D = 40, 64, 80, 128 and
 // 160 goes to "wgmma" (flash_fwd_tc.cu: TMA loads of 64-column panels,
@@ -63,13 +64,12 @@ long long flash_served(int kernel, int design) {
 
 // The one design rule (declared in flash_common.cuh): at D = 40, 64, 80,
 // 128 and 160 K1–K5 run the wgmma kernels in bf16 and the tf32x3 kernels in
-// f32; at D = 512 (the VAE's head) K1 and K2 run tf32x3 in f32 (K2 as ring
-// attention's inner), and K1 runs mma_bf16 in bf16; no kernel takes any
-// other call (-1).
+// f32; at D = 512 (the VAE's head) K1 and K2 (K2 as ring attention's
+// inner) run tf32x3 in f32 and mma_bf16 in bf16; no kernel takes any other
+// call (-1).
 int flash_design(int kernel, int d, int is_bf16) {
     if (flash::pair_head_dim(d)) return is_bf16 ? flash::kWgmma : flash::kTf32x3;
-    if (d == 512 && kernel == 1) return is_bf16 ? flash::kMmaBf16 : flash::kTf32x3;
-    if (d == 512 && kernel == 2 && !is_bf16) return flash::kTf32x3;
+    if (d == 512 && kernel <= 2) return is_bf16 ? flash::kMmaBf16 : flash::kTf32x3;
     return -1;
 }
 
@@ -90,30 +90,31 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, int bh,
                                  tf32x3(q, k, v, o, nullptr, bh, sq, sk, d, scale, s));
         case flash::kMmaBf16:
             return flash::served(1, flash::kMmaBf16,
-                                 flash::fwd_mma_bf16(q, k, v, o, bh, sq, sk, scale, s));
+                                 flash::fwd_mma_bf16(q, k, v, o, nullptr, bh, sq, sk, scale, s));
     }
     return int(cudaErrorInvalidValue);
 }
 
 // K2: as flash_fwd, plus lse (bh, sq) float32, the row logsumexp of the
 // scaled logits. Head dims 40, 64, 80, 128, 160 (flash::pair_head_dim; bf16
-// on wgmma, f32 on tf32x3), and 512 in f32 (tf32x3).
+// on wgmma, f32 on tf32x3), and 512 (bf16 on mma_bf16, f32 on tf32x3).
 int flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
                   void* lse, int bh, int sq, int sk, int d, int is_bf16,
                   float scale, void* stream) {
-    const int design = flash_design(2, d, is_bf16);
-    if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 ||
-        !(flash::pair_head_dim(d) || design == flash::kTf32x3))
+    if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0)
         return int(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* l = static_cast<float*>(lse);
-    switch (design) {
+    switch (flash_design(2, d, is_bf16)) {
         case flash::kWgmma:
             return flash::served(2, flash::kWgmma,
                                  flash::fwd_wgmma(q, k, v, o, l, bh, sq, sk, d, scale, s));
         case flash::kTf32x3:
             return flash::served(2, flash::kTf32x3,
                                  tf32x3(q, k, v, o, l, bh, sq, sk, d, scale, s));
+        case flash::kMmaBf16:
+            return flash::served(2, flash::kMmaBf16,
+                                 flash::fwd_mma_bf16(q, k, v, o, l, bh, sq, sk, scale, s));
     }
     return int(cudaErrorInvalidValue);
 }

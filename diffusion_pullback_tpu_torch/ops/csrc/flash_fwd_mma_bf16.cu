@@ -1,14 +1,18 @@
-// Flash attention forward (K1) on Hopper's tensor cores for bf16 at head
-// dim 512, the VAE mid-block's single head: O = softmax(Q Kᵀ · scale) V.
+// Flash attention forward on Hopper's tensor cores for bf16 at head dim
+// 512, the VAE mid-block's single head: O = softmax(Q Kᵀ · scale) V (K1),
+// and the same with the row logsumexp L = m + log l in f32 (K2).
 //
 // For bf16 inputs at D = 512 (a VAE built in bf16, `sd_vae(dtype=
-// "bfloat16")`) this replaces the Pallas TPU kernel `_flash_kernel` /
-// `_flash_forward` in diffusion_pullback_tpu/ops/pallas/flash_attention.py;
-// flash_fwd.cu's entry routes those calls here. Same arithmetic: online
+// "bfloat16")`) this replaces the Pallas TPU kernels `_flash_kernel` /
+// `_flash_forward` (K1: the VAE's attention) and `_flash_fwd_lse_kernel` /
+// `_flash_forward_lse` (K2: ring attention's inner over the shards of that
+// head) in diffusion_pullback_tpu/ops/pallas/flash_attention.py;
+// flash_fwd.cu's entries route those calls here. Same arithmetic: online
 // softmax per query row in f32, logits never written to device memory, the
 // probabilities rounded to bf16 before P·V (the Pallas kernel's
 // `p.astype(v.dtype)`) while the row sum l takes them unrounded, f32
-// accumulation, the output rounded to bf16.
+// accumulation, the output rounded to bf16; K2's L from the f32 state of
+// each row, on the scaled logits with the natural log.
 //
 // What bounds it: 4·BH·Sq·Sk·D operations on 4·BH·S·D bf16 elements, so it
 // is bound by operations at the dense bf16 tensor-core rate (989 TFLOP/s on
@@ -113,8 +117,8 @@ __device__ __forceinline__ void copy_rows(uint32_t dst, const bf16* src, int row
 
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int sk,
-                          float scale) {
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse, int sq, int sk, float scale) {
     extern __shared__ __align__(16) unsigned char smem[];
     bf16* Qs = reinterpret_cast<bf16*>(smem);                    // [BQ][QS]
     bf16* Ks = Qs + BQ * QS;                                     // [STAGES][BK][QS]
@@ -329,7 +333,12 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
             copy_rows<BK>(sVt, vb, k0 + STAGES * BK, sk, vbar + 8 * st);
     }
 
-    if (scol == 0) row_f[srow] = l;
+    if (scol == 0) {
+        row_f[srow] = l;
+        // K2: L = (m + log2 l)·ln 2, m being the base-2 running max
+        if (lse != nullptr && q0 + srow < sq)
+            lse[bh * sq + q0 + srow] = (m + log2f(l)) * 0.6931471805599453f;
+    }
     __syncthreads();
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -350,18 +359,19 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
 namespace flash {
 
-// K1 on contiguous bf16 q (bh, sq, 512), k/v (bh, sk, 512), o (bh, sq,
-// 512), 16-byte aligned; flash_fwd (flash_fwd.cu) routes its bf16 D = 512
-// calls here. Returns a cudaError_t code: 0 on a launch that was accepted.
-int fwd_mma_bf16(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk,
-                 float scale, cudaStream_t stream) {
+// K1 (lse null) or K2 (lse (bh, sq) f32) on contiguous bf16 q (bh, sq,
+// 512), k/v (bh, sk, 512), o (bh, sq, 512), 16-byte aligned; flash_fwd and
+// flash_fwd_lse (flash_fwd.cu) route their bf16 D = 512 calls here. Returns
+// a cudaError_t code: 0 on a launch that was accepted.
+int fwd_mma_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                 int sq, int sk, float scale, cudaStream_t stream) {
     static_assert(SMEM <= 232448, "shared memory of one block");
     const cudaError_t err = allow_smem(flash_fwd_mma_bf16_kernel, SMEM);
     if (err != cudaSuccess) return int(err);
     const dim3 grid((sq + BQ - 1) / BQ, bh);
     flash_fwd_mma_bf16_kernel<<<grid, NT, SMEM, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), sq, sk, scale);
+        static_cast<bf16*>(o), lse, sq, sk, scale);
     return int(cudaGetLastError());
 }
 

@@ -25,9 +25,9 @@ Three designs, all on the tensor cores, chosen by the C library's one rule
   K1 and K2 (csrc/flash_fwd_tf32_rows.cu), K3 (csrc/flash_jvp_tf32_rows.cu)
   and K4 and K5 (csrc/flash_bwd_tf32_rows.cu), with warps that own query
   rows (K5: key rows);
-* 'mma_bf16': K1 in bf16 at 512 (a VAE built in bf16), one bf16 mma.sync
-  product per product, with warps that split D (csrc/flash_fwd_mma_bf16.cu).
-  K2 refuses bf16 at 512.
+* 'mma_bf16': K1 and K2 in bf16 at 512 (a VAE built in bf16; K2 where
+  ring attention shards its head), one bf16 mma.sync product per product,
+  with warps that split D (csrc/flash_fwd_mma_bf16.cu).
 
 The sources are csrc/*.cu; they are compiled with nvcc for sm_90a at first
 use into one shared library under ``.build/`` next to this package (keyed on
@@ -74,8 +74,8 @@ import torch
 
 NEG_INF = -1e30
 PAIR_HEAD_DIMS = (40, 64, 80, 128, 160)  # head dims K3–K5 are built for
-# head dims K1 and K2 are built for (K2 at 512 in f32 only: ring
-# attention's shards of the VAE's single head, 'tf32x3')
+# head dims K1 and K2 are built for (512: the VAE's single head, which K2
+# meets as ring attention's shards)
 HEAD_DIMS = PAIR_HEAD_DIMS + (512,)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -512,12 +512,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_forward_lse(q, k, v, scale: float):
-    """K2 on (B·H, S, D) tensors → (o in q's dtype, L (B·H, Sq) f32); at
-    head dim 512 (ring attention's shards of the VAE's head) f32 only."""
+    """K2 on (B·H, S, D) tensors → (o in q's dtype, L (B·H, Sq) f32)."""
     bh, sq, d = q.shape
     sk = k.shape[1]
-    if d == 512 and q.dtype != torch.float32 and _device(q):
-        raise ValueError("K2 takes head dim 512 in float32 only ('tf32x3')")
     q, k, v = _operands(q, HEAD_DIMS, q=(q, (bh, sq, d), None),
                         k=(k, (bh, sk, d), None), v=(v, (bh, sk, d), None))
     return torch.ops.dpx.flash_fwd_lse(q, k, v, float(scale))

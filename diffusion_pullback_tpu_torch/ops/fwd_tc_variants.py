@@ -1,8 +1,8 @@
 """Design variants of the forward kernels on the tensor cores (K1 and K2:
 csrc/flash_fwd_tc.cu in bf16 and csrc/flash_fwd_tf32_rows.cu in f32 at
-head dims 40–160; K1 in bf16 at 512: csrc/flash_fwd_mma_bf16.cu), each
-built into a library of its own and timed against the others on one card,
-in turns, at the shapes the paths give them:
+head dims 40–160; K1 and K2 in bf16 at 512: csrc/flash_fwd_mma_bf16.cu),
+each built into a library of its own and timed against the others on one
+card, in turns, at the shapes the paths give them:
 
     python -m diffusion_pullback_tpu_torch.ops.fwd_tc_variants [--dtype bf16|f32] [--parent DIR]
         [--only PREFIX]
@@ -36,16 +36,16 @@ f32 ('tf32x3'):
   tensor cores' rounding of the sums to one tile's).
 
 With ``--parent DIR`` the forward sources of an earlier tree's csrc/ are
-built and timed as ``parent`` too (before this tree, K1 in bf16 at D = 512
-ran the CUDA-core 'simt' kernel of its flash_fwd.cu); ``--only PREFIX``
-builds only the variants whose name starts with PREFIX besides ``as
-built``. Prints each build's
-registers and spill bytes per f32 rows-kernel instance and of the bf16 D =
-512 kernel (nvcc's ``-Xptxas -v``), then per shape each build's ms per
-launch of K1 and K2 (K1 alone in bf16 at D = 512, which K2 refuses; CUDA
-events over 20 launches, the ctypes call straight into the library),
-twice, the builds timed in turns (in order, then in reverse), its TFLOP/s
-on the 4·BH·S²·D operations and its largest difference from the plain
+built and timed as ``parent`` too (an earlier tree may hold other kernels,
+e.g. the CUDA-core 'simt' K1 in bf16 at D = 512); ``--only PREFIX`` builds
+only the variants whose name starts with PREFIX besides ``as built``.
+Prints each build's registers and spill bytes per f32 rows-kernel instance
+and of the bf16 D = 512 kernel (nvcc's ``-Xptxas -v``), then per shape
+each build's ms per launch of K1 and K2 (K1 alone where the build's design
+rule refuses K2, as an earlier tree's did in bf16 at D = 512; CUDA events
+over 20 launches, the ctypes call straight into the library), twice, the
+builds timed in turns (in order, then in reverse), its TFLOP/s on the
+4·BH·S²·D operations and its largest difference from the plain
 version (O and L; the gate is two bf16 ulps of max |plain| in bf16, 2.5e-5
 in f32), then SDPA's time in the dtype and the card's name and power
 limit. Needs nvcc
@@ -224,6 +224,8 @@ def main():
         lib.flash_fwd.argtypes = [vp] * 4 + [ci] * 5 + [cf, vp]
         lib.flash_fwd_lse.argtypes = [vp] * 5 + [ci] * 5 + [cf, vp]
         lib.flash_fwd.restype = lib.flash_fwd_lse.restype = ci
+        lib.flash_design.argtypes = [ci, ci, ci]
+        lib.flash_design.restype = ci
         libs[name] = lib
         if regs := registers(log):
             print(f"{name}: " + "; ".join(
@@ -239,7 +241,6 @@ def main():
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = [t.data_ptr() for t in (q, k, v, o)]
         flag = int(dtype == torch.bfloat16)
-        with_k2 = not (flag and d == 512)  # K2 refuses bf16 at D = 512
         ops = 4.0 * bh * s * s * d
         times, errs = {name: ([], []) for name in libs}, {}
         for name in list(libs) + list(libs)[::-1]:
@@ -257,7 +258,7 @@ def main():
             torch.cuda.synchronize()
             err_o = (o.float() - ref_o.float()).abs().max().item()
             times[name][0].append(cuda_ms(k1))
-            if with_k2:
+            if lib.flash_design(2, d, flag) >= 0:  # the build's K2 takes the call
                 k2()
                 torch.cuda.synchronize()
                 errs[name] = (max(err_o, (o.float() - ref_o.float()).abs().max().item()),

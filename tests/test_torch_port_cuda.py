@@ -1,8 +1,8 @@
 """K1–K5 on the card: each CUDA kernel against its plain version, with the
 design the C library's rule reports ('wgmma' for K1–K5 in bf16 at D=64 and
 at SD 1.5's and ImageNet128Cond's head dims 40, 80, 128 and 160, 'tf32x3'
-for K1–K5 in f32 there and K1 and K2 in f32 at 512, 'mma_bf16' for K1 in
-bf16 at 512), the fused pair under torch.func against
+for K1–K5 in f32 there and K1 and K2 in f32 at 512, 'mma_bf16' for K1 and
+K2 in bf16 at 512), the fused pair under torch.func against
 the math path, the kernels' custom ops counting the CPU's FLOPs, and a K1
 program exported and reloaded. Marked ``cuda``: these
 skip without a GPU and run on one with
@@ -49,8 +49,8 @@ def _one_tf32_forward(q, k, v, scale):
 
 def _design(kernel, d, dtype):
     """The design the C rule gives: at D = 40, 64, 80, 128 and 160 'wgmma'
-    in bf16 and 'tf32x3' in f32 for K1–K5; at 512 (K1, and K2 in f32)
-    'mma_bf16' in bf16 and 'tf32x3' in f32."""
+    in bf16 and 'tf32x3' in f32 for K1–K5; at 512 (K1 and K2) 'mma_bf16'
+    in bf16 and 'tf32x3' in f32."""
     if d in (40, 64, 80, 128, 160):
         return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     return "mma_bf16" if dtype == torch.bfloat16 else "tf32x3"
@@ -93,17 +93,13 @@ def _design(kernel, d, dtype):
     (4, 200, 130, 40), (4, 200, 130, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, shape, dtype):
-    """K1 (and K2 at the pair's head dims, and in f32 at 512) against their
-    plain versions, one launch each, on the wgmma design in bf16 at D = 40,
-    64, 80, 128 and 160, tf32x3 in f32 and mma_bf16 in bf16 at D=512, each
-    launch counted on that design where the C entry launched it; on tf32x3
-    the gate rejects one TF32 product."""
+    """K1 and K2 against their plain versions, one launch each, on the
+    wgmma design in bf16 at D = 40, 64, 80, 128 and 160, tf32x3 in f32 and
+    mma_bf16 in bf16 at D=512, each launch counted on that design where the
+    C entry launched it; on tf32x3 the gate rejects one TF32 product."""
     bh, sq, sk, d = shape
     want = _design("K1", d, dtype)
-    assert fa.design("K1", d, dtype) == want
-    with_k2 = d in fa.PAIR_HEAD_DIMS or want == "tf32x3"
-    if with_k2:
-        assert fa.design("K2", d, dtype) == want
+    assert fa.design("K1", d, dtype) == fa.design("K2", d, dtype) == want
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(n, s, d, device=cuda, generator=gen).to(dtype)
                for n, s in ((bh, sq), (bh, sk), (bh, sk)))
@@ -122,8 +118,6 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     assert (out.float() - ref.float()).abs().max().item() <= tol
     if want == "tf32x3":
         assert (_one_tf32_forward(q, k, v, d ** -0.5) - ref).abs().max().item() > tol
-    if not with_k2:
-        return
     n0 = fa.flash_forward_lse.launches
     out, lse = fa.flash_forward_lse(q, k, v, d ** -0.5)
     torch.cuda.synchronize()
@@ -302,8 +296,7 @@ def test_tf32x3_tangent_at_each_block_shape(cuda, shape, d):
 def test_mma_bf16_at_the_vae_shapes(cuda, shape):
     """K1 in bf16 at D = 512 on 'mma_bf16' (csrc/flash_fwd_mma_bf16.cu)
     against its plain version within two bf16 ulps of max |plain|, the
-    launch counted on 'mma_bf16' where the C entry launched it; K2 still
-    refuses bf16 at 512."""
+    launch counted on 'mma_bf16' where the C entry launched it."""
     assert fa.design("K1", 512, torch.bfloat16) == "mma_bf16"
     gen = torch.Generator(device=cuda).manual_seed(11)
     q, k, v = (torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
@@ -315,8 +308,33 @@ def test_mma_bf16_at_the_vae_shapes(cuda, shape):
     ref = fa.flash_forward_plain(q, k, v, 512 ** -0.5)
     assert out.dtype == torch.bfloat16
     assert (out.float() - ref.float()).abs().max().item() <= _tol(ref, torch.bfloat16)
-    with pytest.raises(ValueError, match="512 in float32 only"):
-        fa.flash_forward_lse(q, k, v, 512 ** -0.5)
+
+
+# (B·H, S, D): ring attention's shards of the bf16 VAE's 512-wide head: SD
+# 2.1-base's 4096 tokens over sp = 2 and 4, for one image and for a decode
+# of 3 frames, and SDXL's 16 384 over sp = 2 and 4; one head over 4096
+# tokens unsharded
+@pytest.mark.parametrize("shape", [(1, 2048, 512), (1, 1024, 512), (3, 2048, 512),
+                                   (3, 1024, 512), (1, 8192, 512), (1, 4096, 512)])
+def test_k2_mma_bf16_at_the_ring_shards(cuda, shape):
+    """K2 in bf16 at D = 512 on 'mma_bf16' (K1's kernel with the L store)
+    against its plain version: O within two bf16 ulps of max |plain|, L
+    within TF32X3_TOL (K2's L gate at every head dim, chip_smoke.py's
+    pair_tol), the launch counted on 'mma_bf16' where the C entry launched
+    it."""
+    assert fa.design("K2", 512, torch.bfloat16) == "mma_bf16"
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    n0 = fa.served("K2", "mma_bf16")
+    out, lse = fa.flash_forward_lse(q, k, v, 512 ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.served("K2", "mma_bf16") == n0 + 1
+    ref_o, ref_lse = fa.flash_forward_lse_plain(q, k, v, 512 ** -0.5)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert lse.shape == ref_lse.shape == shape[:2]
+    assert (out.float() - ref_o.float()).abs().max().item() <= _tol(ref_o, torch.bfloat16)
+    assert (lse - ref_lse).abs().max().item() <= TF32X3_TOL
 
 
 def _tol(ref, dtype):

@@ -8,8 +8,9 @@ each test holds a case to its JAX oracle: the math inner and K2's inner
 the bf16 gate (two ulps of max |ref|), rectangular shapes, odd shards
 dropping to the math inner, the dp co-sharding of the batch, the
 non-divisible error, and jvp / vjp / vmap through the ring against the
-dense math path. The one-process ring over virtual shards that
-chip_smoke.py runs on the card is held to the JAX ring too."""
+dense math path; a bf16 VAE's single 512-wide head at sp 4 on both
+inners. The one-process ring over virtual shards that chip_smoke.py runs
+on the card is held to the JAX ring too, in f32 and at that bf16 head."""
 
 import math
 
@@ -42,6 +43,8 @@ DATA = {
                                                          seed=8 + i) for i in range(3)])),
     "disp_ring": _qkv(sq=512, sk=512, seed=11), "disp_short": _qkv(seed=12),
     "disp_77": _qkv(sq=256, sk=77, seed=13),
+    # one 512-wide head (the VAE mid-block's), run in bf16
+    "bf16_512": _qkv(b=1, sq=512, sk=512, h=1, d=512, seed=14),
 }
 
 
@@ -81,6 +84,17 @@ def test_ring_matches_jax(port, sp, inner):
 def test_bf16_ring_at_the_bf16_gate(port):
     ref = _jax_ring("f32", 2, jnp.bfloat16)
     assert np.abs(port["bf16_sp2"] - ref).max() <= _bf16_gate(ref)
+
+
+@pytest.mark.parametrize("inner", ["xla", "flash"])
+def test_bf16_d512_ring_at_the_bf16_gate(port, inner):
+    """The VAE's single 512-wide head in bf16 over the 4 gloo ranks: the
+    default inner (the math path on the CPU, as in JAX) and K2's (its plain
+    version on the CPU) against the JAX ring with the same inner."""
+    kw = dict(inner="flash", interpret=True) if inner == "flash" else {}
+    ref = _jax_ring("bf16_512", 4, jnp.bfloat16, **kw)
+    got = port[f"bf16_512_{inner}_sp4"]
+    assert got.shape == ref.shape and np.abs(got - ref).max() <= _bf16_gate(ref)
 
 
 def test_rectangular(port):
@@ -148,6 +162,27 @@ def test_virtual_ring_matches_jax(n, inner):
     out = ring_attention_virtual(*map(torch.from_numpy, DATA["flash"]), n, inner=inner)
     ref = _jax_ring("flash", n, inner=inner, interpret=True)
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_virtual_ring_bf16_d512_matches_jax(n, monkeypatch):
+    """The virtual ring with K2's inner in bf16 at D = 512 (the shards of a
+    bf16 VAE's head that chip_smoke.py's phase 15 runs on 'mma_bf16'): on
+    the CPU the n² K2 calls run its plain version, each at the shard shape;
+    the result equals the JAX ring (Pallas K2 in interpret mode) at the
+    bf16 gate."""
+    from diffusion_pullback_tpu_torch.ops import flash_attention as tfa
+    from diffusion_pullback_tpu_torch.parallel.ring_attention import ring_attention_virtual
+
+    shapes, plain = [], tfa.flash_forward_lse_plain
+    monkeypatch.setattr(tfa, "flash_forward_lse_plain", lambda q, *a, **kw: (
+        shapes.append((tuple(q.shape), q.dtype)), plain(q, *a, **kw))[1])
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in DATA["bf16_512"])
+    out = ring_attention_virtual(q, k, v, n, inner="flash")
+    assert shapes == [((1, 512 // n, 512), torch.bfloat16)] * (n * n)
+    ref = _jax_ring("bf16_512", n, jnp.bfloat16, inner="flash", interpret=True)
+    assert out.dtype == torch.bfloat16
+    assert np.abs(out.float().numpy() - ref).max() <= _bf16_gate(ref)
 
 
 def test_ring_needs_a_mesh():

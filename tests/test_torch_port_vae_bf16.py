@@ -1,12 +1,13 @@
-"""K1 in bf16 at head dim 512 (ops/csrc/flash_fwd_mma_bf16.cu, design
-'mma_bf16') and the VAE built in bf16 that runs it, on the CPU with the
-JAX package as the oracle.
+"""K1 and K2 in bf16 at head dim 512 (ops/csrc/flash_fwd_mma_bf16.cu,
+design 'mma_bf16') and the VAE built in bf16 that runs K1, on the CPU with
+the JAX package as the oracle.
 
-The kernel's plain version (``flash_forward_plain``) at the kernel's key
-tile of 32 is held against the Pallas `_flash_forward` in bf16 in
-interpret mode (the same 32-key tile; 128-row query blocks), to two bf16
+The kernels' plain versions (``flash_forward_plain``,
+``flash_forward_lse_plain``) at the kernel's key tile of 32 are held
+against the Pallas `_flash_forward` and `_flash_forward_lse` in bf16 in
+interpret mode (the same 32-key tile; 128-row query blocks), O to two bf16
 ulps of max |reference|, as the card holds the kernel against the plain
-version. Then the port's AutoencoderKL at a width whose mid-block is one
+version, and K2's L in f32 to 1e-5. Then the port's AutoencoderKL at a width whose mid-block is one
 512-wide head over 1024 tokens (block_out_channels (512,), one resnet a
 level, 32 px: no down- or upsampler, so the encoder's and the decoder's
 mid-block attentions both see 32² tokens and take 'flash') against the
@@ -55,6 +56,33 @@ def test_k1_bf16_d512_plain_version_matches_pallas(shape):
                                   scale, block_k=KEY_TILE)
     assert out.dtype == torch.bfloat16
     assert np.abs(out.float().numpy() - ref).max() <= _two_ulps(ref)
+
+
+# (B·H, Sq, Sk): one head over 256 tokens; Sq ≠ Sk both ways, two heads
+# (ring attention's shards of the VAE's head hand K2 Sq = Sk)
+@pytest.mark.parametrize("shape", [(1, 256, 256), (1, 128, 384), (2, 384, 256)])
+def test_k2_bf16_d512_plain_version_matches_pallas(shape):
+    """K2's plain version at the kernel's 32-key tile against
+    `_flash_forward_lse` in bf16 in interpret mode at the same key tile: O
+    (bf16) within two bf16 ulps of max |reference|, L (f32, Pallas's
+    first of its 128 lanes) within 1e-5 absolute (|L| is about 6 here; the
+    two sum the same f32 terms in other orders; measured half an ulp or
+    less on O, 4.8e-7 on L)."""
+    bh, sq, sk = shape
+    rng = np.random.default_rng(3 * sq + sk + bh)
+    q, k, v = (rng.normal(size=(bh, n, 512)).astype(np.float32) for n in (sq, sk, sk))
+    scale = 512 ** -0.5
+    ref_o, ref_l = jfa._flash_forward_lse(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), scale, block_q=128,
+        block_k=KEY_TILE, interpret=True)
+    assert ref_o.dtype == jnp.bfloat16 and ref_l.dtype == jnp.float32
+    ref_o, ref_l = np.asarray(ref_o.astype(jnp.float32)), np.asarray(ref_l[..., 0])
+    out, lse = tfa.flash_forward_lse_plain(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)), scale, block_k=KEY_TILE)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert lse.shape == ref_l.shape == (bh, sq)
+    assert np.abs(out.float().numpy() - ref_o).max() <= _two_ulps(ref_o)
+    assert np.abs(lse.numpy() - ref_l).max() <= 1e-5
 
 
 VAE = dict(block_out_channels=(512,), layers_per_block=1, sample_size=32, attn_impl="flash")

@@ -123,6 +123,10 @@ def ring_body(rank, data):
         out[f"flash_{name}"] = ring_attention(*T(data["flash"]), mesh=m, inner="flash")
     out["bf16_sp2"] = ring_attention(*T(data["f32"], torch.bfloat16), mesh=sp2).float()
     out["rect_sp4"] = ring_attention(*T(data["rect"]), mesh=sp4)
+    for inner in ("xla", "flash"):  # the default inner is the math path here
+        out[f"bf16_512_{inner}_sp4"] = ring_attention(
+            *T(data["bf16_512"], torch.bfloat16), mesh=sp4,
+            **({"inner": "flash"} if inner == "flash" else {})).float()
     for sq in (576, 254):
         out[f"odd_{sq}"] = ring_attention(*T(data[f"odd_{sq}"]), mesh=sp2, inner="flash")
     out["dp_sp"] = ring_attention(*T(data["dp"]), mesh=dp_sp)
