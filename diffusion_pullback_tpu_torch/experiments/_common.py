@@ -26,6 +26,7 @@ from ..models.unet2d import TapPoint
 from ..parallel.mesh import agreed, axis_group, axis_size, is_writer
 from ..samplers.regularizers import (dynamic_thresholding, preserve_contrast,
                                      preserve_norm)
+from ..utils.profiling import span
 
 Basis = collections.namedtuple("Basis", "u s vT")
 
@@ -104,13 +105,17 @@ class DriverCommonMixin:
     @contextlib.contextmanager
     def _stage(self, event: str, **fields):
         """Log ``event`` with the seconds of the block, the device's work
-        included (synchronised on CUDA, where launches return early)."""
+        included (synchronised on CUDA, where launches return early). Under
+        a profiler the block is span ``event`` with ``fields`` as opened,
+        its closing wait for the device a child span ``sync``."""
         sync = (lambda: torch.cuda.synchronize(self.device)
                 if self.device.type == "cuda" else None)
         sync()
         t0 = time.perf_counter()
-        yield fields
-        sync()
+        with span(event, **fields):
+            yield fields
+            with span("sync"):
+                sync()
         self.log.log(event, seconds=time.perf_counter() - t0, **fields)
 
     def _t_index(self, t: float) -> int:
@@ -128,9 +133,12 @@ class DriverCommonMixin:
 
     def _save_basis(self, name: str, res) -> str:
         """Write a PullbackResult's (u, s, vT) to the basis cache (needs
-        ``self.cache``); returns the file."""
-        f32 = lambda a: a.float().cpu().numpy()
-        return self.cache.save(name, f32(res.u), f32(res.s), f32(res.vT))
+        ``self.cache``); returns the file. Spans ``basis_d2h`` (the copies
+        to the host) and ``basis_write``."""
+        with span("basis_d2h"):
+            u, s, vT = (a.float().cpu().numpy() for a in (res.u, res.s, res.vT))
+        with span("basis_write"):
+            return self.cache.save(name, u, s, vT)
 
     def _vis_basis(self, name: str, s, vT, shape) -> None:
         """The analysis artifacts of a freshly computed basis in

@@ -16,6 +16,12 @@ primal again each time (`linearize`, which traces the kernels through
 their custom ops, would run it once; ROADMAP item 10). ``batched_local_pullback`` runs B independent
 pullbacks of a per-sample map as one, the probes of every sample sharing
 each pass.
+
+The phases are spans (utils/profiling.py), recorded under a profiler:
+``vjp_primal`` (the cotangent half's one vjp), ``probes`` (the probes'
+QR and their copy to the device), per iteration ``tangent``,
+``cotangent``, ``svd`` (with the sign alignment) and ``delta_wait`` (the
+host waiting for δ), each with field ``it``, then ``final_tangent``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.distributed as dist
 from torch.func import jvp, vjp, vmap
+
+from ..utils.profiling import span
 
 
 class PullbackResult(NamedTuple):
@@ -96,7 +104,8 @@ def _cotangent_pass(fn: Callable, x: torch.Tensor, remat: bool, out_shape):
 
     if remat:
         return lambda u: pull(*vjp(fn, x), u)
-    h, vjp_fn = vjp(fn, x)
+    with span("vjp_primal"):
+        h, vjp_fn = vjp(fn, x)
     return lambda u: pull(h, vjp_fn, u)
 
 
@@ -122,17 +131,31 @@ def _power_iteration(fwd, bwd, v, min_iter, max_iter, atol, svd_method,
     s = torch.zeros(v.shape[:-1], device=v.device)
     delta, it = math.inf, 0
     while it < max_iter and (it <= min_iter + 1 or delta > atol):
-        s, v_new = _short_fat_svd(gather(bwd(fwd(rows(v)))).float(), method=svd_method)
-        # sign-align rows to the previous iterate: no ± flapping in the
-        # convergence test or the result
-        signs = torch.sign((v_new * v).sum(dim=-1))
-        signs = torch.where(signs == 0, torch.ones_like(signs), signs)
-        v_new, s = agree(v_new * signs[..., None]), agree(s)
-        delta = (v_new - v).abs().max().item()
+        with span("tangent", it=it):
+            u = fwd(rows(v))
+        with span("cotangent", it=it):
+            c = bwd(u)
+            # free each block once used, as one nested call would: the
+            # (r, dim_h) tangents before the gather, the cotangent before
+            # the SVD, so that only its f32 copy reaches the SVD
+            del u
+            m = gather(c).float()
+            del c
+        with span("svd", it=it):
+            s, v_new = _short_fat_svd(m, method=svd_method)
+            del m
+            # sign-align rows to the previous iterate: no ± flapping in the
+            # convergence test or the result
+            signs = torch.sign((v_new * v).sum(dim=-1))
+            signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+            v_new, s = agree(v_new * signs[..., None]), agree(s)
+        with span("delta_wait", it=it):
+            delta = (v_new - v).abs().max().item()
         v, it = v_new, it + 1
 
     # final tangent pass so u belongs to the converged v
-    u = gather(fwd(rows(v)))
+    with span("final_tangent"):
+        u = gather(fwd(rows(v)))
     return PullbackResult(u=u.mT, s=torch.sqrt(s), vT=v, iterations=it,
                           final_delta=delta)
 
@@ -201,7 +224,8 @@ def local_pullback(
     else:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        v = _orthonormal_probes(generator, dim_x, pca_rank).to(x.device)
+        with span("probes"):
+            v = _orthonormal_probes(generator, dim_x, pca_rank).to(x.device)
     return _power_iteration(fwd, bwd, v, min_iter, max_iter, atol, svd_method,
                             probe_group)
 
@@ -249,8 +273,9 @@ def batched_local_pullback(
     else:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        v = torch.stack([_orthonormal_probes(generator, dim_x, pca_rank)
-                         for _ in range(batch)]).to(xs.device)
+        with span("probes"):
+            v = torch.stack([_orthonormal_probes(generator, dim_x, pca_rank)
+                             for _ in range(batch)]).to(xs.device)
     return _power_iteration(fwd, bwd, v, min_iter, max_iter, atol, svd_method)
 
 

@@ -36,7 +36,11 @@ tensors, checks them and calls its kernel's custom op (dpx::flash_fwd,
 dpx::flash_fwd_lse, dpx::flash_tangent, dpx::flash_dq, dpx::flash_dkv): on
 a CPU tensor the op runs the kernel's plain version (the same arithmetic
 and the same bf16 rounding in torch), on a CUDA tensor it launches the
-kernel or raises. ``<wrapper>.launches`` counts kernel launches. The ops'
+kernel or raises. ``<wrapper>.launches`` counts kernel launches and
+``<wrapper>.host_ns`` the host's nanoseconds in the wrapper (its checks,
+the op's dispatch and the launch; on every device), and each recorded span
+(utils/profiling.py) holds their growth summed over the five wrappers as
+``flash_launches`` and ``flash_host_ns``. The ops'
 fake implementations let torch.export (and make_fx) trace through them,
 their flop formulas let torch.utils.flop_counter count them, and the
 profiler records each call under the op's name.
@@ -63,14 +67,18 @@ The port's tangent passes use ``jvp``: each pass runs the primal forward
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
 import subprocess
 import tempfile
 import threading
+import time
 
 import torch
+
+from ..utils import profiling
 
 NEG_INF = -1e30
 PAIR_HEAD_DIMS = (40, 64, 80, 128, 160)  # head dims K3–K5 are built for
@@ -501,6 +509,21 @@ def _k5(q, k, v, do, lse, delta, scale):
 # ---- wrappers: the checks, then the op (the kernel on CUDA, the plain
 # version on the CPU) ----------------------------------------------------------
 
+def _counted(wrapper):
+    """``wrapper`` with its counters ``launches`` (counted where its op
+    launches the kernel) and ``host_ns`` (entry to return, on any device)."""
+    @functools.wraps(wrapper)
+    def counted(*args, **kwargs):
+        t0 = time.perf_counter_ns()
+        out = wrapper(*args, **kwargs)
+        counted.host_ns += time.perf_counter_ns() - t0
+        return out
+
+    counted.launches = counted.host_ns = 0
+    return counted
+
+
+@_counted
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> torch.Tensor:
     """K1 on (B·H, S, D) tensors → (B·H, Sq, D) in q's dtype."""
@@ -511,6 +534,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.ops.dpx.flash_fwd(q, k, v, float(scale))
 
 
+@_counted
 def flash_forward_lse(q, k, v, scale: float):
     """K2 on (B·H, S, D) tensors → (o in q's dtype, L (B·H, Sq) f32)."""
     bh, sq, d = q.shape
@@ -527,6 +551,7 @@ def _batched_bh(t, bh_primal, what):
     return t.shape[0]
 
 
+@_counted
 def flash_tangent(q, k, v, dq, dk, dv, o, lse, scale: float) -> torch.Tensor:
     """K3: the tangent Ȯ (in o's dtype) of attention at (q, k, v) with
     output o and logsumexp lse, along (dq, dk, dv). The tangents may carry
@@ -553,6 +578,7 @@ def _bwd_operands(q, k, v, do, lse, delta):
         delta=(delta, (bh, sq), torch.float32))
 
 
+@_counted
 def flash_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
     """K4: dQ (in q's dtype) from the cotangent do and δ = rowsum(do∘o); do
     and delta may carry r·B·H slices against the primal's B·H."""
@@ -560,14 +586,16 @@ def flash_dq(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
                                   float(scale))
 
 
+@_counted
 def flash_dkv(q, k, v, do, lse, delta, scale: float):
     """K5: (dK, dV) in k's and v's dtype; batching as flash_dq."""
     return torch.ops.dpx.flash_dkv(*_bwd_operands(q, k, v, do, lse, delta),
                                    float(scale))
 
 
-for _fn in (flash_forward, flash_forward_lse, flash_tangent, flash_dq, flash_dkv):
-    _fn.launches = 0
+_WRAPPERS = (flash_forward, flash_forward_lse, flash_tangent, flash_dq, flash_dkv)
+profiling.counter("flash_launches", lambda: sum(w.launches for w in _WRAPPERS))
+profiling.counter("flash_host_ns", lambda: sum(w.host_ns for w in _WRAPPERS))
 
 
 # ---- autograd Functions and their vmap rules ---------------------------------
